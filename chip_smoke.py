@@ -20,6 +20,44 @@ Phases (each prints one JSON line of its results):
    kernels on the card and through the plain path on the host CPU;
    events and clock must be equal.
 
+Then BASELINE config #4 as named: the 320-rank alltoall (102,080 flows
+of 1e6 bytes) on the same dragonfly, each flow with the LV08 penalty and
+TCP-gamma rate bound the engine gives it, float64, tolerance 0:
+
+5. K1's bound-first arm at the alltoall's full shapes, from init to the
+   first converged solve, card against the plain version on the host
+   CPU: (a) the LV08 system (no bound binds), (b) its bounds redrawn
+   as (a)'s rates times U(0.5, 1.5) (``default_rng(11)``; about half
+   bind), (c) (a) with a seeded 10% of its links FATPIPE; ms per round
+   (CUDA events), the plain version's ms per round on the card, and
+   the bytes bound.  (b) takes tens of thousands of rounds (the rule
+   fixes about one bound per constraint a round), beyond the CPU's
+   reach at this size: the plain version runs windows of ``B_WINDOW``
+   rounds, from init, then every ``B_EVERY`` rounds and at the end from
+   the card's state;
+6. the global arm (one level per round) at 48 ranks with bounds binding
+   as in 5(b): ``solve_arrays(parallel_rounds=False)`` on the card
+   against the plain path on the CPU, and 5(b)'s local arm at that size
+   through the whole solve;
+7. main path 2, the solve: ``drain_run.run_solve`` of the alltoall
+   (local rounds, eps 1e-5), its time, rounds and launch counts;
+8. main path 3, the engine-plan drain: ``drain_run.run_engine_plan`` of
+   the alltoall (1% latency lanes, one superstep, a transition batch,
+   a partial advance, then ``PLAN_ADVANCES`` advances: a cut of depth,
+   as the whole drain is ~50,000 advances), and one more advance from
+   the state it left on the card and, handed over, on the CPU; then the
+   same plan at full width to its end on config #4's 100,000 random
+   flows with their LV08 values (its live set halves, so the drain
+   repacks with the bound rows), timed, then again with windows held
+   against the CPU (``run_engine_plan_held``: after the partial advance
+   and after each repack); then the alltoall plan at 48 ranks, run to
+   its end with ``repack_min=64``, on the card and on the CPU (events,
+   clock, penalties and remains equal); then K2's forced mode, K5 and
+   K4 with the bound rows against their plain versions at the
+   alltoall's shapes.
+
+Each main path zeroes the launch counts just before it runs and reads
+them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without CUDA it exits non-zero before printing any result.
@@ -39,6 +77,19 @@ HBM_BYTES_PER_S = 3.35e12
 FLOWS = 100_000
 REDUCED_FLOWS = 10_000
 K = 16
+RANKS = 320
+REDUCED_RANKS = 48
+#: the recorded local-rounds count of the 320-rank alltoall solve
+#: (bench_results/e2e_probe.jsonl row 1)
+RECORDED_ROUNDS = 283
+#: rounds of each window of 5(b) held against the plain CPU version, and
+#: the rounds between the windows' starts (the last window ends the solve)
+B_WINDOW = 32
+B_EVERY = 16384
+#: advances of the full-size engine-plan drain past its partial advance
+#: (a cut of depth: the whole drain is some 50,000 advances, and its
+#: first ones take hundreds of rounds each)
+PLAN_ADVANCES = 256
 
 
 def log(rec: dict) -> None:
@@ -64,7 +115,8 @@ def main() -> int:
     from simgrid_tpu_torch.kernels.common import (IT, LIGHT, LIVE_ACC,
                                                   LmmSystem, Work)
     from simgrid_tpu_torch.kernels.drain_advance import (
-        drain_advance, drain_advance_plain)
+        drain_advance, drain_advance_plain, drain_forced_advance,
+        drain_forced_advance_plain)
     from simgrid_tpu_torch.kernels.livefirst_repack import (
         livefirst_repack, livefirst_repack_plain)
     from simgrid_tpu_torch.kernels.lmm_round import (
@@ -72,10 +124,14 @@ def main() -> int:
     from simgrid_tpu_torch.kernels.superstep_commit import (
         packed_size, superstep_begin, superstep_commit,
         superstep_commit_plain, superstep_finish, superstep_reset)
+    from simgrid_tpu_torch.kernels.transition_scatter import (
+        transition_scatter, transition_scatter_plain)
     from simgrid_tpu_torch.ops.lmm_arrays import to2d
-    from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
     from simgrid_tpu_torch.workloads import dragonfly
-    from simgrid_tpu_torch.workloads.drain_run import EPS, run_drain
+    from simgrid_tpu_torch.workloads.drain_run import (
+        ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
+        run_engine_plan_held, run_solve, solve_inputs)
 
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -116,14 +172,17 @@ def main() -> int:
         return tot / n
 
     def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
+        return sum(t.numel() * t.element_size() for t in ts
+                   if t is not None)
 
     def bound_ms(n_bytes):
         return n_bytes / HBM_BYTES_PER_S * 1e3
 
     def diff(a, b):
         """Max |a-b| of two float tensors (inf == inf counts as 0);
-        exact equality of everything else."""
+        exact equality of everything else (two Nones are equal)."""
+        if a is None or b is None:
+            return 0.0 if a is None and b is None else float("inf")
         a, b = a.detach().cpu(), b.detach().cpu()
         if a.dtype.is_floating_point:
             same = (a == b) | (torch.isnan(a) & torch.isnan(b))
@@ -134,7 +193,8 @@ def main() -> int:
 
     def to_cpu_sys(s: LmmSystem) -> LmmSystem:
         return LmmSystem(*(t.cpu() for t in s[:4]),
-                         type(s.csr)(*(t.cpu() for t in s.csr)), s.n_v)
+                         type(s.csr)(*(t.cpu() for t in s.csr)), s.n_v,
+                         None if s.c_fatpipe is None else s.c_fatpipe.cpu())
 
     # ---- 2. kernels at config-#4 shapes ----------------------------------
     dsys = dragonfly.build_system(FLOWS)
@@ -313,8 +373,11 @@ def main() -> int:
                                                live_elems), 10)
     k4_plain = events_ms(lambda: livefirst_repack_plain(
         sg, *args_g, vh, eh, live_elems), 3)
-    k4_bytes = (nbytes(sg.e_var, sg.e_cnst, sg.e_w, *sg.csr, *args_g)
-                + nbytes(*rg.sys[:3], *rg.sys.csr, *rg[1:]))
+    # elements and flow rows read once, the halves written once; the row
+    # indexes are this design's (the JAX repack has none), left out as
+    # in K1's bound
+    k4_bytes = (nbytes(sg.e_var, sg.e_cnst, sg.e_w, *args_g)
+                + nbytes(*rg.sys[:3], *rg[1:]))
     kernels.append(dict(
         name="livefirst_repack", route="cuda",
         source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
@@ -338,13 +401,14 @@ def main() -> int:
     report["main_path"] = rec
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["launches_from"] = "main path 1 (the config-#4 random drain)"
     del sim
     torch.cuda.empty_cache()
 
     # ---- 4. reduced drain: kernels on the card vs plain on the CPU ------
     rsys = dragonfly.build_system(REDUCED_FLOWS)
-    res = {dev.type: run_drain(rsys, device=dev, superstep=K)
-           for dev in (cuda, cpu)}
+    res = {name: run_drain(rsys, device=dev, superstep=K)
+           for name, dev in (("cuda", cuda), ("cpu", cpu))}
     sg_, sc_ = res["cuda"][0], res["cpu"][0]
     equal = sg_.events == sc_.events and sg_.t == sc_.t
     rec = {"phase": "reduced_drain", "flows": REDUCED_FLOWS,
@@ -355,6 +419,443 @@ def main() -> int:
     report["reduced_drain"] = rec
     if not equal:
         raise AssertionError("reduced drain: card and plain CPU differ")
+    del res, sg_, sc_
+    torch.cuda.empty_cache()
+
+    # ---- 5. K1's new arms at the alltoall's full shapes -----------------
+    a2a = dragonfly.build_alltoall(RANKS)
+    arr = solve_inputs(a2a)
+    V2, C2 = arr.n_var, arr.n_cnst
+    flat_a2a = [to2d(x).reshape(-1) for x in (a2a.e_var, a2a.e_cnst,
+                                              a2a.e_w)]
+
+    STATE = ("v_value", "v_fixed", "remaining", "usage", "light")
+
+    def card_rounds(sg_, wg_, pen_g_, vb_g, arms, limit=None):
+        """Queue rounds in groups of 16 (and at most ``limit``) until the
+        fixpoint converges; returns the round count."""
+        it = int(wg_.ctrl[IT])
+        while limit is None or it < limit:
+            for _ in range(16 if limit is None else min(16, limit - it)):
+                lmm_round(sg_, wg_, pen_g_, EPS, vb_g, **arms)
+            it, light = (int(x) for x in wg_.ctrl[IT:LIGHT + 1].tolist())
+            if light == 0:
+                break
+            if it > 200_000:
+                raise RuntimeError("K1 did not converge")
+        return it
+
+    def held(wg_, wc_, what):
+        err = max(diff(getattr(wg_, n), getattr(wc_, n)) for n in STATE)
+        err = max(err, diff(wg_.ctrl[IT:LIGHT + 1], wc_.ctrl[IT:LIGHT + 1]))
+        if err != 0.0:
+            raise AssertionError(f"K1 {what} differs from its plain "
+                                 f"version: {err}")
+        return err
+
+    def k1_ms(sg_, wg_, pen_g_, vb_g, arms, rounds, init, rnd, n):
+        """Mean ms of one round over the first ``rounds`` rounds."""
+        fat = arms.get("has_fatpipe", False)
+
+        def solve():
+            init(sg_, wg_, pen_g_, EPS, has_fatpipe=fat)
+            for _ in range(rounds):
+                rnd(sg_, wg_, pen_g_, EPS, vb_g, **arms)
+        per_solve = events_ms(solve, n)
+        per_init = events_ms(lambda: init(sg_, wg_, pen_g_, EPS,
+                                          has_fatpipe=fat), n)
+        return (per_solve - per_init) / rounds
+
+    def k1_bytes(sys_, w_, bounds, fat):
+        """Each element's flow, link and weight read once, the bounds,
+        penalties (and rate bounds, FATPIPE flags) read once, the state
+        read and written once; the row indexes are the design's."""
+        b = nbytes(sys_.e_var, sys_.e_cnst, sys_.e_w, sys_.c_bound,
+                   w_.v_value)
+        b += nbytes(w_.v_value) if bounds else 0
+        b += nbytes(w_.light) if fat else 0
+        return b + 2 * nbytes(w_.v_value, w_.v_fixed, w_.remaining,
+                              w_.usage, w_.light)
+
+    def k1_case(label, vb_np, fat_np, arms, window=None):
+        """Init to the first converged solve on the card.  Without
+        ``window`` the plain version on the CPU runs the whole solve
+        beside it; with one (a solve of tens of thousands of rounds,
+        beyond the CPU's reach) it runs the first ``window`` rounds from
+        init and the last ``window`` rounds from the card's state, and
+        both must match the card there."""
+        sg_ = to_device_system(arr.e_var, arr.e_cnst, arr.e_w, arr.c_bound,
+                               V2, f64, cuda, fat_np)
+        sc_ = to_cpu_sys(sg_)
+        fat = fat_np is not None
+        pen_c_ = torch.from_numpy(arr.v_penalty.copy())
+        pen_g_ = pen_c_.to(cuda)
+        vb_c = torch.from_numpy(np.array(vb_np, np.float64))
+        vb_g = vb_c.to(cuda)
+        wg_, wc_ = Work(V2, C2, f64, cuda), Work(V2, C2, f64, cpu)
+        t0 = time.perf_counter()
+        lmm_init(sg_, wg_, pen_g_, EPS, has_fatpipe=fat)
+        rounds = card_rounds(sg_, wg_, pen_g_, vb_g, arms)
+        rates = wg_.v_value.cpu().numpy().copy()
+        lmm_init_plain(sc_, wc_, pen_c_, EPS, has_fatpipe=fat)
+        if window is None:
+            while lmm_round_plain(sc_, wc_, pen_c_, EPS, vb_c, **arms):
+                pass
+            err = held(wg_, wc_, label)
+        else:
+            # windows of `window` rounds: from init, then every B_EVERY
+            # rounds and the last `window` from the card's own state
+            last = max(rounds - window, 0)
+            starts = sorted(set(range(0, last, B_EVERY)) | {last})
+            lmm_init(sg_, wg_, pen_g_, EPS, has_fatpipe=fat)
+            err = 0.0
+            for r0 in starts:
+                card_rounds(sg_, wg_, pen_g_, vb_g, arms, r0)
+                if r0:
+                    for n in STATE + ("ctrl",):
+                        getattr(wc_, n).copy_(getattr(wg_, n).cpu())
+                if r0 == last:
+                    card_rounds(sg_, wg_, pen_g_, vb_g, arms)
+                    while lmm_round_plain(sc_, wc_, pen_c_, EPS, vb_c,
+                                          **arms):
+                        pass
+                else:
+                    card_rounds(sg_, wg_, pen_g_, vb_g, arms, r0 + window)
+                    for _ in range(window):
+                        lmm_round_plain(sc_, wc_, pen_c_, EPS, vb_c, **arms)
+                err = max(err, held(wg_, wc_, f"{label} (rounds {r0}+)"))
+        check_s = time.perf_counter() - t0
+        ms = k1_ms(sg_, wg_, pen_g_, vb_g, arms, rounds, lmm_init,
+                   lmm_round, 1 if window else 2)
+        timed = window or rounds
+        plain = k1_ms(sg_, wg_, pen_g_, vb_g, arms, timed, lmm_init_plain,
+                      lmm_round_plain, 1)
+        bound = bound_ms(k1_bytes(sg_, wg_, arms.get("has_bounds"), fat))
+        rec = {"phase": "k1_arm", "case": label, "rounds": rounds,
+               "checked_rounds": ("all" if window is None else
+                                  f"{window} from each of rounds "
+                                  f"{starts}"),
+               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "plain_timed_rounds": timed, "bound_ms": bound,
+               "flows_at_bound": int(np.count_nonzero(rates == vb_np)),
+               "check_s": check_s}
+        log(rec)
+        return rec, rates
+
+    rec_a, rates_a = k1_case("5a lv08", arr.v_bound, None,
+                             dict(has_bounds=True))
+    vb_b = rates_a * np.random.default_rng(11).uniform(0.5, 1.5, V2)
+    rec_b, _ = k1_case("5b bounds binding", vb_b, None,
+                       dict(has_bounds=True), window=B_WINDOW)
+    fat_c = np.random.default_rng(12).random(C2) < 0.10
+    rec_c, _ = k1_case("5c 10% fatpipe", arr.v_bound, fat_c,
+                       dict(has_bounds=True, has_fatpipe=True))
+    report["k1_arms"] = [rec_a, rec_b, rec_c]
+    # the FATPIPE arm through the solve entry point (its launch count)
+    _, fat_row = run_solve(arr._replace(c_fatpipe=fat_c), device=cuda)
+    torch.cuda.empty_cache()
+
+    # ---- 6. the global arm at 48 ranks, bounds binding ------------------
+    r48 = dragonfly.build_alltoall(REDUCED_RANKS)
+    arr48 = solve_inputs(r48)
+    rates48 = solve_arrays(arr48, EPS, device=cuda)[0]
+    arr48 = arr48._replace(v_bound=rates48 * np.random.default_rng(
+        11).uniform(0.5, 1.5, arr48.n_var))
+    _, glob_row = run_solve(arr48, device=cuda, parallel_rounds=False)
+    g48 = solve_arrays(arr48, EPS, device=cuda, parallel_rounds=False)
+    c48 = solve_arrays(arr48, EPS, device="cpu", parallel_rounds=False)
+    if g48[3] != c48[3] or g48[3] != glob_row["rounds"]:
+        raise AssertionError(f"global rounds {g48[3]} != plain {c48[3]}")
+    err_g = max(diff(torch.from_numpy(x), torch.from_numpy(y))
+                for x, y in zip(g48[:3], c48[:3]))
+    if err_g != 0.0:
+        raise AssertionError(f"global arm differs from its plain version:"
+                             f" {err_g}")
+    sg48 = to_device_system(arr48.e_var, arr48.e_cnst, arr48.e_w,
+                            arr48.c_bound, arr48.n_var, f64, cuda)
+    wg48 = Work(arr48.n_var, arr48.n_cnst, f64, cuda)
+    pen48 = torch.from_numpy(arr48.v_penalty.copy()).to(cuda)
+    vb48 = torch.from_numpy(arr48.v_bound.copy()).to(cuda)
+    garms = dict(has_bounds=True, global_rounds=True)
+    # ms per round over the first (up to) 200 rounds, kernel and plain
+    r_t = min(g48[3], 200)
+    glob_ms = k1_ms(sg48, wg48, pen48, vb48, garms, r_t, lmm_init,
+                    lmm_round, 2)
+    glob_plain = k1_ms(sg48, wg48, pen48, vb48, garms, r_t, lmm_init_plain,
+                       lmm_round_plain, 1)
+    # 5(b)'s local bound arm at 48 ranks, the whole solve on both sides
+    l48 = solve_arrays(arr48, EPS, device=cuda)
+    lc48 = solve_arrays(arr48, EPS, device="cpu")
+    err_l = max(diff(torch.from_numpy(x), torch.from_numpy(y))
+                for x, y in zip(l48[:3], lc48[:3]))
+    if err_l != 0.0 or l48[3] != lc48[3]:
+        raise AssertionError(f"local bound arm at {REDUCED_RANKS} ranks "
+                             f"differs from its plain version: {err_l}")
+    rec = {"phase": "global_arm", "ranks": REDUCED_RANKS,
+           "flows": arr48.n_var, "rounds": g48[3], "timed_rounds": r_t,
+           "local_bounds_rounds": l48[3], "local_bounds_err": err_l,
+           "max_abs_err": err_g,
+           "ms": glob_ms, "plain_ms": glob_plain,
+           "bound_ms": bound_ms(k1_bytes(sg48, wg48, True, False)),
+           "wall_s": glob_row["wall_s"], "launches": glob_row["launches"]}
+    log(rec)
+    report["global_arm"] = rec
+    del sg48, wg48
+
+    # ---- 7. main path 2: the solve of the LV08 alltoall -----------------
+    values, solve_row = run_solve(a2a, device=cuda)
+    if values.shape != (V2,) or not np.all(np.isfinite(values)) \
+            or not np.all(values > 0):
+        raise AssertionError("solve: values not finite and positive")
+    if not np.array_equal(values, rates_a):
+        raise AssertionError("solve: values differ from phase 5(a)")
+    if solve_row["launches"].get("lmm_round_bounds", 0) <= 0:
+        raise AssertionError("lmm_round_bounds never launched on the "
+                             "solve path")
+    rec = {"phase": "main_path_solve", **solve_row,
+           "recorded_rounds": RECORDED_ROUNDS}
+    log(rec)
+    report["main_path_solve"] = rec
+
+    # ---- 8. main path 3: the engine-plan drain of the alltoall ----------
+    sim, plan_row, plan_events = run_engine_plan(
+        a2a, device=cuda, max_advances=PLAN_ADVANCES)
+    pcounts = plan_row["launches"]
+    for name in ("lmm_round_bounds", "drain_advance",
+                 "drain_forced_advance", "superstep_commit",
+                 "transition_scatter"):
+        if pcounts.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the engine-plan"
+                                 f" path")
+    if pcounts.get("livefirst_repack_vbound", 0) or sim.repacks:
+        raise AssertionError("the cut alltoall plan repacked: update the "
+                             "kernels line's launch sources")
+    # the state the cut left, held against the plain path: one more
+    # advance on the card and, from a handover, on the CPU
+    _, cut_win = held_step(sim, k=1)
+    rec = {"phase": "main_path_engine_plan", "ranks": RANKS,
+           "max_advances": PLAN_ADVANCES, **plan_row,
+           "held_window": cut_win}
+    log(rec)
+    report["main_path_engine_plan"] = rec
+    del sim, plan_events
+    torch.cuda.empty_cache()
+
+    # the same plan at full width to its end: config #4's 100,000 random
+    # flows with the LV08 values the engine gives them (the alltoall
+    # would take hours); its live set halves, so K4 carries the bound rows
+    l08 = dragonfly.build_system(FLOWS, lv08=True)
+    sim, l08_row, _ = run_engine_plan(l08, device=cuda)
+    lcounts = l08_row["launches"]
+    for name in ("lmm_round_bounds", "drain_advance", "drain_forced_advance",
+                 "superstep_commit", "transition_scatter",
+                 "livefirst_repack_vbound"):
+        if lcounts.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the full-width "
+                                 f"engine plan")
+    # the same run again with windows held against the plain CPU path:
+    # after the partial advance and after each repack
+    held_sim, l08_windows = run_engine_plan_held(l08, device=cuda)
+    if held_sim.events != sim.events or held_sim.t != sim.t:
+        raise AssertionError("the held full-width plan differs from the "
+                             "timed one")
+    rec = {"phase": "main_path_engine_plan_full_width", "flows": FLOWS,
+           **l08_row, "held_windows": l08_windows}
+    log(rec)
+    report["main_path_engine_plan_full_width"] = rec
+    del sim, held_sim
+    torch.cuda.empty_cache()
+
+    # repack_min 64 (the CPU tests' value): the 48-rank drain then
+    # repacks, and K4 carries the bound rows on this path
+    red = {name: run_engine_plan(r48, device=dev, repack_min=64)
+           for name, dev in (("cuda", cuda), ("cpu", cpu))}
+    (gs, grow, gev), (cs, crow, cev) = red["cuda"], red["cpu"]
+    equal = (gev == cev and gs.t == cs.t
+             and diff(gs._pen, cs._pen) == 0.0
+             and diff(gs._rem, cs._rem) == 0.0)
+    rcounts = grow["launches"]
+    if rcounts.get("livefirst_repack_vbound", 0) <= 0:
+        raise AssertionError("livefirst_repack_vbound never launched on "
+                             "the 48-rank engine-plan path")
+    rec = {"phase": "reduced_engine_plan", "ranks": REDUCED_RANKS,
+           "flows": len(r48.sizes), "advances": gs.advances,
+           "rounds": gs.rounds, "supersteps": gs.supersteps,
+           "repacks": gs.repacks, "t_engine": grow["t_engine"],
+           "equal": equal, "cuda_wall_s": grow["wall_s"],
+           "cpu_wall_s": crow["wall_s"], "launches": rcounts}
+    log(rec)
+    report["reduced_engine_plan"] = rec
+    if not equal:
+        raise AssertionError("reduced engine plan: card and plain CPU "
+                             "differ")
+    del red, gs, cs
+
+    # K2 forced mode at the alltoall's shapes, from phase 5(a)'s rates
+    pen_f = torch.from_numpy(arr.v_penalty.copy())
+    rem_f = torch.from_numpy(a2a.sizes.copy())
+    thr_f = torch.full((V2,), ENGINE_DONE_EPS, dtype=f64)
+    rate_f = torch.from_numpy(rates_a)
+    delta = float(torch.min(rem_f / rate_f)) / 2
+    wgf, wcf = Work(V2, C2, f64, cuda), Work(V2, C2, f64, cpu)
+    wgf.v_value.copy_(rate_f)
+    wcf.v_value.copy_(rate_f)
+    fst = {}
+
+    def kf_setup():
+        fst["pen"] = pen_f.to(cuda, copy=True)
+        fst["rem"] = rem_f.to(cuda, copy=True)
+    thr_g = thr_f.to(cuda)
+    kf_setup()
+    drain_forced_advance(fst["pen"], fst["rem"], thr_g, wgf, delta)
+    pcf, rcf = pen_f.clone(), rem_f.clone()
+    drain_forced_advance_plain(pcf, rcf, thr_f, wcf, delta)
+    err = max(diff(fst["pen"], pcf), diff(fst["rem"], rcf),
+              diff(wgf.done, wcf.done),
+              diff(wgf.ctrl[LIVE_ACC], wcf.ctrl[LIVE_ACC]))
+    if err != 0.0:
+        raise AssertionError(f"K2 forced differs from its plain version: "
+                             f"{err}")
+    kf_ms = events_ms(lambda: drain_forced_advance(
+        fst["pen"], fst["rem"], thr_g, wgf, delta), 20, kf_setup)
+    kf_plain = events_ms(lambda: drain_forced_advance_plain(
+        fst["pen"], fst["rem"], thr_g, wgf, delta), 5, kf_setup)
+    kernels.append(dict(
+        name="drain_forced_advance", route="cuda",
+        source="simgrid_tpu_torch/csrc/drain_advance.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:585",
+        launches=pcounts["drain_forced_advance"], max_abs_err=err,
+        ms=kf_ms, plain_ms=kf_plain,
+        bound_ms=bound_ms(4 * nbytes(pen_f) + 2 * nbytes(pen_f) + V2),
+        bound_by="bytes", library_ms=None,
+        launches_from="main path 3 (the 320-rank alltoall plan)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K5: the main path's transition batch shape at full size
+    rng5 = np.random.default_rng(5)
+    bsl = np.sort(rng5.choice(V2, V2 // 100, replace=False))
+    csl = np.sort(rng5.choice(C2, C2 // 100, replace=False))
+    lsl = np.sort(rng5.choice(V2, V2 // 100, replace=False))
+    runs = [(7, bsl, rates_a[bsl] * rng5.uniform(0.5, 1.5, len(bsl))),
+            (3, csl, arr.c_bound[csl] * rng5.uniform(0.5, 1.0, len(csl))),
+            (4, lsl, arr.v_penalty[lsl])]
+    layout, chunks, off = [], [], 0
+    for ti, ix, vals in runs:
+        layout.append((ti, off, len(ix)))
+        chunks += [ix.astype(np.float64), vals]
+        off += 2 * len(ix)
+    payload_c = torch.from_numpy(np.concatenate(chunks))
+    payload_g = payload_c.to(cuda)
+    base5 = [flat_a2a[0], flat_a2a[1], flat_a2a[2], arr.c_bound,
+             arr.v_penalty, a2a.sizes, np.full(V2, ENGINE_DONE_EPS),
+             arr.v_bound]
+    tg5 = [torch.from_numpy(np.array(b)).to(cuda) for b in base5]
+    tc5 = [torch.from_numpy(np.array(b)) for b in base5]
+    transition_scatter(payload_g, layout, tg5)
+    transition_scatter_plain(payload_c, layout, tc5)
+    err = max(diff(a, b) for a, b in zip(tg5, tc5))
+    if err != 0.0:
+        raise AssertionError(f"K5 differs from its plain version: {err}")
+    k5_ms = events_ms(lambda: transition_scatter(payload_g, layout, tg5),
+                      20)
+    k5_plain = events_ms(lambda: transition_scatter_plain(
+        payload_g, layout, tg5), 5)
+
+    def library_k5():
+        for ti, o, n in layout:
+            tg5[ti].index_put_((payload_g[o:o + n].long(),),
+                               payload_g[o + n:o + 2 * n])
+    k5_lib = events_ms(library_k5, 20)
+    n_slots = sum(n for _, _, n in layout)
+    kernels.append(dict(
+        name="transition_scatter", route="cuda",
+        source="simgrid_tpu_torch/csrc/transition_scatter.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:560",
+        launches=pcounts["transition_scatter"], max_abs_err=err,
+        ms=k5_ms, plain_ms=k5_plain,
+        bound_ms=bound_ms(16 * n_slots + 8 * n_slots), bound_by="bytes",
+        library_ms=k5_lib, library="index_put_, one call per run",
+        slots=n_slots, launches_from="main path 3 (the 320-rank alltoall plan)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del tg5, tc5
+
+    # K4 with the bound rows at the alltoall's shapes
+    sgr = to_device_system(flat_a2a[0], flat_a2a[1], flat_a2a[2],
+                           arr.c_bound, V2, f64, cuda)
+    scr = to_cpu_sys(sgr)
+    live4 = np.random.default_rng(7).random(V2) < 0.45
+    args_c = [torch.from_numpy(live4 * arr.v_penalty),
+              torch.from_numpy(a2a.sizes.copy()),
+              torch.full((V2,), ENGINE_DONE_EPS, dtype=f64),
+              torch.arange(V2, dtype=torch.int32),
+              torch.from_numpy(arr.v_bound.copy())]
+    args_g4 = [t.to(cuda) for t in args_c]
+    le4 = int(((scr.e_w > 0) & (args_c[0][scr.e_var.long()] > 0)).sum())
+    vh4, eh4 = V2 // 2, -(-(sgr.n_e // 2) // 8) * 8
+    rg4 = livefirst_repack(sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4])
+    rc4 = livefirst_repack_plain(scr, *args_c[:4], vh4, eh4, le4,
+                                 args_c[4])
+    err = max([diff(a, b) for a, b in zip(rg4.sys[:4], rc4.sys[:4])]
+              + [diff(a, b) for a, b in zip(rg4.sys.csr, rc4.sys.csr)]
+              + [diff(a, b) for a, b in zip(rg4[1:], rc4[1:])])
+    if err != 0.0:
+        raise AssertionError(f"K4 with bound rows differs from its plain "
+                             f"version: {err}")
+    k4v_ms = events_ms(lambda: livefirst_repack(
+        sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 10)
+    k4v_plain = events_ms(lambda: livefirst_repack_plain(
+        sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 3)
+    kernels.append(dict(
+        name="livefirst_repack_vbound", route="cuda",
+        source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:648",
+        launches=lcounts["livefirst_repack_vbound"], max_abs_err=err,
+        ms=k4v_ms, plain_ms=k4v_plain,
+        bound_ms=bound_ms(nbytes(sgr.e_var, sgr.e_cnst, sgr.e_w, *args_g4)
+                          + nbytes(*rg4.sys[:3], *rg4[1:])),
+        bound_by="bytes", library_ms=None,
+        launches_from=(
+            "main path 3 at full width to its end (100,000 random flows, "
+            "LV08 values); it does not run on the 320-rank alltoall within "
+            f"its {PLAN_ADVANCES}-advance cut (no repack there); "
+            f"{rcounts['livefirst_repack_vbound']} on the 48-rank "
+            "alltoall plan")))
+    log({"phase": "kernel", **kernels[-1]})
+    del sgr, scr, rg4, rc4
+
+    # K1's arms as their own records
+    kernels.append(dict(
+        name="lmm_round_bounds", route="cuda",
+        source="simgrid_tpu_torch/csrc/lmm_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:589",
+        launches=solve_row["launches"]["lmm_round_bounds"],
+        max_abs_err=rec_b["max_abs_err"], ms=rec_b["ms"],
+        plain_ms=rec_b["plain_ms"], bound_ms=rec_b["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        launches_from="main path 2 (solve)",
+        launches_engine_plan=pcounts["lmm_round_bounds"],
+        timed_on="5b bounds binding"))
+    kernels.append(dict(
+        name="lmm_round_bounds_fatpipe", route="cuda",
+        source="simgrid_tpu_torch/csrc/lmm_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:490",
+        launches=fat_row["launches"]["lmm_round_bounds_fatpipe"],
+        max_abs_err=rec_c["max_abs_err"], ms=rec_c["ms"],
+        plain_ms=rec_c["plain_ms"], bound_ms=rec_c["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        launches_from="phase 5c solve_arrays (kernel check)"))
+    kernels.append(dict(
+        name="lmm_round_global_bounds", route="cuda",
+        source="simgrid_tpu_torch/csrc/lmm_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:520",
+        launches=glob_row["launches"]["lmm_round_global_bounds"],
+        max_abs_err=err_g, ms=glob_ms, plain_ms=glob_plain,
+        bound_ms=report["global_arm"]["bound_ms"], bound_by="bytes",
+        library_ms=None,
+        launches_from="phase 6 solve_arrays(parallel_rounds=False)"))
+    for k in kernels[-3:]:
+        if k["launches"] <= 0:
+            raise AssertionError(f"{k['name']} never launched")
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -362,7 +863,8 @@ def main() -> int:
     print(smi, flush=True)
     log({"kernels": [{k: kr[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
-        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "launches_from")}
         for kr in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,12 @@
   :class:`~simgrid_tpu_torch.ops.lmm_arrays.LmmArrays`.
 * :func:`drain_state` reads a drain's committed mid-run state from a
   JAX ``DrainSim`` (by attribute, without importing it): flow penalties,
-  remains, thresholds and ids, the compacted element arrays, the clock,
-  events and counters.  :func:`resume_drain` builds a port
+  remains, thresholds, rate bounds and ids, the compacted element
+  arrays, the clock, events and counters.  :func:`resume_drain` builds a port
   :class:`~simgrid_tpu_torch.ops.lmm_drain.DrainSim` that continues from
   that state, so a drain can run N supersteps in JAX and finish here.
+  :func:`port_drain_state` reads the same state from a port drain, so
+  a drain on the card can hand over to the plain path on the CPU.
 
 Nothing here imports ``simgrid_tpu`` or ``jax``.
 """
@@ -47,6 +49,8 @@ class DrainState(NamedTuple):
     rem: np.ndarray        # [V] float
     thresh: np.ndarray     # [V] float
     ids: np.ndarray        # [V] int32 — slot -> original flow id
+    vb: np.ndarray         # [V] float — rate bounds (-1 = none)
+    has_bounds: bool       # the drain runs the fixpoint's bound arm
     sizes: np.ndarray      # [V] float64 (read by the host repack only)
     t: float
     live0: int
@@ -74,6 +78,7 @@ def drain_state(sim) -> DrainState:
         pen=flat_pen, rem=np.asarray(sim._rem),
         thresh=np.asarray(sim._thresh),
         ids=np.asarray(sim._ids_dev).astype(np.int32),
+        vb=np.asarray(sim._vb), has_bounds=bool(sim.has_bounds),
         # the JAX drain stops maintaining sizes after a device repack;
         # only the host repack reads them, and it needs the host mirror
         sizes=(np.asarray(sim._sizes, np.float64) if host is not None
@@ -84,6 +89,30 @@ def drain_state(sim) -> DrainState:
         supersteps=int(sim.supersteps), repacks=int(sim.repacks))
 
 
+def port_drain_state(sim: DrainSim) -> DrainState:
+    """The same committed state, read from one of the port's own
+    ``DrainSim``s on any device: with :func:`resume_drain` it hands a
+    drain over from the card to the CPU (or back) between supersteps."""
+    def host(t):
+        return t.detach().cpu().numpy().copy()
+    s = sim.sys
+    return DrainState(
+        e_var=host(s.e_var), e_cnst=host(s.e_cnst), e_w=host(s.e_w),
+        c_bound=host(s.c_bound), pen=host(sim._pen), rem=host(sim._rem),
+        thresh=host(sim._thresh), ids=host(sim._ids_dev).astype(np.int32),
+        vb=host(sim._vb), has_bounds=bool(sim.has_bounds),
+        # as drain_state: the sizes are read by the host repack only
+        sizes=(np.asarray(sim._sizes, np.float64).copy()
+               if sim._host is not None else np.zeros(sim.n_v)),
+        t=float(sim.t), live0=int(sim._live0),
+        host=(None if sim._host is None else tuple(
+            np.asarray(sim._host[k]).copy()
+            for k in ("e_var", "e_cnst", "e_w"))),
+        events=list(sim.events), advances=int(sim.advances),
+        rounds=int(sim.rounds), supersteps=int(sim.supersteps),
+        repacks=int(sim.repacks))
+
+
 def resume_drain(state: DrainState, **kw) -> DrainSim:
     """A port ``DrainSim`` that continues from `state`.  Keyword
     arguments are the constructor's (``eps``, ``dtype``, ``superstep``,
@@ -91,7 +120,10 @@ def resume_drain(state: DrainState, **kw) -> DrainSim:
     events and counters come from the state."""
     sim = DrainSim(state.e_var, state.e_cnst, state.e_w, state.c_bound,
                    np.asarray(state.sizes, np.float64),
-                   penalty=state.pen, remains=state.rem, **kw)
+                   penalty=state.pen, remains=state.rem, v_bound=state.vb,
+                   **kw)
+    # the JAX drain's flag, which a transition may have switched on
+    sim.has_bounds = bool(state.has_bounds)
     dtype = sim.dtype
     sim._thresh = sim._put(np.asarray(state.thresh, dtype))
     sim._ids_dev = sim._put(np.asarray(state.ids, np.int32))

@@ -82,10 +82,39 @@ template <> __device__ __forceinline__ float from_key<float>(unsigned long long 
   return __uint_as_float((unsigned int)k);
 }
 
+// max that keeps the first operand on ties (values here are never NaN)
+template <typename T>
+__device__ __forceinline__ T max_v(T a, T b) { return b > a ? b : a; }
+
 template <typename T>
 __device__ __forceinline__ T warp_min(T v) {
   for (int o = 16; o > 0; o >>= 1) v = min_v(v, __shfl_xor_sync(FULL_MASK, v, o));
   return v;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_max(T v) {
+  for (int o = 16; o > 0; o >>= 1) v = max_v(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+// Min of one NON-NEGATIVE value per thread over the block, folded into
+// the global minimum *bits with one atomicMin (exact: IEEE order of
+// non-negative floats is the integer order of their bits).  +inf, the
+// identity, is never written.  blockDim.x must be a multiple of 32.
+template <typename T>
+__device__ __forceinline__ void block_min_to(T m, unsigned long long* bits) {
+  __shared__ unsigned long long wmin[32];
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  m = warp_min(m);
+  if (lane == 0) wmin[wid] = key_of(m);
+  __syncthreads();
+  if (wid == 0) {
+    int nw = blockDim.x >> 5;
+    T x = lane < nw ? from_key<T>(wmin[lane]) : inf_v<T>();
+    x = warp_min(x);
+    if (lane == 0 && x < inf_v<T>()) atomicMin(bits, key_of(x));
+  }
 }
 
 __device__ __forceinline__ int warp_sum(int v) {

@@ -1,10 +1,12 @@
-// K2 drain_advance: the dt/retire step of the drain.
+// K2 drain_advance: the dt/retire step of the drain, and its forced mode.
 //
 // Replaces: simgrid_tpu/ops/lmm_drain.py `_advance_math` with
 // `_rounded_product` (:147-189) and the `_drain_advance` program
 // (:192-200): dt = min rem/rate over flowing flows, rem - rate*dt with
 // the product rounded on its own, strict `< thresh` retirement, and the
-// live count.
+// live count.  `drain_forced_advance` replaces `_drain_forced_advance`
+// (:584-603): the same update and retirement at a delta the host gives
+// (an engine advance decided elsewhere), run unconditionally.
 //
 // What bounds it on this card: memory, and at the drain's sizes launch
 // latency.  It reads pen, rem, thresh and the rates once for the min
@@ -125,7 +127,62 @@ int launch(int V, void* pen, void* rem, const void* thresh,
   return (int)cudaGetLastError();
 }
 
+__global__ void fadv_pre(int* ctrl) { ctrl[C_LIVE_ACC] = 0; }
+
+template <typename T>
+__global__ void fadv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
+                           const T* __restrict__ rate, bool* done, T delta,
+                           int* ctrl) {
+  int live = 0;
+  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
+       v += gridDim.x * blockDim.x) {
+    T p = pen[v];
+    bool d = false;
+    if (p > T(0)) {
+      T r = rate[v];
+      if (r > T(0)) {
+        T r2 = sub_rn(rem[v], mul_rn(r, delta));
+        d = r2 < thresh[v];
+        if (d) {
+          p = T(0);
+          pen[v] = p;
+          r2 = T(0);
+        }
+        rem[v] = r2;
+      }
+    }
+    done[v] = d;
+    live += p > T(0);
+  }
+  int tot = block_sum(live);
+  if (threadIdx.x == 0 && tot) atomicAdd(ctrl + C_LIVE_ACC, tot);
+}
+
+template <typename T>
+int launch_forced(int V, void* pen, void* rem, const void* thresh,
+                  const void* rate, void* done, void* ctrl, double delta,
+                  cudaStream_t s) {
+  const int TB = 256;
+  fadv_pre<<<1, 1, 0, s>>>((int*)ctrl);
+  fadv_apply<T><<<grid_for(V, TB), TB, 0, s>>>(
+      V, (T*)pen, (T*)rem, (const T*)thresh, (const T*)rate, (bool*)done,
+      (T)delta, (int*)ctrl);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int drain_forced_advance(int dbl, int V, void* pen, void* rem,
+                                    const void* thresh, const void* rate,
+                                    void* done, void* ctrl, double delta,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dbl)
+    return launch_forced<double>(V, pen, rem, thresh, rate, done, ctrl,
+                                 delta, s);
+  return launch_forced<float>(V, pen, rem, thresh, rate, done, ctrl, delta,
+                              s);
+}
 
 extern "C" int drain_advance(int dbl, int V, void* pen, void* rem,
                              const void* thresh, const void* rate,

@@ -2,8 +2,9 @@
 //
 // Replaces: simgrid_tpu/ops/lmm_jax.py `_stable_livefirst_perm`
 // (:716-731) and simgrid_tpu/ops/lmm_drain.py `_drain_repack`
-// (:606-644) with `_repack_vbound` (:647-651; the port's drain has no
-// variable bounds, so only the permutation is shared).
+// (:606-644) with `_repack_vbound` (:647-651): when the drain has rate
+// bounds, the bound rows follow the flow rows' permutation (a NULL `vb`
+// skips them).
 //
 // A stable live-first partition of the flow rows (live = pen > 0) and
 // of the element rows (live = w > 0 and the flow is live), then a
@@ -117,8 +118,9 @@ __global__ void scatter_v(int V, int vh, const uint8_t* __restrict__ fv,
                           const int* __restrict__ ex, const int* totals,
                           const T* __restrict__ pen, const T* __restrict__ rem,
                           const T* __restrict__ thresh,
-                          const int* __restrict__ ids, int* pos_v, T* pen2,
-                          T* rem2, T* thresh2, int* ids2) {
+                          const int* __restrict__ ids,
+                          const T* __restrict__ vb, int* pos_v, T* pen2,
+                          T* rem2, T* thresh2, int* ids2, T* vb2) {
   int n_live = totals[0];
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
        v += gridDim.x * blockDim.x) {
@@ -129,6 +131,7 @@ __global__ void scatter_v(int V, int vh, const uint8_t* __restrict__ fv,
       rem2[p] = rem[v];
       thresh2[p] = thresh[v];
       ids2[p] = ids[v];
+      if (vb) vb2[p] = vb[v];
     }
   }
 }
@@ -214,7 +217,7 @@ int run(int V, int E, int C, int nnz, int vh, int eh, int cap,
         const void* v_ptr, const void* v_idx, void* ev2, void* ec2,
         void* ew2, void* pen2, void* rem2, void* thresh2, void* ids2,
         void* c_ptr2, void* c_idx2, void* v_ptr2, void* v_idx2,
-        const Scratch& w, cudaStream_t s) {
+        const void* vb, void* vb2, const Scratch& w, cudaStream_t s) {
   const int TB = 256;
   flags_v<T><<<grid_for(V, TB), TB, 0, s>>>(V, (const T*)pen, w.fv);
   flags_e<T><<<grid_for(E, TB), TB, 0, s>>>(E, (const int*)e_var,
@@ -228,8 +231,8 @@ int run(int V, int E, int C, int nnz, int vh, int eh, int cap,
   scan(V, w.fv, w.ex_v, w.bsum, w.totals + 0, s);
   scatter_v<T><<<grid_for(V, TB), TB, 0, s>>>(
       V, vh, w.fv, w.ex_v, w.totals, (const T*)pen, (const T*)rem,
-      (const T*)thresh, (const int*)ids, w.pos_v, (T*)pen2, (T*)rem2,
-      (T*)thresh2, (int*)ids2);
+      (const T*)thresh, (const int*)ids, (const T*)vb, w.pos_v, (T*)pen2,
+      (T*)rem2, (T*)thresh2, (int*)ids2, (T*)vb2);
   scan(E, w.fe, w.ex_e, w.bsum, w.totals + 1, s);
   scatter_e<T><<<grid_for(E, TB), TB, 0, s>>>(
       E, eh, vh, w.fe, w.ex_e, w.totals, (const int*)e_var,
@@ -263,8 +266,8 @@ extern "C" int livefirst_repack(
     const void* rem, const void* thresh, const void* ids, const void* c_ptr,
     const void* c_idx, const void* v_ptr, const void* v_idx, void* ev2,
     void* ec2, void* ew2, void* pen2, void* rem2, void* thresh2, void* ids2,
-    void* c_ptr2, void* c_idx2, void* v_ptr2, void* v_idx2, void* scratch,
-    void* stream) {
+    void* c_ptr2, void* c_idx2, void* v_ptr2, void* v_idx2, const void* vb,
+    void* vb2, void* scratch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   Scratch w;
   uint8_t* b = (uint8_t*)scratch;
@@ -288,9 +291,9 @@ extern "C" int livefirst_repack(
     return run<double>(V, E, C, nnz, vh, eh, cap, e_var, e_cnst, e_w, pen,
                        rem, thresh, ids, c_ptr, c_idx, v_ptr, v_idx, ev2,
                        ec2, ew2, pen2, rem2, thresh2, ids2, c_ptr2, c_idx2,
-                       v_ptr2, v_idx2, w, s);
+                       v_ptr2, v_idx2, vb, vb2, w, s);
   return run<float>(V, E, C, nnz, vh, eh, cap, e_var, e_cnst, e_w, pen, rem,
                     thresh, ids, c_ptr, c_idx, v_ptr, v_idx, ev2, ec2, ew2,
                     pen2, rem2, thresh2, ids2, c_ptr2, c_idx2, v_ptr2,
-                    v_idx2, w, s);
+                    v_idx2, vb, vb2, w, s);
 }

@@ -2,9 +2,12 @@
 their plain PyTorch versions.
 
 * K1 :mod:`.lmm_round`        — fixpoint init and one saturation round
-* K2 :mod:`.drain_advance`    — dt to the next completion, retirement
+  (local or global, with or without bounds and FATPIPE constraints)
+* K2 :mod:`.drain_advance`    — dt to the next completion, retirement;
+  forced mode: retirement at a given delta
 * K3 :mod:`.superstep_commit` — superstep control, Kahan clock, ring
 * K4 :mod:`.livefirst_repack` — stable live-first repack, row indexes
+* K5 :mod:`.transition_scatter` — transition payload into the drain
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each wrapper counts its launches.
@@ -18,7 +21,7 @@ from .common import COUNTERS
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
     from . import (drain_advance, livefirst_repack, lmm_round,  # noqa: F401
-                   superstep_commit)
+                   superstep_commit, transition_scatter)
     return {name: c.n for name, c in COUNTERS.items()}
 
 

@@ -14,7 +14,7 @@ The slot numbers below are mirrored in ``csrc/common.cuh``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -59,13 +59,15 @@ FLAG_STARVED = -1
 
 class LmmSystem(NamedTuple):
     """The device copy of a flattened system: COO elements (padded with
-    weight-0 entries), constraint bounds, and both row indexes."""
+    weight-0 entries), constraint bounds, both row indexes, and the
+    FATPIPE flags (None: every constraint is SHARED)."""
     e_var: torch.Tensor    # [E] int32
     e_cnst: torch.Tensor   # [E] int32
     e_w: torch.Tensor      # [E] dtype
     c_bound: torch.Tensor  # [C] dtype
     csr: Csr
     n_v: int
+    c_fatpipe: Optional[torch.Tensor] = None   # [C] bool
 
     @property
     def n_c(self) -> int:
@@ -78,7 +80,13 @@ class LmmSystem(NamedTuple):
 
 class Work:
     """Fixpoint state, per-round scratch and control words of one
-    system size (``n_v`` variables, ``n_c`` constraints)."""
+    system size (``n_v`` variables, ``n_c`` constraints).
+
+    The bound arm's scratch (``low_v``, ``mb_v``, ``level2_v`` per
+    variable, ``mb_c``, ``blocked_c`` per constraint) and the global
+    arm's ``rou`` and its two grid-wide minima (``min_usage``,
+    ``min_bound``: the bits of a non-negative float, as ``dtbits``) are
+    written by the rounds that use them and read by nothing else."""
 
     def __init__(self, n_v: int, n_c: int, dtype: torch.dtype,
                  device: torch.device):
@@ -93,9 +101,19 @@ class Work:
         self.usage = vec(n_c, dtype)
         self.light = vec(n_c, torch.bool)
         self.proc = vec(n_c, torch.bool)
+        self.low_v = vec(n_v, torch.bool)
+        self.mb_v = vec(n_v, dtype)
+        self.level2_v = vec(n_v, dtype)
+        self.mb_c = vec(n_c, dtype)
+        self.blocked_c = vec(n_c, torch.bool)
+        self.rou = vec(n_c, dtype)
+        self.min_usage = vec(1, torch.int64)
+        self.min_bound = vec(1, torch.int64)
         self.ctrl = vec(N_CTRL, torch.int32)
         self.fctrl = vec(N_FCTRL, dtype)
         self.dtbits = vec(1, torch.int64)
+        #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)
+        self.ptr_cache: dict = {}
 
 
 class LaunchCounter:
@@ -128,6 +146,19 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     if not t.is_contiguous():
         raise ValueError("kernel argument is not contiguous")
     return ctypes.c_void_p(t.data_ptr())
+
+
+def opt_ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """``ptr`` of a tensor a kernel arm reads, or NULL when the arm is
+    off and the caller has none."""
+    return ctypes.c_void_p(None) if t is None else ptr(t)
+
+
+def ptr_array(tensors) -> ctypes.Array:
+    """One C array of pointers (``void**``) for kernels with many
+    buffers; None entries become NULL."""
+    return (ctypes.c_void_p * len(tensors))(*(opt_ptr(t).value
+                                               for t in tensors))
 
 
 def stream() -> ctypes.c_void_p:

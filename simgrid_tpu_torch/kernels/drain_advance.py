@@ -1,8 +1,10 @@
-"""K2: the drain's dt/retire step.
+"""K2: the drain's dt/retire step, and its forced mode.
 
 Replaces ``simgrid_tpu/ops/lmm_drain.py`` ``_advance_math`` with
 ``_rounded_product`` (``:147-189``) and ``_drain_advance``
-(``:192-200``).  The CUDA source is ``csrc/drain_advance.cu``.
+(``:192-200``), and in forced mode ``_drain_forced_advance``
+(``:584-603``): the same retirement at a delta the host gives instead of
+the min dt.  The CUDA source is ``csrc/drain_advance.cu``.
 
 The step reads the rates the fixpoint left in ``w.v_value`` and updates
 ``pen``/``rem`` in place, writes the completion mask into ``w.done``, dt
@@ -18,12 +20,14 @@ import torch
 
 from . import build
 from .common import (ADV_CONV, ADV_GO, DT, IT, LIGHT, LIMIT, LIVE_ACC,
-                     SS_ACTIVE, SS_STARVED, I, P, Work, check, counter,
+                     SS_ACTIVE, SS_STARVED, D, I, P, Work, check, counter,
                      is_double, on_cpu, ptr, stream)
 
 COUNT = counter("drain_advance")
+FORCED_COUNT = counter("drain_forced_advance")
 
-_SIG = {"drain_advance": [I, I] + [P] * 8 + [I, P]}
+_SIG = {"drain_advance": [I, I] + [P] * 8 + [I, P],
+        "drain_forced_advance": [I, I] + [P] * 6 + [D, P]}
 
 
 def advance_math(pen, rem, thresh, values):
@@ -88,4 +92,41 @@ def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
         ptr(w.fctrl), ptr(w.dtbits), int(gated), stream())
     check(rc, "drain_advance")
     COUNT.n += 1
+    return None
+
+
+def drain_forced_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
+                               thresh: torch.Tensor, w: Work,
+                               delta: float) -> bool:
+    """``_drain_forced_advance``: decrement the remains of flowing flows
+    by ``rate * delta`` (one rounded multiply, then the subtraction) and
+    retire those strictly below their threshold.  The caller solved to
+    convergence first; the step runs unconditionally."""
+    d = torch.tensor(delta, dtype=rem.dtype, device=rem.device)
+    live = pen > 0
+    rate = torch.where(live, w.v_value, 0.0)
+    flowing = live & (rate > 0)
+    rem2 = torch.where(flowing, rem - rate * d, rem)
+    done = flowing & (rem2 < thresh)
+    pen.copy_(torch.where(done, 0.0, pen))
+    rem.copy_(torch.where(done, 0.0, rem2))
+    w.done.copy_(done)
+    w.ctrl[LIVE_ACC] = int((pen > 0).sum())
+    return True
+
+
+def drain_forced_advance(pen: torch.Tensor, rem: torch.Tensor,
+                         thresh: torch.Tensor, w: Work, delta: float):
+    """Advance by the given ``delta`` at the rates in ``w.v_value``:
+    updates ``pen``/``rem`` in place, the completion mask into
+    ``w.done`` and the live count into ``w.ctrl[LIVE_ACC]``."""
+    if on_cpu(pen, rem, thresh, w.ctrl):
+        return drain_forced_advance_plain(pen, rem, thresh, w, delta)
+    lib = build.load("drain_advance", _SIG)
+    rc = lib.drain_forced_advance(
+        is_double(pen.dtype), int(pen.shape[0]), ptr(pen), ptr(rem),
+        ptr(thresh), ptr(w.v_value), ptr(w.done), ptr(w.ctrl),
+        float(delta), stream())
+    check(rc, "drain_forced_advance")
+    FORCED_COUNT.n += 1
     return None

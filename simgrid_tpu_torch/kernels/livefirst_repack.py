@@ -2,24 +2,28 @@
 
 Replaces ``simgrid_tpu/ops/lmm_jax.py`` ``_stable_livefirst_perm``
 (``:716-731``) and ``simgrid_tpu/ops/lmm_drain.py`` ``_drain_repack``
-(``:606-644``); the CUDA source is ``csrc/livefirst_repack.cu``.  It
-also re-derives both row indexes of the halved system.
+(``:606-644``) with ``_repack_vbound`` (``:647-651``: the rate bounds
+follow the flow rows' permutation when the drain has bounds); the CUDA
+source is ``csrc/livefirst_repack.cu``.  It also re-derives both row
+indexes of the halved system.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..ops.csr import Csr, build_csr
 from . import build
-from .common import I, LmmSystem, P, check, counter, is_double, on_cpu, ptr, \
-    stream
+from .common import (I, LmmSystem, P, check, counter, is_double, on_cpu,
+                     opt_ptr, ptr, stream)
 
 COUNT = counter("livefirst_repack")
+#: launches that carried the rate bounds along
+VBOUND_COUNT = counter("livefirst_repack_vbound")
 
-_SIG = {"livefirst_repack": [I] * 8 + [P] * 24}
+_SIG = {"livefirst_repack": [I] * 8 + [P] * 26}
 
 _SCAN_TILE = 2048
 
@@ -30,6 +34,7 @@ class Repacked(NamedTuple):
     rem: torch.Tensor
     thresh: torch.Tensor
     ids: torch.Tensor
+    vb: Optional[torch.Tensor] = None
 
 
 def stable_livefirst_perm(livemask: torch.Tensor) -> torch.Tensor:
@@ -45,7 +50,8 @@ def stable_livefirst_perm(livemask: torch.Tensor) -> torch.Tensor:
 
 
 def livefirst_repack_plain(sys: LmmSystem, pen, rem, thresh, ids,
-                           vh: int, eh: int, live_elems: int) -> Repacked:
+                           vh: int, eh: int, live_elems: int,
+                           vb=None) -> Repacked:
     V = pen.shape[0]
     livemask = pen > 0
     perm_v = stable_livefirst_perm(livemask)
@@ -60,18 +66,20 @@ def livefirst_repack_plain(sys: LmmSystem, pen, rem, thresh, ids,
     ew2 = torch.where(elive[sel], sys.e_w[sel], 0.0)
     csr = build_csr(ev2, ec2, ew2, sys.n_c, vh)
     return Repacked(LmmSystem(ev2, ec2, ew2, sys.c_bound, csr, vh),
-                    pen[keep_v], rem[keep_v], thresh[keep_v], ids[keep_v])
+                    pen[keep_v], rem[keep_v], thresh[keep_v], ids[keep_v],
+                    None if vb is None else vb[keep_v])
 
 
 def livefirst_repack(sys: LmmSystem, pen, rem, thresh, ids, vh: int,
-                     eh: int, live_elems: int) -> Repacked:
+                     eh: int, live_elems: int, vb=None) -> Repacked:
     """Halve the drain to ``vh`` flow rows and ``eh`` element rows.  The
     caller decided from counts it already fetched that ``vh`` holds
     every live flow and ``eh`` every one of the ``live_elems`` live
-    elements; nothing is read back here."""
+    elements; nothing is read back here.  The rate bounds ``vb``, when
+    given, follow the flow rows."""
     if on_cpu(pen, sys.e_w):
         return livefirst_repack_plain(sys, pen, rem, thresh, ids, vh, eh,
-                                      live_elems)
+                                      live_elems, vb)
     lib = build.load("livefirst_repack", _SIG)
     dev, dtype = pen.device, pen.dtype
     V, E, C, nnz = int(pen.shape[0]), sys.n_e, sys.n_c, sys.csr.nnz
@@ -85,6 +93,7 @@ def livefirst_repack(sys: LmmSystem, pen, rem, thresh, ids, vh: int,
     pen2, rem2, thresh2 = empty(vh, dtype), empty(vh, dtype), \
         empty(vh, dtype)
     ids2 = empty(vh, i32)
+    vb2 = None if vb is None else empty(vh, dtype)
     c_ptr2, c_idx2 = empty(C + 1, i32), empty(live_elems, i32)
     v_ptr2, v_idx2 = empty(vh + 1, i32), empty(live_elems, i32)
     flags = (V + E + 2 * nnz + 15) & ~15
@@ -98,10 +107,11 @@ def livefirst_repack(sys: LmmSystem, pen, rem, thresh, ids, vh: int,
         ptr(thresh), ptr(ids), ptr(csr.c_ptr), ptr(csr.c_idx),
         ptr(csr.v_ptr), ptr(csr.v_idx), ptr(ev2), ptr(ec2), ptr(ew2),
         ptr(pen2), ptr(rem2), ptr(thresh2), ptr(ids2), ptr(c_ptr2),
-        ptr(c_idx2), ptr(v_ptr2), ptr(v_idx2), ptr(scratch), stream())
+        ptr(c_idx2), ptr(v_ptr2), ptr(v_idx2), opt_ptr(vb), opt_ptr(vb2),
+        ptr(scratch), stream())
     check(rc, "livefirst_repack")
-    COUNT.n += 1
+    (COUNT if vb is None else VBOUND_COUNT).n += 1
     return Repacked(
         LmmSystem(ev2, ec2, ew2, sys.c_bound,
                   Csr(c_ptr2, c_idx2, v_ptr2, v_idx2), int(vh)),
-        pen2, rem2, thresh2, ids2)
+        pen2, rem2, thresh2, ids2, vb2)

@@ -30,8 +30,15 @@ keeping all solver and flow state on the device, in three shapes:
 The host clock is ``t = t_base + t_sum`` once per superstep, exactly as
 the JAX collect computes it.
 
+Rate bounds (``v_bound``) switch the fixpoint's bound-first arm on in
+every shape, decided as the JAX drain decides it: any positive bound,
+not masked by penalty.  Beside ``run`` the executor takes the engine
+plan's calls: ``apply_transitions`` (a scatter payload into the device
+plan, K5), ``partial_advance`` (an advance by a delta the caller gives,
+K2's forced mode) and ``solve_rates``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``pipeline=D``, ``tape=``, ``collective=``, active ``v_bound``.
+item): ``pipeline=D``, ``tape=``, ``collective=``.
 """
 
 from __future__ import annotations
@@ -46,14 +53,17 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, FLAG_STARVED,
                               IT, LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem,
                               Work)
-from ..kernels.drain_advance import drain_advance
+from ..kernels.drain_advance import drain_advance, drain_forced_advance
 from ..kernels.livefirst_repack import livefirst_repack
 from ..kernels.lmm_round import lmm_init, lmm_round
 from ..kernels.superstep_commit import (N_STATS, packed_size,
                                         superstep_begin, superstep_commit,
                                         superstep_finish, superstep_reset,
                                         superstep_resume)
+from ..kernels.transition_scatter import (TRANSITION_FIELDS,
+                                          transition_scatter)
 from . import opstats
+from .csr import build_csr
 from .lmm_arrays import to2d
 from .lmm_torch import to_device_system
 
@@ -80,7 +90,8 @@ class DrainSim:
     ``done_eps * size``) or "abs", ``solve_chunk`` rounds per solve
     chunk, ``repack_at``/``repack_min`` for the repack trigger,
     ``fused``, ``superstep=K`` and its round budget
-    ``superstep_rounds`` (default K*512), and an optional mid-run
+    ``superstep_rounds`` (default K*512), optional per-flow rate bounds
+    ``v_bound`` (-1 or 0: none), and an optional mid-run
     ``penalty``/``remains``.  ``dtype`` defaults to float64.
     """
 
@@ -105,10 +116,6 @@ class DrainSim:
             raise NotImplementedError(
                 "collective= is not ported yet (ROADMAP queue B item 8: "
                 "the superstep's collective-tape arm)")
-        if v_bound is not None and np.any(np.asarray(v_bound) > 0):
-            raise NotImplementedError(
-                "active flow rate bounds are not ported yet (ROADMAP "
-                "queue B item 2: the fixpoint's bound arm)")
         if done_mode not in ("rel", "abs"):
             raise ValueError(f"Unknown done_mode {done_mode!r} "
                              "(expected rel or abs)")
@@ -156,6 +163,15 @@ class DrainSim:
         self._rem = self._put(rem0)
         self._thresh = self._put(thresh.astype(self.dtype))
         self._ids_dev = self._put(np.arange(self.n_v, dtype=np.int32))
+        # as the JAX drain decides it: any positive bound, not masked by
+        # penalty (a latency lane keeps its bound while its penalty is 0)
+        if v_bound is not None:
+            vb = np.asarray(v_bound, self.dtype)
+            self.has_bounds = bool(np.any(vb > 0))
+        else:
+            vb = np.full(self.n_v, -1.0, self.dtype)
+            self.has_bounds = False
+        self._vb = self._put(vb)
         self._upload_elements(self._host["e_var"], self._host["e_cnst"],
                               self._host["e_w"])
         self._live0 = (int(np.count_nonzero(pen0 > 0))
@@ -219,6 +235,7 @@ class DrainSim:
         self._rem = self._put(rem[keep])
         self._thresh = self._put(thresh[keep])
         self._ids_dev = self._put(self._ids.astype(np.int32))
+        self._vb = self._put(opstats.timed_fetch(self._vb)[keep])
         self._upload_elements(self._host["e_var"], self._host["e_cnst"],
                               self._host["e_w"])
         self._live0 = self.n_v
@@ -233,10 +250,14 @@ class DrainSim:
         if n_live > vh or live_elems > eh:
             return False
         rp = livefirst_repack(self.sys, self._pen, self._rem, self._thresh,
-                              self._ids_dev, vh, eh, live_elems)
+                              self._ids_dev, vh, eh, live_elems,
+                              self._vb if self.has_bounds else None)
         self.sys = rp.sys
         self._pen, self._rem, self._thresh = rp.pen, rp.rem, rp.thresh
         self._ids_dev = rp.ids
+        self._vb = (rp.vb if self.has_bounds else
+                    torch.full((vh,), -1.0, dtype=self.tdtype,
+                               device=self.device))
         self.n_v = vh
         self.w = Work(vh, self.n_c, self.tdtype, self.device)
         self._live0 = n_live
@@ -259,7 +280,8 @@ class DrainSim:
 
     def _queue_rounds(self, n: int) -> None:
         for _ in range(n):
-            if lmm_round(self.sys, self.w, self._pen, self.eps) is False:
+            if lmm_round(self.sys, self.w, self._pen, self.eps, self._vb,
+                         self.has_bounds) is False:
                 break
 
     def _solve_chunks(self, fused: bool) -> np.ndarray:
@@ -324,6 +346,81 @@ class DrainSim:
             else:
                 self._repack_device(n_live, self._live_elems())
         return n_live
+
+    # -- engine plan calls -------------------------------------------------
+
+    def solve_rates(self) -> np.ndarray:
+        """Solve the current flow state to convergence and fetch the rate
+        vector (no time advance)."""
+        self._solve_chunks(fused=False)
+        rates = opstats.timed_fetch(self.w.v_value)
+        self.syncs += 1
+        return rates
+
+    def partial_advance(self, delta: float):
+        """Solve the current flow state to convergence, then advance it
+        by a ``delta`` the caller chose (an engine advance won by another
+        model or a latency expiry; delta <= this plan's own next dt),
+        retiring flows with the same strict-< rule.  Returns
+        ``(done_slots, n_live)``; ``t`` and ``events`` are left alone
+        (the clock is the caller's on this path)."""
+        self._solve_chunks(fused=False)
+        w = self.w
+        drain_forced_advance(self._pen, self._rem, self._thresh, w, delta)
+        out = opstats.timed_fetch(torch.cat([
+            w.ctrl[LIVE_ACC:LIVE_ACC + 1].to(self.tdtype),
+            w.done.to(self.tdtype)]))
+        self.syncs += 1
+        self.advances += 1
+        return np.flatnonzero(out[1:] > 0), int(out[0])
+
+    def apply_transitions(self, updates: dict) -> int:
+        """Absorb a batch of engine transitions into the device plan:
+        ``updates`` maps ``TRANSITION_FIELDS`` names to ``(slot_indices,
+        values)`` pairs, shipped as ONE float64 payload of exact runs
+        and scattered on the device (K5).  A change to the element
+        arrays re-derives both row indexes on the device, so every row
+        stays in element order.  Returns the number of slots
+        scattered."""
+        s = self.sys
+        targets = [s.e_var, s.e_cnst, s.e_w, s.c_bound, self._pen,
+                   self._rem, self._thresh, self._vb]
+        layout = []
+        chunks = []
+        off = 0
+        slots = 0
+        for ti, field in enumerate(TRANSITION_FIELDS):
+            pair = updates.get(field)
+            if pair is None or len(pair[0]) == 0:
+                continue
+            ix = np.asarray(pair[0], np.float64)
+            vals = np.asarray(pair[1], np.float64)
+            if len(ix) != len(vals):
+                raise ValueError(f"{field}: {len(ix)} slots, "
+                                 f"{len(vals)} values")
+            # the kernel writes where it is told: check every slot here
+            n = int(targets[ti].shape[0])
+            if np.any((ix < 0) | (ix >= n) | (ix != np.floor(ix))):
+                raise ValueError(f"{field}: slot out of range [0, {n})")
+            slots += len(ix)
+            layout.append((ti, off, len(ix)))
+            chunks += [ix, vals]
+            off += 2 * len(ix)
+        if not layout:
+            return 0
+        vb_pair = updates.get("v_bound")
+        if vb_pair is not None and len(vb_pair[0]) \
+                and np.any(np.asarray(vb_pair[1]) > 0):
+            self.has_bounds = True
+        payload = torch.from_numpy(np.concatenate(chunks)).to(self.device)
+        transition_scatter(payload, layout, targets)
+        if any(ti < 3 for ti, _, _ in layout):
+            self.sys = s._replace(csr=build_csr(s.e_var, s.e_cnst, s.e_w,
+                                                s.n_c, s.n_v))
+        self._host = None      # host element mirrors are stale now
+        opstats.bump("dispatches")
+        opstats.bump("uploaded_bytes_delta", payload.numel() * 8)
+        return slots
 
     # -- superstep path ----------------------------------------------------
 
@@ -441,17 +538,23 @@ class DrainSim:
         fetches)."""
         return self._advance_fused()
 
+    def superstep_step(self, k: Optional[int] = None) -> int:
+        """One step of ``run`` on the superstep path: one superstep of up
+        to ``k`` advances, and one fused advance if it could not finish
+        any.  Returns the live count."""
+        before = self.advances
+        n, _ = self.superstep_batch(k=k)
+        if n and self.advances == before:
+            n = self._rescue_one()
+        return n
+
     def run(self, max_advances: int = 10_000_000) -> None:
         n = self.n_v
         if self.superstep_k:
             while n and max_advances > 0:
                 before = self.advances
-                k = min(self.superstep_k, max_advances)
-                n, _ = self.superstep_batch(k=k)
+                n = self.superstep_step(min(self.superstep_k, max_advances))
                 max_advances -= self.advances - before
-                if n and self.advances == before:
-                    n = self._rescue_one()
-                    max_advances -= 1
             return
         while n and max_advances:
             n = self.advance()

@@ -29,9 +29,10 @@ def bump(name: str, n=1) -> None:
 
 def timed_fetch(t: torch.Tensor) -> np.ndarray:
     """Copy one tensor to the host, counting the transfer and the
-    milliseconds the host spent blocked in it."""
+    milliseconds the host spent blocked in it.  The copy never aliases
+    the tensor, also when it already lies on the host."""
     t0 = time.perf_counter()
-    out = t.detach().cpu().numpy()
+    out = t.detach().to("cpu", copy=True).numpy()
     bump("host_block_ms", (time.perf_counter() - t0) * 1e3)
     bump("fetches")
     bump("fetched_bytes", out.nbytes)

@@ -1,7 +1,8 @@
-"""The BASELINE config-#4 system: random flows on a 65,536-host dragonfly.
+"""The BASELINE config-#4 systems on a 65,536-host dragonfly.
 
-A vectorised numpy generator of the LMM system the JAX engine builds in
-``tools/e2e_drain.py:50-106`` (``--workload random``), without the
+A vectorised numpy generator of the LMM systems the JAX engine builds in
+``tools/e2e_drain.py:50-106`` (``--workload random`` and ``alltoall``)
+and ``tools/e2e_probe.py:53-104`` (the 320-rank alltoall), without the
 engine:
 
 * the platform of ``tools/scale_proof.py:24-40``: one cluster ``dfly``
@@ -21,7 +22,18 @@ engine:
   bounded by ``bw_factor * bandwidth`` (LV08's 0.97, ``network.py:509``);
 * the flow pairs of ``tools/e2e_drain.py:80-87``: ``default_rng(42)``
   draws ``(flows, 2)`` host indices into the NAME-SORTED host list, and
-  ``src == dst`` moves ``dst`` to the next host.
+  ``src == dst`` moves ``dst`` to the next host; or the alltoall of
+  ``:71-78``: rank i on host ``i * (n_hosts // ranks)`` of that list,
+  every ordered pair i != j, i outer and j inner;
+* with ``lv08=True``, the penalty and rate bound the LV08 engine gives
+  each flow (``network.py:346-421``): the route latency summed link by
+  link in route order from 0.0 (``routing/zone.py:125-128``), then
+  ``+= weight_S / bandwidth`` link by link along the forward route, and
+  the bound ``TCP_gamma / (2 * latency)``.  The engine installs the
+  penalty when the latency phase ends (``network.py:307-309``); the
+  float operations are the engine's, in its order, so the values are
+  equal, not close.  The constants are this module's own copy of the
+  LV08 defaults.
 
 Elements are ordered flow by flow (forward route, then reverse route)
 and constraints by first use, so flow k is variable k.
@@ -29,16 +41,20 @@ and constraints by first use, so flow k is variable k.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 
 #: groups,blue links ; chassis,black links ; blades,green links ; nodes
 TOPOLOGY = "16,3;4,2;16,2;64"
-BANDWIDTH = 125e6
+BANDWIDTH = 125.0 * 1e6       # "125MBps", as the platform parser reads it
+LATENCY = 50.0 * 1e-6         # "50us"
 BW_FACTOR = 0.97
 CROSSTRAFFIC = 0.05
 ZONE = "dfly"
+#: LV08 defaults: network/weight-S and network/TCP-gamma
+WEIGHT_S = 20537.0
+TCP_GAMMA = 4194304.0
 
 
 class DrainSystem(NamedTuple):
@@ -49,6 +65,8 @@ class DrainSystem(NamedTuple):
     sizes: np.ndarray     # [V] float64
     link_ids: np.ndarray  # [C] int64 — directed link id per constraint
     n_hosts: int
+    v_penalty: Optional[np.ndarray] = None   # [V] float64 (lv08)
+    v_bound: Optional[np.ndarray] = None     # [V] float64 (lv08)
 
     @property
     def n_cnst(self) -> int:
@@ -219,12 +237,42 @@ def flow_pairs(flows: int, n_hosts: int, seed: int = 42) -> np.ndarray:
     return pairs
 
 
+def alltoall_pairs(ranks: int, n_hosts: int) -> np.ndarray:
+    """(src, dst) host-list indices of the alltoall of ``ranks`` ranks,
+    rank i on host ``i * (n_hosts // ranks)``, in the loop order of
+    ``tools/e2e_drain.py`` (i outer, j inner, i != j)."""
+    host = np.arange(ranks, dtype=np.int64) * (n_hosts // ranks)
+    i, j = np.meshgrid(np.arange(ranks), np.arange(ranks), indexing="ij")
+    off = i != j
+    return np.stack([host[i[off]], host[j[off]]], axis=1)
+
+
+def lv08_values(df: Dragonfly, fwd: np.ndarray):
+    """The LV08 penalty and rate bound of each flow from its forward
+    route (``[F, 7]`` directed link ids, -1 padded, in route order)."""
+    used = fwd >= 0
+    lat = np.zeros(len(fwd))
+    for k in range(fwd.shape[1]):
+        lat = np.where(used[:, k], lat + LATENCY, lat)
+    pen = lat.copy()
+    bw = BANDWIDTH * df.link_count(np.where(used, fwd, 0)).astype(
+        np.float64)
+    for k in range(fwd.shape[1]):
+        pen = np.where(used[:, k], pen + WEIGHT_S / bw[:, k], pen)
+    return pen, TCP_GAMMA / (2.0 * lat)
+
+
 def build_system(flows: int = 100_000, seed: int = 42, size: float = 1e6,
-                 topology: str = TOPOLOGY) -> DrainSystem:
-    """The config-#4 drain system: COO elements, link bounds, sizes."""
+                 topology: str = TOPOLOGY, pairs: Optional[np.ndarray] = None,
+                 lv08: bool = False) -> DrainSystem:
+    """The config-#4 drain system: COO elements, link bounds, sizes;
+    ``pairs`` (host-list indices) replaces the random draw, and
+    ``lv08`` adds each flow's LV08 penalty and rate bound."""
     df = Dragonfly(topology)
     ranks = host_ranks(df.n_hosts)
-    pairs = flow_pairs(flows, df.n_hosts, seed)
+    if pairs is None:
+        pairs = flow_pairs(flows, df.n_hosts, seed)
+    flows = len(pairs)
     src, dst = ranks[pairs[:, 0]], ranks[pairs[:, 1]]
     fwd = df.routes(src, dst)
     back = df.routes(dst, src)
@@ -243,11 +291,23 @@ def build_system(flows: int = 100_000, seed: int = 42, size: float = 1e6,
     link_ids = uniq[order]
     c_bound = BW_FACTOR * (BANDWIDTH * df.link_count(link_ids)
                            .astype(np.float64))
+    pen, vb = lv08_values(df, fwd) if lv08 else (None, None)
     return DrainSystem(e_var=flow.astype(np.int32),
                        e_cnst=rank_of[inv.reshape(-1)].astype(np.int32),
                        e_w=w.astype(np.float64), c_bound=c_bound,
                        sizes=np.full(flows, float(size)),
-                       link_ids=link_ids, n_hosts=df.n_hosts)
+                       link_ids=link_ids, n_hosts=df.n_hosts,
+                       v_penalty=pen, v_bound=vb)
+
+
+def build_alltoall(ranks: int = 320, size: float = 1e6, lv08: bool = True,
+                   topology: str = TOPOLOGY) -> DrainSystem:
+    """BASELINE config #4 as named: the ``ranks``-rank alltoall (every
+    ordered pair, ``size`` bytes each) on the dragonfly, by default with
+    the LV08 penalties and bounds the engine gives its flows."""
+    n_hosts = Dragonfly(topology).n_hosts
+    return build_system(size=size, topology=topology, lv08=lv08,
+                        pairs=alltoall_pairs(ranks, n_hosts))
 
 
 def link_names(system: DrainSystem, topology: str = TOPOLOGY) -> List[str]:

@@ -13,10 +13,14 @@ import numpy as np
 import pytest
 import torch
 
+from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
+from simgrid_tpu_torch.kernels.common import LIVE_ACC, Work
+from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
+from simgrid_tpu_torch.kernels.transition_scatter import transition_scatter
 from simgrid_tpu_torch.ops import lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
-from simgrid_tpu_torch.workloads import dragonfly
+from simgrid_tpu_torch.workloads import dragonfly, drain_run
 
 pytestmark = pytest.mark.cuda
 
@@ -89,3 +93,201 @@ def test_drain_card_equals_plain(cuda, mode):
     assert sorted(f for _, f in g.events) == list(range(3000))
     if mode == "starved64":
         assert g.resumes > 0
+
+
+def mixed_arrays(seed, n_c, n_v, p_bound, p_fat, dtype):
+    """Bounds in [0.5, 50], penalties from {0.5, 1, 2, 3}, FATPIPE
+    constraints, 1-5 distinct constraints per variable."""
+    rng = np.random.default_rng(seed)
+    n_links = rng.integers(1, 6, n_v)
+    e_cnst = np.concatenate([rng.choice(n_c, size=k, replace=False)
+                             for k in n_links])
+    E = len(e_cnst)
+    Eb, Cb, Vb = bucket(E), bucket(n_c), bucket(n_v)
+    a = LmmArrays(np.zeros(Eb, np.int32), np.zeros(Eb, np.int32),
+                  np.zeros(Eb, dtype), np.zeros(Cb, dtype),
+                  np.zeros(Cb, bool), np.zeros(Vb, dtype),
+                  np.full(Vb, -1.0, dtype), E, n_c, n_v)
+    a.e_var[:E] = np.repeat(np.arange(n_v), n_links)
+    a.e_cnst[:E] = e_cnst
+    a.e_w[:E] = rng.choice([0.5, 1.0, 1.0, 2.0], E)
+    a.c_bound[:n_c] = rng.uniform(1, 100, n_c)
+    a.c_fatpipe[:n_c] = rng.random(n_c) < p_fat
+    a.v_penalty[:n_v] = rng.choice([0.5, 1.0, 2.0, 3.0], n_v)
+    a.v_bound[:n_v] = np.where(rng.random(n_v) < p_bound,
+                               rng.uniform(0.5, 50, n_v), -1.0)
+    return a
+
+
+@pytest.mark.parametrize("parallel_rounds", [True, False],
+                         ids=["local", "global"])
+@pytest.mark.parametrize("dtype,eps", [(np.float64, 1e-5),
+                                       (np.float32, 1e-5)])
+def test_solve_arms_card_equals_plain(cuda, dtype, eps, parallel_rounds):
+    """K1's bound-first, FATPIPE and global arms on the card equal the
+    plain versions on the CPU."""
+    a = mixed_arrays(13, 1500, 4000, 0.5, 0.3, dtype)
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, eps, device=cuda,
+                               parallel_rounds=parallel_rounds)
+    arm = ("lmm_round" + ("" if parallel_rounds else "_global")
+           + "_bounds_fatpipe")
+    assert launch_counts()[arm] > 0
+    c = lmm_torch.solve_arrays(a, eps, device="cpu",
+                               parallel_rounds=parallel_rounds)
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_forced_advance_card_equals_plain(cuda):
+    rng = np.random.default_rng(3)
+    V = 50_000
+    pen = np.where(rng.random(V) < 0.9, rng.uniform(0.5, 2, V), 0.0)
+    rem = rng.uniform(1e3, 1e6, V)
+    rate = np.where(rng.random(V) < 0.95, rng.uniform(1e3, 1e5, V), 0.0)
+    thresh = np.full(V, 1e-3)
+    delta = float(np.min(rem[(pen > 0) & (rate > 0)]
+                         / rate[(pen > 0) & (rate > 0)]))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        w = Work(V, 4, torch.float64, dev)
+        w.v_value.copy_(torch.from_numpy(rate))
+        p, r = (torch.from_numpy(x.copy()).to(dev) for x in (pen, rem))
+        drain_forced_advance(p, r, torch.from_numpy(thresh).to(dev), w,
+                             delta)
+        out.append([p.cpu(), r.cpu(), w.done.cpu(),
+                    int(w.ctrl[LIVE_ACC])])
+    for x, y in zip(out[0][:3], out[1][:3]):
+        assert torch.equal(x, y)
+    assert out[0][3] == out[1][3]
+    assert int(out[1][2].sum()) > 0
+
+
+def test_transition_scatter_card_equals_plain(cuda):
+    rng = np.random.default_rng(4)
+    E, C, V = 4096, 300, 1000
+    base = [np.zeros(E, np.int32), np.zeros(E, np.int32), np.ones(E),
+            np.ones(C), np.ones(V), np.ones(V), np.ones(V), np.ones(V)]
+    runs = [(0, 50, E), (1, 50, E), (2, 50, E), (3, 7, C), (4, 40, V),
+            (7, 40, V)]
+    layout, chunks, off = [], [], 0
+    for ti, n, hi in runs:
+        ix = rng.choice(hi, n, replace=False).astype(np.float64)
+        vals = (rng.integers(0, 900, n).astype(np.float64) if ti < 2
+                else rng.uniform(0, 10, n))
+        layout.append((ti, off, n))
+        chunks += [ix, vals]
+        off += 2 * n
+    payload = torch.from_numpy(np.concatenate(chunks))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        targets = [torch.from_numpy(b.copy()).to(dev) for b in base]
+        transition_scatter(payload.to(dev), layout, targets)
+        out.append([t.cpu() for t in targets])
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["superstep64", "fused64", "unfused64",
+                                  "starved64"])
+def test_bounded_drain_card_equals_plain(cuda, mode):
+    """The LV08 drain with its bounds scaled to bind (one factor), in
+    the executor shapes: the bound arm and K4's bound rows."""
+    s = dragonfly.build_system(3000, lv08=True)
+    rates = lmm_torch.solve_arrays(drain_run.solve_inputs(s), 1e-5,
+                                   device="cpu")[0]
+    vb = s.v_bound * np.median(rates / s.v_bound)
+    dtype, kw = MODES[mode]
+    sims = []
+    for dev in (cuda, torch.device("cpu")):
+        sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes,
+                       eps=1e-5, dtype=dtype, repack_min=64, device=dev,
+                       penalty=s.v_penalty, v_bound=vb, **kw)
+        if mode == "starved64":
+            sim.slot_rounds = 2
+        sim.run()
+        sims.append(sim)
+    g, c = sims
+    assert g.events == c.events and g.t == c.t
+    assert (g.advances, g.supersteps, g.repacks, g.rounds) == \
+        (c.advances, c.supersteps, c.repacks, c.rounds)
+    assert sorted(f for _, f in g.events) == list(range(3000))
+
+
+def test_engine_plan_card_equals_plain(cuda):
+    """The engine-plan drain (latency lanes, transition batch through
+    K5, partial advance through K2's forced mode) of a 24-rank LV08
+    alltoall, card against plain."""
+    s = dragonfly.build_alltoall(24)
+    g, grow, gev = drain_run.run_engine_plan(s, device=cuda)
+    for name in ("transition_scatter", "drain_forced_advance",
+                 "lmm_round_bounds"):
+        assert grow["launches"][name] > 0, name
+    c, _, cev = drain_run.run_engine_plan(s, device="cpu")
+    assert gev == cev and g.t == c.t
+    assert torch.equal(g._pen.cpu(), c._pen)
+    assert torch.equal(g._rem.cpu(), c._rem)
+
+
+def test_element_transitions_card_equals_plain(cuda):
+    """A transition batch that appends a flow (elements in the plan's
+    weight-0 slack) re-derives the row indexes on the device; the drain
+    that follows equals the plain path's."""
+    s = dragonfly.build_alltoall(12)
+    E, V = len(s.e_var), len(s.sizes)
+    pad = lambda a, n, fill: np.concatenate([a, np.full(n, fill, a.dtype)])
+    e_var, e_cnst = pad(s.e_var, 8, 0), pad(s.e_cnst, 8, 0)
+    e_w = pad(s.e_w, 8, 0.0)
+    pen = pad(s.v_penalty, 1, 0.0)
+    vb = pad(s.v_bound, 1, -1.0)
+    sizes = pad(s.sizes, 1, 1.0)
+    rem = pad(s.sizes, 1, 0.0)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        sim = DrainSim(e_var, e_cnst, e_w, s.c_bound, sizes, eps=1e-5,
+                       done_mode="abs", done_eps=1e-10, penalty=pen,
+                       remains=rem, v_bound=vb, superstep=16, device=dev,
+                       repack_min=1 << 62)
+        sim.superstep_batch()
+        n = sim.apply_transitions({
+            "e_var": (np.arange(E, E + 3), np.full(3, V)),
+            "e_cnst": (np.arange(E, E + 3), np.array([0, 5, 9])),
+            "e_w": (np.arange(E, E + 3), np.array([1.0, 1.0, 0.05])),
+            "v_penalty": ([V], [1e-4]), "remains": ([V], [5e5]),
+            "thresh": ([V], [1e-10]), "v_bound": ([V], [3e6])})
+        assert n == 13
+        sim.run()
+        runs.append(sim)
+    g, c = runs
+    assert g.events == c.events and g.t == c.t
+    for a, b in zip(g.sys.csr, c.sys.csr):
+        assert torch.equal(a.cpu(), b)
+    assert sorted(f for _, f in g.events) == list(range(V + 1))
+
+
+def test_engine_plan_held_windows_card_against_plain(cuda):
+    """``drain_run.run_engine_plan_held`` of a 3,000-flow LV08 random
+    system with repacks: every window (after the partial advance, after
+    each repack) equals the plain path's on the CPU, and the drain equals
+    the timed ``run_engine_plan`` on the card."""
+    s = dragonfly.build_system(3000, lv08=True)
+    g, grow, _ = drain_run.run_engine_plan(s, device=cuda, repack_min=64)
+    assert grow["launches"]["livefirst_repack_vbound"] > 0
+    h, windows = drain_run.run_engine_plan_held(s, device=cuda,
+                                                repack_min=64)
+    assert len(windows) == g.repacks + 1 >= 2
+    assert h.events == g.events and h.t == g.t
+
+
+def test_bound_free_rounds_share_one_pointer_array(cuda):
+    """The init and a bound-free round given the drain's bound rows key
+    K1's pointer cache alike: a drain without bounds builds one entry."""
+    s = dragonfly.build_system(3000)
+    sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes, eps=1e-5,
+                   superstep=16, device=cuda)
+    sim.superstep_batch()
+    assert not sim.has_bounds and list(sim.w.ptr_cache) == [0]
+    arr = sim.w.ptr_cache[0][3]
+    sim.superstep_batch()
+    assert sim.w.ptr_cache[0][3] is arr

@@ -1,10 +1,13 @@
 """The port's drain executor (simgrid_tpu_torch.ops.lmm_drain.DrainSim)
 against the JAX package's, on the CPU: completion events (times and
 flow ids), the clock, and the advance, superstep and repack counts must
-be exactly equal in every executor shape.
+be exactly equal in every executor shape, with and without rate bounds,
+and through the engine plan's calls (apply_transitions, partial_advance,
+solve_rates).
 
 The flow set is a seeded random-pair drain on the 64-host fat tree,
-built once through the JAX engine's platform and routing stack and
+built once through the JAX engine's platform and routing stack (LV08:
+each flow carries its penalty and its TCP-gamma rate bound) and
 flattened; both executors get the same numpy arrays.
 """
 
@@ -82,7 +85,28 @@ def make(cls, arrays, sizes, dtype, eps, **kw):
     return cls(arrays.e_var[:E], arrays.e_cnst[:E],
                arrays.e_w[:E].astype(dtype),
                arrays.c_bound[:arrays.n_cnst].astype(dtype), sizes,
-               eps=eps, dtype=dtype, repack_min=64, **kw)
+               eps=eps, dtype=dtype, repack_min=kw.pop("repack_min", 64),
+               **kw)
+
+
+def bounds(arrays, variant):
+    """The fixture's own LV08 penalties and rate bounds, or ("binding")
+    the same bounds scaled by one factor, the median over flows of
+    first solved rate / bound, so that about half of them bind.  The
+    LV08 bounds take a few values (one per route length), and so do the
+    scaled ones: tie groups of completions survive."""
+    nv = arrays.n_var
+    pen = arrays.v_penalty[:nv].astype(np.float64)
+    vb = arrays.v_bound[:nv].astype(np.float64)
+    if variant == "binding":
+        rates = lmm_jax.solve_arrays(arrays, 1e-9)[0][:nv]
+        vb = vb * np.median(rates / vb)
+    return pen, vb
+
+
+def to_np(x):
+    return x.numpy() if hasattr(x, "numpy") and not isinstance(
+        x, np.ndarray) else np.asarray(x)
 
 
 def assert_same_drain(j, t):
@@ -125,6 +149,156 @@ def test_drain_equals_jax(fat_tree, mode):
         assert t.resumes > 0
 
 
+@pytest.mark.parametrize("variant", ["lv08", "binding"])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_bounded_drain_equals_jax(fat_tree, mode, variant):
+    """The fixture's LV08 penalties and bounds (no bound binds), and the
+    bounds redrawn to bind: every shape runs the bound arm."""
+    arrays, sizes = fat_tree
+    dtype, eps, kw, slot_rounds = MODES[mode]
+    pen, vb = bounds(arrays, variant)
+    kw = dict(kw, penalty=pen.astype(dtype), v_bound=vb.astype(dtype))
+    j = make(JaxDrainSim, arrays, sizes, dtype, eps, **kw)
+    j.run()
+    t = make(DrainSim, arrays, sizes, dtype, eps, device="cpu", **kw)
+    assert t.has_bounds and j.has_bounds
+    if slot_rounds:
+        t.slot_rounds = slot_rounds
+    t.run()
+    assert_same_drain(j, t)
+    assert len(t.events) == len(sizes)
+    if kw.get("superstep"):
+        assert t.repacks > 0          # K4 carried the bounds
+    if slot_rounds:
+        assert t.resumes > 0
+
+
+def plan(cls, arrays, sizes, shape, **kw):
+    """An engine-plan drain over the fixture's FULL padded arrays (the
+    pow2 slack holds appended flows): LV08 penalties and bounds, flows
+    0-9 still in their latency phase (penalty 0, bounded), absolute
+    retirement at 1e-10, no repack."""
+    nv, V = arrays.n_var, len(arrays.v_penalty)
+    pen = np.zeros(V)
+    pen[:nv] = arrays.v_penalty[:nv]
+    pen[:10] = 0.0
+    rem = np.zeros(V)
+    rem[:nv] = sizes
+    full = np.ones(V)
+    full[:nv] = sizes
+    return cls(arrays.e_var, arrays.e_cnst, arrays.e_w, arrays.c_bound,
+               full, eps=1e-5, done_eps=1e-10, done_mode="abs",
+               dtype=np.float64, v_bound=arrays.v_bound, penalty=pen,
+               remains=rem, repack_min=1 << 62, **shape, **kw)
+
+
+def transitions(arrays, rates):
+    """A bound change on 5 live flows (redrawn to bind), a c_bound
+    change on 3 links (as set_bandwidth gives it: 0.97 x the new
+    bandwidth), the wake of flows 0-9 to their LV08 penalty, and a new
+    flow in the first slack slot, on two links, in the first slack
+    element slots."""
+    nv, E = arrays.n_var, arrays.n_elem
+    rng = np.random.default_rng(5)
+    bslots = rng.choice(np.arange(10, nv), 5, replace=False)
+    cslots = rng.choice(arrays.n_cnst, 3, replace=False)
+    new = nv
+    links = rng.choice(arrays.n_cnst, 2, replace=False)
+    return {
+        "v_bound": (np.append(bslots, new),
+                    np.append(rates[bslots] * rng.uniform(0.5, 0.9, 5),
+                              2e7)),
+        "c_bound": (cslots, 0.97 * rng.uniform(5e7, 1.25e8, 3)),
+        "v_penalty": (np.append(np.arange(10), new),
+                      np.append(arrays.v_penalty[:10], 1.5e-4)),
+        "e_var": (np.arange(E, E + 2), np.full(2, new)),
+        "e_cnst": (np.arange(E, E + 2), links),
+        "e_w": (np.arange(E, E + 2), np.array([1.0, 0.05])),
+        "remains": ([new], [3e5]),
+        "thresh": ([new], [1e-10]),
+    }
+
+
+def drive_plan(sim, arrays):
+    """The engine-plan sequence: one superstep (or one advance), the
+    rates, a transition batch, a partial advance by half the next dt,
+    the rates again, then the drain to its end."""
+    if sim.superstep_k:
+        sim.superstep_batch()
+    else:
+        sim.advance()
+    rates = np.asarray(sim.solve_rates())
+    n = sim.apply_transitions(transitions(arrays, rates))
+    rates2 = np.asarray(sim.solve_rates())
+    pen, rem = to_np(sim._pen), to_np(sim._rem)
+    flowing = (pen > 0) & (rates2 > 0)
+    dt = np.min(rem[flowing] / rates2[flowing])
+    done, n_live = sim.partial_advance(dt / 2)
+    rates3 = np.asarray(sim.solve_rates())
+    sim.run()
+    return n, rates, rates2, rates3, np.asarray(done), n_live
+
+
+@pytest.mark.parametrize("shape", [dict(superstep=K), dict(fused=True),
+                                   {}], ids=["superstep", "fused",
+                                             "unfused"])
+def test_engine_plan_calls_equal_jax(fat_tree, shape):
+    """apply_transitions (bound, c_bound, wake, appended flow),
+    partial_advance and solve_rates on the same state as JAX: the rates
+    at every step, the partial advance and the whole drain equal."""
+    arrays, sizes = fat_tree
+    j = plan(JaxDrainSim, arrays, sizes, shape)
+    t = plan(DrainSim, arrays, sizes, shape, device="cpu")
+    jr = drive_plan(j, arrays)
+    tr = drive_plan(t, arrays)
+    assert tr[0] == jr[0] == 5 + 1 + 3 + 11 + 6 + 2
+    for a, b in zip(tr[1:4], jr[1:4]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tr[4], jr[4])
+    assert tr[5] == jr[5]
+    assert_same_drain(j, t)
+    # every flow of the fixture and the appended one completed once
+    assert sorted(f for _, f in t.events) == list(range(arrays.n_var + 1))
+
+
+def test_partial_advance_retires_like_jax(fat_tree):
+    """A partial advance by the full next dt retires the flows the
+    next advance would (strict <), on both sides."""
+    arrays, sizes = fat_tree
+    pen, vb = bounds(arrays, "binding")
+    sims = [make(cls, arrays, sizes, np.float64, 1e-9, penalty=pen,
+                 v_bound=vb, done_mode="abs", done_eps=1e-9, **kw)
+            for cls, kw in ((JaxDrainSim, {}), (DrainSim,
+                                                dict(device="cpu")))]
+    outs = []
+    for sim in sims:
+        rates = np.asarray(sim.solve_rates())
+        rem = to_np(sim._rem)
+        flowing = rates > 0
+        dt = np.min(rem[flowing] / rates[flowing])
+        outs.append(sim.partial_advance(dt))
+        outs.append((to_np(sim._pen).copy(), to_np(sim._rem).copy()))
+    assert len(outs[0][0]) > 0
+    np.testing.assert_array_equal(outs[0][0], outs[2][0])
+    assert outs[0][1] == outs[2][1]
+    for a, b in zip(outs[1], outs[3]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_transition_slot_out_of_range_raises():
+    """A slot beyond its target raises before anything is scattered (the
+    JAX program drops such an update; the kernel would write past the
+    array)."""
+    sim = DrainSim(np.zeros(8, np.int32), np.zeros(8, np.int32),
+                   np.ones(8), np.ones(1), np.ones(1), device="cpu")
+    with pytest.raises(ValueError, match="out of range"):
+        sim.apply_transitions({"c_bound": ([1], [2.0])})
+    with pytest.raises(ValueError, match="out of range"):
+        sim.apply_transitions({"v_bound": ([-1], [2.0])})
+    assert sim.apply_transitions({"e_w": ([7], [0.5])}) == 1
+    assert float(sim.sys.e_w[7]) == 0.5
+
+
 def test_handover_mid_drain_equals_jax(fat_tree):
     """Run JAX for 3 supersteps, hand its committed state over through
     convert.py, finish in the port: the tail equals the all-JAX drain."""
@@ -154,5 +328,49 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue B item 8"):
         DrainSim(*args, superstep=K, device="cpu",
                  collective=([0], [np.inf], [], [], [0.0]))
-    with pytest.raises(NotImplementedError, match="queue B item 2"):
-        DrainSim(*args, device="cpu", v_bound=[1.0])
+
+
+def test_handover_bounded_drain_equals_jax(fat_tree):
+    """The same handover with binding bounds: the bound rows and the
+    bound flag cross over through convert.py."""
+    arrays, sizes = fat_tree
+    pen, vb = bounds(arrays, "binding")
+    kw = dict(superstep=K, superstep_rounds=K * 512, penalty=pen,
+              v_bound=vb)
+    ref = make(JaxDrainSim, arrays, sizes, np.float64, 1e-9, **kw)
+    ref.run()
+    j = make(JaxDrainSim, arrays, sizes, np.float64, 1e-9, **kw)
+    for _ in range(3):
+        j.superstep_batch(k=K)
+    assert 0 < len(j.events) < len(sizes)
+    state = convert.drain_state(j)
+    assert state.has_bounds
+    t = convert.resume_drain(state, eps=1e-9, dtype=np.float64,
+                             repack_min=64, device="cpu",
+                             superstep=K, superstep_rounds=K * 512)
+    t.run()
+    assert_same_drain(ref, t)
+
+
+def test_port_handover_after_repack_equals_jax(fat_tree):
+    """A port drain with binding bounds handed over to a fresh port
+    drain (``convert.port_drain_state``, as the card hands over to the
+    CPU) after its first device repack: the tail equals the all-JAX
+    drain."""
+    arrays, sizes = fat_tree
+    pen, vb = bounds(arrays, "binding")
+    kw = dict(superstep=K, superstep_rounds=K * 512, penalty=pen,
+              v_bound=vb)
+    ref = make(JaxDrainSim, arrays, sizes, np.float64, 1e-9, **kw)
+    ref.run()
+    t = make(DrainSim, arrays, sizes, np.float64, 1e-9, device="cpu", **kw)
+    while t.repacks == 0:
+        t.superstep_step()
+    state = convert.port_drain_state(t)
+    assert state.has_bounds and state.host is None
+    assert len(state.pen) == t.n_v < len(sizes)
+    u = convert.resume_drain(state, eps=1e-9, dtype=np.float64,
+                             repack_min=64, device="cpu", superstep=K,
+                             superstep_rounds=K * 512)
+    u.run()
+    assert_same_drain(ref, u)

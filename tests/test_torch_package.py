@@ -17,6 +17,7 @@ from simgrid_tpu_torch.kernels import drain_advance as k2
 from simgrid_tpu_torch.kernels import livefirst_repack as k4
 from simgrid_tpu_torch.kernels import lmm_round as k1
 from simgrid_tpu_torch.kernels import superstep_commit as k3
+from simgrid_tpu_torch.kernels import transition_scatter as k5
 from simgrid_tpu_torch.ops import lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays
 
@@ -159,3 +160,45 @@ def test_superstep_commit_plain_ring_order():
     assert packed[o + 8 + 2:o + 8 + 5].tolist() == [7.0, 5.0, 1.0]
     assert int(w.ctrl[common.SS_NEV]) == 5
     assert int(w.ctrl[common.SS_ADV]) == 1
+
+
+def test_new_wrappers_run_plain_version_on_cpu():
+    """K2's forced mode, K5, K1's bound/FATPIPE/global arms and K4 with
+    bound rows take their plain versions on CPU tensors and count no
+    launch."""
+    before = launch_counts()
+    sys_, w = small_state()
+    pen = torch.ones(2, dtype=torch.float64)
+    rem = torch.tensor([1.0, 3.0], dtype=torch.float64)
+    thresh = torch.full((2,), 0.5, dtype=torch.float64)
+    w.v_value.copy_(torch.tensor([1.0, 1.0], dtype=torch.float64))
+    assert k2.drain_forced_advance(pen, rem, thresh, w, 0.75) is True
+    assert w.done.tolist() == [True, False]
+    assert rem.tolist() == [0.0, 2.25] and int(w.ctrl[common.LIVE_ACC]) == 1
+
+    targets = [sys_.e_var.clone(), sys_.e_cnst.clone(), sys_.e_w.clone(),
+               sys_.c_bound.clone(), pen.clone(), rem.clone(),
+               thresh.clone(), torch.full((2,), -1.0, dtype=torch.float64)]
+    payload = torch.tensor([1.0, 4.0, 0.0, 1.0, 7.5, 2.5],
+                           dtype=torch.float64)
+    assert k5.transition_scatter(payload, [(3, 0, 1), (7, 2, 2)],
+                                 targets) is True
+    assert targets[3].tolist() == [1.0, 4.0]
+    assert targets[7].tolist() == [7.5, 2.5]
+
+    fat = sys_._replace(c_fatpipe=torch.tensor([True, False]))
+    vb = torch.tensor([0.25, -1.0], dtype=torch.float64)
+    pen = torch.ones(2, dtype=torch.float64)
+    for arms in (dict(has_bounds=True, has_fatpipe=True),
+                 dict(has_bounds=True, global_rounds=True)):
+        k1.lmm_init(fat, w, pen, 1e-9, has_fatpipe=True)
+        while k1.lmm_round(fat, w, pen, 1e-9, vb, **arms):
+            pass
+        assert w.v_value.tolist()[0] == 0.25      # the bound binds
+
+    rp = k4.livefirst_repack(sys_, torch.tensor([0.0, 1.0],
+                                                dtype=torch.float64),
+                             rem, thresh, torch.arange(2, dtype=torch.int32),
+                             1, 8, 2, vb)
+    assert rp.vb.tolist() == [-1.0]
+    assert launch_counts() == before
