@@ -30,15 +30,17 @@ TCP-gamma rate bound the engine gives it, float64, tolerance 0:
    as (a)'s rates times U(0.5, 1.5) (``default_rng(11)``; about half
    bind), (c) (a) with a seeded 10% of its links FATPIPE; ms per round
    (CUDA events), the plain version's ms per round on the card, and
-   the bytes bound.  (b) takes tens of thousands of rounds (the rule
-   fixes about one bound per constraint a round), beyond the CPU's
-   reach at this size: the plain version runs windows of ``B_WINDOW``
-   rounds, from init, then every ``B_EVERY`` rounds and at the end from
-   the card's state;
+   the bytes bound.  (a) and (c) take some 300 rounds, and the plain
+   version runs each whole solve beside the card.  (b) takes tens of
+   thousands of rounds (the rule fixes about one bound per constraint a
+   round), beyond the CPU's reach at this size: the plain version runs
+   windows of ``B_WINDOW`` rounds, from init, then every ``B_EVERY``
+   rounds and at the end from the card's state (its whole solve is held
+   at 48 ranks in phase 6);
 6. the global arm (one level per round) at 48 ranks with bounds binding
    as in 5(b): ``solve_arrays(parallel_rounds=False)`` on the card
-   against the plain path on the CPU, and 5(b)'s local arm at that size
-   through the whole solve;
+   against the plain path on the CPU, and 5(b)'s local arm and 5(c)'s
+   FATPIPE arm at that size through the whole solve;
 7. main path 2, the solve: ``drain_run.run_solve`` of the alltoall
    (local rounds, eps 1e-5), its time, rounds and launch counts;
 8. main path 3, the engine-plan drain: ``drain_run.run_engine_plan`` of
@@ -50,11 +52,33 @@ TCP-gamma rate bound the engine gives it, float64, tolerance 0:
    flows with their LV08 values (its live set halves, so the drain
    repacks with the bound rows), timed, then again with windows held
    against the CPU (``run_engine_plan_held``: after the partial advance
-   and after each repack); then the alltoall plan at 48 ranks, run to
-   its end with ``repack_min=64``, on the card and on the CPU (events,
+   and after each repack); then the alltoall plan at ``PLAN_RANKS``
+   ranks, run to its end with ``repack_min=64`` (it repacks twice), on
+   the card and on the CPU (events,
    clock, penalties and remains equal); then K2's forced mode, K5 and
    K4 with the bound rows against their plain versions at the
    alltoall's shapes.
+
+Then the System API, float64, ``strict=True`` (a failed device solve
+raises; no solve may fall back to the host):
+
+9. main path 4, the 100,000-variable churn of ``bench.py``'s churn
+   stage (``workloads/churn.py``, seed 42) in all four modes on the
+   card, with the fields ``bench.py`` reports; every step of
+   ``warm-selective`` is held against the plain path on the CPU, and
+   every step of ``cold-full`` and ``cold-delta`` against
+   ``warm-selective`` on the card (warm equals cold), bit for bit; the
+   counts must be the recorded ones (``bench_results/lmm_churn.jsonl``);
+   then K5's delta use (seven masters, a bool target among them) and
+   K6 against their plain versions at this path's shapes;
+10. main path 5, the Lazy-mode 320-rank alltoall
+   (``workloads/lazy_alltoall.py``): the System built through
+   ``communicate``'s calls (its wall time apart), the first solve, one
+   solve per latency-end date, a 1% retirement and a 1% bandwidth
+   change; after the last latency-end solve the host state must equal a
+   cold ``solve_arrays`` of the same arrays on the card, bit for bit;
+   then the whole sequence at 48 ranks on the card and on the CPU,
+   equal.
 
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
@@ -79,20 +103,49 @@ REDUCED_FLOWS = 10_000
 K = 16
 RANKS = 320
 REDUCED_RANKS = 48
+#: ranks of the alltoall engine plan run to its end on card and CPU
+PLAN_RANKS = 32
 #: the recorded local-rounds count of the 320-rank alltoall solve
 #: (bench_results/e2e_probe.jsonl row 1)
 RECORDED_ROUNDS = 283
 #: rounds of each window of 5(b) held against the plain CPU version, and
 #: the rounds between the windows' starts (the last window ends the solve)
 B_WINDOW = 32
-B_EVERY = 16384
+B_EVERY = 4096
 #: advances of the full-size engine-plan drain past its partial advance
 #: (a cut of depth: the whole drain is some 50,000 advances, and its
 #: first ones take hundreds of rounds each)
-PLAN_ADVANCES = 256
+PLAN_ADVANCES = 128
+#: bench.py's churn stage as recorded (bench.py:1503-1527)
+CHURN = dict(n_v=100_000, seed=42, clusters=960, chain=96, churn=0.01,
+             steps=6)
+#: its counts in bench_results/lmm_churn.jsonl (platform-independent):
+#: those of every mode, then each mode's own
+CHURN_COMMON = dict(flows=99_905, rounds_first=94,
+                    bytes_full_first=4_212_736)
+CHURN_RECORDED = {
+    "legacy-subset": dict(rounds_med=1, dirty_slots_med=-1,
+                          bytes_full_med=2_106_368, bytes_delta_med=0,
+                          warm_solves=0),
+    "cold-full": dict(rounds_med=94, dirty_slots_med=5_994,
+                      bytes_full_med=4_194_304, bytes_delta_med=0,
+                      warm_solves=0),
+    "cold-delta": dict(rounds_med=94, dirty_slots_med=5_994,
+                       bytes_full_med=0, bytes_delta_med=98_304,
+                       warm_solves=0),
+    "warm-selective": dict(rounds_med=1, dirty_slots_med=5_994,
+                           bytes_full_med=0, bytes_delta_med=102_400,
+                           warm_solves=6)}
+
+
+T0 = time.perf_counter()
 
 
 def log(rec: dict) -> None:
+    """One JSON line; a phase record also says when it was written
+    (seconds since the script started)."""
+    if "phase" in rec:
+        rec = {**rec, "at_s": time.perf_counter() - T0}
     print(json.dumps(rec), flush=True)
 
 
@@ -125,10 +178,13 @@ def main() -> int:
         packed_size, superstep_begin, superstep_commit,
         superstep_commit_plain, superstep_finish, superstep_reset)
     from simgrid_tpu_torch.kernels.transition_scatter import (
-        transition_scatter, transition_scatter_plain)
-    from simgrid_tpu_torch.ops.lmm_arrays import to2d
+        delta_scatter, transition_scatter, transition_scatter_plain)
+    from simgrid_tpu_torch.kernels.warm_init import (warm_init,
+                                                     warm_init_plain)
+    from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket, to2d
+    from simgrid_tpu_torch.ops.lmm_host import LmmFlags
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
-    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads import churn, dragonfly, lazy_alltoall
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -591,9 +647,20 @@ def main() -> int:
     if err_l != 0.0 or l48[3] != lc48[3]:
         raise AssertionError(f"local bound arm at {REDUCED_RANKS} ranks "
                              f"differs from its plain version: {err_l}")
+    # 5(c)'s FATPIPE arm at 48 ranks, the whole solve on both sides
+    fat48 = arr48._replace(c_fatpipe=np.random.default_rng(12).random(
+        len(arr48.c_bound)) < 0.10)
+    f48 = solve_arrays(fat48, EPS, device=cuda)
+    fc48 = solve_arrays(fat48, EPS, device="cpu")
+    err_f = max(diff(torch.from_numpy(x), torch.from_numpy(y))
+                for x, y in zip(f48[:3], fc48[:3]))
+    if err_f != 0.0 or f48[3] != fc48[3]:
+        raise AssertionError(f"FATPIPE arm at {REDUCED_RANKS} ranks "
+                             f"differs from its plain version: {err_f}")
     rec = {"phase": "global_arm", "ranks": REDUCED_RANKS,
            "flows": arr48.n_var, "rounds": g48[3], "timed_rounds": r_t,
            "local_bounds_rounds": l48[3], "local_bounds_err": err_l,
+           "fatpipe_rounds": f48[3], "fatpipe_err": err_f,
            "max_abs_err": err_g,
            "ms": glob_ms, "plain_ms": glob_plain,
            "bound_ms": bound_ms(k1_bytes(sg48, wg48, True, False)),
@@ -666,9 +733,10 @@ def main() -> int:
     del sim, held_sim
     torch.cuda.empty_cache()
 
-    # repack_min 64 (the CPU tests' value): the 48-rank drain then
+    # repack_min 64 (the CPU tests' value): the reduced drain then
     # repacks, and K4 carries the bound rows on this path
-    red = {name: run_engine_plan(r48, device=dev, repack_min=64)
+    rplan = dragonfly.build_alltoall(PLAN_RANKS)
+    red = {name: run_engine_plan(rplan, device=dev, repack_min=64)
            for name, dev in (("cuda", cuda), ("cpu", cpu))}
     (gs, grow, gev), (cs, crow, cev) = red["cuda"], red["cpu"]
     equal = (gev == cev and gs.t == cs.t
@@ -677,9 +745,9 @@ def main() -> int:
     rcounts = grow["launches"]
     if rcounts.get("livefirst_repack_vbound", 0) <= 0:
         raise AssertionError("livefirst_repack_vbound never launched on "
-                             "the 48-rank engine-plan path")
-    rec = {"phase": "reduced_engine_plan", "ranks": REDUCED_RANKS,
-           "flows": len(r48.sizes), "advances": gs.advances,
+                             "the reduced engine-plan path")
+    rec = {"phase": "reduced_engine_plan", "ranks": PLAN_RANKS,
+           "flows": len(rplan.sizes), "advances": gs.advances,
            "rounds": gs.rounds, "supersteps": gs.supersteps,
            "repacks": gs.repacks, "t_engine": grow["t_engine"],
            "equal": equal, "cuda_wall_s": grow["wall_s"],
@@ -818,7 +886,7 @@ def main() -> int:
             "main path 3 at full width to its end (100,000 random flows, "
             "LV08 values); it does not run on the 320-rank alltoall within "
             f"its {PLAN_ADVANCES}-advance cut (no repack there); "
-            f"{rcounts['livefirst_repack_vbound']} on the 48-rank "
+            f"{rcounts['livefirst_repack_vbound']} on the {PLAN_RANKS}-rank "
             "alltoall plan")))
     log({"phase": "kernel", **kernels[-1]})
     del sgr, scr, rg4, rc4
@@ -856,6 +924,231 @@ def main() -> int:
     for k in kernels[-3:]:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched")
+
+    def same_bits(a, b) -> bool:
+        a, b = np.asarray(a), np.asarray(b)
+        if a.dtype == np.float64:
+            a, b = a.view(np.int64), b.view(np.int64)
+        return a.shape == b.shape and bool(np.array_equal(a, b))
+
+    def same_states(xs, ys) -> bool:
+        return len(xs) == len(ys) and all(
+            same_bits(a, c) and same_bits(b, d)
+            for (a, b), (c, d) in zip(xs, ys))
+
+    # ---- 9. main path 4: the 100k-variable churn through the System ----
+    churn_rows, churn_states = {}, {}
+    for mode in churn.MODES:
+        sys9, row = churn.run_churn(mode, device=cuda, states=True,
+                                    strict=True, **CHURN)
+        churn_states[mode] = row.pop("states")
+        churn_rows[mode] = row
+        log({"phase": "churn", **row})
+        if mode == "warm-selective":
+            warm9 = sys9
+        del sys9
+    t0 = time.perf_counter()
+    _, cpu9 = churn.run_churn("warm-selective", device=cpu, states=True,
+                              strict=True, **CHURN)
+    cpu9_s = time.perf_counter() - t0
+    held = {"warm-selective vs plain CPU": same_states(
+        churn_states["warm-selective"], cpu9["states"])}
+    for mode in ("cold-full", "cold-delta"):
+        held[f"{mode} vs warm-selective"] = same_states(
+            churn_states[mode], churn_states["warm-selective"])
+    counts_ok = {mode: all(churn_rows[mode][k] == v
+                           for k, v in {**CHURN_COMMON, **want}.items())
+                 for mode, want in CHURN_RECORDED.items()}
+    wl = churn_rows["warm-selective"]["launches"]
+    rec = {"phase": "main_path_churn", "held": held, "counts": counts_ok,
+           "cpu_wall_s": cpu9_s,
+           "rounds_warm_over_cold": (
+               sum(churn_rows["warm-selective"]["rounds"])
+               / sum(churn_rows["cold-delta"]["rounds"]))}
+    log(rec)
+    report["main_path_churn"] = {**rec, "rows": churn_rows}
+    if not all(held.values()):
+        raise AssertionError(f"churn: states differ: {held}")
+    if not all(counts_ok.values()):
+        raise AssertionError(f"churn: counts differ from the recorded "
+                             f"ones: {counts_ok}")
+    if any(r["solver_fallbacks"] for r in churn_rows.values()):
+        raise AssertionError("churn: a solve fell back to the host")
+    for name in ("lmm_round", "delta_scatter", "warm_init"):
+        if wl.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the churn")
+    del churn_states, cpu9
+
+    # K5's delta use and K6 at the churn's shapes, from the resident state
+    # the warm-selective run left on the card
+    st9 = warm9.warm_solver._states[np.dtype(np.float64)]
+    masters_g = st9.masters
+    E9, C9, V9 = st9.shapes
+    rng9 = np.random.default_rng(9)
+    runs9 = [(0, E9, 3000), (1, E9, 3000), (2, E9, 3000), (4, C9, 600),
+             (5, V9, 2000), (6, V9, 1000)]
+    layout9, chunks9, off9 = [], [], 0
+    host_m = [m.cpu().numpy() for m in masters_g]
+    for ti, hi, n in runs9:
+        n = min(n, hi // 2)
+        ix = np.sort(rng9.choice(hi, n, replace=False))
+        vals = host_m[ti][ix].astype(np.float64)
+        if ti == 4:                       # the bool target: flip some
+            vals = np.where(rng9.random(n) < 0.5, 1.0 - vals, vals)
+        nb = bucket(n, floor=8)
+        pi = np.full(nb, float(ix[0]))
+        pv = np.full(nb, vals[0])
+        pi[:n], pv[:n] = ix, vals
+        layout9.append((ti, off9, nb))
+        chunks9 += [pi, pv]
+        off9 += 2 * nb
+    pay_c = torch.from_numpy(np.concatenate(chunks9))
+    pay_g = pay_c.to(cuda)
+    tg9 = [m.clone() for m in masters_g]
+    tc9 = [m.cpu() for m in masters_g]
+    delta_scatter(pay_g, layout9, tg9)
+    transition_scatter_plain(pay_c, layout9, tc9)
+    err = 0.0 if all(same_bits(a.cpu().numpy(), b.numpy())
+                     for a, b in zip(tg9, tc9)) else float("inf")
+    if err != 0.0:
+        raise AssertionError("K5 (delta) differs from its plain version")
+    kd_ms = events_ms(lambda: delta_scatter(pay_g, layout9, tg9), 20)
+    kd_plain = events_ms(lambda: transition_scatter_plain(pay_g, layout9,
+                                                          tg9), 5)
+
+    def library_kd():
+        for ti, o, n in layout9:
+            tg9[ti].index_put_((pay_g[o:o + n].long(),),
+                               pay_g[o + n:o + 2 * n].to(tg9[ti].dtype))
+    kd_lib = events_ms(library_kd, 20)
+    slots9 = sum(n for _, _, n in layout9)
+    kd_bytes = 16 * slots9 + sum(n * tg9[ti].element_size()
+                                 for ti, _, n in layout9)
+    kernels.append(dict(
+        name="delta_scatter", route="cuda",
+        source="simgrid_tpu_torch/csrc/transition_scatter.cu",
+        replaces="simgrid_tpu/ops/lmm_warm.py:119",
+        launches=wl["delta_scatter"], max_abs_err=err, ms=kd_ms,
+        plain_ms=kd_plain, bound_ms=bound_ms(kd_bytes), bound_by="bytes",
+        library_ms=kd_lib, library="index_put_, one call per run",
+        slots=slots9,
+        launches_from="main path 4 (the 100k churn, warm-selective)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del tg9, tc9
+
+    # K6: the restart state of a churn step's modified clusters
+    clusters9 = rng9.integers(0, CHURN["clusters"], 999)
+    mc9 = np.unique(CHURN["chain"] + clusters9).astype(np.int32)
+    mc_pad = np.full(bucket(len(mc9), floor=8), mc9[0], np.int32)
+    mc_pad[:len(mc9)] = mc9
+    mc_g = torch.from_numpy(mc_pad).to(cuda)
+    carry = {n: getattr(st9.work, n).clone()
+             for n in ("v_value", "remaining", "usage")}
+    w6g = Work(V9, C9, f64, cuda)
+    w6c = Work(V9, C9, f64, cpu)
+    sys6c = to_cpu_sys(st9.sys)
+    pen9 = masters_g[5]
+
+    def k6_setup():
+        for n, t in carry.items():
+            getattr(w6g, n).copy_(t)
+    k6_setup()
+    warm_init(st9.sys, w6g, pen9, mc_g, EPS)
+    for n, t in carry.items():
+        getattr(w6c, n).copy_(t.cpu())
+    warm_init_plain(sys6c, w6c, pen9.cpu(), mc_g.cpu(), EPS)
+    k6_names = ("v_value", "v_fixed", "remaining", "usage", "light")
+    err = 0.0 if all(same_bits(getattr(w6g, n).cpu().numpy(),
+                               getattr(w6c, n).numpy())
+                     for n in k6_names) and same_bits(
+        w6g.ctrl.cpu().numpy()[:5], w6c.ctrl.numpy()[:5]) \
+        else float("inf")
+    if err != 0.0:
+        raise AssertionError("K6 differs from its plain version")
+    k6_ms = events_ms(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS), 20,
+                      k6_setup)
+    k6_plain = events_ms(lambda: warm_init_plain(st9.sys, w6g, pen9, mc_g,
+                                                 EPS), 5, k6_setup)
+    # each input read once (elements, bounds, FATPIPE flags, penalties,
+    # the carried value/remaining/usage, mc_idx), each output written
+    # once (value, fixed, remaining, usage, light); row indexes left out
+    k6_bytes = (nbytes(st9.sys.e_var, st9.sys.e_cnst, st9.sys.e_w,
+                       st9.sys.c_bound, st9.sys.c_fatpipe, pen9, mc_g)
+                + 2 * nbytes(*carry.values())
+                + nbytes(w6g.v_fixed, w6g.light))
+    kernels.append(dict(
+        name="warm_init", route="cuda",
+        source="simgrid_tpu_torch/csrc/warm_init.cu",
+        replaces="simgrid_tpu/ops/lmm_warm.py:201",
+        launches=wl["warm_init"], max_abs_err=err, ms=k6_ms,
+        plain_ms=k6_plain, bound_ms=bound_ms(k6_bytes), bound_by="bytes",
+        library_ms=None, modified_constraints=len(mc9),
+        launches_from="main path 4 (the 100k churn, warm-selective)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del warm9, st9, w6g, w6c, sys6c, masters_g
+    torch.cuda.empty_cache()
+
+    # ---- 10. main path 5: the Lazy-mode 320-rank alltoall ---------------
+    strict = LmmFlags(backend="torch", strict=True)
+    last_latency = {}
+
+    def keep_latency_state(label, s):
+        """After each latency-end solve: the view's arrays and the warm
+        solver's result over every slot (its converged fixpoint state;
+        the last one is held below)."""
+        if not label.startswith("latency"):
+            return
+        v = s.array_view
+        w = s.warm_solver._states[np.dtype(np.float64)].work
+        last_latency.update(
+            label=label,
+            arrays=LmmArrays(v.e_var.copy(), v.e_cnst.copy(),
+                             v.e_w.copy(), v.c_bound.copy(),
+                             v.c_fatpipe.copy(), v.v_penalty.copy(),
+                             v.v_bound.copy(), v.n_elem,
+                             len(v.slot_cnst), len(v.slot_var)),
+            result=[t.cpu().numpy().copy()
+                    for t in (w.v_value, w.remaining, w.usage)])
+    sys10, row10 = lazy_alltoall.run_lazy(RANKS, device=cuda, flags=strict,
+                                          on_solve=keep_latency_state)
+    del sys10
+    torch.cuda.empty_cache()
+    l10 = row10["launches"]
+    for name in ("lmm_round_bounds", "delta_scatter", "warm_init"):
+        if l10.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the Lazy "
+                                 f"alltoall")
+    if row10["solver_fallbacks"]:
+        raise AssertionError("Lazy alltoall: a solve fell back")
+    lv = last_latency
+    cold = solve_arrays(lv["arrays"], EPS, device=cuda)
+    warm_eq_cold = all(same_bits(a, b)
+                       for a, b in zip(lv["result"], cold[:3]))
+    _, g48 = lazy_alltoall.run_lazy(REDUCED_RANKS, device=cuda,
+                                    flags=strict, states=True)
+    _, c48 = lazy_alltoall.run_lazy(REDUCED_RANKS, device=cpu,
+                                    flags=strict, states=True)
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "ms"}
+                          for r in rows]
+    eq48 = (same_states(g48["states"], c48["states"])
+            and strip(g48["solves"]) == strip(c48["solves"]))
+    rec = {"phase": "main_path_lazy_alltoall", **row10,
+           "warm_equals_cold": warm_eq_cold,
+           "cold_checked_after": lv["label"], "cold_rounds": cold[3],
+           "reduced_ranks": REDUCED_RANKS, "reduced_card_equals_cpu": eq48,
+           "reduced_solves": g48["solves"]}
+    log(rec)
+    report["main_path_lazy_alltoall"] = rec
+    if not warm_eq_cold:
+        raise AssertionError("Lazy alltoall: the warm result differs from "
+                             "a cold solve of the same arrays")
+    if not eq48:
+        raise AssertionError("Lazy alltoall at 48 ranks: card and plain "
+                             "CPU differ")
+    for kr, name in ((kernels[-2], "delta_scatter"),
+                     (kernels[-1], "warm_init")):
+        kr["launches_from"] += (f"; {l10[name]} on main path 5 (the "
+                                f"Lazy {RANKS}-rank alltoall)")
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

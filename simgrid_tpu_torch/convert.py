@@ -12,18 +12,25 @@
   that state, so a drain can run N supersteps in JAX and finish here.
   :func:`port_drain_state` reads the same state from a port drain, so
   a drain on the card can hand over to the plain path on the CPU.
+* :func:`port_warm_state` turns the JAX warm solver's resident masters
+  and carried fixpoint state (numpy) into the port's, so that K6 and a
+  warm solve can start from the state a JAX solve left.
 
 Nothing here imports ``simgrid_tpu`` or ``jax``.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from .device import DeviceLike, resolve_device
+from .kernels.common import IT, LIGHT
 from .ops.lmm_arrays import LmmArrays
 from .ops.lmm_drain import DrainSim
+from .ops.lmm_warm import DtypeState, resident_state
 
 _LMM_FIELDS = LmmArrays._fields
 
@@ -143,3 +150,30 @@ def resume_drain(state: DrainState, **kw) -> DrainSim:
     sim.supersteps = int(state.supersteps)
     sim.repacks = int(state.repacks)
     return sim
+
+
+def port_warm_state(masters: Sequence, carry: Sequence, dtype,
+                    device: DeviceLike = None) -> DtypeState:
+    """The port's resident state of one solve dtype from the JAX warm
+    solver's: ``masters`` are its seven master arrays (``e_var``,
+    ``e_cnst``, ``e_w``, ``c_bound``, ``c_fatpipe``, ``v_penalty``,
+    ``v_bound``) and ``carry`` its converged fixpoint state
+    (``v_value``, ``v_fixed``, ``remaining``, ``usage``, ``light``,
+    ``it``), anything ``np.asarray`` reads.  The returned state holds the
+    masters on ``device``, their row indexes, and a Work holding the
+    carry (``carry_valid`` set)."""
+    key = np.dtype(dtype)
+    arrays = [np.asarray(m) for m in masters]
+    for i in (2, 3, 5, 6):
+        arrays[i] = arrays[i].astype(key)
+    st = resident_state(arrays, resolve_device(device))
+    w = st.work
+    for name, src in zip(("v_value", "v_fixed", "remaining", "usage",
+                          "light"), carry[:5]):
+        t = getattr(w, name)
+        t.copy_(torch.from_numpy(np.asarray(src).astype(
+            np.bool_ if t.dtype == torch.bool else key)))
+    w.ctrl[IT] = int(np.asarray(carry[5]))
+    w.ctrl[LIGHT] = int(np.count_nonzero(np.asarray(carry[4])))
+    w.carry_valid = True
+    return st

@@ -172,6 +172,50 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
   return ex;
 }
 
+// The fixpoint's initial usage of constraint row c (lmm_jax.py:439-444,
+// lmm_warm.py:224-229): over the row's elements (the row index lists
+// the elements of positive weight in element order), w / penalty of
+// those whose variable is enabled (penalty > 0), summed as a left fold
+// from 0.0 in element order (SHARED) or their max (FATPIPE, `fat`).
+// Called by all 32 lanes of one warp for one row (`fat` is the same in
+// every lane); every lane returns the same value.  The warp loads 32
+// entries at once and then adds them one by one in lane order, skipping
+// lanes that contribute exactly 0.0 (an exact no-op on a non-negative
+// partial sum), so the rounding is the scatter-add's in element order.
+template <typename T>
+__device__ __forceinline__ T row_usage0(const int* c_ptr, const int* c_idx,
+                                        const int* e_var, const T* e_w,
+                                        const T* pen, int c, int lane,
+                                        bool fat) {
+  int beg = c_ptr[c], end = c_ptr[c + 1];
+  T use = T(0);
+  for (int base = beg; base < end; base += 32) {
+    int j = base + lane;
+    T x = T(0);
+    bool on = false;
+    if (j < end) {
+      int e = c_idx[j];
+      T w = e_w[e];
+      T p = pen[e_var[e]];
+      if (w > T(0) && p > T(0)) {
+        x = div_rn(w, p);
+        on = true;
+      }
+    }
+    if (fat) {
+      use = max_v(use, warp_max(x));
+      continue;
+    }
+    unsigned m = __ballot_sync(FULL_MASK, on);
+    while (m) {
+      int l = __ffs(m) - 1;
+      m &= m - 1;
+      use = add_rn(use, __shfl_sync(FULL_MASK, x, l));
+    }
+  }
+  return use;
+}
+
 static inline int sm_count() {
   static int n = 0;
   if (n == 0) {

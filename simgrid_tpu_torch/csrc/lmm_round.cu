@@ -188,33 +188,9 @@ __global__ void init_cnst(Sys<T> s) {
   if (!s.ctrl[C_ARMED]) return;
   int cnt = 0;
   FOR_CNST_WARPS(c) {
-    int beg = s.c_ptr[c], end = s.c_ptr[c + 1];
     bool fat = (s.flags & ARM_FATPIPE) && s.c_fat[c];
-    T use = T(0);
-    for (int base = beg; base < end; base += 32) {
-      int j = base + lane;
-      T x = T(0);
-      bool on = false;
-      if (j < end) {
-        int e = s.c_idx[j];
-        T w = s.e_w[e];
-        T p = s.pen[s.e_var[e]];
-        if (w > T(0) && p > T(0)) {
-          x = div_rn(w, p);
-          on = true;
-        }
-      }
-      if (fat) {
-        use = max_v(use, warp_max(x));
-        continue;
-      }
-      unsigned m = __ballot_sync(FULL_MASK, on);
-      while (m) {
-        int l = __ffs(m) - 1;
-        m &= m - 1;
-        use = add_rn(use, __shfl_sync(FULL_MASK, x, l));
-      }
-    }
+    T use = row_usage0(s.c_ptr, s.c_idx, s.e_var, s.e_w, s.pen, c, lane,
+                       fat);
     if (lane == 0) {
       T cb = s.c_bound[c];
       s.remaining[c] = cb;

@@ -1,18 +1,21 @@
-// K5 transition_scatter: one transition payload into the drain's arrays.
+// K5 transition_scatter: one payload of indexed runs into device arrays.
 //
 // Replaces: simgrid_tpu/ops/lmm_drain.py `_apply_transition_payload`
 // (:552-581), the device half of `DrainSim.apply_transitions`
-// (:1122-1166): the payload is one float64 vector of per-field runs
-// [indices..., values...]; each run is an indexed set into one target
-// (the flat element arrays e_var/e_cnst/e_w, c_bound, or the flow
-// arrays pen/rem/thresh/v_bound).  Indices are exact in float64 below
-// 2^32 and convert by truncation; values convert to the target's type
-// (truncation to int32, round to nearest to float32), as XLA's convert
-// does.  Runs are exact (no padding), and a run never repeats an index,
-// so the order in which the threads write does not matter.
+// (:1122-1166), and simgrid_tpu/ops/lmm_warm.py `_apply_deltas`
+// (:119-137), the warm solver's delta upload: the payload is one
+// float64 vector of per-field runs [indices..., values...]; each run is
+// an indexed set into one target (the drain's element, bound and flow
+// arrays, or the warm solver's seven masters).  Indices are exact in
+// float64 below 2^32 and convert by truncation; values convert to the
+// target's type (truncation to int32, round to nearest to float32,
+// nonzero to bool), as XLA's convert does.  The drain's runs never
+// repeat an index; the warm solver's runs are padded by repeating their
+// first (index, value) pair, so every duplicate write carries the same
+// value and the order in which the threads write does not matter.
 //
 // What bounds it on this card: latency.  A batch is a few thousand
-// slots (16 B of payload and one 4-8 B store each, tens of KB in all),
+// slots (16 B of payload and one 1-8 B store each, tens of KB in all),
 // far below a microsecond of bandwidth; the launches are the cost.
 //
 // What the design does about it: one launch per run, one thread per
@@ -21,10 +24,10 @@
 
 #include "common.cuh"
 
-#define N_TARGETS 8
 #define KIND_I32 0
 #define KIND_F32 1
 #define KIND_F64 2
+#define KIND_BOOL 3
 
 namespace {
 
@@ -36,18 +39,27 @@ __global__ void scatter_run(int n, const double* __restrict__ idx,
     out[(long long)idx[i]] = (T)vals[i];
 }
 
+__global__ void scatter_run_bool(int n, const double* __restrict__ idx,
+                                 const double* __restrict__ vals,
+                                 bool* out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    out[(long long)idx[i]] = vals[i] != 0.0;
+}
+
 }  // namespace
 
 // runs: n_runs triples (target, offset, length) on the host; kinds: the
-// element type of each of the N_TARGETS targets (KIND_*).
+// element type of each of the n_targets targets (KIND_*).
 extern "C" int transition_scatter(int n_runs, const int* runs,
                                   const double* payload, void** targets,
-                                  const int* kinds, void* stream) {
+                                  const int* kinds, int n_targets,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int TB = 256;
   for (int r = 0; r < n_runs; ++r) {
     int ti = runs[3 * r], off = runs[3 * r + 1], n = runs[3 * r + 2];
-    if (ti < 0 || ti >= N_TARGETS || n <= 0)
+    if (ti < 0 || ti >= n_targets || n <= 0)
       return (int)cudaErrorInvalidValue;
     const double* idx = payload + off;
     const double* vals = payload + off + n;
@@ -63,6 +75,10 @@ extern "C" int transition_scatter(int n_runs, const int* runs,
       case KIND_F64:
         scatter_run<double><<<g, TB, 0, s>>>(n, idx, vals,
                                              (double*)targets[ti]);
+        break;
+      case KIND_BOOL:
+        scatter_run_bool<<<g, TB, 0, s>>>(n, idx, vals,
+                                          (bool*)targets[ti]);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -7,7 +7,9 @@ their plain PyTorch versions.
   forced mode: retirement at a given delta
 * K3 :mod:`.superstep_commit` — superstep control, Kahan clock, ring
 * K4 :mod:`.livefirst_repack` — stable live-first repack, row indexes
-* K5 :mod:`.transition_scatter` — transition payload into the drain
+* K5 :mod:`.transition_scatter` — an indexed-run payload into device
+  arrays (the drain's transitions, the warm solver's deltas)
+* K6 :mod:`.warm_init`        — the restart state of a warm solve
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each wrapper counts its launches.
@@ -21,7 +23,7 @@ from .common import COUNTERS
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
     from . import (drain_advance, livefirst_repack, lmm_round,  # noqa: F401
-                   superstep_commit, transition_scatter)
+                   superstep_commit, transition_scatter, warm_init)
     return {name: c.n for name, c in COUNTERS.items()}
 
 

@@ -29,7 +29,7 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "simgrid_tpu_torch")
 SOURCES = ("lmm_round", "drain_advance", "superstep_commit",
-           "livefirst_repack", "transition_scatter")
+           "livefirst_repack", "transition_scatter", "warm_init")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-shared", "-Xcompiler",
          "-fPIC"]

@@ -86,7 +86,11 @@ class Work:
     variable, ``mb_c``, ``blocked_c`` per constraint) and the global
     arm's ``rou`` and its two grid-wide minima (``min_usage``,
     ``min_bound``: the bits of a non-negative float, as ``dtbits``) are
-    written by the rounds that use them and read by nothing else."""
+    written by the rounds that use them and read by nothing else.
+    ``c_mod`` is K6's scratch (the modified-constraint mask), and
+    ``carry_valid`` says whether the state holds a converged solve that
+    a warm restart may start from (the JAX warm solver's ``carry`` is
+    not None)."""
 
     def __init__(self, n_v: int, n_c: int, dtype: torch.dtype,
                  device: torch.device):
@@ -112,6 +116,8 @@ class Work:
         self.ctrl = vec(N_CTRL, torch.int32)
         self.fctrl = vec(N_FCTRL, dtype)
         self.dtbits = vec(1, torch.int64)
+        self.c_mod = vec(n_c, torch.bool)
+        self.carry_valid = False
         #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)
         self.ptr_cache: dict = {}
 

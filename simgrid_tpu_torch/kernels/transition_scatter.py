@@ -1,19 +1,27 @@
-"""K5: scatter one transition payload into the drain's device arrays.
+"""K5: scatter one payload of indexed runs into a list of device arrays.
 
-Replaces ``simgrid_tpu/ops/lmm_drain.py`` ``_apply_transition_payload``
-(``:552-581``).  The CUDA source is ``csrc/transition_scatter.cu``.
+Replaces two programs of the JAX package that compute the same thing:
+``simgrid_tpu/ops/lmm_drain.py`` ``_apply_transition_payload``
+(``:552-581``, the drain's transition batch) and
+``simgrid_tpu/ops/lmm_warm.py`` ``_apply_deltas`` (``:119-137``, the
+warm solver's delta upload into its seven resident masters).  The CUDA
+source is ``csrc/transition_scatter.cu``.
 
 The payload is one float64 vector of per-field runs
 ``[indices..., values...]``; ``layout`` lists ``(target, offset, n)``
-per run, the target being an index into :data:`TRANSITION_FIELDS`.
-Indices travel as float64 (exact below 2^32) and are truncated to int;
-values are cast to the target's dtype (truncation for the int32 element
-arrays, round to nearest for float32).  Element targets are the flat
-element arrays, so an element slot is the JAX package's
-``row * group + column``.  The JAX program returns new arrays; here the
-targets are updated in place.  Runs are exact (no padding): JAX pads a
-run by repeating its first (index, value) pair, which writes the same
-value twice and changes nothing.
+per run, the target being an index into the caller's target list
+(:data:`TRANSITION_FIELDS` for the drain, :data:`DELTA_FIELDS` for the
+warm solver).  Indices travel as float64 (exact below 2^32) and are
+truncated to int; values are cast to the target's dtype (truncation for
+int32, round to nearest for float32, nonzero for bool, as
+``astype(bool)``).  The JAX programs return new arrays; here the targets
+are updated in place.  The drain ships exact runs; the warm solver pads
+each run as JAX does, repeating its first (index, value) pair, which
+writes the same value twice and changes nothing.
+
+The two callers count their launches apart: :func:`transition_scatter`
+under ``transition_scatter``, :func:`delta_scatter` under
+``delta_scatter``.
 """
 
 from __future__ import annotations
@@ -24,23 +32,28 @@ from typing import List, Sequence, Tuple
 import torch
 
 from . import build
-from .common import (I, P, check, counter, on_cpu, ptr, ptr_array,
-                     stream)
+from .common import (I, P, LaunchCounter, check, counter, on_cpu, ptr,
+                     ptr_array, stream)
 
 COUNT = counter("transition_scatter")
+DELTA_COUNT = counter("delta_scatter")
 
 #: transition-payload field order (the JAX package's _TRANSITION_FIELDS)
 TRANSITION_FIELDS = ("e_var", "e_cnst", "e_w", "c_bound", "v_penalty",
                      "remains", "thresh", "v_bound")
+#: warm-solver master order (the JAX package's lmm_warm._FIELDS)
+DELTA_FIELDS = ("e_var", "e_cnst", "e_w", "c_bound", "c_fatpipe",
+                "v_penalty", "v_bound")
 
-_SIG = {"transition_scatter": [I, P, P, P, P, P]}
+_SIG = {"transition_scatter": [I, P, P, P, P, I, P]}
 
 #: target kinds of the C entry
-_KIND = {torch.int32: 0, torch.float32: 1, torch.float64: 2}
+_KIND = {torch.int32: 0, torch.float32: 1, torch.float64: 2, torch.bool: 3}
+
+Layout = Sequence[Tuple[int, int, int]]
 
 
-def transition_scatter_plain(payload: torch.Tensor,
-                             layout: Sequence[Tuple[int, int, int]],
+def transition_scatter_plain(payload: torch.Tensor, layout: Layout,
                              targets: List[torch.Tensor]) -> bool:
     for ti, off, n in layout:
         idx = payload[off:off + n].to(torch.int64)
@@ -50,28 +63,42 @@ def transition_scatter_plain(payload: torch.Tensor,
     return True
 
 
-def transition_scatter(payload: torch.Tensor,
-                       layout: Sequence[Tuple[int, int, int]],
-                       targets: List[torch.Tensor]):
-    """Scatter every run of ``payload`` into ``targets`` (one tensor per
-    entry of :data:`TRANSITION_FIELDS`), in place."""
+def _scatter(payload: torch.Tensor, layout: Layout,
+             targets: List[torch.Tensor], fields: Tuple[str, ...],
+             count: LaunchCounter):
     if payload.dtype != torch.float64:
-        raise TypeError("the transition payload is float64")
-    if len(targets) != len(TRANSITION_FIELDS):
-        raise ValueError(f"{len(TRANSITION_FIELDS)} targets expected")
+        raise TypeError("the scatter payload is float64")
+    if len(targets) != len(fields):
+        raise ValueError(f"{len(fields)} targets expected")
     used = [targets[ti] for ti, _, _ in layout]
     if on_cpu(payload, *used):
         return transition_scatter_plain(payload, layout, targets)
     for t in used:
         if t.dtype not in _KIND:
-            raise TypeError(f"transition target of dtype {t.dtype}")
+            raise TypeError(f"scatter target of dtype {t.dtype}")
     lib = build.load("transition_scatter", _SIG)
     runs = (ctypes.c_int * (3 * len(layout)))(
         *(int(x) for run in layout for x in run))
     kinds = (ctypes.c_int * len(targets))(
         *(_KIND.get(t.dtype, -1) for t in targets))
     rc = lib.transition_scatter(len(layout), runs, ptr(payload),
-                                ptr_array(targets), kinds, stream())
+                                ptr_array(targets), kinds, len(targets),
+                                stream())
     check(rc, "transition_scatter")
-    COUNT.n += 1
+    count.n += 1
     return None
+
+
+def transition_scatter(payload: torch.Tensor, layout: Layout,
+                       targets: List[torch.Tensor]):
+    """Scatter every run of a drain transition payload into ``targets``
+    (one tensor per entry of :data:`TRANSITION_FIELDS`), in place."""
+    return _scatter(payload, layout, targets, TRANSITION_FIELDS, COUNT)
+
+
+def delta_scatter(payload: torch.Tensor, layout: Layout,
+                  targets: List[torch.Tensor]):
+    """Scatter every run of a warm-solver delta payload into the
+    resident masters (one tensor per entry of :data:`DELTA_FIELDS`), in
+    place."""
+    return _scatter(payload, layout, targets, DELTA_FIELDS, DELTA_COUNT)

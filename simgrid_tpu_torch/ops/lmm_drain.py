@@ -200,6 +200,8 @@ class DrainSim:
         both row indexes, and size the fixpoint work buffers."""
         flat = [to2d(np.asarray(a)).reshape(-1) for a in (e_var, e_cnst,
                                                           e_w)]
+        opstats.bump("uploaded_bytes_full",
+                     self._c_bound.nbytes + sum(a.nbytes for a in flat))
         self.sys: LmmSystem = to_device_system(
             flat[0], flat[1], flat[2], self._c_bound, self.n_v,
             self.tdtype, self.device)

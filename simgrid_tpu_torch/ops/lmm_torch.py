@@ -1,19 +1,32 @@
-"""The max-min solve of a flattened system, on the port's kernels.
+"""The max-min solve on the port's kernels, and the System backend.
 
-Counterpart of ``simgrid_tpu/ops/lmm_jax.py`` ``solve_arrays``
-(``:1316-1506``) and ``check_convergence`` (``:1509``) over the COO
-elements, in local rounds (the default, as ``lmm/rounds`` defaults to
-``local``) or global rounds (``parallel_rounds=False``), with the
-bound-first rule and the FATPIPE usage max switched on exactly where the
-JAX solve switches them on.  Rounds run in chunks; after each chunk the
-host fetches the round count, the light and fixed counts and the result
-vectors in one transfer, and raises the same non-convergence and stall
-errors as the reference.
+Counterpart of ``simgrid_tpu/ops/lmm_jax.py``:
+
+* :func:`solve_arrays` — ``solve_arrays`` (``:1316-1506``) and
+  ``check_convergence`` (``:1509``) over the COO elements, in local
+  rounds (the default, as ``lmm/rounds`` defaults to ``local``) or
+  global rounds (``parallel_rounds=False``), with the bound-first rule
+  and the FATPIPE usage max switched on exactly where the JAX solve
+  switches them on.  Rounds run in chunks; after each chunk the host
+  fetches the round count, the light and fixed counts and the result
+  vectors in one transfer, and raises the same non-convergence and
+  stall errors as the reference, as :class:`SolveError`;
+* :func:`flatten`, :func:`solve_flattened`, :func:`solve_torch`,
+  :func:`dispatching_solve` and :func:`install` (``:1099-1152``,
+  ``:1519-1711``): a port-side :class:`~.lmm_host.System` solved on the
+  card.  Selective-update systems go through the warm solver
+  (:mod:`.lmm_warm`), full-update systems through the
+  :class:`~.lmm_view.ArrayView` snapshot.  On the host CPU a
+  :class:`SolveError` falls back to the exact host list solver (counted
+  in ``solver_fallbacks``) unless the flags are strict; on the card it
+  always propagates, as does any other error.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+import logging
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,19 +36,32 @@ from ..kernels.common import IT, LIGHT, MAX_ROUNDS, LmmSystem, Work
 from ..kernels.lmm_round import lmm_init, lmm_round
 from . import opstats
 from .csr import build_csr
-from .lmm_arrays import LmmArrays
+from .lmm_arrays import LmmArrays, bucket
+from .lmm_host import (Constraint, LmmFlags, SharingPolicy, System,
+                       Variable)
+from .lmm_view import ArrayView
 
-#: rounds per chunk: the JAX CPU default on the host; on the card the
-#: JAX accelerator default (a chunk queues this many guarded launches)
-_CHUNK_ROUNDS = 4096
-_CHUNK_ROUNDS_CUDA = 256
+__all__ = ["LmmFlags", "SolveError", "solve_arrays", "flatten",
+           "solve_flattened", "solve_torch", "dispatching_solve",
+           "install"]
+
+_log = logging.getLogger(__name__)
+
+
+class SolveError(RuntimeError):
+    """A device solve that did not converge, stalled or returned
+    non-finite rates: the failures :func:`solve_torch` hands to the host
+    list solver.  A kernel that fails to build or launch raises a plain
+    ``RuntimeError`` instead, which no solve path catches."""
 
 
 def to_device_system(e_var, e_cnst, e_w, c_bound, n_v: int,
                      dtype: torch.dtype, device: torch.device,
                      c_fatpipe=None) -> LmmSystem:
     """Upload COO elements, bounds and (optionally) the FATPIPE flags,
-    and build both row indexes."""
+    and build both row indexes.  Counts no bytes: each caller counts the
+    arrays the JAX package counts for the same upload (it has no row
+    indexes)."""
     ev = torch.from_numpy(np.array(e_var, np.int32))
     ec = torch.from_numpy(np.array(e_cnst, np.int32))
     ew = torch.from_numpy(np.array(e_w)).to(dtype)
@@ -44,13 +70,63 @@ def to_device_system(e_var, e_cnst, e_w, c_bound, n_v: int,
            else torch.from_numpy(np.array(c_fatpipe, bool)))
     csr = build_csr(ev, ec, ew, len(cb), n_v)
     put = lambda t: t.to(device)
-    opstats.bump("uploaded_bytes_full",
-                 sum(t.numel() * t.element_size()
-                     for t in (ev, ec, ew, cb, *csr)
-                     + ((fat,) if fat is not None else ())))
     return LmmSystem(put(ev), put(ec), put(ew), put(cb),
                      type(csr)(*(put(t) for t in csr)), int(n_v),
                      None if fat is None else put(fat))
+
+
+def chunk_rounds(device: torch.device, n_elem: int) -> int:
+    """Rounds per chunk, for the solve and the warm solver alike: the
+    JAX CPU default on the host; on the card the JAX accelerator default
+    (a chunk queues this many guarded launches), and 32 from 2**20
+    elements, where the JAX package caps its big COO chunks
+    (``lmm_jax.py:1373-1381``, ``lmm_warm.py:669-671``)."""
+    if device.type == "cpu":
+        return 4096
+    return 32 if n_elem >= 1 << 20 else 256
+
+
+def run_chunks(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
+               vb: Optional[torch.Tensor], has_bounds: bool,
+               has_fatpipe: bool, global_rounds: bool, chunk: int,
+               what: str):
+    """Run K1's rounds from the state in ``w`` (an init, cold or warm,
+    has armed it) in chunks of ``chunk`` queued rounds, with the
+    reference's host convergence checks between chunks; returns numpy
+    ``(values, remaining, usage, rounds)`` from one fetch per chunk.
+    ``what`` names the solve and its size in the errors."""
+    dtype = w.v_value.dtype
+    n_v, n_c = sys.n_v, sys.n_c
+    prev_progress = None
+    while True:
+        for _ in range(chunk):
+            if lmm_round(sys, w, pen, eps, vb, has_bounds, has_fatpipe,
+                         global_rounds) is False:
+                break
+        opstats.bump("dispatches")
+        head = torch.stack([w.ctrl[IT], w.ctrl[LIGHT],
+                            w.v_fixed.sum(dtype=torch.int32)]).to(dtype)
+        fetched = opstats.timed_fetch(
+            torch.cat([head, w.v_value, w.remaining, w.usage]))
+        rounds, n_light, n_fixed = (int(fetched[0]), int(fetched[1]),
+                                    int(fetched[2]))
+        if n_light == 0:
+            return (fetched[3:3 + n_v], fetched[3 + n_v:3 + n_v + n_c],
+                    fetched[3 + n_v + n_c:3 + n_v + 2 * n_c], rounds)
+        if rounds >= MAX_ROUNDS:
+            raise SolveError(
+                f"{what[0]} did not converge within {MAX_ROUNDS} "
+                f"saturation rounds ({what[1]}, {n_light} still active); "
+                f"check maxmin/precision vs the system's magnitudes")
+        progress = (n_light, n_fixed)
+        if progress == prev_progress:
+            raise SolveError(
+                f"{what[0]} stalled after {rounds} rounds: {n_light} "
+                f"active constraints and {n_fixed} fixed variables "
+                f"unchanged over {chunk} rounds ({what[1]}); the system "
+                f"does not converge at eps={eps} in "
+                f"{str(dtype).replace('torch.', '')} precision")
+        prev_progress = progress
 
 
 def solve_arrays(arrays: LmmArrays, eps: float,
@@ -71,8 +147,11 @@ def solve_arrays(arrays: LmmArrays, eps: float,
     dtype = torch.float32 if arrays.e_w.dtype == np.float32 \
         else torch.float64
     if chunk is None:
-        chunk = _CHUNK_ROUNDS if dev.type == "cpu" else _CHUNK_ROUNDS_CUDA
+        chunk = chunk_rounds(dev, len(arrays.e_var))
     n_v, n_c = len(arrays.v_penalty), len(arrays.c_bound)
+    # the seven arrays, as lmm_jax.py:1433-1436 counts them
+    opstats.bump("uploaded_bytes_full",
+                 sum(np.asarray(a).nbytes for a in arrays[:7]))
     sys = to_device_system(arrays.e_var, arrays.e_cnst, arrays.e_w,
                            arrays.c_bound, n_v, dtype, dev,
                            arrays.c_fatpipe if has_fatpipe else None)
@@ -81,40 +160,10 @@ def solve_arrays(arrays: LmmArrays, eps: float,
           if has_bounds else None)
     w = Work(n_v, n_c, dtype, dev)
     lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
-    prev_progress = None
-    while True:
-        for _ in range(chunk):
-            if lmm_round(sys, w, pen, eps, vb, has_bounds, has_fatpipe,
-                         global_rounds) is False:
-                break
-        opstats.bump("dispatches")
-        head = torch.stack([w.ctrl[IT], w.ctrl[LIGHT],
-                            w.v_fixed.sum(dtype=torch.int32)]).to(dtype)
-        fetched = opstats.timed_fetch(
-            torch.cat([head, w.v_value, w.remaining, w.usage]))
-        rounds, n_light, n_fixed = (int(fetched[0]), int(fetched[1]),
-                                    int(fetched[2]))
-        if n_light == 0:
-            values = fetched[3:3 + n_v]
-            remaining = fetched[3 + n_v:3 + n_v + n_c]
-            usage = fetched[3 + n_v + n_c:3 + n_v + 2 * n_c]
-            break
-        if rounds >= MAX_ROUNDS:
-            raise RuntimeError(
-                f"LMM torch solve did not converge within {MAX_ROUNDS} "
-                f"saturation rounds ({arrays.n_cnst} constraints, "
-                f"{arrays.n_var} variables, {n_light} still active); "
-                f"check maxmin/precision vs the system's magnitudes")
-        progress = (n_light, n_fixed)
-        if progress == prev_progress:
-            raise RuntimeError(
-                f"LMM torch solve stalled after {rounds} rounds: "
-                f"{n_light} active constraints and {n_fixed} fixed "
-                f"variables unchanged over {chunk} rounds "
-                f"({arrays.n_cnst} constraints, {arrays.n_var} variables); "
-                f"the system does not converge at eps={eps} in "
-                f"{arrays.e_w.dtype} precision")
-        prev_progress = progress
+    values, remaining, usage, rounds = run_chunks(
+        sys, w, pen, eps, vb, has_bounds, has_fatpipe, global_rounds, chunk,
+        ("LMM torch solve", f"{arrays.n_cnst} constraints, "
+                            f"{arrays.n_var} variables"))
     opstats.bump("fixpoint_rounds", rounds)
     return values, remaining, usage, rounds
 
@@ -122,8 +171,217 @@ def solve_arrays(arrays: LmmArrays, eps: float,
 def check_convergence(rounds: int, n_cnst, n_var) -> None:
     """Raise if a fixpoint hit the round cap."""
     if rounds >= MAX_ROUNDS:
-        raise RuntimeError(
+        raise SolveError(
             f"LMM torch solve did not converge within {MAX_ROUNDS} "
             f"saturation rounds ({n_cnst} constraints, {n_var} "
             f"variables); check maxmin/precision vs the system's "
             f"magnitudes")
+
+
+# ---------------------------------------------------------------------------
+# the System backend
+
+
+def flatten(cnst_list: List[Constraint], dtype=np.float64
+            ) -> Optional[Tuple[LmmArrays, List[Variable]]]:
+    """Flatten the live portion of a System into padded COO arrays.
+
+    Slot numbering follows the constraint-list iteration order and,
+    within each constraint, the enabled-element list order
+    (``lmm_jax.py:1099-1152``)."""
+    var_slots = {}
+    v_penalty: List[float] = []
+    v_bound: List[float] = []
+    vars_in_order = []
+    e_var: List[int] = []
+    e_cnst: List[int] = []
+    e_w: List[float] = []
+    c_bound: List[float] = []
+    c_fat: List[bool] = []
+
+    for ci, cnst in enumerate(cnst_list):
+        c_bound.append(cnst.bound)
+        c_fat.append(cnst.sharing_policy == SharingPolicy.FATPIPE)
+        for elem in cnst.enabled_element_set:
+            var = elem.variable
+            slot = var_slots.get(id(var))
+            if slot is None:
+                slot = len(v_penalty)
+                var_slots[id(var)] = slot
+                v_penalty.append(var.sharing_penalty)
+                v_bound.append(var.bound)
+                vars_in_order.append(var)
+            e_var.append(slot)
+            e_cnst.append(ci)
+            e_w.append(elem.consumption_weight)
+
+    n_e, n_c, n_v = len(e_var), len(c_bound), len(v_penalty)
+    if n_c == 0:
+        return None
+    E, C, V = bucket(max(n_e, 1)), bucket(n_c), bucket(max(n_v, 1))
+
+    arrays = LmmArrays(
+        e_var=np.zeros(E, np.int32), e_cnst=np.zeros(E, np.int32),
+        e_w=np.zeros(E, dtype), c_bound=np.zeros(C, dtype),
+        c_fatpipe=np.zeros(C, bool), v_penalty=np.zeros(V, dtype),
+        v_bound=np.full(V, -1.0, dtype), n_elem=n_e, n_cnst=n_c, n_var=n_v)
+    arrays.e_var[:n_e] = e_var
+    # padding elements point at constraint slot 0 with weight 0: harmless
+    arrays.e_cnst[:n_e] = e_cnst
+    arrays.e_w[:n_e] = e_w
+    arrays.c_bound[:n_c] = c_bound
+    arrays.c_fatpipe[:n_c] = c_fat
+    arrays.v_penalty[:n_v] = v_penalty
+    arrays.v_bound[:n_v] = v_bound
+    return arrays, vars_in_order
+
+
+def solve_flattened(system: System, dtype, solve_flat,
+                    allow_device: bool = False,
+                    device: DeviceLike = None) -> None:
+    """Flatten the System, solve, scatter back (``lmm_jax.py:1519-1599``).
+
+    Mirrors the side effects of System::lmm_solve (maxmin.cpp:487-500):
+    values written to variables, modified actions collected for lazy
+    model updates, constraint usage left consistent, modified flags
+    cleared.  ``solve_flat(arrays, eps) -> (values, remaining, usage)``
+    is the solver.  Selective-update systems on the device
+    (``allow_device``) are served by the warm solver unless its flags
+    say ``warm_start="off"``, which re-flattens the modified subset and
+    solves it cold; full-update systems solve the ArrayView's
+    snapshot."""
+    eps = system.flags.precision
+
+    if system.selective_update_active and allow_device:
+        from . import lmm_warm
+        if lmm_warm.solve_selective(system, dtype, eps, device):
+            return
+
+    if not system.selective_update_active:
+        view = system.array_view
+        if view is None:
+            view = ArrayView(system)
+        arrays = view.snapshot(dtype)
+        if arrays.n_cnst:
+            values, remaining, usage = solve_flat(arrays, eps)
+            vals = np.asarray(values).tolist()
+            for slot, var in enumerate(view.slot_var):
+                if var is not None:
+                    var.value = vals[slot]
+            rem = np.asarray(remaining).tolist()
+            use = np.asarray(usage).tolist()
+            for slot, cnst in enumerate(view.slot_cnst):
+                if cnst is not None:
+                    cnst.remaining = rem[slot]
+                    cnst.usage = use[slot]
+        system.modified = False
+        return
+
+    cnst_list = reset_modified(system)
+    flat = flatten(cnst_list, dtype)
+    if flat is not None:
+        arrays, vars_in_order = flat
+        values, remaining, usage = solve_flat(arrays, eps)
+        for slot, var in enumerate(vars_in_order):
+            var.value = float(values[slot])
+        for ci, cnst in enumerate(cnst_list):
+            cnst.remaining = float(remaining[ci])
+            cnst.usage = float(usage[ci])
+
+    system.modified = False
+    system.remove_all_modified_set()
+
+
+def reset_modified(system: System) -> List[Constraint]:
+    """The list solver's selective init pass (maxmin.cpp:509-539) over
+    the modified constraints, which it returns: their enabled variables'
+    values reset, their actions flagged modified for the lazy model
+    (zero-bound constraints' actions too, so the lazy model drops their
+    stale completion dates)."""
+    cnst_list = list(system.modified_constraint_set)
+    for cnst in cnst_list:
+        for elem in cnst.enabled_element_set:
+            elem.variable.value = 0.0
+    if system.modified_actions is not None:
+        for cnst in cnst_list:
+            for elem in cnst.enabled_element_set:
+                if elem.consumption_weight > 0:
+                    system.flag_action_modified(elem.variable.id)
+    return cnst_list
+
+
+def solve_torch(system: System, device: DeviceLike = None) -> None:
+    """Backend entry: solve the System on the device
+    (``lmm_jax.py:1627-1670``).  When a solve on the host CPU does not
+    converge, stalls or returns non-finite rates (:class:`SolveError`),
+    the exact host list solver redoes it, the carried warm state is
+    dropped and ``solver_fallbacks`` counts it; with ``flags.strict``
+    the error propagates instead.  On the card it always propagates: a
+    failed card solve is never handed to the host."""
+    flags = system.flags
+    dev = resolve_device(device)
+    dtype = np.float32 if flags.dtype == "float32" else np.float64
+
+    def solve_flat(arrays, eps):
+        values, remaining, usage, _ = solve_arrays(
+            arrays, eps, dev, parallel_rounds=flags.rounds == "local")
+        if not np.all(np.isfinite(values)):
+            raise SolveError(
+                "LMM torch solve returned non-finite rates "
+                f"({arrays.n_cnst} constraints, {arrays.n_var} variables, "
+                f"dtype {np.dtype(dtype).name})")
+        return values, remaining, usage
+
+    try:
+        solve_flattened(system, dtype, solve_flat, allow_device=True,
+                        device=dev)
+    except SolveError as exc:
+        if flags.strict or dev.type != "cpu":
+            raise
+        # the host solve happens outside the warm solver: its carried
+        # fixpoint state is stale from here on
+        if system.warm_solver is not None:
+            system.warm_solver.invalidate()
+        system.fallback_count += 1
+        opstats.bump("solver_fallbacks")
+        if system.fallback_count == 1:
+            _log.warning("device solve failed (%s); the exact host solver "
+                         "takes this solve over, and later fallbacks of "
+                         "this System are silent (strict flags restore "
+                         "the error)", exc)
+        system.solve_exact()
+
+
+def _count_live_vars(system: System) -> int:
+    n = 0
+    for var in system.variable_set:
+        if var.sharing_penalty <= 0:
+            break  # enabled vars are kept at the list head
+        n += 1
+    return n
+
+
+def dispatching_solve(system: System, device: DeviceLike = None) -> None:
+    """The ``auto`` backend: the exact host list solver for small live
+    sets, the device above ``flags.threshold`` live variables."""
+    if _count_live_vars(system) >= system.flags.threshold:
+        solve_torch(system, device)
+    else:
+        system.solve_exact()
+
+
+def install(system: System, flags: Optional[LmmFlags] = None,
+            device: DeviceLike = None) -> System:
+    """Attach the solver backend that ``flags`` (or the System's own
+    flags) name.  The device backends run on the card; without one they
+    raise unless ``device="cpu"`` asks for the plain PyTorch path."""
+    if flags is not None:
+        system.flags = flags
+    backend = system.flags.backend
+    if backend == "list":
+        system.solve_fn = None
+        return system
+    dev = resolve_device(device)
+    fn = solve_torch if backend == "torch" else dispatching_solve
+    system.solve_fn = functools.partial(fn, device=dev)
+    return system

@@ -1,11 +1,23 @@
-"""Process-wide counters of the drain path (the subset of the JAX
-package's ``ops/opstats.py`` that the drain reports into).
+"""Process-wide counters of the port (the subset of the JAX package's
+``ops/opstats.py`` that its solve, warm-solve and drain paths report
+into, under the same names).
 
-* ``dispatches``       — solve / advance / superstep dispatches
+* ``dispatches``       — solve chunks / advances / supersteps /
+  transition batches dispatched
 * ``fixpoint_rounds``  — saturation rounds executed
 * ``fetches`` / ``fetched_bytes`` / ``host_block_ms`` — device->host
   result transfers made through :func:`timed_fetch`
 * ``uploaded_bytes_full`` — host->device bytes shipped as whole arrays
+* ``uploaded_bytes_delta`` — host->device bytes shipped as indexed
+  payloads (drain transitions, warm-solver deltas and modified-constraint
+  indexes)
+* ``solves`` / ``warm_solves`` / ``cold_solves`` — warm-solver solves,
+  by restart kind; ``warm_bound_restarts`` — warm restarts whose whole
+  delta was constraint bounds
+* ``solver_fallbacks`` — solves on the host CPU path the list solver
+  took over (a card solve never falls back)
+* ``row_index_builds`` — row-index rebuilds of the warm solver's
+  resident system (port only: the JAX package has no row indexes)
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.

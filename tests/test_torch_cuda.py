@@ -16,11 +16,14 @@ import torch
 from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
 from simgrid_tpu_torch.kernels.common import LIVE_ACC, Work
 from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
-from simgrid_tpu_torch.kernels.transition_scatter import transition_scatter
+from simgrid_tpu_torch.kernels.transition_scatter import (
+    delta_scatter, transition_scatter)
 from simgrid_tpu_torch.ops import lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
-from simgrid_tpu_torch.workloads import dragonfly, drain_run
+from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
+from simgrid_tpu_torch.workloads import (churn, dragonfly, drain_run,
+                                         lazy_alltoall)
 
 pytestmark = pytest.mark.cuda
 
@@ -291,3 +294,91 @@ def test_bound_free_rounds_share_one_pointer_array(cuda):
     arr = sim.w.ptr_cache[0][3]
     sim.superstep_batch()
     assert sim.w.ptr_cache[0][3] is arr
+
+
+def test_delta_scatter_card_equals_plain(cuda):
+    """K5 into the warm solver's seven masters, a bool target among
+    them, with runs padded by repeating their first pair."""
+    rng = np.random.default_rng(5)
+    E, C, V = 4096, 300, 1000
+    base = [np.zeros(E, np.int32), np.zeros(E, np.int32), np.ones(E),
+            np.ones(C), np.zeros(C, bool), np.ones(V), np.full(V, -1.0)]
+    layout, chunks, off = [], [], 0
+    for ti, hi in enumerate((E, E, E, C, C, V, V)):
+        ix = rng.choice(hi, 37, replace=False).astype(np.float64)
+        vals = (rng.integers(0, 900, 37).astype(np.float64) if ti < 2
+                else (rng.random(37) < 0.5).astype(np.float64) if ti == 4
+                else rng.uniform(0, 10, 37))
+        ix = np.concatenate([ix, np.full(27, ix[0])])
+        vals = np.concatenate([vals, np.full(27, vals[0])])
+        layout.append((ti, off, 64))
+        chunks += [ix, vals]
+        off += 128
+    payload = torch.from_numpy(np.concatenate(chunks))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        targets = [torch.from_numpy(b.copy()).to(dev) for b in base]
+        delta_scatter(payload.to(dev), layout, targets)
+        out.append([t.cpu() for t in targets])
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+    assert int(out[0][4].sum()) > 0
+
+
+def same_states(xs, ys):
+    """Host states (:func:`churn.host_state`) equal bit for bit."""
+    bits = lambda a: a.view(np.int64).tolist()
+    return len(xs) == len(ys) and all(
+        bits(a) == bits(c) and bits(b) == bits(d)
+        for (a, b), (c, d) in zip(xs, ys))
+
+
+@pytest.mark.parametrize("mode", list(churn.MODES))
+def test_churn_card_equals_plain(cuda, mode):
+    """The churn scenario at 3,000 variables, strict: every solve's host
+    state on the card equals the plain path's bit for bit, no solve fell
+    back to the host, and K5's delta scatter and K6 launched where the
+    mode runs them."""
+    kw = dict(n_v=3000, clusters=40, chain=12, churn=0.02, steps=5,
+              states=True, strict=True)
+    _, g = churn.run_churn(mode, device=cuda, **kw)
+    _, c = churn.run_churn(mode, device="cpu", **kw)
+    assert same_states(g["states"], c["states"])
+    assert g["solver_fallbacks"] == c["solver_fallbacks"] == 0
+    assert (g["rounds"], g["dirty_slots"], g["bytes_delta"]) == \
+        (c["rounds"], c["dirty_slots"], c["bytes_delta"])
+    if mode in ("cold-delta", "warm-selective"):
+        assert g["launches"]["delta_scatter"] > 0
+    if mode == "warm-selective":
+        assert g["launches"]["warm_init"] == kw["steps"]
+
+
+def test_lazy_alltoall_card_equals_plain(cuda):
+    """The Lazy-mode LV08 alltoall at 16 ranks, strict, card against
+    plain bit for bit, with no fallback to the host."""
+    strict = LmmFlags(backend="torch", strict=True)
+    _, g = lazy_alltoall.run_lazy(16, device=cuda, flags=strict, states=True)
+    _, c = lazy_alltoall.run_lazy(16, device="cpu", flags=strict,
+                                  states=True)
+    assert same_states(g["states"], c["states"])
+    assert g["solver_fallbacks"] == c["solver_fallbacks"] == 0
+    strip = lambda rows: [{k: v for k, v in r.items() if k != "ms"}
+                          for r in rows]
+    assert strip(g["solves"]) == strip(c["solves"])
+    assert g["launches"]["warm_init"] > 0
+    assert g["launches"]["lmm_round_bounds"] > 0
+
+
+def test_card_solve_error_is_never_handed_to_the_host(cuda, monkeypatch):
+    """With the default, non-strict flags a SolveError on the card
+    propagates: the card solve is not redone by the host list solver."""
+    s = lmm_torch.install(make_new_maxmin_system(True,
+                                                 LmmFlags(backend="torch")),
+                          device=cuda)
+    c = s.constraint_new(None, 4.0)
+    for w in (1.0, 2.0):
+        s.expand(c, s.variable_new(None, 1.0), w)
+    monkeypatch.setattr(lmm_torch, "lmm_round", lambda *a, **k: True)
+    with pytest.raises(lmm_torch.SolveError, match="stalled"):
+        s.solve()
+    assert s.fallback_count == 0

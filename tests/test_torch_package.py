@@ -18,6 +18,7 @@ from simgrid_tpu_torch.kernels import livefirst_repack as k4
 from simgrid_tpu_torch.kernels import lmm_round as k1
 from simgrid_tpu_torch.kernels import superstep_commit as k3
 from simgrid_tpu_torch.kernels import transition_scatter as k5
+from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.ops import lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays
 
@@ -60,6 +61,9 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.ops.lmm_drain\n"
         "import simgrid_tpu_torch.ops.lmm_torch\n"
         "import simgrid_tpu_torch.workloads.dragonfly\n"
+        "import simgrid_tpu_torch.ops.lmm_warm\n"
+        "import simgrid_tpu_torch.workloads.churn\n"
+        "import simgrid_tpu_torch.workloads.lazy_alltoall\n"
         "import simgrid_tpu_torch.kernels\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -201,4 +205,27 @@ def test_new_wrappers_run_plain_version_on_cpu():
                              rem, thresh, torch.arange(2, dtype=torch.int32),
                              1, 8, 2, vb)
     assert rp.vb.tolist() == [-1.0]
+    assert launch_counts() == before
+
+
+def test_warm_wrappers_run_plain_version_on_cpu():
+    """K5's delta scatter (with a bool target) and K6 take their plain
+    versions on CPU tensors and count no launch."""
+    before = launch_counts()
+    sys_, w = small_state()
+    fat = sys_._replace(c_fatpipe=torch.tensor([False, False]))
+    masters = [fat.e_var, fat.e_cnst, fat.e_w, fat.c_bound, fat.c_fatpipe,
+               torch.ones(2, dtype=torch.float64),
+               torch.full((2,), -1.0, dtype=torch.float64)]
+    payload = torch.tensor([1.0, 1.0, 2.0, 5.0], dtype=torch.float64)
+    assert k5.delta_scatter(payload, [(4, 0, 2)], masters) is True
+    assert masters[4].tolist() == [False, True]
+    w.remaining.copy_(torch.tensor([9.0, 9.0], dtype=torch.float64))
+    mc = torch.tensor([1], dtype=torch.int32)
+    assert k6.warm_init(fat, w, masters[5], mc, 1e-9) is True
+    # row 1 (modified) restarts cold; row 0 keeps its previous state
+    assert w.remaining.tolist() == [9.0, 2.0]
+    assert w.light.tolist() == [False, True]
+    assert w.v_fixed.tolist() == [True, False]
+    assert int(w.ctrl[common.LIGHT]) == 1 and int(w.ctrl[common.IT]) == 0
     assert launch_counts() == before
