@@ -80,6 +80,29 @@ raises; no solve may fall back to the host):
    then the whole sequence at 48 ranks on the card and on the CPU,
    equal.
 
+Then the ELL layout, the JAX package's default solve on an accelerator
+(float64, tolerance 0):
+
+11. main path 6, ``bench.py``'s headline solve (16,384 constraints,
+   100,000 flows of degree 4, seed 42, eps 1e-9, local rounds;
+   ``workloads/bench_solve.py``): (a) the card's default path, the
+   compaction chain (K8 rounds in guarded stages, K9's partitions and
+   fetches), a first solve and the median of 3, held against the plain
+   chain on the CPU with the same rounds and stages; (b) the chain off:
+   K7's init and K8's rounds, held against the plain dense path; (c) a
+   stage cap of 1: the chain overflows and the dense path re-solves,
+   equal to (b); then K7's init, K8 and K9 held against their plain
+   versions at the headline's shapes with their ms, and K7's round arms
+   (the bound-first rule, FATPIPE, the global order) held whole at the
+   same widths (2,048 x 12,500, Wc 64, Wv 4; the global order on
+   bench.py's 2,000 x 2,000 class), timed at full width;
+12. main path 7, the 100k churn of phase 9 under the default layout
+   (ELL): all four modes, every step of warm-selective and of
+   legacy-subset held against the plain path on the CPU (``layout``
+   ``ell``, ``chain`` on: the card's default), cold against warm, ELL
+   throughout with no ``warm_ell_fallbacks``; then K6's ELL arm and
+   K5's ELL deltas against their plain versions at this path's shapes.
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
@@ -116,6 +139,12 @@ B_EVERY = 4096
 #: (a cut of depth: the whole drain is some 50,000 advances, and its
 #: first ones take hundreds of rounds each)
 PLAN_ADVANCES = 128
+#: bench.py's headline solve class (bench.py:1411-1421) and the
+#: precision its stage_device uses off the TPU (f64)
+HEADLINE = dict(n_c=16384, n_v=100_000, deg=4, seed=42)
+HL_EPS = 1e-9
+#: the reduced class K7's round arms are held whole at (same widths)
+ARMS_CLASS = dict(n_c=2048, n_v=12_500, deg=4)
 #: bench.py's churn stage as recorded (bench.py:1503-1527)
 CHURN = dict(n_v=100_000, seed=42, clusters=960, chain=96, churn=0.01,
              steps=6)
@@ -164,9 +193,17 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import numpy as np
-    from simgrid_tpu_torch.kernels import build
+    from simgrid_tpu_torch.kernels import (build, launch_counts,
+                                           reset_launch_counts)
     from simgrid_tpu_torch.kernels.common import (IT, LIGHT, LIVE_ACC,
                                                   LmmSystem, Work)
+    from simgrid_tpu_torch.kernels import ell_chain as k9
+    from simgrid_tpu_torch.kernels.common import OVERFLOW, EllWork
+    from simgrid_tpu_torch.kernels.ell_round import (
+        ell_init, ell_init_plain, ell_round, ell_round_plain)
+    from simgrid_tpu_torch.kernels.vc_round import vc_round, vc_round_plain
+    from simgrid_tpu_torch.kernels.warm_init import (warm_init_ell,
+                                                     warm_init_ell_plain)
     from simgrid_tpu_torch.kernels.drain_advance import (
         drain_advance, drain_advance_plain, drain_forced_advance,
         drain_forced_advance_plain)
@@ -178,13 +215,16 @@ def main() -> int:
         packed_size, superstep_begin, superstep_commit,
         superstep_commit_plain, superstep_finish, superstep_reset)
     from simgrid_tpu_torch.kernels.transition_scatter import (
-        delta_scatter, transition_scatter, transition_scatter_plain)
+        ELL_POSITIVE, delta_scatter, ell_delta_scatter, transition_scatter,
+        transition_scatter_plain)
     from simgrid_tpu_torch.kernels.warm_init import (warm_init,
                                                      warm_init_plain)
+    from simgrid_tpu_torch.ops import lmm_ell, opstats
     from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket, to2d
     from simgrid_tpu_torch.ops.lmm_host import LmmFlags
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
-    from simgrid_tpu_torch.workloads import churn, dragonfly, lazy_alltoall
+    from simgrid_tpu_torch.workloads import (bench_solve, churn, dragonfly,
+                                             lazy_alltoall)
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -614,12 +654,17 @@ def main() -> int:
     # ---- 6. the global arm at 48 ranks, bounds binding ------------------
     r48 = dragonfly.build_alltoall(REDUCED_RANKS)
     arr48 = solve_inputs(r48)
-    rates48 = solve_arrays(arr48, EPS, device=cuda)[0]
+    # K1's arms: COO pinned (the ELL caps accept 48 ranks, so the card's
+    # default layout would take K7's)
+    coo = dict(layout="coo")
+    rates48 = solve_arrays(arr48, EPS, device=cuda, **coo)[0]
     arr48 = arr48._replace(v_bound=rates48 * np.random.default_rng(
         11).uniform(0.5, 1.5, arr48.n_var))
-    _, glob_row = run_solve(arr48, device=cuda, parallel_rounds=False)
-    g48 = solve_arrays(arr48, EPS, device=cuda, parallel_rounds=False)
-    c48 = solve_arrays(arr48, EPS, device="cpu", parallel_rounds=False)
+    _, glob_row = run_solve(arr48, device=cuda, parallel_rounds=False,
+                            **coo)
+    g48 = solve_arrays(arr48, EPS, device=cuda, parallel_rounds=False, **coo)
+    c48 = solve_arrays(arr48, EPS, device="cpu", parallel_rounds=False,
+                       **coo)
     if g48[3] != c48[3] or g48[3] != glob_row["rounds"]:
         raise AssertionError(f"global rounds {g48[3]} != plain {c48[3]}")
     err_g = max(diff(torch.from_numpy(x), torch.from_numpy(y))
@@ -640,8 +685,8 @@ def main() -> int:
     glob_plain = k1_ms(sg48, wg48, pen48, vb48, garms, r_t, lmm_init_plain,
                        lmm_round_plain, 1)
     # 5(b)'s local bound arm at 48 ranks, the whole solve on both sides
-    l48 = solve_arrays(arr48, EPS, device=cuda)
-    lc48 = solve_arrays(arr48, EPS, device="cpu")
+    l48 = solve_arrays(arr48, EPS, device=cuda, **coo)
+    lc48 = solve_arrays(arr48, EPS, device="cpu", **coo)
     err_l = max(diff(torch.from_numpy(x), torch.from_numpy(y))
                 for x, y in zip(l48[:3], lc48[:3]))
     if err_l != 0.0 or l48[3] != lc48[3]:
@@ -650,8 +695,8 @@ def main() -> int:
     # 5(c)'s FATPIPE arm at 48 ranks, the whole solve on both sides
     fat48 = arr48._replace(c_fatpipe=np.random.default_rng(12).random(
         len(arr48.c_bound)) < 0.10)
-    f48 = solve_arrays(fat48, EPS, device=cuda)
-    fc48 = solve_arrays(fat48, EPS, device="cpu")
+    f48 = solve_arrays(fat48, EPS, device=cuda, **coo)
+    fc48 = solve_arrays(fat48, EPS, device="cpu", **coo)
     err_f = max(diff(torch.from_numpy(x), torch.from_numpy(y))
                 for x, y in zip(f48[:3], fc48[:3]))
     if err_f != 0.0 or f48[3] != fc48[3]:
@@ -940,7 +985,7 @@ def main() -> int:
     churn_rows, churn_states = {}, {}
     for mode in churn.MODES:
         sys9, row = churn.run_churn(mode, device=cuda, states=True,
-                                    strict=True, **CHURN)
+                                    strict=True, layout="coo", **CHURN)
         churn_states[mode] = row.pop("states")
         churn_rows[mode] = row
         log({"phase": "churn", **row})
@@ -949,7 +994,7 @@ def main() -> int:
         del sys9
     t0 = time.perf_counter()
     _, cpu9 = churn.run_churn("warm-selective", device=cpu, states=True,
-                              strict=True, **CHURN)
+                              strict=True, layout="coo", **CHURN)
     cpu9_s = time.perf_counter() - t0
     held = {"warm-selective vs plain CPU": same_states(
         churn_states["warm-selective"], cpu9["states"])}
@@ -1124,10 +1169,12 @@ def main() -> int:
     cold = solve_arrays(lv["arrays"], EPS, device=cuda)
     warm_eq_cold = all(same_bits(a, b)
                        for a, b in zip(lv["result"], cold[:3]))
+    # COO pinned at 48 ranks, where the ELL caps would accept the system
+    strict48 = LmmFlags(backend="torch", strict=True, layout="coo")
     _, g48 = lazy_alltoall.run_lazy(REDUCED_RANKS, device=cuda,
-                                    flags=strict, states=True)
+                                    flags=strict48, states=True)
     _, c48 = lazy_alltoall.run_lazy(REDUCED_RANKS, device=cpu,
-                                    flags=strict, states=True)
+                                    flags=strict48, states=True)
     strip = lambda rows: [{k: v for k, v in r.items() if k != "ms"}
                           for r in rows]
     eq48 = (same_states(g48["states"], c48["states"])
@@ -1149,6 +1196,477 @@ def main() -> int:
                      (kernels[-1], "warm_init")):
         kr["launches_from"] += (f"; {l10[name]} on main path 5 (the "
                                 f"Lazy {RANKS}-rank alltoall)")
+
+    # ---- 11. main path 6: bench.py's headline solve, ELL ---------------
+    def same_result(a, b) -> bool:
+        return a[3] == b[3] and all(same_bits(x, y)
+                                    for x, y in zip(a[:3], b[:3]))
+
+    def stages_of(fn):
+        before = opstats.snapshot()
+        out = fn()
+        return out, int(opstats.diff(before).get("ell_chain_stages", 0))
+
+    hl = bench_solve.build_arrays(
+        np.random.default_rng(HEADLINE["seed"]), HEADLINE["n_c"],
+        HEADLINE["n_v"], HEADLINE["deg"], np.float64)
+    hl_ell = lmm_ell.ell_from_arrays(hl)
+    # (a) the card's default: the compaction chain
+    (res_a, row_a), st_a = stages_of(lambda: bench_solve.run_bench_solve(
+        device=cuda, reps=3, arrays=hl, eps=HL_EPS, **HEADLINE))
+    la = row_a["launches"]
+    t0 = time.perf_counter()
+    cpu_a, st_ca = stages_of(lambda: solve_arrays(
+        hl, HL_EPS, device=cpu, layout="ell", chain="on"))
+    cpu_a_s = time.perf_counter() - t0
+    held_a = same_result(res_a, cpu_a) and st_a == 4 * st_ca
+    # (b) the chain off: K7's init, K8's rounds
+    res_b, row_b = bench_solve.run_bench_solve(
+        device=cuda, reps=3, arrays=hl, chain="off", eps=HL_EPS, **HEADLINE)
+    cpu_b = solve_arrays(hl, HL_EPS, device=cpu, layout="ell", chain="off")
+    held_b = same_result(res_b, cpu_b)
+    # (c) a stage cap of 1: the chain overflows, the dense path re-solves
+    cap = lmm_ell._CHAIN_STAGE_CAP
+    lmm_ell._CHAIN_STAGE_CAP = 1
+    try:
+        res_c, row_c = bench_solve.run_bench_solve(
+            device=cuda, reps=0, arrays=hl, eps=HL_EPS, **HEADLINE)
+    finally:
+        lmm_ell._CHAIN_STAGE_CAP = cap
+    held_c = (same_result(res_c, res_b) and row_c["path"] == "dense"
+              and row_c["chain_fell_back"])
+    rec = {"phase": "main_path_headline", **{k: row_a[k] for k in (
+        "n_c", "n_v", "deg", "seed", "rounds", "first_ms", "ms", "reps_ms",
+        "path", "chain_fell_back", "uploaded_bytes_first", "launches")},
+           "stages_per_solve": st_a // 4, "cpu_stages": st_ca,
+           "cpu_wall_s": cpu_a_s, "held_chain": held_a,
+           "dense": {k: row_b[k] for k in ("rounds", "first_ms", "ms",
+                                           "path", "launches")},
+           "held_dense": held_b,
+           "overflow": {k: row_c[k] for k in ("rounds", "first_ms", "path",
+                                              "chain_fell_back",
+                                              "launches")},
+           "held_overflow_equals_dense": held_c,
+           "chain_equals_dense_rounds": res_a[3] == res_b[3]}
+    log(rec)
+    report["main_path_headline"] = rec
+    if row_a["path"] != "chain" or row_a["chain_fell_back"]:
+        raise AssertionError("headline: the default path is not the chain")
+    if not (held_a and held_b and held_c):
+        raise AssertionError(f"headline: card differs from plain "
+                             f"(chain {held_a}, dense {held_b}, "
+                             f"overflow {held_c})")
+    for name in ("vc_round", "ell_chain_arm", "ell_chain_stage",
+                 "ell_chain_fetch"):
+        if la.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the headline")
+    for name in ("ell_init", "vc_round"):
+        if row_b["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the dense path")
+
+    # K7's init and K8 at the headline's shapes, from the dense path's
+    # device system (the upload cache's entry)
+    sys_h, pen_h, vb_h = lmm_ell.dense_system(hl_ell, cuda)
+    sys_hc = sys_h._replace(**{f: getattr(sys_h, f).cpu()
+                               for f in sys_h._fields})
+    wh = EllWork(sys_h.n_v, sys_h.n_c, sys_h.wc, f64, cuda)
+    whc = EllWork(sys_h.n_v, sys_h.n_c, sys_h.wc, f64, cpu)
+    ell_init(sys_h, wh, pen_h, HL_EPS, vb_h)
+    ell_init_plain(sys_hc, whc, pen_h.cpu(), HL_EPS)
+    ell_state = ("v_value", "v_fixed", "remaining", "usage", "light",
+                 "cv_live")
+
+    def ell_held(wg_, wc_):
+        return all(same_bits(getattr(wg_, n).cpu().numpy(),
+                             getattr(wc_, n).numpy()) for n in ell_state) \
+            and same_bits(wg_.ctrl.cpu().numpy()[:2], wc_.ctrl.numpy()[:2])
+    err_k7i = 0.0 if ell_held(wh, whc) else float("inf")
+    # the first 8 K8 rounds from it, card against plain
+    for _ in range(8):
+        vc_round(sys_h, wh, pen_h, HL_EPS)
+        vc_round_plain(sys_hc, whc, pen_h.cpu(), HL_EPS)
+    err_k8 = 0.0 if ell_held(wh, whc) else float("inf")
+    if err_k7i or err_k8:
+        raise AssertionError(f"headline: K7 init / K8 differ from plain "
+                             f"({err_k7i}, {err_k8})")
+    r_h = res_b[3]
+    k7i_ms = events_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h), 10)
+    k7i_plain = events_ms(lambda: ell_init_plain(sys_h, wh, pen_h, HL_EPS),
+                          2)
+
+    def round_ms(init_fn, rnd_fn, rounds, n):
+        def solve():
+            init_fn()
+            for _ in range(rounds):
+                rnd_fn()
+        return (events_ms(solve, n) - events_ms(init_fn, n)) / rounds
+    k8_ms = round_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h),
+                     lambda: vc_round(sys_h, wh, pen_h, HL_EPS), r_h, 3)
+    k8_plain = round_ms(lambda: ell_init_plain(sys_h, wh, pen_h, HL_EPS),
+                        lambda: vc_round_plain(sys_h, wh, pen_h, HL_EPS),
+                        r_h, 1)
+    # bytes: the tables read once, penalties and bounds, the state read
+    # and written once (K8: the vc tables and K8's index are the design's
+    # pick; the function reads each element once, here its vc entry)
+    cv_b = nbytes(sys_h.cv_var, sys_h.cv_w, sys_h.cv_valid)
+    vc_b = nbytes(sys_h.vc_cnst, sys_h.vc_w, sys_h.vc_valid)
+    state_b = nbytes(wh.v_value, wh.v_fixed, wh.remaining, wh.usage,
+                     wh.light)
+    k7i_bytes = (cv_b + nbytes(sys_h.c_bound, sys_h.c_fatpipe, pen_h)
+                 + state_b + nbytes(wh.cv_live))
+    k8_bytes = (vc_b + nbytes(sys_h.c_bound, pen_h) + 2 * state_b)
+
+    # K9: one stage at the headline's first shapes (131,072 -> 65,536
+    # rows) from the state its guarded rounds leave
+    chain_sys, chain_pen = lmm_ell.device_args(
+        "vc_chain", [hl_ell.vc_cnst, hl_ell.vc_w, hl_ell.vc_valid,
+                     hl_ell.v_penalty, hl_ell.c_bound, hl_ell.c_fatpipe],
+        cuda, make=lmm_ell._chain_tables)
+    init_h = lmm_ell.device_args(
+        "vc_chain_init", lmm_ell.chain_init(hl_ell, HL_EPS, False), cuda)
+    v0h, half_h = chain_sys.n_v, chain_sys.n_v // 2
+    w9 = Work(v0h, chain_sys.n_c, f64, cuda)
+    for t, src in zip((w9.v_value, w9.v_fixed, w9.remaining, w9.usage,
+                       w9.light), init_h[:5]):
+        t.copy_(src)
+    cs9 = k9.ChainState(chain_sys, chain_pen, init_h[5], w9)
+    k9.chain_arm(cs9, -1, -1, first=True)
+    k9.chain_arm(cs9, lmm_ell._CHAIN_STAGE_CAP, half_h)
+    for _ in range(lmm_ell._CHAIN_STAGE_CAP):
+        vc_round(cs9.sys, w9, cs9.pen, HL_EPS)
+    snap9 = {n: getattr(w9, n).clone() for n in ("v_value", "v_fixed",
+                                                  "remaining", "usage",
+                                                  "light", "ctrl")}
+    st9k = {}
+
+    def k9_setup(dev=cuda):
+        w_ = Work(v0h, chain_sys.n_c, f64, dev)
+        for n, t in snap9.items():
+            getattr(w_, n).copy_(t)
+        sys_ = (chain_sys if dev == cuda else chain_sys._replace(
+            **{f: (None if getattr(chain_sys, f) is None
+                   else getattr(chain_sys, f).cpu())
+               for f in chain_sys._fields}))
+        st9k["cs"] = k9.ChainState(sys_, chain_pen.to(dev),
+                                   init_h[5].to(dev), w_)
+    k9_setup()
+    k9.chain_stage(st9k["cs"], half_h)
+    cg = st9k["cs"]
+    k9_setup(cpu)
+    k9.chain_stage_plain(st9k["cs"], half_h)
+    cc = st9k["cs"]
+    nnz_g = int(cg.sys.vcx_ptr[-1])
+    k9_out = lambda cs_, nz: [
+        cs_.sys.vc_cnst, cs_.sys.vc_w, cs_.sys.vc_valid, cs_.pen, cs_.orig,
+        cs_.w.v_value[:half_h], cs_.w.v_fixed[:half_h], cs_.v_final,
+        cs_.w.ctrl[OVERFLOW:OVERFLOW + 1], cs_.sys.vcx_ptr,
+        cs_.sys.vcx_idx[:nz]]
+    err_k9 = 0.0 if all(
+        same_bits(x.cpu().numpy(), y.numpy())
+        for x, y in zip(k9_out(cg, nnz_g), k9_out(cc, nnz_g))) \
+        else float("inf")
+    if err_k9:
+        raise AssertionError("K9's stage differs from its plain version")
+    k9_ms = events_ms(lambda: k9.chain_stage(st9k["cs"], half_h), 10,
+                      k9_setup)
+    k9_plain = events_ms(lambda: k9.chain_stage_plain(st9k["cs"], half_h),
+                         2, k9_setup)
+    row_b9 = chain_sys.vc_cnst.shape[1] * (4 + 8 + 1) + 8 + 4 + 8 + 1
+    k9_bytes = (v0h * row_b9 + 4 * (int(chain_sys.vcx_idx.shape[0])
+                                    + chain_sys.n_c + 1)
+                + half_h * row_b9 + 8 * v0h
+                + 4 * (nnz_g + chain_sys.n_c + 1))
+    del cg, cc, st9k, cs9, w9
+
+    # K7's round arms, held whole at the same widths, timed at full width
+    rates_h = res_b[0]
+    rng11 = np.random.default_rng(11)
+
+    def bounded(a, rates, share):
+        vb_ = a.v_bound.copy()
+        sel = np.zeros(len(vb_), bool)
+        sel[:a.n_var] = rng11.random(a.n_var) < share
+        vb_[sel] = rates[sel] * rng11.uniform(0.5, 1.5, int(sel.sum()))
+        return a._replace(v_bound=vb_)
+
+    def fatpiped(a):
+        fat = a.c_fatpipe.copy()
+        fat[:a.n_cnst] = np.random.default_rng(12).random(a.n_cnst) < 0.10
+        return a._replace(c_fatpipe=fat)
+
+    def ell_arm(label, small, full, local, kernel):
+        """Whole solve of ``small`` on the card and plain on the CPU
+        (bits, rounds); ms per round over up to 64 rounds of ``full``."""
+        reset_launch_counts()
+        g = solve_arrays(small, HL_EPS, device=cuda, parallel_rounds=local,
+                         layout="ell", chain="off")
+        launches = launch_counts()
+        t0_ = time.perf_counter()
+        c = solve_arrays(small, HL_EPS, device=cpu, parallel_rounds=local,
+                         layout="ell", chain="off")
+        cpu_s = time.perf_counter() - t0_
+        err = 0.0 if same_result(g, c) else float("inf")
+        if err or launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"K7 {label}: card differs from plain or "
+                                 f"{kernel} did not launch")
+        e = lmm_ell.ell_from_arrays(full)
+        s_, p_, vb_ = lmm_ell.dense_system(e, cuda)
+        w_ = EllWork(s_.n_v, s_.n_c, s_.wc, f64, cuda)
+        fat = bool(full.c_fatpipe.any())
+        if kernel == "vc_round":
+            rnd = lambda f: (lambda: f(s_, w_, p_, HL_EPS, fat))
+            k, pl = vc_round, vc_round_plain
+        else:
+            rnd = lambda f: (lambda: f(s_, w_, p_, HL_EPS, vb_, fat,
+                                       not local))
+            k, pl = ell_round, ell_round_plain
+        full_r = solve_arrays(full, HL_EPS, device=cuda,
+                              parallel_rounds=local, layout="ell",
+                              chain="off")[3]
+        r_t = min(full_r, 64)
+        ms = round_ms(lambda: ell_init(s_, w_, p_, HL_EPS, vb_), rnd(k),
+                      r_t, 2)
+        plain = round_ms(lambda: ell_init_plain(s_, w_, p_, HL_EPS),
+                         rnd(pl), min(r_t, 8), 1)
+        b = (nbytes(s_.cv_var, s_.cv_w, s_.cv_valid, s_.vc_cnst, s_.vc_valid,
+                    s_.c_bound, s_.c_fatpipe, p_, vb_)
+             + 2 * nbytes(w_.v_value, w_.v_fixed, w_.remaining, w_.usage,
+                          w_.light, w_.cv_live))
+        rec_ = {"phase": "ell_arm", "case": label, "rounds": g[3],
+                "n_c": small.n_cnst, "n_v": small.n_var,
+                "widths": [int(lmm_ell.ell_from_arrays(small).cv_var
+                               .shape[1]), int(e.vc_cnst.shape[1])],
+                "full_rounds": full_r, "timed_rounds": r_t,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bound_ms(b), "cpu_s": cpu_s,
+                "launches": launches}
+        log(rec_)
+        return rec_
+
+    small = bench_solve.build_arrays(np.random.default_rng(42),
+                                     ARMS_CLASS["n_c"], ARMS_CLASS["n_v"],
+                                     ARMS_CLASS["deg"], np.float64)
+    small_rates = solve_arrays(small, HL_EPS, device=cuda, layout="ell",
+                               chain="off")[0]
+    small_b = bounded(small, small_rates, 0.3)
+    full_b = bounded(hl, rates_h, 0.3)
+    arms11 = {
+        "bounds": ell_arm("bound-first rule, 30% of flows bounded",
+                          small_b, full_b, True, "ell_round"),
+        "fatpipe_bounds": ell_arm("FATPIPE (10% of constraints) with bounds",
+                                  fatpiped(small_b), fatpiped(full_b), True,
+                                  "ell_round"),
+        "fatpipe_vc": ell_arm("FATPIPE (10% of constraints), bound-free",
+                              fatpiped(small), fatpiped(hl), True,
+                              "vc_round"),
+    }
+    big = bench_solve.build_arrays(np.random.default_rng(42), 2000, 2000, 3,
+                                   np.float64)
+    arms11["global"] = ell_arm("global order, bench.py's big class "
+                               "(2,000 x 2,000, degree 3)", big, big,
+                               False, "ell_round_global")
+    report["ell_arms"] = arms11
+
+    kernels.append(dict(
+        name="ell_init", route="cuda",
+        source="simgrid_tpu_torch/csrc/ell_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:219",
+        launches=row_b["launches"]["ell_init"], max_abs_err=err_k7i,
+        ms=k7i_ms, plain_ms=k7i_plain, bound_ms=bound_ms(k7i_bytes),
+        bound_by="bytes", library_ms=None,
+        launches_from="phase 11(b), the headline with the chain off "
+                      "(1 + 3 solves)"))
+    kernels.append(dict(
+        name="vc_round", route="cuda",
+        source="simgrid_tpu_torch/csrc/vc_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:629",
+        launches=la["vc_round"], max_abs_err=err_k8, ms=k8_ms,
+        plain_ms=k8_plain, bound_ms=bound_ms(k8_bytes), bound_by="bytes",
+        library_ms=None, timed_on=f"headline dense, {r_h} rounds",
+        launches_from="main path 6, the headline chain (1 + 3 solves)"))
+    kernels.append(dict(
+        name="ell_chain_stage", route="cuda",
+        source="simgrid_tpu_torch/csrc/ell_chain.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:736",
+        launches=la["ell_chain_stage"], max_abs_err=err_k9, ms=k9_ms,
+        plain_ms=k9_plain, bound_ms=bound_ms(k9_bytes), bound_by="bytes",
+        library_ms=None, launches_arm=la["ell_chain_arm"],
+        launches_fetch=la["ell_chain_fetch"],
+        timed_on=f"first stage, {v0h} -> {half_h} rows",
+        launches_from="main path 6, the headline chain (1 + 3 solves; "
+                      "arm and fetch launches beside)"))
+    for key, name, ln in (("bounds", "ell_round", ":325"),
+                          ("fatpipe_bounds", "ell_round_fatpipe", ":287"),
+                          ("global", "ell_round_global", ":301")):
+        r_ = arms11[key]
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="simgrid_tpu_torch/csrc/ell_round.cu",
+            replaces=f"simgrid_tpu/ops/lmm_jax.py{ln}",
+            launches=r_["launches"].get(
+                "ell_round_global" if key == "global" else "ell_round", 0),
+            max_abs_err=r_["max_abs_err"], ms=r_["ms"],
+            plain_ms=r_["plain_ms"], bound_ms=r_["bound_ms"],
+            bound_by="bytes", library_ms=None,
+            launches_from=f"phase 11(d) {r_['case']} (not on a main path: "
+                          f"the headline and the churn are bound-free and "
+                          f"local)"))
+    torch.cuda.empty_cache()
+
+    # ---- 12. main path 7: the 100k churn under the default layout -------
+    rows12, states12 = {}, {}
+    for mode in churn.MODES:
+        sys12, row = churn.run_churn(mode, device=cuda, states=True,
+                                     strict=True, **CHURN)
+        states12[mode] = row.pop("states")
+        rows12[mode] = row
+        log({"phase": "churn_ell", **row})
+        if mode == "warm-selective":
+            warm12 = sys12
+        del sys12
+    cpu12 = {}
+    t0 = time.perf_counter()
+    for mode in ("warm-selective", "legacy-subset"):
+        cpu12[mode] = churn.run_churn(mode, device=cpu, states=True,
+                                      strict=True, layout="ell",
+                                      chain_mode="on", **CHURN)[1]
+    cpu12_s = time.perf_counter() - t0
+    held12 = {f"{m} vs plain CPU": same_states(states12[m],
+                                                cpu12[m]["states"])
+              for m in cpu12}
+    for mode in ("cold-full", "cold-delta"):
+        held12[f"{mode} vs warm-selective"] = same_states(
+            states12[mode], states12["warm-selective"])
+    wl12 = rows12["warm-selective"]["launches"]
+    rec = {"phase": "main_path_churn_ell", "held": held12,
+           "cpu_wall_s": cpu12_s,
+           "layouts": {m: r["last_layout"] for m, r in rows12.items()},
+           "warm_ell_fallbacks": {m: r["warm_ell_fallbacks"]
+                                  for m, r in rows12.items()},
+           "rounds_warm_over_cold": (
+               sum(rows12["warm-selective"]["rounds"])
+               / sum(rows12["cold-delta"]["rounds"]))}
+    log(rec)
+    report["main_path_churn_ell"] = {**rec, "rows": rows12}
+    if not all(held12.values()):
+        raise AssertionError(f"churn (ELL): states differ: {held12}")
+    if any(r["solver_fallbacks"] for r in rows12.values()):
+        raise AssertionError("churn (ELL): a solve fell back to the host")
+    for mode in ("cold-full", "cold-delta", "warm-selective"):
+        if rows12[mode]["last_layout"] != "ell" \
+                or rows12[mode]["warm_ell_fallbacks"]:
+            raise AssertionError(f"churn (ELL): {mode} left the ELL layout")
+    for name in ("ell_init", "vc_round", "warm_init_ell", "delta_scatter",
+                 "delta_scatter_ell"):
+        if wl12.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on the ELL churn")
+    del states12, cpu12
+
+    # K6's ELL arm and K5's ELL deltas at the churn's shapes, from the
+    # resident ELL state the warm-selective run left on the card
+    st12 = warm12.warm_solver._states[np.dtype(np.float64)]
+    e12, pen12 = st12.ell, st12.masters[5]
+    e12c = e12._replace(**{f: getattr(e12, f).cpu() for f in e12._fields})
+    n_c12, wc12, n_v12, wv12 = st12.ell_shape
+    carry12 = {n: getattr(st12.ell_work, n).clone()
+               for n in ("v_value", "remaining", "usage", "cv_live")}
+    rng12 = np.random.default_rng(9)
+    mc12 = np.unique(CHURN["chain"] + rng12.integers(
+        0, CHURN["clusters"], 999)).astype(np.int32)
+    mc12_pad = np.full(bucket(len(mc12), floor=8), mc12[0], np.int32)
+    mc12_pad[:len(mc12)] = mc12
+    mc12_g = torch.from_numpy(mc12_pad).to(cuda)
+    w12g = EllWork(n_v12, n_c12, wc12, f64, cuda)
+    w12c = EllWork(n_v12, n_c12, wc12, f64, cpu)
+
+    def k6e_setup():
+        for n, t in carry12.items():
+            getattr(w12g, n).copy_(t)
+    k6e_setup()
+    warm_init_ell(e12, w12g, pen12, mc12_g, EPS)
+    for n, t in carry12.items():
+        getattr(w12c, n).copy_(t.cpu())
+    warm_init_ell_plain(e12c, w12c, pen12.cpu(), mc12_g.cpu(), EPS)
+    err = 0.0 if ell_held(w12g, w12c) else float("inf")
+    if err != 0.0:
+        raise AssertionError("K6 (ELL) differs from its plain version")
+    k6e_ms = events_ms(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
+                       20, k6e_setup)
+    k6e_plain = events_ms(lambda: warm_init_ell_plain(e12, w12g, pen12,
+                                                      mc12_g, EPS), 5,
+                          k6e_setup)
+    k6e_bytes = (nbytes(e12.cv_var, e12.cv_w, e12.cv_valid, e12.c_bound,
+                        e12.c_fatpipe, pen12, mc12_g)
+                 + 2 * nbytes(*carry12.values())
+                 + nbytes(w12g.v_fixed, w12g.light))
+    kernels.append(dict(
+        name="warm_init_ell", route="cuda",
+        source="simgrid_tpu_torch/csrc/warm_init.cu",
+        replaces="simgrid_tpu/ops/lmm_warm.py:158",
+        launches=wl12["warm_init_ell"], max_abs_err=err, ms=k6e_ms,
+        plain_ms=k6e_plain, bound_ms=bound_ms(k6e_bytes), bound_by="bytes",
+        library_ms=None, modified_constraints=len(mc12),
+        launches_from="main path 7 (the 100k churn in ELL, "
+                      "warm-selective)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del w12g, w12c
+
+    # K5's ELL use: a churn step's element delta (about 1,000 new
+    # elements) as six flat runs, values from the resident tables
+    host12 = [t.cpu().numpy() for t in (e12.cv_var, e12.cv_w, e12.cv_valid,
+                                         e12.vc_cnst, e12.vc_valid,
+                                         e12.vc_w)]
+    k12 = 999
+    cv_ix = np.sort(rng12.choice(n_c12 * wc12, k12, replace=False))
+    vc_ix = np.sort(rng12.choice(n_v12 * wv12, k12, replace=False))
+    n12 = bucket(k12, floor=8)
+    runs12 = []
+    for ti, ix in ((0, cv_ix), (1, cv_ix), (2, cv_ix), (3, vc_ix),
+                   (4, vc_ix), (5, vc_ix)):
+        # a validity run carries its entries' weights (written as w > 0)
+        src = host12[{2: 1, 4: 5}.get(ti, ti)].reshape(-1)[ix] \
+            .astype(np.float64)
+        idx = np.full(n12, float(ix[0]))
+        vals = np.full(n12, src[0])
+        idx[:k12], vals[:k12] = ix, src
+        runs12 += [idx, vals]
+    pay12 = torch.from_numpy(np.concatenate(runs12))
+    pay12_g = pay12.to(cuda)
+    lay12 = [(ti, 2 * n12 * ti, n12) for ti in range(6)]
+    tg12 = [t.clone() for t in (e12.cv_var, e12.cv_w, e12.cv_valid,
+                                e12.vc_cnst, e12.vc_valid, e12.vc_w)]
+    tc12 = [t.cpu() for t in tg12]
+    ell_delta_scatter(pay12_g, lay12, tg12)
+    transition_scatter_plain(pay12, lay12, tc12, ELL_POSITIVE)
+    err = 0.0 if all(same_bits(a.cpu().numpy(), b.numpy())
+                     for a, b in zip(tg12, tc12)) else float("inf")
+    if err != 0.0:
+        raise AssertionError("K5 (ELL) differs from its plain version")
+    k5e_ms = events_ms(lambda: ell_delta_scatter(pay12_g, lay12, tg12), 20)
+    k5e_plain = events_ms(lambda: transition_scatter_plain(
+        pay12_g, lay12, tg12, ELL_POSITIVE), 5)
+
+    def library_k5e():
+        for ti, o, n in lay12:
+            v = pay12_g[o + n:o + 2 * n]
+            tg12[ti].view(-1).index_put_(
+                (pay12_g[o:o + n].long(),),
+                v > 0 if ti in ELL_POSITIVE else v.to(tg12[ti].dtype))
+    k5e_lib = events_ms(library_k5e, 20)
+    k5e_bytes = 16 * 6 * n12 + sum(n12 * t.element_size() for t in tg12)
+    kernels.append(dict(
+        name="delta_scatter_ell", route="cuda",
+        source="simgrid_tpu_torch/csrc/transition_scatter.cu",
+        replaces="simgrid_tpu/ops/lmm_warm.py:141",
+        launches=wl12["delta_scatter_ell"], max_abs_err=err, ms=k5e_ms,
+        plain_ms=k5e_plain, bound_ms=bound_ms(k5e_bytes), bound_by="bytes",
+        library_ms=k5e_lib, library="index_put_, one call per run",
+        slots=6 * n12,
+        launches_from="main path 7 (the 100k churn in ELL, "
+                      "warm-selective)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del warm12, st12, e12, tg12, tc12
+    torch.cuda.empty_cache()
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -11,7 +11,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.
 
 * :func:`simgrid_tpu_torch.ops.lmm_torch.solve_arrays` — one max-min
-  solve of a flattened system (local saturation rounds);
+  solve of a flattened system (local or global rounds; on the card in
+  the ELL layout and its compaction chain where the JAX package takes
+  them on an accelerator);
 * :class:`simgrid_tpu_torch.ops.lmm_drain.DrainSim` — the drain
   executor (unfused, fused and superstep shapes);
 * :func:`simgrid_tpu_torch.workloads.dragonfly.build_system` — the

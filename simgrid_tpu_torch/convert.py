@@ -15,6 +15,12 @@
 * :func:`port_warm_state` turns the JAX warm solver's resident masters
   and carried fixpoint state (numpy) into the port's, so that K6 and a
   warm solve can start from the state a JAX solve left.
+* :func:`ell_arrays` turns a JAX ``LmmEllArrays`` (or anything with its
+  fields) into the port's :class:`~simgrid_tpu_torch.ops.lmm_ell.
+  LmmEllArrays`, and :func:`port_ell_warm_state` adds the JAX warm
+  solver's resident ELL masters and its ELL carry (with ``cv_live``) to
+  a port state, so that K7, K8 and K6's ELL arm can start from JAX's
+  own state.
 
 Nothing here imports ``simgrid_tpu`` or ``jax``.
 """
@@ -28,8 +34,10 @@ import torch
 
 from .device import DeviceLike, resolve_device
 from .kernels.common import IT, LIGHT
+from .kernels.common import EllWork
 from .ops.lmm_arrays import LmmArrays
 from .ops.lmm_drain import DrainSim
+from .ops.lmm_ell import LmmEllArrays, ell_system
 from .ops.lmm_warm import DtypeState, resident_state
 
 _LMM_FIELDS = LmmArrays._fields
@@ -173,6 +181,47 @@ def port_warm_state(masters: Sequence, carry: Sequence, dtype,
         t = getattr(w, name)
         t.copy_(torch.from_numpy(np.asarray(src).astype(
             np.bool_ if t.dtype == torch.bool else key)))
+    w.ctrl[IT] = int(np.asarray(carry[5]))
+    w.ctrl[LIGHT] = int(np.count_nonzero(np.asarray(carry[4])))
+    w.carry_valid = True
+    return st
+
+
+def ell_arrays(src) -> LmmEllArrays:
+    """A port ``LmmEllArrays`` from any object with its fields."""
+    vals = {}
+    for k in LmmEllArrays._fields:
+        v = getattr(src, k)
+        vals[k] = (int(v) if k in ("n_cnst", "n_var")
+                   else None if v is None else np.asarray(v))
+    return LmmEllArrays(**vals)
+
+
+def port_ell_warm_state(st: DtypeState, ell: Sequence, carry: Sequence
+                        ) -> DtypeState:
+    """Add the JAX warm solver's ELL residency to the port state ``st``
+    (from :func:`port_warm_state`): ``ell`` are its six ELL masters
+    (``cv_var``, ``cv_w``, ``cv_valid``, ``vc_cnst``, ``vc_valid``,
+    ``vc_w``) and ``carry`` its converged ELL fixpoint state
+    (``v_value``, ``v_fixed``, ``remaining``, ``usage``, ``light``,
+    ``it``, ``cv_live``).  The ELL system shares the COO masters' bounds
+    and FATPIPE flags; the returned state's ``ell_work`` holds the carry
+    (``carry_valid`` set)."""
+    dev = st.masters[0].device
+    key = st.masters[2].dtype
+    t = [torch.from_numpy(np.array(a)).to(dev) for a in ell]
+    t[1], t[5] = t[1].to(key), t[5].to(key)
+    st.ell = ell_system(t[0], t[1], t[2], t[3], t[4], t[5], st.masters[3],
+                        st.masters[4])
+    n_c, wc = t[0].shape
+    n_v, wv = t[3].shape
+    st.ell_shape = (n_c, wc, n_v, wv)
+    w = st.ell_work = EllWork(n_v, n_c, wc, key, dev)
+    for name, src in zip(("v_value", "v_fixed", "remaining", "usage",
+                          "light"), carry[:5]):
+        d = getattr(w, name)
+        d.copy_(torch.from_numpy(np.array(src)).to(d.dtype))
+    w.cv_live.copy_(torch.from_numpy(np.asarray(carry[6], bool)))
     w.ctrl[IT] = int(np.asarray(carry[5]))
     w.ctrl[LIGHT] = int(np.count_nonzero(np.asarray(carry[4])))
     w.carry_valid = True

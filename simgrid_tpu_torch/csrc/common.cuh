@@ -30,6 +30,11 @@
 #define C_ADV_GO 16
 #define C_ADV_CONV 17
 #define C_LE_ACC 18
+#define C_VLIVE 19
+#define C_VLIVE_ACC 20
+#define C_HALF 21
+#define C_OVERFLOW 22
+#define C_NFIXED_ACC 23
 
 // ---- fctrl (dtype) slots ----
 #define F_TSUM 0
@@ -214,6 +219,32 @@ __device__ __forceinline__ T row_usage0(const int* c_ptr, const int* c_idx,
     }
   }
   return use;
+}
+
+// Left fold of the 32 lanes' values into `acc`, in lane order, as a
+// sequential loop adds them (every lane returns the same value).  Lanes
+// holding exactly 0.0 are skipped: adding 0.0 to a non-negative partial
+// sum is an exact no-op.  Values must be non-negative.
+template <typename T>
+__device__ __forceinline__ T warp_fold_into(T acc, T x) {
+  unsigned m = __ballot_sync(FULL_MASK, x != T(0));
+  while (m) {
+    int l = __ffs(m) - 1;
+    m &= m - 1;
+    acc = add_rn(acc, __shfl_sync(FULL_MASK, x, l));
+  }
+  return acc;
+}
+
+// XLA:CPU's order for the sum of one row of a [R, W] table along W
+// (`x.sum(axis=1)` in the JAX package): each block of 32 consecutive
+// lanes is folded left to right from 0.0, then the block partials are
+// folded left to right; a row of at most 32 lanes is one block.  The
+// caller holds the row's values 32 lanes at a time and adds each
+// block's `warp_block_sum` into its total with add_rn.
+template <typename T>
+__device__ __forceinline__ T warp_block_sum(T x) {
+  return warp_fold_into(T(0), x);
 }
 
 static inline int sm_count() {

@@ -3,13 +3,16 @@
 // Replaces: simgrid_tpu/ops/lmm_drain.py `_apply_transition_payload`
 // (:552-581), the device half of `DrainSim.apply_transitions`
 // (:1122-1166), and simgrid_tpu/ops/lmm_warm.py `_apply_deltas`
-// (:119-137), the warm solver's delta upload: the payload is one
+// (:119-137), the warm solver's delta upload, and `_apply_deltas_ell`
+// (:140-154), its element deltas into the ELL masters: the payload is one
 // float64 vector of per-field runs [indices..., values...]; each run is
 // an indexed set into one target (the drain's element, bound and flow
 // arrays, or the warm solver's seven masters).  Indices are exact in
 // float64 below 2^32 and convert by truncation; values convert to the
 // target's type (truncation to int32, round to nearest to float32,
-// nonzero to bool), as XLA's convert does.  The drain's runs never
+// nonzero to bool), as XLA's convert does, or, for the ELL validity
+// masters (KIND_POS), to `value > 0`, as `_apply_deltas_ell` writes
+// them.  Indexes address the target flat (row * width + lane).  The drain's runs never
 // repeat an index; the warm solver's runs are padded by repeating their
 // first (index, value) pair, so every duplicate write carries the same
 // value and the order in which the threads write does not matter.
@@ -28,6 +31,7 @@
 #define KIND_F32 1
 #define KIND_F64 2
 #define KIND_BOOL 3
+#define KIND_POS 4
 
 namespace {
 
@@ -45,6 +49,14 @@ __global__ void scatter_run_bool(int n, const double* __restrict__ idx,
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x)
     out[(long long)idx[i]] = vals[i] != 0.0;
+}
+
+__global__ void scatter_run_pos(int n, const double* __restrict__ idx,
+                                const double* __restrict__ vals,
+                                bool* out) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    out[(long long)idx[i]] = vals[i] > 0.0;
 }
 
 }  // namespace
@@ -79,6 +91,9 @@ extern "C" int transition_scatter(int n_runs, const int* runs,
       case KIND_BOOL:
         scatter_run_bool<<<g, TB, 0, s>>>(n, idx, vals,
                                           (bool*)targets[ti]);
+        break;
+      case KIND_POS:
+        scatter_run_pos<<<g, TB, 0, s>>>(n, idx, vals, (bool*)targets[ti]);
         break;
       default:
         return (int)cudaErrorInvalidValue;

@@ -9,7 +9,14 @@ their plain PyTorch versions.
 * K4 :mod:`.livefirst_repack` — stable live-first repack, row indexes
 * K5 :mod:`.transition_scatter` — an indexed-run payload into device
   arrays (the drain's transitions, the warm solver's deltas)
-* K6 :mod:`.warm_init`        — the restart state of a warm solve
+* K6 :mod:`.warm_init`        — the restart state of a warm solve (COO
+  and ELL arms)
+* K7 :mod:`.ell_round`        — the ELL fixpoint's init and one round on
+  the constraint-row tables (local with the bound-first rule, global)
+* K8 :mod:`.vc_round`         — the bound-free local round on the
+  variable-row tables
+* K9 :mod:`.ell_chain`        — the compaction chain's live count, stage
+  partition, row gather and fetch
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each wrapper counts its launches.
@@ -22,8 +29,9 @@ from .common import COUNTERS
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
-    from . import (drain_advance, livefirst_repack, lmm_round,  # noqa: F401
-                   superstep_commit, transition_scatter, warm_init)
+    from . import (drain_advance, ell_chain, ell_round,  # noqa: F401
+                   livefirst_repack, lmm_round, superstep_commit,
+                   transition_scatter, vc_round, warm_init)
     return {name: c.n for name, c in COUNTERS.items()}
 
 

@@ -10,7 +10,7 @@ one nvcc each), with a plain C interface:
 ``-fmad=false`` keeps nvcc from contracting ``a*b+c`` into an FMA: the
 drain pins the rounding of ``rate*dt`` on its own (``_rounded_product``
 in the JAX package), and the in-order sums must round every add.  The
-hash covers the sources, the shared header and the flags, so a changed
+hash covers the sources, the shared headers and the flags, so a changed
 source rebuilds and an unchanged one loads what is there.
 """
 
@@ -29,7 +29,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "simgrid_tpu_torch")
 SOURCES = ("lmm_round", "drain_advance", "superstep_commit",
-           "livefirst_repack", "transition_scatter", "warm_init")
+           "livefirst_repack", "transition_scatter", "warm_init",
+           "ell_round", "vc_round", "ell_chain")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-shared", "-Xcompiler",
          "-fPIC"]

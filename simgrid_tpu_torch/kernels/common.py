@@ -40,6 +40,11 @@ LIVE_ACC = 15     # live flows counted by the last advance
 ADV_GO = 16       # the last advance ran
 ADV_CONV = 17     # the fixpoint it read had converged
 LE_ACC = 18       # live elements counted at the end of a superstep
+VLIVE = 19        # live variables after the last vc round (K8)
+VLIVE_ACC = 20    # live variables being counted by the running vc round
+HALF = 21         # a vc round runs only while VLIVE > HALF (-1: always)
+OVERFLOW = 22     # a compaction-chain stage ended with too many live rows
+NFIXED_ACC = 23   # fixed variables counted by the chain's fetch
 N_CTRL = 32
 
 # ---- fctrl (dtype) slots ----
@@ -120,6 +125,56 @@ class Work:
         self.carry_valid = False
         #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)
         self.ptr_cache: dict = {}
+
+
+class EllSystem(NamedTuple):
+    """The device copy of an ELL system (``ops/lmm_ell.LmmEllArrays``):
+    the constraint-row tables ``cv_*`` [C, Wc] and the variable-row
+    tables ``vc_*`` [V, Wv], the constraint bounds and FATPIPE flags, and
+    the constraint index over the flat variable-row positions
+    (``vcx_ptr`` [C+1], ``vcx_idx``: for each constraint, the positions
+    ``v * Wv + lane`` of its valid entries in increasing order), which
+    K8 folds its per-constraint sums along."""
+    cv_var: torch.Tensor    # [C, Wc] int32
+    cv_w: torch.Tensor      # [C, Wc] dtype
+    cv_valid: torch.Tensor  # [C, Wc] bool
+    vc_cnst: torch.Tensor   # [V, Wv] int32
+    vc_valid: torch.Tensor  # [V, Wv] bool
+    vc_w: torch.Tensor      # [V, Wv] dtype
+    c_bound: torch.Tensor   # [C] dtype
+    c_fatpipe: torch.Tensor  # [C] bool
+    vcx_ptr: torch.Tensor   # [C+1] int32
+    vcx_idx: torch.Tensor   # [nnz] int32
+
+    @property
+    def n_c(self) -> int:
+        return int(self.c_bound.shape[0])
+
+    @property
+    def n_v(self) -> int:
+        return int(self.vc_cnst.shape[0])
+
+    @property
+    def wc(self) -> int:
+        return int(self.cv_var.shape[1])
+
+    @property
+    def wv(self) -> int:
+        return int(self.vc_cnst.shape[1])
+
+
+class EllWork(Work):
+    """A :class:`Work` with the ELL fixpoint's extra carry leg
+    ``cv_live`` [C, Wc] (the constraint-row liveness mask
+    ``apply_fixes`` maintains) and K6-ELL's per-variable scratch."""
+
+    def __init__(self, n_v: int, n_c: int, wc: int, dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__(n_v, n_c, dtype, device)
+        self.cv_live = torch.zeros((n_c, wc), dtype=torch.bool,
+                                   device=device)
+        self.v_mod = torch.zeros(n_v, dtype=torch.bool, device=device)
+        self.v_has = torch.zeros(n_v, dtype=torch.bool, device=device)
 
 
 class LaunchCounter:

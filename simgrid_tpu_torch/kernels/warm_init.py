@@ -15,9 +15,16 @@ solution, fixed and dark.  ``ctrl`` is armed as K1's init arms it
 (``IT=0``, ``LIGHT``, ``ARMED=1``, ``LIMIT``), so K1's rounds run from
 it unchanged.
 
-On CPU tensors :func:`warm_init` runs the plain PyTorch version (a
-line-by-line transcription of the JAX program) and returns True; on
-CUDA tensors it launches the kernel and returns None.
+Its ELL arm, :func:`warm_init_ell`, replaces ``_warm_init_ell``
+(``lmm_warm.py:157-198``): the same state from the ELL masters, its
+``usage0`` folded over the constraint rows in XLA:CPU's row order (as
+K7's init folds it), and the carry's extra leg ``cv_live``: modified
+rows re-derived from the new fixed flags, untouched rows keeping the
+previous converged mask.  It is counted as ``warm_init_ell``.
+
+On CPU tensors the wrappers run the plain PyTorch version (a
+line-by-line transcription of the JAX program) and return True; on
+CUDA tensors they launch the kernel and return None.
 """
 
 from __future__ import annotations
@@ -28,16 +35,22 @@ import torch
 
 from . import build
 from .common import (ARMED, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS, D, I,
-                     LmmSystem, P, Work, check, counter, is_double,
-                     on_cpu, ptr_array, stream)
+                     EllSystem, EllWork, LmmSystem, P, Work, check, counter,
+                     is_double, on_cpu, ptr_array, stream)
+from .ell_round import arm_ctrl, fold_rows, row_max0
 from .lmm_round import _any_by, _max_by
 
 COUNT = counter("warm_init")
+ELL_COUNT = counter("warm_init_ell")
 
 #: buffers handed to the C entry as one pointer array, in this order
 N_PTRS = 18
 
-_SIG = {"warm_init": [I, I, I, I, P, I, D, I, P]}
+_SIG = {"warm_init": [I, I, I, I, P, I, D, I, P],
+        "warm_init_ell": [I, I, I, I, I, P, I, D, I, P]}
+
+#: buffers of the ELL arm's C entry, in this order
+N_PTRS_ELL = 17
 
 
 def warm_init_plain(sys: LmmSystem, w: Work, pen: torch.Tensor,
@@ -99,4 +112,66 @@ def warm_init(sys: LmmSystem, w: Work, pen: torch.Tensor,
                        int(limit), stream())
     check(rc, "warm_init")
     COUNT.n += 1
+    return None
+
+
+def warm_init_ell_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
+                        mc_idx: torch.Tensor, eps: float,
+                        limit: int = MAX_ROUNDS) -> bool:
+    n_c, n_v = sys.n_c, sys.n_v
+    dev = pen.device
+    eps_t = torch.tensor(eps, dtype=pen.dtype, device=dev)
+    cv_var = sys.cv_var.long()
+    c_mod = torch.zeros(n_c, dtype=torch.bool, device=dev)
+    c_mod[mc_idx.long()] = True
+    live = sys.cv_valid & (sys.cv_w > 0)
+    flat = cv_var.reshape(-1)
+    v_mod = _any_by(flat, (live & c_mod[:, None]).reshape(-1), n_v)
+    has_live_elem = _any_by(flat, live.reshape(-1), n_v)
+    v_enabled = pen > 0
+    cv_evalid = sys.cv_valid & v_enabled[cv_var]
+    safe_pen = torch.where(v_enabled, pen, 1.0)
+    cv_upen = torch.where(cv_evalid, sys.cv_w / safe_pen[cv_var], 0.0)
+    usage0 = torch.where(sys.c_fatpipe, row_max0(cv_upen),
+                         fold_rows(cv_upen))
+    v_value0 = torch.where(torch.isfinite(pen), pen, 0.0) * 0.0
+    keep_prev = ~v_mod & v_enabled & has_live_elem
+    v_fixed = torch.where(v_mod, pen < 0, True)
+    w.v_value.copy_(torch.where(keep_prev, w.v_value, v_value0))
+    w.v_fixed.copy_(v_fixed)
+    w.remaining.copy_(torch.where(c_mod, sys.c_bound, w.remaining))
+    w.usage.copy_(torch.where(c_mod, usage0, w.usage))
+    w.light.copy_(c_mod & (sys.c_bound > sys.c_bound * eps_t)
+                  & (usage0 > 0))
+    w.cv_live.copy_(torch.where(c_mod[:, None],
+                                cv_evalid & ~v_fixed[cv_var], w.cv_live))
+    w.c_mod.copy_(c_mod)
+    w.v_mod.copy_(v_mod)
+    w.v_has.copy_(has_live_elem)
+    arm_ctrl(w.ctrl, w.light, limit)
+    return True
+
+
+def warm_init_ell(sys: EllSystem, w: EllWork, pen: torch.Tensor,
+                  mc_idx: torch.Tensor, eps: float,
+                  limit: int = MAX_ROUNDS) -> Optional[bool]:
+    """Write the warm restart state of the modified constraints
+    ``mc_idx`` (int32, padded by repeating an entry) into the ELL
+    fixpoint state ``w``, from the ELL tables of ``sys`` and the
+    previous converged solve ``w`` holds (values, remaining, usage and
+    the ``cv_live`` mask)."""
+    if mc_idx.dtype != torch.int32:
+        raise TypeError("mc_idx is int32")
+    if on_cpu(pen, sys.cv_w, w.ctrl, mc_idx):
+        return warm_init_ell_plain(sys, w, pen, mc_idx, eps, limit)
+    lib = build.load("warm_init", _SIG)
+    ptrs = ptr_array([
+        pen, sys.cv_var, sys.cv_w, sys.cv_valid, sys.c_bound,
+        sys.c_fatpipe, mc_idx, w.v_value, w.v_fixed, w.remaining, w.usage,
+        w.light, w.cv_live, w.c_mod, w.v_mod, w.v_has, w.ctrl])
+    rc = lib.warm_init_ell(is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc,
+                           int(mc_idx.shape[0]), ptrs, N_PTRS_ELL,
+                           float(eps), int(limit), stream())
+    check(rc, "warm_init_ell")
+    ELL_COUNT.n += 1
     return None

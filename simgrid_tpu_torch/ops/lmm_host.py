@@ -48,7 +48,13 @@ class LmmFlags:
       indexed payload per solve) or ``off`` (whole dirty fields);
     * ``strict`` — ``lmm/strict``: a failed solve on the host CPU path
       raises instead of falling back to the host list solver (on the
-      card it always raises)."""
+      card it always raises);
+    * ``layout`` — ``lmm/layout``: ``auto`` (ELL on the card where the
+      width and fill caps accept the system, COO elsewhere), ``coo`` or
+      ``ell``;
+    * ``chain`` — ``lmm/chain``: ``auto`` (the compaction chain on the
+      card for ELL, local, bound-free solves of at least 16,384 variable
+      slots), ``on`` or ``off``."""
     precision: float = 1e-5
     concurrency_limit: int = -1
     backend: str = "auto"
@@ -58,13 +64,17 @@ class LmmFlags:
     warm_start: str = "auto"
     delta_upload: str = "auto"
     strict: bool = False
+    layout: str = "auto"
+    chain: str = "auto"
 
     def __post_init__(self):
         for name, allowed in (("backend", ("torch", "auto", "list")),
                               ("dtype", ("float64", "float32")),
                               ("rounds", ("local", "global")),
                               ("warm_start", ("auto", "on", "cold", "off")),
-                              ("delta_upload", ("auto", "on", "off"))):
+                              ("delta_upload", ("auto", "on", "off")),
+                              ("layout", ("auto", "coo", "ell")),
+                              ("chain", ("auto", "on", "off"))):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"Unknown {name} {getattr(self, name)!r} "
                                  f"(expected one of {', '.join(allowed)})")

@@ -3,7 +3,9 @@
 Counterpart of ``simgrid_tpu/ops/lmm_jax.py``:
 
 * :func:`solve_arrays` — ``solve_arrays`` (``:1316-1506``) and
-  ``check_convergence`` (``:1509``) over the COO elements, in local
+  ``check_convergence`` (``:1509``), in the COO layout (K1) or, where
+  the layout choice resolves to it, the ELL layout (:mod:`.lmm_ell`:
+  the dense path or the compaction chain), in local
   rounds (the default, as ``lmm/rounds`` defaults to ``local``) or
   global rounds (``parallel_rounds=False``), with the bound-first rule
   and the FATPIPE usage max switched on exactly where the JAX solve
@@ -32,8 +34,11 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.common import IT, LIGHT, MAX_ROUNDS, LmmSystem, Work
+from ..kernels.common import (IT, LIGHT, MAX_ROUNDS, EllSystem, LmmSystem,
+                              Work)
+from ..kernels.ell_round import ell_round
 from ..kernels.lmm_round import lmm_init, lmm_round
+from ..kernels.vc_round import vc_round
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import LmmArrays, bucket
@@ -75,33 +80,54 @@ def to_device_system(e_var, e_cnst, e_w, c_bound, n_v: int,
                      None if fat is None else put(fat))
 
 
+#: rounds a chunk queues on the card (the JAX package's
+#: ``_CHUNK_ROUNDS_ACCEL``; also the chain's finisher chunk)
+CHUNK_ROUNDS_ACCEL = 256
+
+
 def chunk_rounds(device: torch.device, n_elem: int) -> int:
     """Rounds per chunk, for the solve and the warm solver alike: the
     JAX CPU default on the host; on the card the JAX accelerator default
     (a chunk queues this many guarded launches), and 32 from 2**20
     elements, where the JAX package caps its big COO chunks
-    (``lmm_jax.py:1373-1381``, ``lmm_warm.py:669-671``)."""
+    (``lmm_jax.py:1373-1381``, ``lmm_warm.py:669-671``; ELL callers
+    pass ``n_elem=0``: the cap is COO's only in ``solve_arrays``)."""
     if device.type == "cpu":
         return 4096
-    return 32 if n_elem >= 1 << 20 else 256
+    return 32 if n_elem >= 1 << 20 else CHUNK_ROUNDS_ACCEL
 
 
-def run_chunks(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
+def _round_fn(sys, has_bounds: bool, global_rounds: bool):
+    """The round a chunk queues: K1 over COO; over ELL, K8 for a local
+    bound-free system (``fixpoint_ell``'s ``body_local_vc``), else K7."""
+    if not isinstance(sys, EllSystem):
+        return lambda w, pen, eps, vb, fat: lmm_round(
+            sys, w, pen, eps, vb, has_bounds, fat, global_rounds)
+    if not global_rounds and not has_bounds:
+        return lambda w, pen, eps, vb, fat: vc_round(sys, w, pen, eps, fat)
+    return lambda w, pen, eps, vb, fat: ell_round(sys, w, pen, eps, vb, fat,
+                                                  global_rounds)
+
+
+def run_chunks(sys, w: Work, pen: torch.Tensor, eps: float,
                vb: Optional[torch.Tensor], has_bounds: bool,
                has_fatpipe: bool, global_rounds: bool, chunk: int,
                what: str):
-    """Run K1's rounds from the state in ``w`` (an init, cold or warm,
+    """Run the rounds from the state in ``w`` (an init, cold or warm,
     has armed it) in chunks of ``chunk`` queued rounds, with the
     reference's host convergence checks between chunks; returns numpy
     ``(values, remaining, usage, rounds)`` from one fetch per chunk.
-    ``what`` names the solve and its size in the errors."""
+    ``sys`` is an :class:`LmmSystem` (K1's rounds) or an
+    :class:`EllSystem` (K7's or K8's, as ``fixpoint_ell`` picks its
+    body; ``w`` then carries ``cv_live``).  ``what`` names the solve and
+    its size in the errors."""
     dtype = w.v_value.dtype
     n_v, n_c = sys.n_v, sys.n_c
+    one_round = _round_fn(sys, has_bounds, global_rounds)
     prev_progress = None
     while True:
         for _ in range(chunk):
-            if lmm_round(sys, w, pen, eps, vb, has_bounds, has_fatpipe,
-                         global_rounds) is False:
+            if one_round(w, pen, eps, vb, has_fatpipe) is False:
                 break
         opstats.bump("dispatches")
         head = torch.stack([w.ctrl[IT], w.ctrl[LIGHT],
@@ -129,41 +155,99 @@ def run_chunks(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
         prev_progress = progress
 
 
+LAYOUTS = ("auto", "coo", "ell")
+CHAINS = ("auto", "on", "off")
+
+
+def check_choice(name: str, value: str, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(f"Unknown {name} {value!r} "
+                         f"(expected {', '.join(allowed)})")
+
+
+def uses_ell(layout: str, device: torch.device) -> bool:
+    """Whether a solve tries the ELL layout: asked for, or ``auto`` on
+    the card (the JAX package's ``auto`` off the CPU platform,
+    ``lmm_jax.py:1344-1349``)."""
+    check_choice("layout", layout, LAYOUTS)
+    return layout == "ell" or (layout == "auto" and device.type != "cpu")
+
+
+def uses_chain(chain: str, device: torch.device) -> bool:
+    """Whether an eligible ELL solve takes the compaction chain: asked
+    for, or ``auto`` on the card (``lmm_jax.py:1404-1416``)."""
+    check_choice("chain", chain, CHAINS)
+    return chain == "on" or (chain == "auto" and device.type != "cpu")
+
+
+def _coo_args(t):
+    """``lmm_ell.device_args`` maker of the COO kind: (system, pen, vb)
+    with both row indexes built on the device."""
+    ev, ec, ew, cb, fat, pen, vb = t
+    ev, ec = ev.to(torch.int32), ec.to(torch.int32)
+    cb, pen, vb = (x.to(ew.dtype) for x in (cb, pen, vb))
+    csr = build_csr(ev, ec, ew, int(cb.shape[0]), int(pen.shape[0]))
+    return LmmSystem(ev, ec, ew, cb, csr, int(pen.shape[0]), fat), pen, vb
+
+
 def solve_arrays(arrays: LmmArrays, eps: float,
                  device: DeviceLike = None,
                  parallel_rounds: Optional[bool] = None,
-                 chunk: Optional[int] = None):
+                 chunk: Optional[int] = None, layout: str = "auto",
+                 chain: str = "auto"):
     """Run the fixpoint in bounded-round chunks with host-side
     convergence checks between them; returns numpy
     ``(values, remaining, usage, rounds)``.  ``parallel_rounds`` None or
-    True runs local rounds, False global rounds."""
+    True runs local rounds, False global rounds.
+
+    ``layout`` and ``chain`` are the JAX package's ``lmm/layout``
+    (``auto|coo|ell``) and ``lmm/chain`` (``auto|on|off``), resolved as
+    it resolves them with the device in place of its platform
+    (``lmm_jax.py:1341-1416``): ``auto`` tries ELL on the card, where
+    :func:`~.lmm_ell.ell_from_arrays` accepts the system; the chain runs
+    (``on``, or ``auto`` on the card) for an ELL, local, bound-free
+    system of at least ``2 * _CHAIN_MIN_V`` variable slots, and a chain
+    that overflows or stalls falls back to the dense ELL path.  Uploads
+    go through the identity-keyed LRU ``lmm_ell.device_args``, so a
+    repeated solve of the same arrays uploads nothing, as in JAX."""
+    from . import lmm_ell
+    dev = resolve_device(device)
+    chained = uses_chain(chain, dev)
+    chunk_given = chunk is not None
     global_rounds = parallel_rounds is False
     # decided on the host exactly as lmm_jax.py:1399-1401 decides its
     # static flags: a bound counts only on an enabled variable
     has_bounds = bool(np.any((arrays.v_bound[:arrays.n_var] > 0)
                              & (arrays.v_penalty[:arrays.n_var] > 0)))
     has_fatpipe = bool(np.any(arrays.c_fatpipe[:arrays.n_cnst]))
-    dev = resolve_device(device)
-    dtype = torch.float32 if arrays.e_w.dtype == np.float32 \
-        else torch.float64
+    ell = lmm_ell.ell_cached(arrays) if uses_ell(layout, dev) else None
     if chunk is None:
-        chunk = chunk_rounds(dev, len(arrays.e_var))
-    n_v, n_c = len(arrays.v_penalty), len(arrays.c_bound)
-    # the seven arrays, as lmm_jax.py:1433-1436 counts them
-    opstats.bump("uploaded_bytes_full",
-                 sum(np.asarray(a).nbytes for a in arrays[:7]))
-    sys = to_device_system(arrays.e_var, arrays.e_cnst, arrays.e_w,
-                           arrays.c_bound, n_v, dtype, dev,
-                           arrays.c_fatpipe if has_fatpipe else None)
-    pen = torch.from_numpy(np.array(arrays.v_penalty)).to(dtype).to(dev)
-    vb = (torch.from_numpy(np.array(arrays.v_bound)).to(dtype).to(dev)
-          if has_bounds else None)
-    w = Work(n_v, n_c, dtype, dev)
-    lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
-    values, remaining, usage, rounds = run_chunks(
-        sys, w, pen, eps, vb, has_bounds, has_fatpipe, global_rounds, chunk,
-        ("LMM torch solve", f"{arrays.n_cnst} constraints, "
-                            f"{arrays.n_var} variables"))
+        chunk = chunk_rounds(dev, 0 if ell is not None
+                             else len(arrays.e_var))
+    what = ("LMM torch solve", f"{arrays.n_cnst} constraints, "
+                               f"{arrays.n_var} variables")
+    if (ell is not None and ell.vc_w is not None and not global_rounds
+            and not has_bounds
+            and len(ell.v_penalty) >= 2 * lmm_ell._CHAIN_MIN_V and chained):
+        res = lmm_ell.solve_ell_chain(
+            ell, eps, dev, has_fatpipe,
+            chunk if chunk_given else CHUNK_ROUNDS_ACCEL)
+        if res is not None:
+            return res
+        # overflow/stall: the dense path below re-solves
+    if ell is not None:
+        values, remaining, usage, rounds = lmm_ell.solve_ell_dense(
+            ell, eps, dev, global_rounds, has_bounds, has_fatpipe, chunk,
+            what)
+    else:
+        # the seven arrays, as lmm_jax.py:1433-1436 uploads them
+        sys, pen, vb = lmm_ell.device_args(
+            "coo", list(arrays[:7]), dev, make=_coo_args)
+        w = Work(sys.n_v, sys.n_c, pen.dtype, dev)
+        lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
+        values, remaining, usage, rounds = run_chunks(
+            sys, w, pen, eps, vb if has_bounds else None, has_bounds,
+            has_fatpipe, global_rounds, chunk, what)
     opstats.bump("fixpoint_rounds", rounds)
     return values, remaining, usage, rounds
 
@@ -324,7 +408,8 @@ def solve_torch(system: System, device: DeviceLike = None) -> None:
 
     def solve_flat(arrays, eps):
         values, remaining, usage, _ = solve_arrays(
-            arrays, eps, dev, parallel_rounds=flags.rounds == "local")
+            arrays, eps, dev, parallel_rounds=flags.rounds == "local",
+            layout=flags.layout, chain=flags.chain)
         if not np.all(np.isfinite(values)):
             raise SolveError(
                 "LMM torch solve returned non-finite rates "

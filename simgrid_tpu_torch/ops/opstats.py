@@ -17,7 +17,14 @@ into, under the same names).
 * ``solver_fallbacks`` — solves on the host CPU path the list solver
   took over (a card solve never falls back)
 * ``row_index_builds`` — row-index rebuilds of the warm solver's
-  resident system (port only: the JAX package has no row indexes)
+  resident system and K8's constraint index over ELL variable rows
+  (port only: the JAX package has no row indexes)
+* ``warm_ell_fallbacks`` — warm-solver solves in an ELL run that the
+  width and fill caps served in COO
+* ``ell_solves`` / ``ell_chain_solves`` / ``ell_chain_stages`` /
+  ``ell_chain_fallbacks`` — dense ELL solves, compaction-chain solves,
+  their stages, and chain solves that overflowed a stage or stalled and
+  were re-solved dense (port only: the path a solve took)
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.

@@ -89,7 +89,8 @@ def run_churn(mode: str = "warm-selective", n_v: int = 100_000,
               seed: int = 42, clusters: int = 960, chain: int = 96,
               churn: float = 0.01, steps: int = 6, rounds: str = "local",
               device: DeviceLike = None, states: bool = False,
-              strict: bool = False):
+              strict: bool = False, layout: str = "auto",
+              chain_mode: str = "auto"):
     """Build the scenario on a port System installed with the torch
     backend in ``mode``, solve it, then ``steps`` churn steps each
     followed by a solve.  Returns ``(system, row)``: the row holds
@@ -99,10 +100,17 @@ def run_churn(mode: str = "warm-selective", n_v: int = 100_000,
     solves; with ``states`` also the host state after every solve
     (:func:`host_state`).  ``strict`` makes a failed solve on the CPU
     path raise instead of falling back to the host list solver (on the
-    card it always raises)."""
+    card it always raises).  ``layout`` is ``LmmFlags.layout``: the
+    default ``auto`` solves in ELL on the card, as the JAX package does
+    on an accelerator, and in COO on the CPU; the row also reports the
+    layout the last solve took and ``warm_ell_fallbacks``.
+    ``chain_mode`` is ``LmmFlags.chain`` (``chain`` is the background
+    chain's length): the legacy-subset mode's whole-system solves take
+    the compaction chain where it is on."""
     warm_start, delta_upload = MODES[mode]
     flags = LmmFlags(backend="torch", rounds=rounds, warm_start=warm_start,
-                     delta_upload=delta_upload, strict=strict)
+                     delta_upload=delta_upload, strict=strict,
+                     layout=layout, chain=chain_mode)
     rng = np.random.default_rng(seed)
     s = make_new_maxmin_system(True, flags)
     install(s, device=device)
@@ -147,6 +155,10 @@ def run_churn(mode: str = "warm-selective", n_v: int = 100_000,
                bytes_delta_med=int(np.median(b_delta)),
                dirty_slots_med=int(np.median(dirt)),
                warm_solves=s.warm_solver.warm_solves if s.warm_solver else 0,
+               last_layout=s.warm_solver.last_layout if s.warm_solver
+               else "",
+               warm_ell_fallbacks=(s.warm_solver.warm_ell_fallbacks
+                                   if s.warm_solver else 0),
                solver_fallbacks=s.fallback_count,
                launches=launch_counts())
     if states:

@@ -133,11 +133,14 @@ def solve_inputs(system, dtype=np.float64) -> LmmArrays:
 
 
 def run_solve(system, device: DeviceLike = None, dtype=np.float64,
-              parallel_rounds: Optional[bool] = None):
+              parallel_rounds: Optional[bool] = None, layout: str = "auto"):
     """One timed ``solve_arrays(arrays, 1e-5)`` of ``system`` (a
     generated system, or flattened ``LmmArrays`` as they are; local
     rounds by default), host clock around it, the kernels' launch counts
-    zeroed before.  Returns ``(values, row)``."""
+    zeroed before.  ``layout`` is ``solve_arrays``'s: with ``auto`` the
+    ELL caps refuse config #4's systems (rows of 862 and 1,272
+    elements), so they solve in COO as in the JAX package.  Returns
+    ``(values, row)``."""
     arrays = (system if isinstance(system, LmmArrays)
               else solve_inputs(system, dtype))
     dev = resolve_device(device)
@@ -145,7 +148,8 @@ def run_solve(system, device: DeviceLike = None, dtype=np.float64,
     reset_launch_counts()
     t0 = time.perf_counter()
     values, _, _, rounds = solve_arrays(arrays, EPS, device=dev,
-                                        parallel_rounds=parallel_rounds)
+                                        parallel_rounds=parallel_rounds,
+                                        layout=layout)
     _sync(dev)
     wall = time.perf_counter() - t0
     return values, dict(flows=arrays.n_var, n_cnst=arrays.n_cnst,

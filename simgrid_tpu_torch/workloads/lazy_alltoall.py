@@ -170,8 +170,11 @@ def run_lazy(ranks: int = 320, device: DeviceLike = None, seed: int = 0,
     reference's with ``backend="torch"``) and run :func:`solve_sequence`.
     Returns ``(system, row)``: the build's wall time apart from the
     solves, the sizes, the number of latency-end dates, one record per
-    solve (label, wall ms, warm or cold, rounds, dirty slots, upload
-    bytes) and the kernels' launch counts over the solves; with
+    solve (label, wall ms, warm or cold, layout, rounds, dirty slots,
+    upload bytes), the kernels' launch counts over the solves and the
+    warm solver's ``warm_ell_fallbacks`` (the caps refuse the 320-rank
+    system's 1,272-element rows: with the default layout every solve on
+    the card counts one, as in the JAX package); with
     ``states`` also the host state after every solve.  ``on_solve(label,
     system)`` runs after each solve, outside the timed solve."""
     a2a = alltoall(ranks)
@@ -190,6 +193,7 @@ def run_lazy(ranks: int = 320, device: DeviceLike = None, seed: int = 0,
         ws = s.warm_solver
         row["solves"].append({"label": label, "ms": ms,
                               "mode": ws.last_mode,
+                              "layout": ws.last_layout,
                               "rounds": ws.last_rounds,
                               "dirty_slots": ws.last_dirty_slots,
                               "upload_bytes": ws.last_upload_bytes})
@@ -199,6 +203,7 @@ def run_lazy(ranks: int = 320, device: DeviceLike = None, seed: int = 0,
             on_solve(label, s)
     row["launches"] = launch_counts()
     row["solver_fallbacks"] = s.fallback_count
+    row["warm_ell_fallbacks"] = s.warm_solver.warm_ell_fallbacks
     if states:
         row["states"] = kept
     return s, row

@@ -6,7 +6,10 @@ machine without them:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Every comparison is exact: the kernels sum in element order, as the
-plain versions on the CPU do.
+plain versions on the CPU do.  The K1 cases pin ``layout="coo"``: on the
+card the default layout is ELL wherever its caps accept the system (as
+the JAX package's is on an accelerator), and the ELL cases below hold
+K7-K9 and the ELL arms of K5 and K6.
 """
 
 import numpy as np
@@ -14,11 +17,13 @@ import pytest
 import torch
 
 from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
-from simgrid_tpu_torch.kernels.common import LIVE_ACC, Work
+from simgrid_tpu_torch.kernels import ell_chain as k9
+from simgrid_tpu_torch.kernels import warm_init as k6
+from simgrid_tpu_torch.kernels.common import LIVE_ACC, EllWork, Work
 from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
 from simgrid_tpu_torch.kernels.transition_scatter import (
-    delta_scatter, transition_scatter)
-from simgrid_tpu_torch.ops import lmm_torch
+    delta_scatter, ell_delta_scatter, transition_scatter)
+from simgrid_tpu_torch.ops import lmm_ell, lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
 from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
@@ -59,8 +64,8 @@ def random_arrays(seed, n_c, n_v, deg, dtype):
                                        (np.float32, 1e-5)])
 def test_solve_card_equals_plain(cuda, dtype, eps):
     a = random_arrays(11, 3000, 20000, 5, dtype)
-    g = lmm_torch.solve_arrays(a, eps, device=cuda)
-    c = lmm_torch.solve_arrays(a, eps, device="cpu")
+    g = lmm_torch.solve_arrays(a, eps, device=cuda, layout="coo")
+    c = lmm_torch.solve_arrays(a, eps, device="cpu", layout="coo")
     assert g[3] == c[3]
     for x, y in zip(g[:3], c[:3]):
         np.testing.assert_array_equal(x, y)
@@ -132,12 +137,12 @@ def test_solve_arms_card_equals_plain(cuda, dtype, eps, parallel_rounds):
     a = mixed_arrays(13, 1500, 4000, 0.5, 0.3, dtype)
     reset_launch_counts()
     g = lmm_torch.solve_arrays(a, eps, device=cuda,
-                               parallel_rounds=parallel_rounds)
+                               parallel_rounds=parallel_rounds, layout="coo")
     arm = ("lmm_round" + ("" if parallel_rounds else "_global")
            + "_bounds_fatpipe")
     assert launch_counts()[arm] > 0
     c = lmm_torch.solve_arrays(a, eps, device="cpu",
-                               parallel_rounds=parallel_rounds)
+                               parallel_rounds=parallel_rounds, layout="coo")
     assert g[3] == c[3]
     for x, y in zip(g[:3], c[:3]):
         np.testing.assert_array_equal(x, y)
@@ -340,7 +345,7 @@ def test_churn_card_equals_plain(cuda, mode):
     back to the host, and K5's delta scatter and K6 launched where the
     mode runs them."""
     kw = dict(n_v=3000, clusters=40, chain=12, churn=0.02, steps=5,
-              states=True, strict=True)
+              states=True, strict=True, layout="coo")
     _, g = churn.run_churn(mode, device=cuda, **kw)
     _, c = churn.run_churn(mode, device="cpu", **kw)
     assert same_states(g["states"], c["states"])
@@ -356,7 +361,7 @@ def test_churn_card_equals_plain(cuda, mode):
 def test_lazy_alltoall_card_equals_plain(cuda):
     """The Lazy-mode LV08 alltoall at 16 ranks, strict, card against
     plain bit for bit, with no fallback to the host."""
-    strict = LmmFlags(backend="torch", strict=True)
+    strict = LmmFlags(backend="torch", strict=True, layout="coo")
     _, g = lazy_alltoall.run_lazy(16, device=cuda, flags=strict, states=True)
     _, c = lazy_alltoall.run_lazy(16, device="cpu", flags=strict,
                                   states=True)
@@ -382,3 +387,200 @@ def test_card_solve_error_is_never_handed_to_the_host(cuda, monkeypatch):
     with pytest.raises(lmm_torch.SolveError, match="stalled"):
         s.solve()
     assert s.fallback_count == 0
+
+
+# ---------------------------------------------------------------------------
+# the ELL layout: K7, K8, K9, K6's ELL arm, K5's ELL deltas
+
+
+def width_arrays(seed, n_c, width, deg, bounds=0.0, fat=0.0):
+    """Every constraint row holds ``width`` elements, each variable
+    ``deg``; a tenth of the variables disabled, three zero-bound rows."""
+    rng = np.random.default_rng(seed)
+    n_e = n_c * width
+    n_v = n_e // deg
+    eb, cb, vb = bucket(n_e), bucket(n_c), bucket(n_v)
+    e_var = np.zeros(eb, np.int32)
+    e_cnst = np.zeros(eb, np.int32)
+    e_w = np.zeros(eb)
+    e_var[:n_e] = np.repeat(np.arange(n_v, dtype=np.int32), deg)
+    e_cnst[:n_e] = np.concatenate([rng.permutation(n_c)
+                                   for _ in range(width)])
+    e_w[:n_e] = rng.uniform(0.5, 1.5, n_e)
+    c_bound = np.zeros(cb)
+    c_bound[:n_c] = rng.uniform(1.0, 10.0, n_c)
+    c_bound[:3] = 0.0
+    c_fat = np.zeros(cb, bool)
+    c_fat[:n_c] = rng.random(n_c) < fat
+    v_pen = np.zeros(vb)
+    v_pen[:n_v] = 1.0
+    v_pen[rng.choice(n_v, n_v // 10, replace=False)] = 0.0
+    v_bound = np.full(vb, -1.0)
+    sel = rng.random(n_v) < bounds
+    v_bound[:n_v][sel] = rng.uniform(0.5, 3.0, sel.sum()) / width
+    return LmmArrays(e_var, e_cnst, e_w, c_bound, c_fat, v_pen, v_bound,
+                     n_e, n_c, n_v)
+
+
+ELL_ARMS = {"vc": ({}, True, "vc_round"),
+            "bounds": (dict(bounds=0.3), True, "ell_round"),
+            "global": (dict(bounds=0.2), False, "ell_round_global"),
+            "fatpipe_vc": (dict(fat=0.1), True, "vc_round"),
+            "fatpipe_bounds": (dict(fat=0.1, bounds=0.3), True, "ell_round"),
+            "global_fatpipe": (dict(fat=0.1), False, "ell_round_global")}
+
+
+@pytest.mark.parametrize("width", [4, 64, 128])
+@pytest.mark.parametrize("arm", list(ELL_ARMS))
+def test_ell_dense_card_equals_plain(cuda, arm, width):
+    """The dense ELL solve on the card (K7's init, then K8's or K7's
+    rounds) equals the plain versions on the CPU, bit for bit."""
+    kw, local, kernel = ELL_ARMS[arm]
+    a = width_arrays(3, 96 if local else 48, width, 4, **kw)
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, parallel_rounds=local,
+                               layout="ell", chain="off")
+    counts = launch_counts()
+    assert counts["ell_init"] == 1 and counts[kernel] > 0
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=local,
+                               layout="ell", chain="off")
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+
+
+def chain_arrays(seed=13):
+    from simgrid_tpu_torch.workloads.bench_solve import build_arrays
+    return build_arrays(np.random.default_rng(seed), 4096, 33000, 3,
+                        np.float64)
+
+
+@pytest.mark.parametrize("cap", [64, 1], ids=["chain", "overflow"])
+def test_ell_chain_card_equals_plain(cuda, monkeypatch, cap):
+    """The compaction chain (K8 rounds in guarded stages, K9's partition
+    and fetch) on the card equals the plain chain on the CPU; with a
+    stage cap of 1 both overflow into the dense path, still equal.  The
+    default layout and chain on the card take this path."""
+    monkeypatch.setattr(lmm_ell, "_CHAIN_STAGE_CAP", cap)
+    a = chain_arrays()
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda)
+    counts = launch_counts()
+    assert counts["ell_chain_stage"] == 3 and counts["ell_chain_fetch"] > 0
+    assert (counts["ell_init"] > 0) == (cap == 1)
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", layout="ell",
+                               chain="on")
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+
+
+def test_ell_chain_stage_card_equals_plain(cuda):
+    """One chain stage from the same mid-stage state: the kept rows, the
+    re-derived constraint index, v_final and the overflow flag."""
+    a = chain_arrays(5)
+    ell = lmm_ell.ell_from_arrays(a)
+    init = lmm_ell.chain_init(ell, 1e-9, False)
+    states = []
+    for dev in (cuda, torch.device("cpu")):
+        sys, pen = lmm_ell._chain_tables([torch.from_numpy(np.array(x)).to(
+            dev) for x in (ell.vc_cnst, ell.vc_w, ell.vc_valid,
+                           ell.v_penalty, ell.c_bound, ell.c_fatpipe)])
+        w = Work(sys.n_v, sys.n_c, torch.float64, dev)
+        for t, src in zip((w.v_value, w.v_fixed, w.remaining, w.usage,
+                           w.light), init[:5]):
+            t.copy_(torch.from_numpy(np.array(src)))
+        cs = k9.ChainState(sys, pen, torch.from_numpy(init[5]).to(dev), w)
+        k9.chain_arm(cs, -1, -1, first=True)
+        half = sys.n_v // 2
+        k9.chain_arm(cs, 64, half)
+        from simgrid_tpu_torch.kernels.vc_round import vc_round
+        for _ in range(12):           # stop short of half: rows stay live
+            vc_round(cs.sys, w, cs.pen, 1e-9)
+        k9.chain_stage(cs, half)
+        states.append([t.cpu() for t in (
+            cs.sys.vc_cnst, cs.sys.vc_w, cs.sys.vc_valid, cs.pen, cs.orig,
+            w.v_value[:half], w.v_fixed[:half], cs.v_final, w.ctrl,
+            cs.sys.vcx_ptr)] + [cs.sys.vcx_idx[:int(cs.sys.vcx_ptr[-1])]
+                                 .cpu()])
+    for x, y in zip(*states):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("mode", list(churn.MODES))
+def test_churn_ell_card_equals_plain(cuda, mode):
+    """The churn at 3,000 variables under the card's default layout (ELL,
+    the chain where eligible) against the plain path with
+    ``layout="ell"``, ``chain="on"`` on the CPU, strict: every step bit
+    for bit, ELL throughout, no fallback."""
+    kw = dict(n_v=3000, clusters=40, chain=12, churn=0.02, steps=5,
+              states=True, strict=True)
+    _, g = churn.run_churn(mode, device=cuda, **kw)
+    _, c = churn.run_churn(mode, device="cpu", layout="ell",
+                           chain_mode="on", **kw)
+    assert same_states(g["states"], c["states"])
+    assert g["solver_fallbacks"] == c["solver_fallbacks"] == 0
+    assert (g["rounds"], g["bytes_full"], g["bytes_delta"]) == \
+        (c["rounds"], c["bytes_full"], c["bytes_delta"])
+    if mode != "legacy-subset":
+        assert g["last_layout"] == "ell" and g["warm_ell_fallbacks"] == 0
+    if mode == "warm-selective":
+        assert g["launches"]["warm_init_ell"] == kw["steps"]
+        assert g["launches"]["delta_scatter_ell"] > 0
+
+
+def test_warm_init_ell_card_equals_plain(cuda):
+    """K6's ELL arm from the same previous state, card against plain."""
+    a = width_arrays(8, 96, 64, 4, fat=0.1)
+    ell = lmm_ell.ell_from_arrays(a)
+    rng = np.random.default_rng(8)
+    mc = np.sort(rng.choice(96, 20, replace=False)).astype(np.int32)
+    mc_pad = np.full(bucket(len(mc), floor=8), mc[0], np.int32)
+    mc_pad[:len(mc)] = mc
+    n_c, wc = ell.cv_var.shape
+    n_v = ell.vc_cnst.shape[0]
+    prev = dict(v_value=rng.uniform(0, 1, n_v),
+                remaining=rng.uniform(0, 5, n_c),
+                usage=rng.uniform(0, 5, n_c),
+                cv_live=rng.random((n_c, wc)) < 0.5)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        sys, pen, _ = lmm_ell.dense_system(ell, dev)
+        w = EllWork(sys.n_v, sys.n_c, sys.wc, torch.float64, dev)
+        for name, x in prev.items():
+            getattr(w, name).copy_(torch.from_numpy(x))
+        k6.warm_init_ell(sys, w, pen, torch.from_numpy(mc_pad).to(dev),
+                         1e-9)
+        out.append([getattr(w, n).cpu() for n in (
+            "v_value", "v_fixed", "remaining", "usage", "light", "cv_live",
+            "ctrl")])
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+
+
+def test_ell_delta_scatter_card_equals_plain(cuda):
+    """K5's ELL use: six flat runs, validity written as weight > 0."""
+    rng = np.random.default_rng(6)
+    shapes = [((64, 8), np.int32), ((64, 8), np.float64), ((64, 8), bool),
+              ((300, 4), np.int32), ((300, 4), bool), ((300, 4), np.float64)]
+    masters = [(rng.uniform(0, 50, s) if dt != bool else rng.random(s) < 0.5
+                ).astype(dt) for s, dt in shapes]
+    n, k = 16, 13
+    runs = []
+    for ti, (s, dt) in enumerate(shapes):
+        ix = np.sort(rng.choice(s[0] * s[1], k, replace=False))
+        vals = rng.choice([-1.0, 0.0, 0.5, 3.0], k)
+        idx = np.full(n, ix[0], np.float64)
+        v = np.full(n, vals[0])
+        idx[:k], v[:k] = ix, vals
+        runs += [idx, v]
+    payload = torch.from_numpy(np.concatenate(runs))
+    layout = [(ti, 2 * n * ti, n) for ti in range(6)]
+    g = [torch.from_numpy(m.copy()).to(cuda) for m in masters]
+    c = [torch.from_numpy(m.copy()) for m in masters]
+    reset_launch_counts()
+    ell_delta_scatter(payload.to(cuda), layout, g)
+    assert launch_counts()["delta_scatter_ell"] == 1
+    ell_delta_scatter(payload, layout, c)
+    for x, y in zip(g, c):
+        assert torch.equal(x.cpu(), y)

@@ -21,6 +21,7 @@ from simgrid_tpu_torch.kernels import transition_scatter as k5
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.ops import lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays
+from simgrid_tpu_torch.ops.lmm_host import LmmFlags
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "simgrid_tpu_torch")
@@ -64,6 +65,11 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.ops.lmm_warm\n"
         "import simgrid_tpu_torch.workloads.churn\n"
         "import simgrid_tpu_torch.workloads.lazy_alltoall\n"
+        "import simgrid_tpu_torch.workloads.bench_solve\n"
+        "import simgrid_tpu_torch.ops.lmm_ell\n"
+        "import simgrid_tpu_torch.kernels.ell_round\n"
+        "import simgrid_tpu_torch.kernels.vc_round\n"
+        "import simgrid_tpu_torch.kernels.ell_chain\n"
         "import simgrid_tpu_torch.kernels\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -97,6 +103,37 @@ def test_entry_points_need_a_device():
         DrainSim(a.e_var, a.e_cnst, a.e_w, a.c_bound, np.ones(2))
     values, _, _, rounds = lmm_torch.solve_arrays(a, 1e-9, device="cpu")
     assert rounds > 0 and np.all(values > 0)
+    from simgrid_tpu_torch.workloads import bench_solve, churn
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lmm_torch.solve_arrays(a, 1e-9, layout="ell")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_solve.run_bench_solve(arrays=a, reps=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        churn.run_churn(n_v=40, clusters=2, chain=3, steps=1)
+    _, row = bench_solve.run_bench_solve(arrays=a, reps=0, device="cpu",
+                                         layout="ell")
+    assert row["path"] == "dense" and row["rounds"] == rounds
+
+
+def test_layout_choice_follows_the_device():
+    """``layout="auto"`` and ``chain="auto"`` resolve as the JAX package
+    resolves them with the device in place of its platform: ELL and the
+    chain on the card, COO on the CPU; unknown names raise."""
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    assert not lmm_torch.uses_ell("auto", cpu)
+    assert lmm_torch.uses_ell("auto", card)
+    assert lmm_torch.uses_ell("ell", cpu)
+    assert not lmm_torch.uses_ell("coo", card)
+    assert not lmm_torch.uses_chain("auto", cpu)
+    assert lmm_torch.uses_chain("auto", card)
+    assert lmm_torch.uses_chain("on", cpu)
+    assert not lmm_torch.uses_chain("off", card)
+    for bad in (lambda: lmm_torch.uses_ell("csr", cpu),
+                lambda: lmm_torch.uses_chain("maybe", cpu),
+                lambda: LmmFlags(layout="csr"),
+                lambda: LmmFlags(chain="maybe")):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def small_state():
@@ -228,4 +265,38 @@ def test_warm_wrappers_run_plain_version_on_cpu():
     assert w.light.tolist() == [False, True]
     assert w.v_fixed.tolist() == [True, False]
     assert int(w.ctrl[common.LIGHT]) == 1 and int(w.ctrl[common.IT]) == 0
+    assert launch_counts() == before
+
+
+def test_ell_wrappers_run_plain_version_on_cpu():
+    """K7, K8, K9, K6's ELL arm and K5's ELL deltas take their plain
+    versions on CPU tensors and count no launch."""
+    from simgrid_tpu_torch.kernels import ell_chain as k9
+    from simgrid_tpu_torch.kernels import ell_round as k7
+    from simgrid_tpu_torch.kernels import vc_round as k8
+    from simgrid_tpu_torch.ops import lmm_ell
+    before = launch_counts()
+    cpu = torch.device("cpu")
+    ell = lmm_ell.ell_from_arrays(tiny_arrays())
+    sys_, pen, vb = lmm_ell.dense_system(ell, cpu)
+    w = common.EllWork(sys_.n_v, sys_.n_c, sys_.wc, torch.float64, cpu)
+    assert k7.ell_init(sys_, w, pen, 1e-9, vb) is True
+    assert k8.vc_round(sys_, w, pen, 1e-9) is True
+    assert k7.ell_round(sys_, w, pen, 1e-9, vb) is False   # converged
+    mc = torch.tensor([1], dtype=torch.int32)
+    assert k6.warm_init_ell(sys_, w, pen, mc, 1e-9) is True
+    assert k7.ell_round(sys_, w, pen, 1e-9, vb, global_rounds=True) is True
+    cs = k9.ChainState(sys_._replace(cv_var=None, cv_w=None, cv_valid=None),
+                       pen, torch.arange(2, dtype=torch.int32),
+                       common.Work(2, 2, torch.float64, cpu))
+    assert k9.chain_arm(cs, -1, -1, first=True) is True
+    assert k9.chain_stage(cs, 1) is True and cs.sys.n_v == 1
+    out = torch.zeros(4 + 2 + 4, dtype=torch.float64)
+    assert k9.chain_fetch(cs, out) is True
+    masters = [sys_.cv_var.clone(), sys_.cv_w.clone(), sys_.cv_valid.clone(),
+               sys_.vc_cnst.clone(), sys_.vc_valid.clone(),
+               sys_.vc_w.clone()]
+    payload = torch.tensor([0.0, -1.0], dtype=torch.float64)
+    assert k5.ell_delta_scatter(payload, [(2, 0, 1)], masters) is True
+    assert not bool(masters[2].view(-1)[0])
     assert launch_counts() == before
