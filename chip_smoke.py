@@ -103,6 +103,38 @@ Then the ELL layout, the JAX package's default solve on an accelerator
    throughout with no ``warm_ell_fallbacks``; then K6's ELL arm and
    K5's ELL deltas against their plain versions at this path's shapes.
 
+Then the superstep's event arms (float64, tolerance 0):
+
+13. main path 8, the config-#4 drain of phase 3 under a fault tape
+   (``workloads/fault_drain.py``): a ``FaultCampaign`` (seed 42, horizon
+   2 s) over every used link in slot order, exponential MTBF 100 s and
+   MTTR 0.1 s, failures clamped to 5% of the link's bound, run to its
+   end through K2's event arm and K3's tape arm (K4's time per repack
+   taken inside the run); it fails unless more than ``MIN_FIRES``
+   entries fire.  (a) The same drain under the tape shifted past its
+   end: the arm peeks on every advance, never fires, and the events and
+   clock must equal phase 3's bit for bit.  (b) The 10,000 flows of
+   phase 4 under their own campaign at the same rates, on the card and
+   through the plain path on the host CPU: events, fault events and
+   clock equal;
+14. main path 9, ``bench.py``'s collective stage as recorded
+   (``workloads/collective_run.py``, superstep 8): the ring allreduce
+   at 64 ranks and recursive doubling at 256 and 1,024, each as a tape
+   drain (K2's event arm, K3's collective arm, K10) and through the
+   host maestro (K1, K2's forced mode, K5), both on the card: equal
+   completions, activations and Kahan pair, the recorded counts
+   (flows, edges, activations, dispatches of each leg), and at 64 and
+   256 ranks the tape drain equal to the plain path on the CPU;
+15. both arms at once: the 1,024-rank case with rank 0's uplink down to
+   2% of its bandwidth at 0.7x the middle completion date and restored
+   at 1.3x: the tape drain equals the maestro under the same tape, a
+   fault fires and the events move;
+   then K2's event arm and K3's tape arm at phase 13's shapes, K3's
+   collective arm and K10 at the 1,024-rank case's, each against its
+   plain version, with its ms, the plain ms and the library call's
+   (``index_put_`` for the bound scatter, ``index_add_`` on int32 for
+   K10's decrements).
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
@@ -145,6 +177,12 @@ HEADLINE = dict(n_c=16384, n_v=100_000, deg=4, seed=42)
 HL_EPS = 1e-9
 #: the reduced class K7's round arms are held whole at (same widths)
 ARMS_CLASS = dict(n_c=2048, n_v=12_500, deg=4)
+#: the fault campaign of phase 13: every used link of the config-#4
+#: drain fails with exponential MTBF 100 s and MTTR 0.1 s over a 2 s
+#: horizon (failures clamp the link to 5% of its bandwidth)
+FAULT = dict(seed=42, horizon=2.0, mtbf=100.0, mttr=0.1)
+#: phase 13 fails unless more tape entries than this fire mid-drain
+MIN_FIRES = 1000
 #: bench.py's churn stage as recorded (bench.py:1503-1527)
 CHURN = dict(n_v=100_000, seed=42, clusters=960, chain=96, churn=0.01,
              steps=6)
@@ -219,12 +257,18 @@ def main() -> int:
         transition_scatter_plain)
     from simgrid_tpu_torch.kernels.warm_init import (warm_init,
                                                      warm_init_plain)
+    from simgrid_tpu_torch.ops import lmm_drain as lmm_drain_mod
     from simgrid_tpu_torch.ops import lmm_ell, opstats
     from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket, to2d
     from simgrid_tpu_torch.ops.lmm_host import LmmFlags
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
-    from simgrid_tpu_torch.workloads import (bench_solve, churn, dragonfly,
-                                             lazy_alltoall)
+    from simgrid_tpu_torch.workloads import (bench_solve, churn,
+                                             collective_run, dragonfly,
+                                             fault_drain, lazy_alltoall)
+    from simgrid_tpu_torch.kernels.common import (ADV_GO, ADV_OK, DT, FFIRE,
+                                                  PENDING, SS_ACTIVE, T_SUM,
+                                                  TPOS)
+    from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -498,6 +542,9 @@ def main() -> int:
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_from"] = "main path 1 (the config-#4 random drain)"
+    # held against phase 13(a): the same drain under a tape that never
+    # fires
+    drain3 = (sim.events, sim.t)
     del sim
     torch.cuda.empty_cache()
 
@@ -1666,6 +1713,415 @@ def main() -> int:
                       "warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
     del warm12, st12, e12, tg12, tc12
+    torch.cuda.empty_cache()
+
+    # ---- 13. main path 8: the config-#4 drain under a fault tape --------
+    names13 = dragonfly.link_names(dsys)
+    t0 = time.perf_counter()
+    tape13 = fault_drain.tape_for(dsys.e_cnst, dsys.e_w, dsys.c_bound,
+                                  link_names=names13, **FAULT)
+    tape13_s = time.perf_counter() - t0
+    # K4's time per repack inside this run (CUDA events around each
+    # call; the drain is idle between supersteps when it repacks)
+    k4_calls = []
+    k4_real = lmm_drain_mod.livefirst_repack
+
+    def k4_timed(*args, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = k4_real(*args, **kw)
+        e1.record()
+        e1.synchronize()
+        k4_calls.append(e0.elapsed_time(e1))
+        return out
+    lmm_drain_mod.livefirst_repack = k4_timed
+    try:
+        sim13, row13 = fault_drain.run_fault_drain(dsys, tape13,
+                                                   device=cuda, superstep=K)
+    finally:
+        lmm_drain_mod.livefirst_repack = k4_real
+    c13 = row13["launches"]
+    for name in ("lmm_init", "lmm_round", "drain_advance_event",
+                 "superstep_commit_tape", "livefirst_repack"):
+        if c13.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on main path 8")
+    if row13["fires"] <= MIN_FIRES:
+        raise AssertionError(f"faulted drain: {row13['fires']} fires, "
+                             f"expected more than {MIN_FIRES}")
+    # (a) the same drain under a tape whose dates all lie past its end:
+    # the arm peeks on every advance and never fires
+    late13 = (tape13[0] + 10.0 * drain3[1] + 1.0, tape13[1], tape13[2])
+    sim13a, row13a = fault_drain.run_fault_drain(dsys, late13, device=cuda,
+                                                 superstep=K)
+    held13a = (sim13a.events == drain3[0] and sim13a.t == drain3[1]
+               and not sim13a.fault_events)
+    # (b) 10,000 flows with their own campaign at the same rates, card
+    # against the plain path on the host CPU
+    tape13b = fault_drain.tape_for(rsys.e_cnst, rsys.e_w, rsys.c_bound,
+                                   link_names=dragonfly.link_names(rsys),
+                                   **FAULT)
+    res13b = {name: fault_drain.run_fault_drain(rsys, tape13b, device=dev,
+                                                superstep=K)
+              for name, dev in (("cuda", cuda), ("cpu", cpu))}
+    g13b, c13b = res13b["cuda"][0], res13b["cpu"][0]
+    held13b = (g13b.events == c13b.events and g13b.t == c13b.t
+               and g13b.fault_events == c13b.fault_events)
+    rec = {"phase": "main_path_fault_drain", **row13,
+           "tape_build_s": tape13_s, "k4_ms_per_repack": k4_calls,
+           "fault_events_first": sim13.fault_events[:3],
+           "a_unfired_tape_equals_phase_3": held13a,
+           "a_wall_s": row13a["wall_s"],
+           "b_flows": REDUCED_FLOWS, "b_tape_slots": len(tape13b[0]),
+           "b_fires": len(g13b.fault_events), "b_advances": g13b.advances,
+           "b_t_sim": g13b.t, "b_card_equals_cpu": held13b,
+           "b_cuda_wall_s": res13b["cuda"][1]["wall_s"],
+           "b_cpu_wall_s": res13b["cpu"][1]["wall_s"]}
+    log(rec)
+    report["main_path_fault_drain"] = rec
+    if not held13a:
+        raise AssertionError("faulted drain (a): an unfired tape moved "
+                             "the config-#4 drain")
+    if not held13b or not g13b.fault_events:
+        raise AssertionError("faulted drain (b): card and plain CPU "
+                             "differ, or no fault fired")
+    del sim13a, res13b, g13b, c13b
+    torch.cuda.empty_cache()
+
+    # ---- 14. main path 9: bench.py's collective tapes --------------------
+    rows14, legs14 = [], {}
+    c14 = {}
+    for cs in collective_run.CASES:
+        row, legs, _ = collective_run.run_case(cs, device=cuda)
+        label = f"{cs.algo}-r{cs.ranks}"
+        legs14[label] = (cs, legs)
+        for leg, rec_ in legs.items():
+            for name, n in rec_["launches"].items():
+                c14[(leg, name)] = c14.get((leg, name), 0) + n
+        rec = {"phase": "collective", "case": label,
+               **{k: v for k, v in row.items() if k != "bench"},
+               "tape_launches": {n: v for n, v in
+                                 legs["tape"]["launches"].items() if v},
+               "maestro_launches": {n: v for n, v in
+                                    legs["maestro"]["launches"].items()
+                                    if v}}
+        if cs.ranks <= 256:
+            _, cpu_leg = collective_run.run_leg(cs.build(), "tape", cpu)
+            rec["tape_equals_plain_cpu"] = collective_run.same_legs(
+                legs["tape"], cpu_leg)
+            rec["cpu_tape_wall_ms"] = cpu_leg["wall_ms"]
+        log(rec)
+        rows14.append(rec)
+        bad = collective_run.recorded_mismatch(row)
+        if bad or not row["events_bit_identical"] \
+                or not rec.get("tape_equals_plain_cpu", True):
+            raise AssertionError(f"collective {label}: {bad or rec}")
+    for leg, names in (("tape", ("lmm_init", "lmm_round",
+                                 "drain_advance_event",
+                                 "superstep_commit_coll", "dag_walk")),
+                       ("maestro", ("lmm_init", "lmm_round",
+                                    "drain_forced_advance",
+                                    "transition_scatter"))):
+        for name in names:
+            if c14.get((leg, name), 0) <= 0:
+                raise AssertionError(f"{name} never launched on the "
+                                     f"collective {leg} leg")
+    report["main_path_collective"] = rows14
+
+    # ---- 15. both arms at once: a link flip mid-collective ---------------
+    cs15, legs15 = legs14[f"rdb-r{collective_run.CASES[2].ranks}"]
+    dc15 = cs15.build()
+    base15 = legs15["tape"]["events"]
+    mid15 = base15[len(base15) // 2][0]
+    ft15 = (np.asarray([mid15 * 0.7, mid15 * 1.3]),
+            np.asarray([0, 0], np.int32),
+            np.asarray([cs15.bw * 0.02, cs15.bw]))
+    _, tape15 = collective_run.run_leg(dc15, "tape", cuda, tape=ft15)
+    _, maes15 = collective_run.run_leg(dc15, "maestro", cuda, tape=ft15)
+    held15 = collective_run.same_legs(tape15, maes15)
+    rec = {"phase": "composed_arms", "case": f"rdb-r{cs15.ranks}",
+           "tape": [list(map(float, ft15[0])), ft15[2].tolist()],
+           "fault_events": tape15["fault_events"],
+           "activations": len(tape15["collective_events"]),
+           "tape_equals_maestro": held15,
+           "events_moved": tape15["events"] != base15,
+           "clock": tape15["clock"], "tape_wall_ms": tape15["wall_ms"],
+           "maestro_wall_ms": maes15["wall_ms"],
+           "tape_launches": {n: v for n, v in tape15["launches"].items()
+                             if v}}
+    log(rec)
+    report["composed_arms"] = rec
+    if not held15 or not tape15["fault_events"] \
+            or tape15["events"] == base15:
+        raise AssertionError(f"composed arms: {rec}")
+    for name in ("superstep_commit_tape", "superstep_commit_coll",
+                 "dag_walk"):
+        if tape15["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on phase 15")
+    del legs14, legs15, tape15, maes15
+
+    # K2's event arm and K3's tape arm at phase 13's shapes: the first
+    # advance of the config-#4 drain from its converged rates, which the
+    # tape's first entry cuts short
+    V13 = FLOWS
+    tt13, ts13, tv13 = (torch.from_numpy(a) for a in tape13)
+    tt13_g = tt13.to(cuda)
+    tap13_g = (ts13.to(cuda), tv13.to(cuda))
+    tap13_c = (ts13, tv13.clone())
+    cb13 = torch.from_numpy(dsys.c_bound.copy())
+    w13g = Work(V13, C, f64, cuda)
+    w13c = Work(V13, C, f64, cpu)
+    st13 = {}
+
+    def k2e_setup(w, dev):
+        st13[dev] = dict(pen=pen_g.to(dev, copy=True),
+                         rem=rem0.to(dev, copy=True))
+        w.v_value.copy_(rates_g)
+        w.ctrl.zero_()
+        w.fctrl.zero_()
+        w.evf.zero_()
+    k2e_setup(w13g, "cuda")
+    drain_advance(st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g, w13g,
+                  tape_t=tt13_g)
+    k2e_setup(w13c, "cpu")
+    drain_advance_plain(st13["cpu"]["pen"], st13["cpu"]["rem"], thresh0,
+                        w13c, tape_t=tt13)
+    torch.cuda.synchronize()
+    err = max(diff(st13["cuda"]["pen"], st13["cpu"]["pen"]),
+              diff(st13["cuda"]["rem"], st13["cpu"]["rem"]),
+              diff(w13g.done, w13c.done), diff(w13g.fctrl, w13c.fctrl),
+              diff(w13g.ctrl, w13c.ctrl), diff(w13g.evf, w13c.evf))
+    if err != 0.0 or not int(w13c.ctrl[FFIRE]):
+        raise AssertionError(f"K2's event arm differs from its plain "
+                             f"version ({err}) or did not fire")
+    k2e_ms = events_ms(lambda: drain_advance(
+        st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g, w13g,
+        tape_t=tt13_g), 20, lambda: k2e_setup(w13g, "cuda"))
+    k2e_plain = events_ms(lambda: drain_advance_plain(
+        st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g, w13g,
+        tape_t=tt13_g), 5, lambda: k2e_setup(w13g, "cuda"))
+    kernels.append(dict(
+        name="drain_advance_event", route="cuda",
+        source="simgrid_tpu_torch/csrc/drain_advance.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:363",
+        launches=c13["drain_advance_event"], max_abs_err=err, ms=k2e_ms,
+        plain_ms=k2e_plain,
+        # K2's bytes plus the one tape date it reads
+        bound_ms=bound_ms(k2_bytes + 8), bound_by="bytes",
+        library_ms=None, dt=float(w13c.fctrl[DT]),
+        launches_from="main path 8 (the faulted config-#4 drain); "
+                      f"{c14[('tape', 'drain_advance_event')]} on main "
+                      "path 9 (the collective tapes)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K3's tape arm: commit that advance in a superstep slot
+    pk13g = torch.zeros(packed_size(K, V13 + K), dtype=f64, device=cuda)
+    pk13c = pk13g.cpu()
+
+    def k3t_prime(w, pk, cb_):
+        w.ctrl[SS_ACTIVE] = 1
+        w.ctrl[ADV_GO] = 1
+        w.ctrl[TPOS] = 0
+        pk.zero_()
+        cb_.copy_(cb13)
+    cb13g = cb13.to(cuda)
+    cb13c = cb13.clone()
+    k3t_prime(w13g, pk13g, cb13g)
+    k3t_prime(w13c, pk13c, cb13c)
+    snap13 = (w13g.ctrl.clone(), w13g.fctrl.clone())
+    superstep_commit(w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g,
+                     c_bound=cb13g)
+    superstep_commit_plain(w13c, ids_c, pk13c, K, V13 + K, tape=tap13_c,
+                           c_bound=cb13c)
+    torch.cuda.synchronize()
+    err = max(diff(pk13g, pk13c), diff(w13g.ctrl, w13c.ctrl),
+              diff(w13g.fctrl, w13c.fctrl), diff(cb13g, cb13c))
+    if err != 0.0 or int(w13c.ctrl[TPOS]) != 1:
+        raise AssertionError(f"K3's tape arm differs from its plain "
+                             f"version ({err})")
+
+    def k3t_setup():
+        w13g.ctrl.copy_(snap13[0])
+        w13g.fctrl.copy_(snap13[1])
+        k3t_prime(w13g, pk13g, cb13g)
+    k3t_ms = events_ms(lambda: superstep_commit(
+        w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g, c_bound=cb13g), 20,
+        k3t_setup)
+    k3t_plain = events_ms(lambda: superstep_commit_plain(
+        w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g, c_bound=cb13g), 5,
+        k3t_setup)
+    slot13, val13 = int(ts13[0]), tv13[0:1].to(cuda)
+    slot13_g = torch.tensor([slot13], device=cuda)
+    k3t_lib = events_ms(lambda: cb13g.index_put_((slot13_g,), val13), 20)
+    n13 = int(w13c.done.sum())
+    # the mask and ids read, the ring written (completions and the fault
+    # entry), one tape entry read and one bound written
+    k3t_bytes = V13 + nbytes(ids_g) + (n13 + 1) * 16 + 4 + 8 + 8
+    kernels.append(dict(
+        name="superstep_commit_tape", route="cuda",
+        source="simgrid_tpu_torch/csrc/superstep_commit.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:423",
+        launches=c13["superstep_commit_tape"], max_abs_err=err, ms=k3t_ms,
+        plain_ms=k3t_plain, bound_ms=bound_ms(k3t_bytes), bound_by="bytes",
+        library_ms=k3t_lib,
+        library="index_put_ of the fired bound (one call)",
+        launches_from="main path 8 (the faulted config-#4 drain)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del w13g, w13c, st13, pk13g, pk13c
+
+    # K3's collective arm and K10 at phase 14's largest shape (the
+    # 1,024-rank rdb allreduce): from the converged rates of its roots,
+    # a quarter of the dormant flows with a pending date inside the first
+    # advance; then K10 over the edge list with the roots completed
+    dc14 = cs15.build()
+    V14, C14 = dc14.n_v, dc14.n_c
+    flat14 = [to2d(a).reshape(-1) for a in (dc14.e_var, dc14.e_cnst,
+                                            dc14.e_w)]
+    s14 = to_device_system(flat14[0], flat14[1], flat14[2], dc14.c_bound,
+                           V14, f64, cuda)
+    pen14 = torch.from_numpy(dc14.penalty0.copy())
+    w14g = Work(V14, C14, f64, cuda)
+    lmm_init(s14, w14g, pen14.to(cuda), EPS)
+    while True:
+        for _ in range(16):
+            lmm_round(s14, w14g, pen14.to(cuda), EPS)
+        if int(w14g.ctrl[LIGHT]) == 0:
+            break
+    rates14 = w14g.v_value.clone()
+    rem14 = torch.from_numpy(dc14.sizes.copy())
+    thr14 = 1e-4 * rem14
+    dormant = np.flatnonzero(dc14.penalty0 == 0)
+    ready14 = np.full(V14, np.inf)
+    ready14[dormant[::4]] = 1e-6
+    ready14 = torch.from_numpy(ready14)
+    ids14_g = torch.arange(V14, dtype=torch.int32, device=cuda)
+    w14c = Work(V14, C14, f64, cpu)
+    st14 = {}
+
+    def k3c_setup(w, dev):
+        st14[dev] = dict(pen=pen14.to(dev, copy=True),
+                         rem=rem14.to(dev, copy=True),
+                         ready=ready14.to(dev, copy=True),
+                         pk=torch.zeros(packed_size(K, 2 * V14), dtype=f64,
+                                        device=dev))
+        w.v_value.copy_(rates14)
+        w.ctrl.zero_()
+        w.fctrl.zero_()
+        w.evf.zero_()
+        w.ctrl[SS_ACTIVE] = 1
+        w.ctrl[PENDING] = len(dormant[::4])
+        x = st14[dev]
+        drain_advance(x["pen"], x["rem"], thr14.to(dev), w, gated=True,
+                      ready=x["ready"])
+    k3c_setup(w14g, "cuda")
+    k3c_setup(w14c, "cpu")
+    x_g, x_c = st14["cuda"], st14["cpu"]
+    err2 = max(diff(w14g.ctrl, w14c.ctrl), diff(w14g.fctrl, w14c.fctrl),
+               diff(w14g.evf, w14c.evf), diff(x_g["rem"], x_c["rem"]))
+    # the timed commits below start from this state
+    snap14 = (w14g.ctrl.clone(), w14g.fctrl.clone(), w14g.evf.clone())
+    superstep_commit(w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14,
+                     ready=x_g["ready"], pen=x_g["pen"])
+    superstep_commit(w14c, ids14_g.cpu(), x_c["pk"], K, 2 * V14, n_c=C14,
+                     ready=x_c["ready"], pen=x_c["pen"])
+    torch.cuda.synchronize()
+    err = max(err2, diff(x_g["pk"], x_c["pk"]), diff(w14g.ctrl, w14c.ctrl),
+              diff(x_g["pen"], x_c["pen"]),
+              diff(x_g["ready"], x_c["ready"]))
+    n_act14 = len(dormant[::4])
+    if err != 0.0 or int(w14c.ctrl[PENDING]) != 0 \
+            or int((x_c["pen"] > 0).sum()) != V14 - len(dormant) + n_act14:
+        raise AssertionError(f"K3's collective arm differs from its plain "
+                             f"version ({err}) or fired the wrong flows")
+
+    def k3c_restore():
+        w14g.ctrl.copy_(snap14[0])
+        w14g.fctrl.copy_(snap14[1])
+        w14g.evf.copy_(snap14[2])
+        x_g["pen"].copy_(pen14)
+        x_g["ready"].copy_(ready14)
+    k3c_ms = events_ms(lambda: superstep_commit(
+        w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14, ready=x_g["ready"],
+        pen=x_g["pen"]), 20, k3c_restore)
+    k3c_plain = events_ms(lambda: superstep_commit_plain(
+        w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14, ready=x_g["ready"],
+        pen=x_g["pen"]), 5, k3c_restore)
+    # mask, ids and dates read; per activation a ring entry, a penalty
+    # and a date written
+    k3c_bytes = V14 + nbytes(ids14_g, ready14) + n_act14 * 32
+    kernels.append(dict(
+        name="superstep_commit_coll", route="cuda",
+        source="simgrid_tpu_torch/csrc/superstep_commit.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:439",
+        launches=c14[("tape", "superstep_commit_coll")], max_abs_err=err,
+        ms=k3c_ms, plain_ms=k3c_plain, bound_ms=bound_ms(k3c_bytes),
+        bound_by="bytes", library_ms=None, activations=n_act14,
+        launches_from="main path 9 (the three collective tapes)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K10: the roots complete in one advance
+    pred0_14 = torch.from_numpy(dc14.pred0.copy())
+    es14, ed14, ex14 = (torch.from_numpy(a.copy()) for a in (
+        dc14.edge_src, dc14.edge_dst, dc14.exec_cost))
+    args14_g = [t.to(cuda) for t in (es14, ed14)]
+    ex14_g = ex14.to(cuda)
+    done14 = torch.from_numpy(dc14.penalty0 > 0)
+    st10 = {}
+
+    def k10_setup(w, dev):
+        w.ctrl[ADV_OK] = 1
+        w.ctrl[PENDING] = 0
+        w.fctrl[T_SUM] = 1e-3
+        w.done.copy_(done14)
+        st10[dev] = dict(pred=pred0_14.to(dev, copy=True),
+                         ready=torch.full((V14,), float("inf"), dtype=f64,
+                                          device=dev))
+    k10_setup(w14g, "cuda")
+    k10_setup(w14c, "cpu")
+    dag_walk(w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
+             ex14_g)
+    dag_walk_plain(w14c, es14, ed14, st10["cpu"]["pred"],
+                   st10["cpu"]["ready"], ex14)
+    torch.cuda.synchronize()
+    err = max(diff(st10["cuda"]["pred"], st10["cpu"]["pred"]),
+              diff(st10["cuda"]["ready"], st10["cpu"]["ready"]),
+              diff(w14g.ctrl[PENDING], w14c.ctrl[PENDING]))
+    freed14 = int(w14c.ctrl[PENDING])
+    if err != 0.0 or freed14 <= 0:
+        raise AssertionError(f"K10 differs from its plain version ({err}) "
+                             "or freed nothing")
+    k10_ms = events_ms(lambda: dag_walk(
+        w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
+        ex14_g), 20, lambda: k10_setup(w14g, "cuda"))
+    k10_plain = events_ms(lambda: dag_walk_plain(
+        w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
+        ex14_g), 5, lambda: k10_setup(w14g, "cuda"))
+    keep14 = args14_g[1] < V14
+    src14, dst14 = args14_g[0][keep14].long(), args14_g[1][keep14].long()
+    done14_g = w14g.done
+
+    def library_k10():
+        st10["cuda"]["pred"].index_add_(
+            0, dst14, -done14_g[src14].to(torch.int32))
+    k10_lib = events_ms(library_k10, 20, lambda: k10_setup(w14g, "cuda"))
+    n_dec = int(done14[es14[ed14 < V14].long()].sum())
+    # the edge list and each edge's done flag read; per decrement a count
+    # read and written; per freed flow a cost read and a date written
+    k10_bytes = nbytes(es14, ed14) + len(es14) + n_dec * 8 + freed14 * 16
+    kernels.append(dict(
+        name="dag_walk", route="cuda",
+        source="simgrid_tpu_torch/csrc/dag_walk.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:457",
+        launches=c14[("tape", "dag_walk")], max_abs_err=err, ms=k10_ms,
+        plain_ms=k10_plain, bound_ms=bound_ms(k10_bytes), bound_by="bytes",
+        library_ms=k10_lib,
+        library="index_add_ of the decrements on int32 (one call)",
+        edges=dc14.n_edges, decrements=n_dec, freed=freed14,
+        launches_from="main path 9 (the three collective tapes); "
+                      f"{report['composed_arms']['tape_launches']['dag_walk']}"
+                      " on phase 15"))
+    log({"phase": "kernel", **kernels[-1]})
+    del w14g, w14c, s14, st10, st14
     torch.cuda.empty_cache()
 
     report["kernels"] = kernels

@@ -15,7 +15,14 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
   the ELL layout and its compaction chain where the JAX package takes
   them on an accelerator);
 * :class:`simgrid_tpu_torch.ops.lmm_drain.DrainSim` — the drain
-  executor (unfused, fused and superstep shapes);
+  executor (unfused, fused and superstep shapes; a fault event tape and
+  a collective schedule inside the superstep);
+* :class:`simgrid_tpu_torch.faults.FaultCampaign` and
+  :func:`simgrid_tpu_torch.workloads.fault_drain.tape_for` — seeded link
+  failure campaigns and their device tapes;
+* :class:`simgrid_tpu_torch.collectives.CollectiveSpec` (``build()``,
+  then ``make_sim``) and :class:`~simgrid_tpu_torch.collectives.
+  HostMaestro` — compiled MPI collective schedules and their host oracle;
 * :func:`simgrid_tpu_torch.workloads.dragonfly.build_system` — the
   config-#4 system generator.
 """

@@ -21,6 +21,11 @@
   solver's resident ELL masters and its ELL carry (with ``cv_live``) to
   a port state, so that K7, K8 and K6's ELL arm can start from JAX's
   own state.
+* :func:`tape_from_jax` copies a fault event tape triple (as the JAX
+  package's ``ScenarioPlan.tape_for`` returns it) into the dtypes the
+  port's ``DrainSim(tape=...)`` takes, and :func:`collective_from_jax`
+  turns a JAX ``DeviceCollective`` (by attribute) into the port's, so
+  that both packages drain the same compiled DAG.
 
 Nothing here imports ``simgrid_tpu`` or ``jax``.
 """
@@ -35,6 +40,7 @@ import torch
 from .device import DeviceLike, resolve_device
 from .kernels.common import IT, LIGHT
 from .kernels.common import EllWork
+from .collectives.tape import DeviceCollective
 from .ops.lmm_arrays import LmmArrays
 from .ops.lmm_drain import DrainSim
 from .ops.lmm_ell import LmmEllArrays, ell_system
@@ -226,3 +232,23 @@ def port_ell_warm_state(st: DtypeState, ell: Sequence, carry: Sequence
     w.ctrl[LIGHT] = int(np.count_nonzero(np.asarray(carry[4])))
     w.carry_valid = True
     return st
+
+
+def tape_from_jax(triple) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A fault event tape ``(dates, slots, values)`` as f64, int32 and f64
+    numpy copies (``DrainSim(tape=...)`` casts the values to its dtype,
+    as the JAX drain does)."""
+    t, s, v = triple
+    return (np.array(t, np.float64), np.array(s, np.int32),
+            np.array(v, np.float64))
+
+
+_DC_FIELDS = ("e_var", "e_cnst", "e_w", "c_bound", "sizes", "penalty0",
+              "pred0", "ready0", "edge_src", "edge_dst", "exec_cost")
+
+
+def collective_from_jax(dc) -> DeviceCollective:
+    """The port's ``DeviceCollective`` with the arrays of a JAX one (read
+    by attribute; its schedule object is not carried over)."""
+    return DeviceCollective.from_arrays(
+        int(dc.n_c), *(np.asarray(getattr(dc, f)) for f in _DC_FIELDS))

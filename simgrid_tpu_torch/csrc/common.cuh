@@ -35,11 +35,21 @@
 #define C_HALF 21
 #define C_OVERFLOW 22
 #define C_NFIXED_ACC 23
+#define C_TPOS 24
+#define C_FIRE 25
+#define C_FFIRE 26
+#define C_AANY 27
+#define C_PENDING 28
+#define C_ADV_OK 29
 
 // ---- fctrl (dtype) slots ----
 #define F_TSUM 0
 #define F_TCOMP 1
 #define F_DT 2
+
+// ---- evf (float64) slots: the superstep's event clock ----
+#define EV_T0 0
+#define EV_NEXT_T 1
 
 #define MAX_ROUNDS 100000
 #define FLAG_OK 0
@@ -64,6 +74,11 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// f64 -> T with round to nearest (a jnp `.astype` of an f64 value)
+template <typename T> __device__ __forceinline__ T from_f64(double x);
+template <> __device__ __forceinline__ double from_f64<double>(double x) { return x; }
+template <> __device__ __forceinline__ float from_f64<float>(double x) { return __double2float_rn(x); }
 
 __device__ __forceinline__ bool finite_v(double x) { return isfinite(x); }
 __device__ __forceinline__ bool finite_v(float x) { return isfinite(x); }

@@ -23,6 +23,24 @@
 // (__fsub_rn/__fmul_rn in f32), which pins `_rounded_product` whatever
 // the compiler flags.
 //
+// The event arm (a fault tape, a collective schedule or both) replaces
+// the `has_tape or has_coll` branch of the superstep body
+// (simgrid_tpu/ops/lmm_drain.py:363-401).  After the planned dt (the
+// same min), `adv_event` peeks the next event: the next tape date
+// `tape_t[tpos]` while `tpos < T`, the earliest pending activation
+// `min(ready)` (folded by `adv_min` in the same pass, an unsigned
+// atomicMin on the bits of non-negative f64 dates, +inf included), and
+// the clock `now = t0 + t_sum` (tape) or `t_sum` (collective clocks are
+// absolute).  The advance fires when the event date lies inside it,
+// `next_t <= now + dt_plan` (ties go to the event; a pending event
+// rescues an infinite plan), and dt is clamped to land on it:
+// `dt = (T) max(next_t - now, 0)`.  All of that clock arithmetic is
+// f64 with explicit round-to-nearest adds, also on an f32 drain, as in
+// JAX.  The clamped dt replaces the planned one in `dtbits`, so the
+// retire below is unchanged; `fire`, `f_fire = fire && next_ft <=
+// next_at` and `a_any = fire && next_at <= next_ft` go to control words
+// for K3, and the event date to `evf[EV_NEXT_T]`.
+//
 // In a superstep (gated=1) the step runs only in an active advance
 // slot; when the fixpoint it follows has neither converged nor spent
 // its JAX round limit, the queued rounds ran out first: the step marks
@@ -35,7 +53,8 @@
 namespace {
 
 template <typename T>
-__global__ void adv_pre(int* ctrl, unsigned long long* dtbits, int gated) {
+__global__ void adv_pre(int* ctrl, unsigned long long* dtbits,
+                        unsigned long long* atbits, int gated) {
   int go = 1;
   if (gated) {
     go = ctrl[C_SS_ACTIVE] && !ctrl[C_SS_STARVED];
@@ -47,32 +66,79 @@ __global__ void adv_pre(int* ctrl, unsigned long long* dtbits, int gated) {
   ctrl[C_ADV_GO] = go;
   ctrl[C_ADV_CONV] = ctrl[C_LIGHT] == 0;
   ctrl[C_LIVE_ACC] = 0;
+  ctrl[C_ADV_OK] = 0;
+  ctrl[C_FIRE] = 0;
+  ctrl[C_FFIRE] = 0;
+  ctrl[C_AANY] = 0;
   *dtbits = key_of(inf_v<T>());
+  if (atbits) *atbits = key_of(inf_v<double>());
 }
 
 template <typename T>
 __global__ void adv_min(int V, const T* __restrict__ pen,
                         const T* __restrict__ rem,
                         const T* __restrict__ rate,
-                        unsigned long long* dtbits, const int* ctrl) {
+                        unsigned long long* dtbits,
+                        const double* __restrict__ ready,
+                        unsigned long long* atbits, const int* ctrl) {
   if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
   T m = inf_v<T>();
+  double a = inf_v<double>();
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
        v += gridDim.x * blockDim.x) {
     T r = pen[v] > T(0) ? rate[v] : T(0);
     if (r > T(0)) m = min_v(m, div_rn(rem[v], r));
+    if (ready) a = min_v(a, ready[v]);
   }
   m = warp_min(m);
   __shared__ T wmin[32];
+  __shared__ double amin[32];
   int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   if (lane == 0) wmin[wid] = m;
+  if (ready) {
+    a = warp_min(a);
+    if (lane == 0) amin[wid] = a;
+  }
   __syncthreads();
   if (wid == 0) {
     int nw = blockDim.x >> 5;
     T x = lane < nw ? wmin[lane] : inf_v<T>();
     x = warp_min(x);
     if (lane == 0 && x < inf_v<T>()) atomicMin(dtbits, key_of(x));
+    if (ready) {
+      double y = lane < nw ? amin[lane] : inf_v<double>();
+      y = warp_min(y);
+      if (lane == 0 && y < inf_v<double>()) atomicMin(atbits, key_of(y));
+    }
   }
+}
+
+// The event peek and the dt clamp (one thread; see the header).
+template <typename T>
+__global__ void adv_event(int* ctrl, const T* fctrl,
+                          unsigned long long* dtbits,
+                          const unsigned long long* atbits, double* evf,
+                          const double* __restrict__ tape_t, int n_tape,
+                          int has_ready) {
+  if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
+  const double inf = inf_v<double>();
+  T dt_plan = from_key<T>(*dtbits);
+  int tpos = ctrl[C_TPOS];
+  double next_ft = (tape_t && tpos < n_tape) ? tape_t[tpos] : inf;
+  double next_at = has_ready ? from_key<double>(*atbits) : inf;
+  double ts = (double)fctrl[F_TSUM];
+  double now = has_ready ? ts : __dadd_rn(evf[EV_T0], ts);
+  double next_t = next_at < next_ft ? next_at : next_ft;
+  bool fire = isfinite(next_t) && next_t <= __dadd_rn(now, (double)dt_plan);
+  if (fire) {
+    double gap = __dsub_rn(next_t, now);
+    if (gap < 0.0) gap = 0.0;
+    *dtbits = key_of(from_f64<T>(gap));
+  }
+  ctrl[C_FIRE] = fire;
+  ctrl[C_FFIRE] = fire && next_ft <= next_at;
+  ctrl[C_AANY] = fire && next_at <= next_ft;
+  evf[EV_NEXT_T] = next_t;
 }
 
 template <typename T>
@@ -112,14 +178,23 @@ __global__ void adv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
 template <typename T>
 int launch(int V, void* pen, void* rem, const void* thresh,
            const void* rate, void* done, void* ctrl, void* fctrl,
-           void* dtbits, int gated, cudaStream_t s) {
+           void* dtbits, int gated, void* evf, void* atbits,
+           const void* tape_t, int n_tape, const void* ready,
+           cudaStream_t s) {
   const int TB = 256;
   int g = grid_for(V, TB);
-  adv_pre<T><<<1, 1, 0, s>>>((int*)ctrl, (unsigned long long*)dtbits,
+  bool event = tape_t != nullptr || ready != nullptr;
+  unsigned long long* ab = ready ? (unsigned long long*)atbits : nullptr;
+  adv_pre<T><<<1, 1, 0, s>>>((int*)ctrl, (unsigned long long*)dtbits, ab,
                              gated);
   adv_min<T><<<g, TB, 0, s>>>(V, (const T*)pen, (const T*)rem,
                               (const T*)rate, (unsigned long long*)dtbits,
-                              (const int*)ctrl);
+                              (const double*)ready, ab, (const int*)ctrl);
+  if (event)
+    adv_event<T><<<1, 1, 0, s>>>((int*)ctrl, (const T*)fctrl,
+                                 (unsigned long long*)dtbits, ab,
+                                 (double*)evf, (const double*)tape_t,
+                                 n_tape, ready != nullptr);
   adv_apply<T><<<g, TB, 0, s>>>(V, (T*)pen, (T*)rem, (const T*)thresh,
                                 (const T*)rate, (bool*)done,
                                 (const unsigned long long*)dtbits,
@@ -184,14 +259,20 @@ extern "C" int drain_forced_advance(int dbl, int V, void* pen, void* rem,
                               s);
 }
 
+// tape_t (f64 dates, n_tape of them) and ready (f64 activation dates)
+// are NULL when their arm is off; evf and atbits are read only by the
+// event arm.
 extern "C" int drain_advance(int dbl, int V, void* pen, void* rem,
                              const void* thresh, const void* rate,
                              void* done, void* ctrl, void* fctrl,
-                             void* dtbits, int gated, void* stream) {
+                             void* dtbits, int gated, void* evf,
+                             void* atbits, const void* tape_t, int n_tape,
+                             const void* ready, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (dbl)
     return launch<double>(V, pen, rem, thresh, rate, done, ctrl, fctrl,
-                          dtbits, gated, s);
+                          dtbits, gated, evf, atbits, tape_t, n_tape, ready,
+                          s);
   return launch<float>(V, pen, rem, thresh, rate, done, ctrl, fctrl, dtbits,
-                       gated, s);
+                       gated, evf, atbits, tape_t, n_tape, ready, s);
 }

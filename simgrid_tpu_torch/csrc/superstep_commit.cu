@@ -1,25 +1,40 @@
 // K3 superstep_commit: the control of a superstep of up to K advances.
 //
 // Replaces: simgrid_tpu/ops/lmm_drain.py `_superstep_program`
-// (:248-531, without the tape and collective arms) and, through the
-// same kernels, the commit half of `_fused_step_program` (:203-234).
+// (:248-531) and, through the same kernels, the commit half of
+// `_fused_step_program` (:203-234).  Its tape arm replaces :423-437,
+// its collective arm :332-342, :439-456 and :486-521 (K10 `dag_walk`
+// takes :457-463).
 // The JAX program is one lax.while_loop; here the host queues K advance
 // slots back to back (begin -> K1 init -> K1 rounds -> K2 -> commit)
 // and the device decides, slot by slot, whether each one runs:
 //
 // * superstep_reset: the loop carry (advance/round counters, flag,
-//   ring length, Kahan pair) and the live count of the input;
+//   ring length, Kahan pair) and the live count of the input; with a
+//   tape, the cursor and the f64 base clock t0 the event peek adds
+//   t_sum to (set once, so a STARVED resume peeks from the same t0);
+//   with a collective, the Kahan pair from `coll_clk` (carried across
+//   supersteps, so event dates do not depend on how advances are
+//   grouped) and the count of pending activation dates;
 // * superstep_begin: the while_loop cond, `flag == OK && adv < k &&
-//   rounds < budget && n_live > stop_live`;
+//   rounds < budget && (n_live > stop_live || pending > 0)`;
 // * superstep_commit: the loop body after the solve and the advance:
 //   the Kahan clock update `y = dt - c; t' = t + y; c' = (t' - t) - y`
 //   (explicit round-to-nearest intrinsics, so nothing reassociates or
 //   contracts it), ring positions `n_ev + cumsum(done) - 1` in slot
 //   order, the per-advance dt and event-count tables, the flag and the
-//   `commit only if ok` select;
+//   `commit only if ok` select.  Its event arms, after the completions:
+//   when K2 said the fault-tape entry fires, one tagged ring entry
+//   `-(1 + slot)` at t_new, the new bound scattered into the drain's
+//   c_bound and the cursor bumped; when activations fire, every flow
+//   with `ready <= next_t` (read before K10 writes new dates) gets a
+//   ring entry `-(1 + n_c + id)` in slot order after those, penalty 1
+//   and `ready = inf`, and the pending and live counts move by their
+//   number.  All of it only if ok, as JAX's `sel`;
 // * superstep_finish: live elements and the packed stats vector,
 //   laid out as lmm_drain.py:525-530, so the host collect is a straight
-//   port and the host fetches once per superstep.
+//   port and the host fetches once per superstep; with a collective,
+//   the Kahan pair back into `coll_clk`.
 //
 // What bounds it on this card: latency.  The commit reads the V-long
 // completion mask once (100 KB at 100k flows, tens of nanoseconds of
@@ -37,10 +52,17 @@ namespace {
 
 template <typename T>
 __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
-                         T* fctrl, int k, int budget, int stop) {
-  int live = 0;
-  for (int v = threadIdx.x; v < V; v += blockDim.x) live += pen[v] > T(0);
+                         T* fctrl, int k, int budget, int stop, double* evf,
+                         double t0, int tpos,
+                         const double* __restrict__ ready,
+                         const double* __restrict__ clk) {
+  int live = 0, pend = 0;
+  for (int v = threadIdx.x; v < V; v += blockDim.x) {
+    live += pen[v] > T(0);
+    if (ready) pend += isfinite(ready[v]);
+  }
   int tot = block_sum(live);
+  int ptot = block_sum(pend);
   if (threadIdx.x == 0) {
     ctrl[C_SS_ACTIVE] = 0;
     ctrl[C_SS_ADV] = 0;
@@ -52,8 +74,13 @@ __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
     ctrl[C_SS_BUDGET] = budget;
     ctrl[C_SS_STOP] = stop;
     ctrl[C_SS_STARVED] = 0;
-    fctrl[F_TSUM] = T(0);
-    fctrl[F_TCOMP] = T(0);
+    ctrl[C_TPOS] = tpos;
+    ctrl[C_PENDING] = ptot;
+    ctrl[C_ADV_OK] = 0;
+    fctrl[F_TSUM] = clk ? T(clk[0]) : T(0);
+    fctrl[F_TCOMP] = clk ? T(clk[1]) : T(0);
+    evf[EV_T0] = t0;
+    evf[EV_NEXT_T] = inf_v<double>();
   }
 }
 
@@ -61,7 +88,8 @@ __global__ void ss_begin(int* ctrl) {
   ctrl[C_SS_ACTIVE] = !ctrl[C_SS_STARVED] && ctrl[C_SS_FLAG] == FLAG_OK &&
                       ctrl[C_SS_ADV] < ctrl[C_SS_K] &&
                       ctrl[C_SS_ROUNDS] < ctrl[C_SS_BUDGET] &&
-                      ctrl[C_SS_NLIVE] > ctrl[C_SS_STOP];
+                      (ctrl[C_SS_NLIVE] > ctrl[C_SS_STOP] ||
+                       ctrl[C_PENDING] > 0);
 }
 
 __global__ void ss_resume(int* ctrl) {
@@ -70,29 +98,44 @@ __global__ void ss_resume(int* ctrl) {
   ctrl[C_ARMED] = 1;
 }
 
+// The event arms' arrays (NULL when the arm is off).
+template <typename T>
+struct Arms {
+  const int* tape_slot;  // [T] int32 constraint slots
+  const T* tape_val;     // [T] new bounds, in the drain's dtype
+  T* c_bound;            // [C] the drain's bounds (scattered into)
+  int n_c;
+  double* ready;         // [V] f64 pending activation dates
+  T* pen;                // [V] penalties (activations set 1.0)
+};
+
 template <typename T>
 __global__ void ss_commit(int V, const bool* __restrict__ done,
                           const int* __restrict__ ids, T* packed, int* ctrl,
-                          T* fctrl, int k_max, int ring_n) {
+                          T* fctrl, int k_max, int ring_n,
+                          const double* evf, Arms<T> arm) {
   if (!ctrl[C_ADV_GO]) return;
   T dt = fctrl[F_DT];
   bool conv = ctrl[C_ADV_CONV] != 0;
   bool ok = conv && finite_v(dt);
+  bool f_fire = ok && arm.tape_slot && ctrl[C_FFIRE];
+  bool a_any = ok && arm.ready && ctrl[C_AANY];
+  int tpos = ctrl[C_TPOS];
   T ts = fctrl[F_TSUM], tc = fctrl[F_TCOMP];
   T y = sub_rn(dt, tc);
   T tn = add_rn(ts, y);
   T tc2 = sub_rn(sub_rn(tn, ts), y);
   int n_ev = ctrl[C_SS_NEV];
-  int n_done = 0;
+  int n_done = 0, n_act = 0;
+  T* ring_t = packed + 7 + 2 * k_max;
+  T* ring_id = ring_t + ring_n;
+  int per = (V + blockDim.x - 1) / blockDim.x;
+  int lo = threadIdx.x * per;
+  int hi = min(V, lo + per);
   if (ok) {
-    int per = (V + blockDim.x - 1) / blockDim.x;
-    int lo = threadIdx.x * per;
-    int hi = min(V, lo + per);
     int cnt = 0;
     for (int v = lo; v < hi; ++v) cnt += done[v];
     int ex = block_exclusive_scan(cnt, &n_done);
-    T* ring_t = packed + 7 + 2 * k_max;
-    T* ring_id = ring_t + ring_n;
     int pos = n_ev + ex;
     for (int v = lo; v < hi; ++v) {
       if (done[v]) {
@@ -102,20 +145,53 @@ __global__ void ss_commit(int V, const bool* __restrict__ done,
       }
     }
   }
+  int n_new = n_ev + n_done;
+  if (f_fire) {
+    // the fault fires after this advance's completions
+    if (threadIdx.x == 0) {
+      int slot = arm.tape_slot[tpos];
+      ring_t[n_new] = tn;
+      ring_id[n_new] = T(-(1 + slot));
+      arm.c_bound[slot] = arm.tape_val[tpos];
+    }
+    n_new += 1;
+  }
+  if (a_any) {
+    // activations after completions and the fault entry, in slot order
+    double nt = evf[EV_NEXT_T];
+    int cnt = 0;
+    for (int v = lo; v < hi; ++v) cnt += arm.ready[v] <= nt;
+    int ex = block_exclusive_scan(cnt, &n_act);
+    int pos = n_new + ex;
+    for (int v = lo; v < hi; ++v) {
+      if (arm.ready[v] <= nt) {
+        ring_t[pos] = tn;
+        ring_id[pos] = T(-(1 + arm.n_c + ids[v]));
+        arm.pen[v] = T(1);
+        arm.ready[v] = inf_v<double>();
+        ++pos;
+      }
+    }
+    n_new += n_act;
+  }
+  __syncthreads();
   if (threadIdx.x == 0) {
     int adv = ctrl[C_SS_ADV];
     if (ok) {
       packed[7 + adv] = dt;
-      packed[7 + k_max + adv] = T(n_ev + n_done);
+      packed[7 + k_max + adv] = T(n_new);
       fctrl[F_TSUM] = tn;
       fctrl[F_TCOMP] = tc2;
-      ctrl[C_SS_NEV] = n_ev + n_done;
+      ctrl[C_SS_NEV] = n_new;
       ctrl[C_SS_ADV] = adv + 1;
+      ctrl[C_TPOS] = tpos + (f_fire ? 1 : 0);
+      ctrl[C_PENDING] -= n_act;
     }
+    ctrl[C_ADV_OK] = ok;
     ctrl[C_SS_ROUNDS] += ctrl[C_IT];
     ctrl[C_SS_FLAG] = !conv ? FLAG_BUDGET
                             : (finite_v(dt) ? FLAG_OK : FLAG_STALLED);
-    ctrl[C_SS_NLIVE] = ctrl[C_LIVE_ACC];
+    ctrl[C_SS_NLIVE] = ctrl[C_LIVE_ACC] + n_act;
   }
 }
 
@@ -134,7 +210,12 @@ __global__ void ss_live_elems(int E, const int* __restrict__ e_var,
 }
 
 template <typename T>
-__global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl) {
+__global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl,
+                         double* clk) {
+  if (clk) {
+    clk[0] = (double)fctrl[F_TSUM];
+    clk[1] = (double)fctrl[F_TCOMP];
+  }
   packed[0] = T(ctrl[C_SS_ROUNDS]);
   packed[1] = T(ctrl[C_SS_ADV]);
   packed[2] = T(ctrl[C_SS_NEV]);
@@ -146,31 +227,38 @@ __global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl) {
 
 template <typename T>
 int reset_t(int V, const void* pen, void* ctrl, void* fctrl, int k,
-            int budget, int stop, cudaStream_t s) {
+            int budget, int stop, void* evf, double t0, int tpos,
+            const void* ready, const void* clk, cudaStream_t s) {
   ss_reset<T><<<1, 1024, 0, s>>>(V, (const T*)pen, (int*)ctrl, (T*)fctrl, k,
-                                 budget, stop);
+                                 budget, stop, (double*)evf, t0, tpos,
+                                 (const double*)ready, (const double*)clk);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int commit_t(int V, const void* done, const void* ids, void* packed,
              void* ctrl, void* fctrl, int k_max, int ring_n,
+             const void* evf, const void* tape_slot, const void* tape_val,
+             void* c_bound, int n_c, void* ready, void* pen,
              cudaStream_t s) {
+  Arms<T> arm{(const int*)tape_slot, (const T*)tape_val, (T*)c_bound, n_c,
+              (double*)ready, (T*)pen};
   ss_commit<T><<<1, 1024, 0, s>>>(V, (const bool*)done, (const int*)ids,
                                   (T*)packed, (int*)ctrl, (T*)fctrl, k_max,
-                                  ring_n);
+                                  ring_n, (const double*)evf, arm);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int finish_t(int E, const void* e_var, const void* e_w, const void* pen,
-             void* packed, void* ctrl, void* fctrl, cudaStream_t s) {
+             void* packed, void* ctrl, void* fctrl, void* clk,
+             cudaStream_t s) {
   const int TB = 256;
   ss_zero_le<<<1, 1, 0, s>>>((int*)ctrl);
   ss_live_elems<T><<<grid_for(E, TB), TB, 0, s>>>(
       E, (const int*)e_var, (const T*)e_w, (const T*)pen, (int*)ctrl);
   ss_stats<T><<<1, 1, 0, s>>>((T*)packed, (const int*)ctrl,
-                              (const T*)fctrl);
+                              (const T*)fctrl, (double*)clk);
   return (int)cudaGetLastError();
 }
 
@@ -178,12 +266,17 @@ int finish_t(int E, const void* e_var, const void* e_w, const void* pen,
 
 extern "C" {
 
+// ready (f64 activation dates) and clk (the f64 Kahan pair) are NULL
+// without a collective.
 int superstep_reset(int dbl, int V, const void* pen, void* ctrl,
-                    void* fctrl, int k, int budget, int stop,
+                    void* fctrl, int k, int budget, int stop, void* evf,
+                    double t0, int tpos, const void* ready, const void* clk,
                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dbl ? reset_t<double>(V, pen, ctrl, fctrl, k, budget, stop, s)
-             : reset_t<float>(V, pen, ctrl, fctrl, k, budget, stop, s);
+  return dbl ? reset_t<double>(V, pen, ctrl, fctrl, k, budget, stop, evf, t0,
+                               tpos, ready, clk, s)
+             : reset_t<float>(V, pen, ctrl, fctrl, k, budget, stop, evf, t0,
+                              tpos, ready, clk, s);
 }
 
 int superstep_begin(void* ctrl, void* stream) {
@@ -196,22 +289,30 @@ int superstep_resume(void* ctrl, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// tape_slot/tape_val/c_bound are NULL without a tape, ready/pen without
+// a collective.
 int superstep_commit(int dbl, int V, const void* done, const void* ids,
                      void* packed, void* ctrl, void* fctrl, int k_max,
-                     int ring_n, void* stream) {
+                     int ring_n, const void* evf, const void* tape_slot,
+                     const void* tape_val, void* c_bound, int n_c,
+                     void* ready, void* pen, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return dbl ? commit_t<double>(V, done, ids, packed, ctrl, fctrl, k_max,
-                                ring_n, s)
+                                ring_n, evf, tape_slot, tape_val, c_bound,
+                                n_c, ready, pen, s)
              : commit_t<float>(V, done, ids, packed, ctrl, fctrl, k_max,
-                               ring_n, s);
+                               ring_n, evf, tape_slot, tape_val, c_bound,
+                               n_c, ready, pen, s);
 }
 
 int superstep_finish(int dbl, int E, const void* e_var, const void* e_w,
                      const void* pen, void* packed, void* ctrl,
-                     void* fctrl, void* stream) {
+                     void* fctrl, void* clk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return dbl ? finish_t<double>(E, e_var, e_w, pen, packed, ctrl, fctrl, s)
-             : finish_t<float>(E, e_var, e_w, pen, packed, ctrl, fctrl, s);
+  return dbl ? finish_t<double>(E, e_var, e_w, pen, packed, ctrl, fctrl, clk,
+                                s)
+             : finish_t<float>(E, e_var, e_w, pen, packed, ctrl, fctrl, clk,
+                               s);
 }
 
 }  // extern "C"

@@ -4,8 +4,11 @@ their plain PyTorch versions.
 * K1 :mod:`.lmm_round`        — fixpoint init and one saturation round
   (local or global, with or without bounds and FATPIPE constraints)
 * K2 :mod:`.drain_advance`    — dt to the next completion, retirement;
-  forced mode: retirement at a given delta
-* K3 :mod:`.superstep_commit` — superstep control, Kahan clock, ring
+  forced mode: retirement at a given delta; event arm: dt clamped to
+  the next fault-tape date or collective activation date
+* K3 :mod:`.superstep_commit` — superstep control, Kahan clock, ring;
+  tape arm (fault entries, bound scatter, cursor) and collective arm
+  (activations)
 * K4 :mod:`.livefirst_repack` — stable live-first repack, row indexes
 * K5 :mod:`.transition_scatter` — an indexed-run payload into device
   arrays (the drain's transitions, the warm solver's deltas)
@@ -17,6 +20,8 @@ their plain PyTorch versions.
   variable-row tables
 * K9 :mod:`.ell_chain`        — the compaction chain's live count, stage
   partition, row gather and fetch
+* K10 :mod:`.dag_walk`        — a collective schedule's DAG walk: the
+  completions' successor decrements and the activation dates they free
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each wrapper counts its launches.
@@ -29,8 +34,8 @@ from .common import COUNTERS
 
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
-    from . import (drain_advance, ell_chain, ell_round,  # noqa: F401
-                   livefirst_repack, lmm_round, superstep_commit,
+    from . import (dag_walk, drain_advance, ell_chain,  # noqa: F401
+                   ell_round, livefirst_repack, lmm_round, superstep_commit,
                    transition_scatter, vc_round, warm_init)
     return {name: c.n for name, c in COUNTERS.items()}
 

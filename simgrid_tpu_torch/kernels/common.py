@@ -45,6 +45,12 @@ VLIVE_ACC = 20    # live variables being counted by the running vc round
 HALF = 21         # a vc round runs only while VLIVE > HALF (-1: always)
 OVERFLOW = 22     # a compaction-chain stage ended with too many live rows
 NFIXED_ACC = 23   # fixed variables counted by the chain's fetch
+TPOS = 24         # fault-tape cursor: the first entry not yet fired
+FIRE = 25         # the last advance landed on an event date
+FFIRE = 26        # ... and the event is the next fault-tape entry
+AANY = 27         # ... and the event is a collective activation date
+PENDING = 28      # collective flows with a pending activation date
+ADV_OK = 29       # the last advance committed (converged, finite dt)
 N_CTRL = 32
 
 # ---- fctrl (dtype) slots ----
@@ -52,6 +58,11 @@ T_SUM = 0
 T_COMP = 1
 DT = 2
 N_FCTRL = 4
+
+# ---- evf (float64) slots: the superstep's event clock ----
+EV_T0 = 0         # the host clock the superstep starts from
+EV_NEXT_T = 1     # the date of the event the last advance looked at
+N_EVF = 2
 
 MAX_ROUNDS = 100_000
 
@@ -121,6 +132,9 @@ class Work:
         self.ctrl = vec(N_CTRL, torch.int32)
         self.fctrl = vec(N_FCTRL, dtype)
         self.dtbits = vec(1, torch.int64)
+        #: the event arm's f64 clock words and min(ready) bits
+        self.evf = vec(N_EVF, torch.float64)
+        self.atbits = vec(1, torch.int64)
         self.c_mod = vec(n_c, torch.bool)
         self.carry_valid = False
         #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)

@@ -12,44 +12,100 @@ into ``w.fctrl[DT]`` and the live count into ``w.ctrl[LIVE_ACC]``.  It
 changes the flow state only when the fixpoint converged and dt is
 finite.  ``gated`` runs it inside a superstep advance slot (see the
 CUDA source for the STARVED hand-back).
+
+The event arm (``tape_t``, the fault tape's f64 dates, and/or
+``ready``, a collective's f64 activation dates) replaces the superstep
+body's ``has_tape or has_coll`` branch (``:363-401``): it peeks the
+next event against the clock ``w.evf[EV_T0] + t_sum`` (or ``t_sum``
+with a collective), clamps dt to land on it, and leaves ``FIRE``,
+``FFIRE``, ``AANY`` in ``w.ctrl`` and the event date in
+``w.evf[EV_NEXT_T]`` for K3.
 """
 
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
 
 from . import build
-from .common import (ADV_CONV, ADV_GO, DT, IT, LIGHT, LIMIT, LIVE_ACC,
-                     SS_ACTIVE, SS_STARVED, D, I, P, Work, check, counter,
-                     is_double, on_cpu, ptr, stream)
+from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, DT, EV_NEXT_T, EV_T0,
+                     FFIRE, FIRE, IT, LIGHT, LIMIT, LIVE_ACC, SS_ACTIVE,
+                     SS_STARVED, T_SUM, TPOS, D, I, P, Work, check, counter,
+                     is_double, on_cpu, opt_ptr, ptr, stream)
 
 COUNT = counter("drain_advance")
 FORCED_COUNT = counter("drain_forced_advance")
+EVENT_COUNT = counter("drain_advance_event")
 
-_SIG = {"drain_advance": [I, I] + [P] * 8 + [I, P],
+_SIG = {"drain_advance": [I, I] + [P] * 8 + [I, P, P, P, I, P, P],
         "drain_forced_advance": [I, I] + [P] * 6 + [D, P]}
 
 
-def advance_math(pen, rem, thresh, values):
-    """The JAX ``_advance_math`` on tensors: returns (dt, pen2, rem2,
-    done).  ``rate*dt`` is one rounded multiply (PyTorch on the CPU does
-    not contract it into an FMA)."""
+def planned_dt(pen, rem, values):
+    """dt to the next completion, ``min rem / rate`` over flowing flows
+    (the front half of the JAX ``_advance_math``), with the rates."""
     live = pen > 0
     rate = torch.where(live, values, 0.0)
     flowing = live & (rate > 0)
     inf = torch.tensor(float("inf"), dtype=rem.dtype, device=rem.device)
     dt = torch.min(torch.where(flowing,
                                rem / torch.where(flowing, rate, 1.0), inf))
+    return dt, rate, flowing
+
+
+def retire(pen, rem, thresh, rate, flowing, dt):
+    """``rem - rate*dt`` (one rounded multiply: PyTorch on the CPU does
+    not contract it into an FMA) and the strict-< retirement."""
     rem2 = torch.where(flowing, rem - rate * dt, rem)
     done = flowing & (rem2 < thresh)
     pen2 = torch.where(done, 0.0, pen)
     rem2 = torch.where(done, 0.0, rem2)
-    return dt, pen2, rem2, done
+    return pen2, rem2, done
+
+
+def advance_math(pen, rem, thresh, values):
+    """The JAX ``_advance_math`` on tensors: returns (dt, pen2, rem2,
+    done)."""
+    dt, rate, flowing = planned_dt(pen, rem, values)
+    return (dt,) + retire(pen, rem, thresh, rate, flowing, dt)
+
+
+def event_peek(w: Work, dt_plan: torch.Tensor,
+               tape_t: Optional[torch.Tensor],
+               ready: Optional[torch.Tensor]) -> torch.Tensor:
+    """The event peek and the clamp of the superstep body
+    (``lmm_drain.py:375-396``), in f64 Python floats (IEEE round to
+    nearest, as JAX's f64 ops): returns the advance's dt and leaves
+    FIRE/FFIRE/AANY and the event date in the control words."""
+    c = w.ctrl
+    inf = float("inf")
+    tpos = int(c[TPOS])
+    next_ft = (float(tape_t[tpos]) if tape_t is not None
+               and tpos < tape_t.shape[0] else inf)
+    next_at = (float(ready.min()) if ready is not None
+               and ready.numel() else inf)
+    ts = float(w.fctrl[T_SUM])
+    now = ts if ready is not None else float(w.evf[EV_T0]) + ts
+    next_t = next_at if next_at < next_ft else next_ft
+    fire = math.isfinite(next_t) and next_t <= now + float(dt_plan)
+    c[FIRE] = int(fire)
+    c[FFIRE] = int(fire and next_ft <= next_at)
+    c[AANY] = int(fire and next_at <= next_ft)
+    w.evf[EV_NEXT_T] = next_t
+    if not fire:
+        return dt_plan
+    gap = next_t - now
+    return torch.tensor(0.0 if gap < 0.0 else gap,
+                        dtype=torch.float64).to(dt_plan.dtype)
 
 
 def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
                         thresh: torch.Tensor, w: Work,
-                        gated: bool = False) -> bool:
+                        gated: bool = False,
+                        tape_t: Optional[torch.Tensor] = None,
+                        ready: Optional[torch.Tensor] = None) -> bool:
     c = w.ctrl
     go = True
     if gated:
@@ -61,10 +117,15 @@ def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
     c[ADV_GO] = int(go)
     c[ADV_CONV] = int(conv)
     c[LIVE_ACC] = 0
+    for slot in (ADV_OK, FIRE, FFIRE, AANY):
+        c[slot] = 0
     if not go:
         return False
     if conv:
-        dt, pen2, rem2, done = advance_math(pen, rem, thresh, w.v_value)
+        dt, rate, flowing = planned_dt(pen, rem, w.v_value)
+        if tape_t is not None or ready is not None:
+            dt = event_peek(w, dt, tape_t, ready)
+        pen2, rem2, done = retire(pen, rem, thresh, rate, flowing, dt)
     else:
         dt = torch.tensor(float("inf"), dtype=pen.dtype)
         pen2, rem2, done = pen, rem, torch.zeros_like(w.done)
@@ -81,17 +142,27 @@ def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
 
 
 def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
-                  thresh: torch.Tensor, w: Work, gated: bool = False):
-    """One time advance from the rates in ``w.v_value``."""
-    if on_cpu(pen, rem, thresh, w.ctrl):
-        return drain_advance_plain(pen, rem, thresh, w, gated)
+                  thresh: torch.Tensor, w: Work, gated: bool = False,
+                  tape_t: Optional[torch.Tensor] = None,
+                  ready: Optional[torch.Tensor] = None):
+    """One time advance from the rates in ``w.v_value``; with
+    ``tape_t`` and/or ``ready`` (f64) the event arm clamps it to the
+    next fault date or activation date."""
+    event = tape_t is not None or ready is not None
+    extra = [t for t in (tape_t, ready) if t is not None]
+    if on_cpu(pen, rem, thresh, w.ctrl, *extra):
+        return drain_advance_plain(pen, rem, thresh, w, gated, tape_t,
+                                   ready)
     lib = build.load("drain_advance", _SIG)
     rc = lib.drain_advance(
         is_double(pen.dtype), int(pen.shape[0]), ptr(pen), ptr(rem),
         ptr(thresh), ptr(w.v_value), ptr(w.done), ptr(w.ctrl),
-        ptr(w.fctrl), ptr(w.dtbits), int(gated), stream())
+        ptr(w.fctrl), ptr(w.dtbits), int(gated), ptr(w.evf),
+        ptr(w.atbits), opt_ptr(tape_t),
+        0 if tape_t is None else int(tape_t.shape[0]), opt_ptr(ready),
+        stream())
     check(rc, "drain_advance")
-    COUNT.n += 1
+    (EVENT_COUNT if event else COUNT).n += 1
     return None
 
 

@@ -1,10 +1,18 @@
 """K3: superstep control, the Kahan clock and the completion ring.
 
 Replaces ``simgrid_tpu/ops/lmm_drain.py`` ``_superstep_program``
-(``:248-531``, no tape, no collective) and the commit half of
-``_fused_step_program`` (``:203-234``).  The CUDA source is
-``csrc/superstep_commit.cu``, which describes how the JAX while_loop
-maps onto queued, device-guarded advance slots.
+(``:248-531``) and the commit half of ``_fused_step_program``
+(``:203-234``).  The CUDA source is ``csrc/superstep_commit.cu``, which
+describes how the JAX while_loop maps onto queued, device-guarded
+advance slots.
+
+The commit's two event arms follow K2's event peek: the fault-tape arm
+(``tape=(tape_slot, tape_val)`` and the drain's ``c_bound``) logs the
+fired entry, scatters its bound and bumps the cursor; the collective
+arm (``ready``, ``pen``) fires the activations.  A launch counts as
+``superstep_commit_tape`` when its tape arm is on and as
+``superstep_commit_coll`` when its collective arm is on (a launch with
+both counts in both), as ``superstep_commit`` otherwise.
 
 ``packed`` is the superstep's result vector in the JAX layout:
 ``[rounds, adv, n_ev, t_sum, n_live, flag, live_elems]``, then
@@ -21,25 +29,36 @@ import math
 import torch
 
 from . import build
-from .common import (ADV_CONV, ADV_GO, ARMED, DT, FLAG_BUDGET, FLAG_OK,
-                     FLAG_STALLED, FLAG_STARVED, IT, LE_ACC, LIVE_ACC, SS_ACTIVE,
+from typing import Optional, Tuple
+
+from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, ARMED, DT, EV_NEXT_T,
+                     EV_T0, FFIRE, FLAG_BUDGET, FLAG_OK, FLAG_STALLED,
+                     FLAG_STARVED, IT, LE_ACC, LIVE_ACC, PENDING, SS_ACTIVE,
                      SS_ADV, SS_BUDGET, SS_FLAG, SS_K, SS_NEV, SS_NLIVE,
-                     SS_ROUNDS, SS_STARVED, SS_STOP, T_COMP, T_SUM, I, P,
-                     Work, check, counter, is_double, on_cpu, ptr, stream)
+                     SS_ROUNDS, SS_STARVED, SS_STOP, T_COMP, T_SUM, TPOS, D,
+                     I, P, Work, check, counter, is_double, on_cpu, opt_ptr,
+                     ptr, stream)
 
 COUNT = counter("superstep_commit")
+TAPE_COUNT = counter("superstep_commit_tape")
+COLL_COUNT = counter("superstep_commit_coll")
 RESET_COUNT = counter("superstep_reset")
 BEGIN_COUNT = counter("superstep_begin")
 RESUME_COUNT = counter("superstep_resume")
 FINISH_COUNT = counter("superstep_finish")
 
 _SIG = {
-    "superstep_reset": [I, I, P, P, P, I, I, I, P],
+    "superstep_reset": [I, I, P, P, P, I, I, I, P, D, I, P, P, P],
     "superstep_begin": [P, P],
     "superstep_resume": [P, P],
-    "superstep_commit": [I, I, P, P, P, P, P, I, I, P],
-    "superstep_finish": [I, I, P, P, P, P, P, P, P],
+    "superstep_commit": [I, I, P, P, P, P, P, I, I, P, P, P, P, I, P, P,
+                         P],
+    "superstep_finish": [I, I, P, P, P, P, P, P, P, P],
 }
+
+#: the fault-tape arm's device arrays: constraint slots (int32) and new
+#: bounds (the drain's dtype)
+Tape = Tuple[torch.Tensor, torch.Tensor]
 
 N_STATS = 7
 
@@ -56,24 +75,30 @@ def _lib():
 # plain PyTorch versions
 
 
-def superstep_reset_plain(pen, w: Work, k: int, budget: int,
-                          stop: int) -> None:
+def superstep_reset_plain(pen, w: Work, k: int, budget: int, stop: int,
+                          t0: float = 0.0, tpos: int = 0,
+                          ready: Optional[torch.Tensor] = None,
+                          clk: Optional[torch.Tensor] = None) -> None:
     c = w.ctrl
+    pending = 0 if ready is None else int(torch.isfinite(ready).sum())
     for slot, val in ((SS_ACTIVE, 0), (SS_ADV, 0), (SS_ROUNDS, 0),
                       (SS_FLAG, FLAG_OK), (SS_NEV, 0), (SS_K, k),
                       (SS_BUDGET, budget), (SS_STOP, stop),
-                      (SS_STARVED, 0)):
+                      (SS_STARVED, 0), (TPOS, tpos), (PENDING, pending),
+                      (ADV_OK, 0)):
         c[slot] = val
     c[SS_NLIVE] = int((pen > 0).sum())
-    w.fctrl[T_SUM] = 0.0
-    w.fctrl[T_COMP] = 0.0
+    w.fctrl[T_SUM] = 0.0 if clk is None else clk[0]
+    w.fctrl[T_COMP] = 0.0 if clk is None else clk[1]
+    w.evf[EV_T0] = t0
+    w.evf[EV_NEXT_T] = float("inf")
 
 
 def superstep_begin_plain(w: Work) -> bool:
     c = [int(x) for x in w.ctrl.tolist()]
     active = (not c[SS_STARVED] and c[SS_FLAG] == FLAG_OK
               and c[SS_ADV] < c[SS_K] and c[SS_ROUNDS] < c[SS_BUDGET]
-              and c[SS_NLIVE] > c[SS_STOP])
+              and (c[SS_NLIVE] > c[SS_STOP] or c[PENDING] > 0))
     w.ctrl[SS_ACTIVE] = int(active)
     return active
 
@@ -85,7 +110,12 @@ def superstep_resume_plain(w: Work) -> None:
 
 
 def superstep_commit_plain(w: Work, ids: torch.Tensor, packed: torch.Tensor,
-                           k_max: int, ring_n: int) -> bool:
+                           k_max: int, ring_n: int,
+                           tape: Optional[Tape] = None,
+                           c_bound: Optional[torch.Tensor] = None,
+                           n_c: int = 0,
+                           ready: Optional[torch.Tensor] = None,
+                           pen: Optional[torch.Tensor] = None) -> bool:
     c = w.ctrl
     if not int(c[ADV_GO]):
         return False
@@ -99,29 +129,55 @@ def superstep_commit_plain(w: Work, ids: torch.Tensor, packed: torch.Tensor,
     t_comp2 = (t_new - f[T_SUM]) - y
     n_ev = int(c[SS_NEV])
     adv = int(c[SS_ADV])
+    n_act = 0
     if ok:
+        o = N_STATS + 2 * k_max
         done = w.done
         dcount = torch.cumsum(done.to(torch.int64), 0)
         n_done = int(dcount[-1]) if dcount.numel() else 0
         pos = (n_ev + dcount - 1)[done]
-        o = N_STATS + 2 * k_max
         packed[o + pos] = t_new
         packed[o + ring_n + pos] = ids[done].to(packed.dtype)
+        n_new = n_ev + n_done
+        if tape is not None and int(c[FFIRE]):
+            # the fault fires after this advance's completions
+            tpos = int(c[TPOS])
+            slot = int(tape[0][tpos])
+            packed[o + n_new] = t_new
+            packed[o + ring_n + n_new] = -(1 + slot)
+            c_bound[slot] = tape[1][tpos]
+            c[TPOS] = tpos + 1
+            n_new += 1
+        if ready is not None and int(c[AANY]):
+            # activations after completions and the fault entry
+            act = ready <= float(w.evf[EV_NEXT_T])
+            acount = torch.cumsum(act.to(torch.int64), 0)
+            n_act = int(acount[-1]) if acount.numel() else 0
+            apos = (n_new + acount - 1)[act]
+            packed[o + apos] = t_new
+            packed[o + ring_n + apos] = (-(1 + n_c) - ids[act].to(
+                torch.int64)).to(packed.dtype)
+            pen[act] = 1.0
+            ready[act] = float("inf")
+            c[PENDING] = int(c[PENDING]) - n_act
+            n_new += n_act
         packed[N_STATS + adv] = dt
-        packed[N_STATS + k_max + adv] = n_ev + n_done
+        packed[N_STATS + k_max + adv] = n_new
         f[T_SUM] = t_new
         f[T_COMP] = t_comp2
-        c[SS_NEV] = n_ev + n_done
+        c[SS_NEV] = n_new
         c[SS_ADV] = adv + 1
+    c[ADV_OK] = int(ok)
     c[SS_ROUNDS] = int(c[SS_ROUNDS]) + int(c[IT])
     c[SS_FLAG] = (FLAG_BUDGET if not conv
                   else FLAG_OK if finite else FLAG_STALLED)
-    c[SS_NLIVE] = int(c[LIVE_ACC])
+    c[SS_NLIVE] = int(c[LIVE_ACC]) + n_act
     return True
 
 
 def superstep_finish_plain(e_var, e_w, pen, packed: torch.Tensor,
-                           w: Work) -> None:
+                           w: Work, clk: Optional[torch.Tensor] = None
+                           ) -> None:
     c = w.ctrl
     live_elems = int(((e_w > 0) & (pen[e_var.long()] > 0)).sum())
     c[LE_ACC] = live_elems
@@ -130,18 +186,32 @@ def superstep_finish_plain(e_var, e_w, pen, packed: torch.Tensor,
         [int(c[SS_ROUNDS]), int(c[SS_ADV]), int(c[SS_NEV]), 0.0,
          int(c[SS_NLIVE]), flag, live_elems], dtype=packed.dtype)
     packed[3] = w.fctrl[T_SUM]
+    if clk is not None:
+        clk[0] = w.fctrl[T_SUM]
+        clk[1] = w.fctrl[T_COMP]
 
 
 # ---------------------------------------------------------------------------
 # wrappers
 
 
-def superstep_reset(pen, w: Work, k: int, budget: int, stop: int) -> None:
-    if on_cpu(pen, w.ctrl):
-        return superstep_reset_plain(pen, w, k, budget, stop)
+def superstep_reset(pen, w: Work, k: int, budget: int, stop: int,
+                    t0: float = 0.0, tpos: int = 0,
+                    ready: Optional[torch.Tensor] = None,
+                    clk: Optional[torch.Tensor] = None) -> None:
+    """The superstep's loop carry; ``t0`` (the f64 host clock the event
+    peek adds ``t_sum`` to) and ``tpos`` (the tape cursor) for a fault
+    tape, ``ready`` (pending activation dates) and ``clk`` (the carried
+    f64 Kahan pair) for a collective."""
+    extra = [t for t in (ready, clk) if t is not None]
+    if on_cpu(pen, w.ctrl, *extra):
+        return superstep_reset_plain(pen, w, k, budget, stop, t0, tpos,
+                                     ready, clk)
     rc = _lib().superstep_reset(is_double(pen.dtype), int(pen.shape[0]),
                                 ptr(pen), ptr(w.ctrl), ptr(w.fctrl),
-                                int(k), int(budget), int(stop), stream())
+                                int(k), int(budget), int(stop), ptr(w.evf),
+                                float(t0), int(tpos), opt_ptr(ready),
+                                opt_ptr(clk), stream())
     check(rc, "superstep_reset")
     RESET_COUNT.n += 1
 
@@ -165,25 +235,47 @@ def superstep_resume(w: Work) -> None:
 
 
 def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
-                     k_max: int, ring_n: int):
-    """Commit the advance K2 just computed into the superstep carry."""
-    if on_cpu(w.ctrl, ids, packed):
-        return superstep_commit_plain(w, ids, packed, k_max, ring_n)
+                     k_max: int, ring_n: int, tape: Optional[Tape] = None,
+                     c_bound: Optional[torch.Tensor] = None, n_c: int = 0,
+                     ready: Optional[torch.Tensor] = None,
+                     pen: Optional[torch.Tensor] = None):
+    """Commit the advance K2 just computed into the superstep carry; with
+    ``tape`` the fired fault entry (bound into ``c_bound``), with
+    ``ready``/``pen`` the fired activations (ring ids offset by
+    ``n_c``)."""
+    extra = [t for t in (*(tape or ()), c_bound, ready, pen)
+             if t is not None]
+    if on_cpu(w.ctrl, ids, packed, *extra):
+        return superstep_commit_plain(w, ids, packed, k_max, ring_n, tape,
+                                      c_bound, n_c, ready, pen)
+    ts, tv = tape if tape is not None else (None, None)
     rc = _lib().superstep_commit(
         is_double(packed.dtype), int(w.done.shape[0]), ptr(w.done),
         ptr(ids), ptr(packed), ptr(w.ctrl), ptr(w.fctrl), int(k_max),
-        int(ring_n), stream())
+        int(ring_n), ptr(w.evf), opt_ptr(ts), opt_ptr(tv),
+        opt_ptr(c_bound if tape is not None else None), int(n_c),
+        opt_ptr(ready), opt_ptr(pen if ready is not None else None),
+        stream())
     check(rc, "superstep_commit")
-    COUNT.n += 1
+    if tape is not None:
+        TAPE_COUNT.n += 1
+    if ready is not None:
+        COLL_COUNT.n += 1
+    if tape is None and ready is None:
+        COUNT.n += 1
     return None
 
 
-def superstep_finish(e_var, e_w, pen, packed: torch.Tensor,
-                     w: Work) -> None:
-    if on_cpu(e_var, pen, packed):
-        return superstep_finish_plain(e_var, e_w, pen, packed, w)
+def superstep_finish(e_var, e_w, pen, packed: torch.Tensor, w: Work,
+                     clk: Optional[torch.Tensor] = None) -> None:
+    """Live elements and the packed stats; with a collective, the Kahan
+    pair back into ``clk``."""
+    extra = [clk] if clk is not None else []
+    if on_cpu(e_var, pen, packed, *extra):
+        return superstep_finish_plain(e_var, e_w, pen, packed, w, clk)
     rc = _lib().superstep_finish(
         is_double(packed.dtype), int(e_var.shape[0]), ptr(e_var), ptr(e_w),
-        ptr(pen), ptr(packed), ptr(w.ctrl), ptr(w.fctrl), stream())
+        ptr(pen), ptr(packed), ptr(w.ctrl), ptr(w.fctrl), opt_ptr(clk),
+        stream())
     check(rc, "superstep_finish")
     FINISH_COUNT.n += 1

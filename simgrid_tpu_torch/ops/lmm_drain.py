@@ -37,8 +37,26 @@ plan's calls: ``apply_transitions`` (a scatter payload into the device
 plan, K5), ``partial_advance`` (an advance by a delta the caller gives,
 K2's forced mode) and ``solve_rates``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``pipeline=D``, ``tape=``, ``collective=``.
+Two event arms run inside the superstep, as in the JAX program:
+
+* a **fault tape** (``tape=(dates, slots, values)``: f64 absolute sim
+  dates, sorted, constraint slots and the absolute bound each entry
+  installs): K2 clamps an advance to land on the next date, K3 logs a
+  tagged ring entry ``-(1 + slot)``, scatters the bound into the drain's
+  constraint bounds and bumps the cursor; the host demuxes those entries
+  into ``fault_events``;
+* a **collective schedule** (``collective=(pred, ready, edge_src,
+  edge_dst, exec_cost)``, a compiled comm DAG): dormant flows (penalty
+  0) activate when their predecessors completed and their exec cost
+  passed; K2 clamps to the earliest activation date, K3 fires the
+  activations (ring ids ``-(1 + n_c + flow)``, into
+  ``collective_events``), K10 walks the DAG.  Its Kahan clock pair is
+  carried across supersteps and its ring dates are absolute, so every
+  event date is independent of the superstep grouping; float64 only,
+  and the drain never repacks (the DAG indexes flow slots).
+
+Not ported yet: ``pipeline=D`` (raises ``NotImplementedError`` naming
+its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -53,6 +71,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, FLAG_STARVED,
                               IT, LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem,
                               Work)
+from ..kernels.dag_walk import dag_walk
 from ..kernels.drain_advance import drain_advance, drain_forced_advance
 from ..kernels.livefirst_repack import livefirst_repack
 from ..kernels.lmm_round import lmm_init, lmm_round
@@ -92,7 +111,9 @@ class DrainSim:
     ``fused``, ``superstep=K`` and its round budget
     ``superstep_rounds`` (default K*512), optional per-flow rate bounds
     ``v_bound`` (-1 or 0: none), and an optional mid-run
-    ``penalty``/``remains``.  ``dtype`` defaults to float64.
+    ``penalty``/``remains``.  ``dtype`` defaults to float64.  ``tape``
+    and ``collective`` arm the superstep's event arms (module
+    docstring); both need ``superstep=K``.
     """
 
     def __init__(self, e_var, e_cnst, e_w, c_bound, sizes,
@@ -108,14 +129,6 @@ class DrainSim:
             raise NotImplementedError(
                 "pipeline=D is not ported yet (ROADMAP queue A item 2: "
                 "the speculative issue/collect split)")
-        if tape is not None and len(tape[0]):
-            raise NotImplementedError(
-                "tape= is not ported yet (ROADMAP queue B item 7: the "
-                "superstep's fault-tape arm)")
-        if collective is not None:
-            raise NotImplementedError(
-                "collective= is not ported yet (ROADMAP queue B item 8: "
-                "the superstep's collective-tape arm)")
         if done_mode not in ("rel", "abs"):
             raise ValueError(f"Unknown done_mode {done_mode!r} "
                              "(expected rel or abs)")
@@ -176,6 +189,8 @@ class DrainSim:
                               self._host["e_w"])
         self._live0 = (int(np.count_nonzero(pen0 > 0))
                        if penalty is not None else self.n_v)
+        self._arm_tape(tape, superstep)
+        self._arm_collective(collective, superstep)
 
         self.t = 0.0
         self.events: List[Tuple[float, int]] = []
@@ -186,6 +201,103 @@ class DrainSim:
         self.supersteps = 0
         #: supersteps whose queued rounds ran out and were resumed
         self.resumes = 0
+
+    # -- event arms --------------------------------------------------------
+
+    def _upload_delta(self, *arrays: np.ndarray) -> List[torch.Tensor]:
+        opstats.bump("uploaded_bytes_delta", sum(a.nbytes for a in arrays))
+        return [torch.from_numpy(np.array(a)).to(self.device)
+                for a in arrays]
+
+    def _arm_tape(self, tape, superstep: int) -> None:
+        """The fault event tape: ``(dates, slots, values)``, f64 absolute
+        dates (sorted), constraint slots, and the absolute bound each
+        entry installs (so a recovery restores the exact pre-fault
+        bound), checked as the JAX drain checks it."""
+        self.has_tape = False
+        #: (time, constraint slot) of every fired tape entry
+        self.fault_events: List[Tuple[float, int]] = []
+        #: tape entries fired so far (the device cursor, host view)
+        self._tpos_host = 0
+        self._tape: Optional[Tuple[torch.Tensor, ...]] = None
+        if tape is None or not len(tape[0]):
+            return
+        tt = np.asarray(tape[0], np.float64)
+        ts = np.asarray(tape[1], np.int32)
+        tv = np.asarray(tape[2], np.float64).astype(self.dtype)
+        if not (len(tt) == len(ts) == len(tv)):
+            raise ValueError("tape arrays must have equal length")
+        if np.any(np.diff(tt) < 0):
+            raise ValueError("tape dates must be time-sorted")
+        if np.any((ts < 0) | (ts >= self.n_c)):
+            raise ValueError("tape slot out of range")
+        if not superstep:
+            raise ValueError("tape= needs superstep=K (faults fire "
+                             "inside the superstep loop)")
+        self.has_tape = True
+        self._tape = tuple(self._upload_delta(tt, ts, tv))
+        opstats.bump("fault_tape_slots", len(tt))
+
+    def _arm_collective(self, collective, superstep: int) -> None:
+        """The collective schedule tape: ``(pred, ready, edge_src,
+        edge_dst, exec_cost)``, the compiled comm DAG
+        (``collectives.tape.DeviceCollective.drain_args()``)."""
+        self.has_coll = False
+        #: (time, flow id) of every activation
+        self.collective_events: List[Tuple[float, int]] = []
+        self._coll_total = 0
+        self._coll: Optional[List[torch.Tensor]] = None
+        self._coll_clk: Optional[torch.Tensor] = None
+        if collective is None:
+            return
+        cp, cr, ces, ced, cec = collective
+        cp = np.asarray(cp, np.int32)
+        cr = np.asarray(cr, np.float64)
+        ces = np.asarray(ces, np.int32)
+        ced = np.asarray(ced, np.int32)
+        cec = np.asarray(cec, np.float64)
+        if not (len(cp) == len(cr) == len(cec) == self.n_v):
+            raise ValueError("collective arrays must be per-flow "
+                             f"(n_v={self.n_v})")
+        if len(ces) != len(ced):
+            raise ValueError("collective edge arrays must have "
+                             "equal length")
+        # K10 reads done[src] and decrements pred[dst] where it is told
+        # (dst == n_v marks a pad row)
+        if np.any((ces < 0) | (ces >= self.n_v)) \
+                or np.any((ced < 0) | (ced > self.n_v)):
+            raise ValueError("collective edge out of range (sources in "
+                             f"[0, {self.n_v}), targets in [0, "
+                             f"{self.n_v}])")
+        if not superstep:
+            raise ValueError("collective= needs superstep=K (the "
+                             "DAG walks inside the superstep loop)")
+        if self.dtype != np.float64:
+            raise ValueError("collective= needs dtype=float64 (the "
+                             "carried Kahan clock must match the "
+                             "host-maestro oracle bit-for-bit)")
+        self.has_coll = True
+        # a repack would scramble the DAG's static slot indexing
+        self.repack_min = 1 << 62
+        #: pred counts, ready dates, edge_src, edge_dst, exec costs
+        self._coll = self._upload_delta(cp, cr, ces, ced, cec)
+        #: the carried Kahan clock pair (t, compensation), f64
+        self._coll_clk = torch.zeros(2, dtype=torch.float64,
+                                     device=self.device)
+        self._coll_total = int(self.n_v)
+        opstats.bump("collective_tape_slots", self.n_v)
+
+    def _coll_open(self) -> bool:
+        """True while an armed collective schedule still owes
+        completions: a superstep may end with no live flow while dormant
+        successors wait on pending activation dates."""
+        return self.has_coll and len(self.events) < self._coll_total
+
+    def _deadlock(self) -> RuntimeError:
+        return RuntimeError(
+            "collective schedule deadlocked: "
+            f"{len(self.events)}/{self._coll_total} flows completed and "
+            "nothing is pending")
 
     # -- device state ------------------------------------------------------
 
@@ -238,8 +350,12 @@ class DrainSim:
         self._thresh = self._put(thresh[keep])
         self._ids_dev = self._put(self._ids.astype(np.int32))
         self._vb = self._put(opstats.timed_fetch(self._vb)[keep])
+        c_bound = self.sys.c_bound
         self._upload_elements(self._host["e_var"], self._host["e_cnst"],
                               self._host["e_w"])
+        # the bounds the device holds now (transitions may have moved
+        # them), not the constructor's
+        self.sys = self.sys._replace(c_bound=c_bound)
         self._live0 = self.n_v
         self.repacks += 1
 
@@ -435,13 +551,27 @@ class DrainSim:
             self._queue_advance(packed, k_max, ring_n)
 
     def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
+        tape_t = self._tape[0] if self.has_tape else None
+        ready = self._coll[1] if self.has_coll else None
         drain_advance(self._pen, self._rem, self._thresh, self.w,
-                      gated=True)
-        superstep_commit(self.w, self._ids_dev, packed, k_max, ring_n)
+                      gated=True, tape_t=tape_t, ready=ready)
+        superstep_commit(self.w, self._ids_dev, packed, k_max, ring_n,
+                         tape=self._tape[1:] if self.has_tape else None,
+                         c_bound=self.sys.c_bound, n_c=self.n_c,
+                         ready=ready, pen=self._pen)
+        if self.has_coll:
+            cp, _, ces, ced, cec = self._coll
+            dag_walk(self.w, ces, ced, cp, ready, cec)
+
+    def _ring_n(self, k_max: int) -> int:
+        """Completions, plus one tape entry per advance, plus one
+        activation per flow."""
+        return (self.n_v + (k_max if self.has_tape else 0)
+                + (self.n_v if self.has_coll else 0))
 
     def _finish(self, packed) -> np.ndarray:
         superstep_finish(self.sys.e_var, self.sys.e_w, self._pen, packed,
-                         self.w)
+                         self.w, clk=self._coll_clk)
         p = opstats.timed_fetch(packed)
         self.syncs += 1
         return p
@@ -462,10 +592,15 @@ class DrainSim:
                      else (int(self._live0 * self.repack_at)
                            if self._live0 * self.repack_at
                            >= self.repack_min else 0))
-        ring_n = self.n_v
+        ring_n = self._ring_n(k_max)
         packed = torch.zeros(packed_size(k_max, ring_n), dtype=self.tdtype,
                              device=self.device)
-        superstep_reset(self._pen, self.w, k, budget, want_stop)
+        # the f64 base clock of the event peek: set once, so a STARVED
+        # resume peeks from the same t0
+        superstep_reset(self._pen, self.w, k, budget, want_stop,
+                        t0=self.t, tpos=self._tpos_host,
+                        ready=self._coll[1] if self.has_coll else None,
+                        clk=self._coll_clk)
         self._queue_slots(k, packed, k_max, ring_n)
         p = self._finish(packed)
         self.supersteps += 1
@@ -509,15 +644,37 @@ class DrainSim:
         self.advances += adv
         batches: List[Tuple[float, List[int]]] = []
         start = 0
-        t_base = self.t
+        # collective rings carry absolute dates (the Kahan pair is
+        # carried across supersteps), so the base folds to zero
+        t_base = 0.0 if self.has_coll else self.t
+        fired = 0
+        coll_fired = 0
         for i in range(adv):
             end = int(adv_nev[i])
-            batches.append((float(adv_dt[i]),
-                            [int(f) for f in ring_id[start:end]]))
+            batch_ids: List[int] = []
             for j in range(start, end):
-                self.events.append((t_base + float(ring_t[j]),
-                                    int(ring_id[j])))
+                fid = int(ring_id[j])
+                tj = t_base + float(ring_t[j])
+                if fid >= 0:
+                    batch_ids.append(fid)
+                    self.events.append((tj, fid))
+                    continue
+                # a tagged entry: a fault fire (idx < n_c) or an
+                # activation of flow idx - n_c
+                idx = -fid - 1
+                if idx >= self.n_c:
+                    self.collective_events.append((tj, idx - self.n_c))
+                    coll_fired += 1
+                else:
+                    self.fault_events.append((tj, idx))
+                    fired += 1
+            batches.append((float(adv_dt[i]), batch_ids))
             start = end
+        self._tpos_host += fired
+        if fired:
+            opstats.bump("fault_tape_events", fired)
+        if coll_fired:
+            opstats.bump("collective_tape_fires", coll_fired)
         self.t = t_base + t_sum
 
         if flag == FLAG_STALLED:
@@ -536,24 +693,33 @@ class DrainSim:
 
     def _rescue_one(self) -> int:
         """Finish ONE advance after the superstep round budget expired
-        inside its first solve (the chunked fused path converges across
-        fetches)."""
+        inside its first solve.  With an event arm the rescue stays on
+        the superstep path (the fused advance would step over an event):
+        one advance with the whole round budget.  Without, the chunked
+        fused path converges across fetches."""
+        if self.has_tape or self.has_coll:
+            n, _ = self.superstep_batch(k=1, round_budget=MAX_ROUNDS)
+            return n
         return self._advance_fused()
 
     def superstep_step(self, k: Optional[int] = None) -> int:
         """One step of ``run`` on the superstep path: one superstep of up
-        to ``k`` advances, and one fused advance if it could not finish
+        to ``k`` advances, and one rescued advance if it could not finish
         any.  Returns the live count."""
         before = self.advances
         n, _ = self.superstep_batch(k=k)
-        if n and self.advances == before:
+        if (n or self._coll_open()) and self.advances == before:
             n = self._rescue_one()
+            if self.advances == before and self._coll_open():
+                # no live flow, no pending activation, but the schedule
+                # still owes completions (a cyclic or truncated DAG)
+                raise self._deadlock()
         return n
 
     def run(self, max_advances: int = 10_000_000) -> None:
         n = self.n_v
         if self.superstep_k:
-            while n and max_advances > 0:
+            while (n or self._coll_open()) and max_advances > 0:
                 before = self.advances
                 n = self.superstep_step(min(self.superstep_k, max_advances))
                 max_advances -= self.advances - before

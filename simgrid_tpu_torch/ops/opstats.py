@@ -3,7 +3,8 @@
 into, under the same names).
 
 * ``dispatches``       — solve chunks / advances / supersteps /
-  transition batches dispatched
+  transition batches dispatched (the host maestro: one per solve, per
+  forced advance and per transition batch)
 * ``fixpoint_rounds``  — saturation rounds executed
 * ``fetches`` / ``fetched_bytes`` / ``host_block_ms`` — device->host
   result transfers made through :func:`timed_fetch`
@@ -25,6 +26,11 @@ into, under the same names).
   ``ell_chain_fallbacks`` — dense ELL solves, compaction-chain solves,
   their stages, and chain solves that overflowed a stage or stalled and
   were re-solved dense (port only: the path a solve took)
+
+* ``fault_tape_slots`` / ``fault_tape_events`` — fault-tape entries
+  uploaded with a drain, and entries that fired inside its supersteps
+* ``collective_tape_slots`` / ``collective_tape_fires`` — flows of a
+  collective schedule uploaded with a drain, and activations fired
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.

@@ -19,7 +19,9 @@ import torch
 from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
 from simgrid_tpu_torch.kernels import ell_chain as k9
 from simgrid_tpu_torch.kernels import warm_init as k6
-from simgrid_tpu_torch.kernels.common import LIVE_ACC, EllWork, Work
+from simgrid_tpu_torch.kernels.common import (ADV_OK, LIVE_ACC, PENDING,
+                                              T_SUM, EllWork, Work)
+from simgrid_tpu_torch.kernels.dag_walk import dag_walk
 from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
 from simgrid_tpu_torch.kernels.transition_scatter import (
     delta_scatter, ell_delta_scatter, transition_scatter)
@@ -584,3 +586,100 @@ def test_ell_delta_scatter_card_equals_plain(cuda):
     ell_delta_scatter(payload, layout, c)
     for x, y in zip(g, c):
         assert torch.equal(x.cpu(), y)
+
+
+FAULT_MODES = {"f64-k8": (np.float64, 8, False),
+               "f64-k1-bounds": (np.float64, 1, True),
+               "f32-k8": (np.float32, 8, False),
+               "f64-k16-starved": (np.float64, 16, False)}
+
+
+@pytest.mark.parametrize("mode", list(FAULT_MODES))
+def test_fault_tape_drain_card_equals_plain(cuda, mode):
+    """K2's event arm and K3's tape arm through a seeded campaign over a
+    3,000-flow dragonfly drain, repacks included (and, starved, resumed
+    supersteps that must peek from the same base clock)."""
+    from simgrid_tpu_torch.workloads import fault_drain
+    s = dragonfly.build_system(3000)
+    tape = fault_drain.tape_for(s.e_cnst, s.e_w, s.c_bound, seed=7,
+                                horizon=0.2, mtbf=2.0, mttr=0.005,
+                                link_names=dragonfly.link_names(s))
+    dtype, k, bounds = FAULT_MODES[mode]
+    kw = {}
+    if bounds:
+        rng = np.random.default_rng(4)
+        kw["v_bound"] = rng.uniform(2e9, 2e10, 3000).astype(dtype)
+    sims = []
+    for dev in (cuda, torch.device("cpu")):
+        reset_launch_counts()
+        sim = DrainSim(s.e_var, s.e_cnst, s.e_w.astype(dtype),
+                       s.c_bound.astype(dtype), s.sizes, eps=1e-5,
+                       dtype=dtype, repack_min=64, device=dev, superstep=k,
+                       tape=tape, **kw)
+        if mode.endswith("starved"):
+            sim.slot_rounds = 2
+        sim.run()
+        sims.append((sim, launch_counts()))
+    (g, lc), (c, _) = sims
+    assert g.events == c.events and g.t == c.t
+    assert g.fault_events == c.fault_events and len(g.fault_events) > 10
+    assert (g.advances, g.supersteps, g.repacks, g.rounds) == \
+        (c.advances, c.supersteps, c.repacks, c.rounds)
+    assert lc["drain_advance_event"] > 0 and lc["superstep_commit_tape"] > 0
+    assert torch.equal(g.sys.c_bound.cpu(), c.sys.c_bound)
+    if mode.endswith("starved"):
+        assert g.resumes > 0
+
+
+@pytest.mark.parametrize("case", [("allreduce", "rdb", 64, "nic", 1 << 20),
+                                  ("allreduce", "lr", 16, "star", 1 << 14),
+                                  ("alltoall", "pairwise", 12, "ring",
+                                   4096.0)])
+def test_collective_tape_card_equals_plain_and_maestro(cuda, case):
+    """K2's event arm, K3's collective arm and K10 walk a compiled DAG on
+    the card: equal to the plain path on the CPU and to the host maestro
+    on the card (completions, activations, the Kahan pair)."""
+    from simgrid_tpu_torch.collectives import CollectiveSpec, HostMaestro
+    dc = CollectiveSpec(*case).build()
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        reset_launch_counts()
+        sim = dc.make_sim(superstep=8, device=dev)
+        sim.run()
+        out.append((sim, launch_counts()))
+    (g, lc), (c, _) = out
+    m = HostMaestro(dc, device=cuda)
+    m.run()
+    assert g.events == c.events == m.events
+    assert g.collective_events == c.collective_events == m.collective_events
+    assert tuple(g._coll_clk.tolist()) == tuple(c._coll_clk.tolist()) \
+        == m.clock
+    assert lc["superstep_commit_coll"] > 0 and lc["dag_walk"] > 0
+
+
+def test_dag_walk_card_equals_plain(cuda):
+    """K10 over a random DAG with several completions per successor in
+    one advance: the counts, the dates it frees and the pending count."""
+    rng = np.random.default_rng(8)
+    V, E = 20_000, 80_000
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    dst[::97] = V                      # pad rows, dropped
+    pred = np.bincount(dst[dst < V], minlength=V).astype(np.int32)
+    done = rng.random(V) < 0.3
+    exec_cost = rng.uniform(0, 1e-3, V)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        w = Work(V, 4, torch.float64, dev)
+        w.ctrl[ADV_OK] = 1
+        w.fctrl[T_SUM] = 0.125
+        w.done.copy_(torch.from_numpy(done))
+        p = torch.from_numpy(pred.copy()).to(dev)
+        r = torch.full((V,), float("inf"), dtype=torch.float64, device=dev)
+        dag_walk(w, torch.from_numpy(src).to(dev),
+                 torch.from_numpy(dst).to(dev), p, r,
+                 torch.from_numpy(exec_cost).to(dev))
+        out.append((p.cpu(), r.cpu(), int(w.ctrl[PENDING])))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][2] == out[1][2] > 0

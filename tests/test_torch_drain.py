@@ -322,12 +322,6 @@ def test_unported_options_raise():
             np.ones(1), np.ones(1))
     with pytest.raises(NotImplementedError, match="queue A item 2"):
         DrainSim(*args, superstep=K, pipeline=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue B item 7"):
-        DrainSim(*args, superstep=K, device="cpu",
-                 tape=([0.1], [0], [1.0]))
-    with pytest.raises(NotImplementedError, match="queue B item 8"):
-        DrainSim(*args, superstep=K, device="cpu",
-                 collective=([0], [np.inf], [], [], [0.0]))
 
 
 def test_handover_bounded_drain_equals_jax(fat_tree):

@@ -70,6 +70,12 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.kernels.ell_round\n"
         "import simgrid_tpu_torch.kernels.vc_round\n"
         "import simgrid_tpu_torch.kernels.ell_chain\n"
+        "import simgrid_tpu_torch.kernels.dag_walk\n"
+        "import simgrid_tpu_torch.faults\n"
+        "import simgrid_tpu_torch.collectives\n"
+        "import simgrid_tpu_torch.utils.rngstream\n"
+        "import simgrid_tpu_torch.workloads.fault_drain\n"
+        "import simgrid_tpu_torch.workloads.collective_run\n"
         "import simgrid_tpu_torch.kernels\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -113,6 +119,14 @@ def test_entry_points_need_a_device():
     _, row = bench_solve.run_bench_solve(arrays=a, reps=0, device="cpu",
                                          layout="ell")
     assert row["path"] == "dense" and row["rounds"] == rounds
+    from simgrid_tpu_torch.collectives import CollectiveSpec, HostMaestro
+    from simgrid_tpu_torch.workloads import collective_run
+    dc = CollectiveSpec("allreduce", "rdb", 4).build()
+    for entry in (lambda: dc.make_sim(superstep=4),
+                  lambda: HostMaestro(dc),
+                  lambda: collective_run.run_case(CollectiveSpec())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
 
 
 def test_layout_choice_follows_the_device():
@@ -299,4 +313,50 @@ def test_ell_wrappers_run_plain_version_on_cpu():
     payload = torch.tensor([0.0, -1.0], dtype=torch.float64)
     assert k5.ell_delta_scatter(payload, [(2, 0, 1)], masters) is True
     assert not bool(masters[2].view(-1)[0])
+    assert launch_counts() == before
+
+
+def test_event_arm_wrappers_run_plain_version_on_cpu():
+    """K2's event arm, K3's tape and collective arms and K10 take their
+    plain versions on CPU tensors and count no launch."""
+    from simgrid_tpu_torch.kernels import dag_walk as k10
+    before = launch_counts()
+    sys_, w = small_state()
+    pen = torch.tensor([1.0, 0.0], dtype=torch.float64)
+    rem = torch.tensor([1.0, 3.0], dtype=torch.float64)
+    thresh = torch.full((2,), 0.5, dtype=torch.float64)
+    ready = torch.tensor([float("inf"), 0.5], dtype=torch.float64)
+    tape_t = torch.tensor([0.5, 4.0], dtype=torch.float64)
+    tape = (torch.tensor([1, 0], dtype=torch.int32),
+            torch.tensor([0.25, 1.0], dtype=torch.float64))
+    cb = sys_.c_bound.clone()
+    ids = torch.arange(2, dtype=torch.int32)
+    packed = torch.zeros(k3.packed_size(4, 6), dtype=torch.float64)
+    k3.superstep_reset(pen, w, 4, 100, 0, t0=0.0, tpos=0, ready=ready,
+                       clk=torch.zeros(2, dtype=torch.float64))
+    assert int(w.ctrl[common.PENDING]) == 1
+    assert k3.superstep_begin(w) is True
+    w.v_value.copy_(torch.tensor([1.0, 1.0], dtype=torch.float64))
+    w.ctrl[common.LIGHT] = 0
+    # the tape date and the activation date tie at 0.5 < dt_plan = 1.0
+    assert k2.drain_advance(pen, rem, thresh, w, gated=True, tape_t=tape_t,
+                            ready=ready) is True
+    assert float(w.fctrl[common.DT]) == 0.5
+    assert [int(w.ctrl[s]) for s in (common.FIRE, common.FFIRE,
+                                     common.AANY)] == [1, 1, 1]
+    assert k3.superstep_commit(w, ids, packed, 4, 6, tape=tape, c_bound=cb,
+                               n_c=2, ready=ready, pen=pen) is True
+    o = k3.N_STATS + 8
+    # the fault entry, then the activation of flow 1 (id -(1 + 2 + 1))
+    assert packed[o + 6:o + 8].tolist() == [-2.0, -4.0]
+    assert cb.tolist()[1] == 0.25 and int(w.ctrl[common.TPOS]) == 1
+    assert pen.tolist() == [1.0, 1.0] and ready.tolist()[1] == float("inf")
+    pred = torch.tensor([0, 1], dtype=torch.int32)
+    w.done = torch.tensor([True, False])
+    assert k10.dag_walk(w, torch.tensor([0, 0], dtype=torch.int32),
+                        torch.tensor([1, 2], dtype=torch.int32), pred,
+                        ready, torch.tensor([0.0, 0.125],
+                                            dtype=torch.float64)) is True
+    assert pred.tolist() == [0, 0] and ready.tolist()[1] == 0.625
+    assert int(w.ctrl[common.PENDING]) == 1
     assert launch_counts() == before
