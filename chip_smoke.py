@@ -135,6 +135,32 @@ Then the superstep's event arms (float64, tolerance 0):
    (``index_put_`` for the bound scatter, ``index_add_`` on int32 for
    K10's decrements).
 
+Then scenario fleets (float64, tolerance 0): one launch of K1-K3 serves
+every replica (their replica arms) and K11 materialises each replica's
+state on the card:
+
+16. main path 10, a fleet of ``FLEET_B`` replicas over phase 3's system
+   through the port's ``Campaign`` (superstep ``FLEET_K``): four sweep
+   replicas (bandwidth 1.0-1.3, sizes 1.0/1.05, one with 11 dead flows,
+   one with 64 element weights overridden, so the weights are per
+   replica) and four under phase 13's campaign at seeds 42-45; after
+   ``ADMIT_AT`` supersteps replica 1 is retired and a fresh spec
+   admitted into its row.  (a) Replicas 0 and 4 equal their solo
+   ``DrainSim`` on the card (``ScenarioPlan.solo``) by bits, events,
+   fault events and clock; (d) so does the admitted replica; (b) a
+   reduced fleet (``REDUCED_FLOWS``, two sweep and two faulted
+   replicas) on the card equals the plain fleet on the host CPU;
+   (c) the launches of each of the first 4 supersteps, with the queued
+   rounds per slot held equal, are the same at B = 1 and B = ``FLEET_B``
+   (the first pass of each superstep; STARVED resumes come on top);
+17. ``bench.py``'s sweep and fault stages (``workloads/fleet_run.py``)
+   on the card, whose counts must be those the JAX package gives on the
+   CPU (``fleet_run.JAX_COUNTS``); then K11 (birth and admission) and
+   the replica arms of K1 (init and local round, at phase 16's shapes;
+   the bound-first, FATPIPE and global arms through whole
+   ``solve_arrays_batch`` solves), K2's event arm and K3's tape arm at
+   B = ``FLEET_B``, each against its plain version.
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
@@ -205,6 +231,14 @@ CHURN_RECORDED = {
                            warm_solves=6)}
 
 
+#: phase 16: the fleet's width, superstep, and the superstep after which
+#: replica 1 is retired and a new spec admitted
+FLEET_B = 8
+FLEET_K = 8
+ADMIT_AT = 4
+#: phase 17: K1's bound-first, FATPIPE and global replica arms
+ARMS_FLEET = dict(n_c=128, n_v=1000, deg=3)
+
 T0 = time.perf_counter()
 
 
@@ -222,6 +256,465 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def fleet_phases(ctx: dict) -> None:
+    """Phases 16-17 (module docstring): the config-#4 fleet, the stage
+    counts, and K11 and the replica arms of K1-K3 against their plain
+    versions.  ``ctx`` carries main's systems, helpers and records."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from simgrid_tpu_torch.kernels.common import (ADV_GO, FFIRE, IT, LIGHT,
+                                                  SS_ACTIVE, TPOS)
+    from simgrid_tpu_torch.kernels.common import LmmSystem, Work
+    from simgrid_tpu_torch.kernels.drain_advance import (
+        drain_advance, drain_advance_plain)
+    from simgrid_tpu_torch.kernels.lmm_round import (
+        lmm_init, lmm_init_plain, lmm_round, lmm_round_plain)
+    from simgrid_tpu_torch.ops.csr import build_csr
+    from simgrid_tpu_torch.kernels.superstep_commit import (
+        packed_size, superstep_commit, superstep_commit_plain)
+    from simgrid_tpu_torch.ops.lmm_batch import (_pack_elem_w,
+                                                 _pack_overrides,
+                                                 _pow2_bucket,
+                                                 solve_arrays_batch)
+    from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    from simgrid_tpu_torch.workloads import dragonfly, fleet_run
+    from simgrid_tpu_torch.workloads.bench_solve import build_arrays
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    dsys, rsys = ctx["dsys"], ctx["rsys"]
+    events_ms, nbytes, bound_ms, diff = (ctx[k] for k in (
+        "events_ms", "nbytes", "bound_ms", "diff"))
+    kernels, report = ctx["kernels"], ctx["report"]
+    EPS = ctx["EPS"]
+
+    def same(a, b):
+        return (a.events == b.events and a.t == b.t
+                and a.fault_events == b.fault_events)
+
+    # ---- 16. main path 10: a fleet over the config-#4 drain --------------
+    specs16 = fleet_run.fleet_specs(FLOWS, len(dsys.e_var), FAULT)
+    admit16 = ScenarioSpec(seed=50, bw_scale=1.15, size_scale=0.95,
+                           label="admitted")
+    admitted = []
+    names16 = dragonfly.link_names(dsys)
+    camp16 = fleet_run.fleet_campaign(dsys, specs16, cuda, FLEET_K,
+                                      names16, EPS)
+    plan16 = camp16.plan
+
+    def admit(sim):
+        if sim.supersteps == ADMIT_AT and not admitted:
+            sim.retire(1)
+            sim.admit_lane(1, plan16.overrides_for(admit16),
+                           plan16.tape_for(admit16))
+            admitted.append(sim.supersteps)
+
+    sim16, row16 = fleet_run.run_fleet_full(camp16, between=admit)
+    c16 = row16["launches"]
+    for name in ("fleet_materialize", "fleet_materialize_ew", "fleet_admit",
+                 "fleet_admit_ew", "fleet_admit_tape", "lmm_init_fleet",
+                 "lmm_round_fleet", "drain_advance_event_fleet",
+                 "superstep_commit_tape_fleet", "superstep_reset_fleet",
+                 "superstep_begin_fleet", "superstep_finish_fleet"):
+        if c16.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on main path 10")
+    t0 = time.perf_counter()
+    solo = {b: plan16.solo(specs16[b]) for b in (0, 4)}
+    solo_adm = plan16.solo(admit16)
+    solo_s = time.perf_counter() - t0
+    held_a = all(same(sim16.replicas[b], solo[b]) for b in solo)
+    held_d = bool(admitted) and same(sim16.replicas[1], solo_adm)
+    # (b) the reduced fleet, card against the plain fleet on the CPU
+    specs16b = fleet_run.fleet_specs(REDUCED_FLOWS, len(rsys.e_var), FAULT,
+                                     sweep=2, faulted=2)
+    names16b = dragonfly.link_names(rsys)
+    devs = (("cuda", cuda), ("cpu", cpu))
+    red = {k: fleet_run.run_fleet_full(fleet_run.fleet_campaign(
+        rsys, specs16b, dev, FLEET_K, names16b, EPS)) for k, dev in devs}
+    held_b = all(same(a, b) for a, b in zip(red["cuda"][0].replicas,
+                                            red["cpu"][0].replicas))
+    # (c) launches per superstep at B = 1 and B = FLEET_B
+    per = {}
+    for width, sp in ((1, specs16[:1]), (FLEET_B, specs16)):
+        per[width] = fleet_run.launches_per_superstep(
+            plan16.executor(sp), 4, slot_rounds=SLOT_ROUNDS)
+    held_c = all(a["first_pass"] == b["first_pass"]
+                 for a, b in zip(per[1], per[FLEET_B]))
+    fires16 = sum(row16["fires"])
+    rec = {"phase": "main_path_fleet", **row16,
+           "phase13_solo_wall_s": ctx["wall13"],
+           "eight_solo_walls_s": 8 * ctx["wall13"],
+           "admitted_at_superstep": admitted,
+           "a_replicas_0_4_equal_solo": held_a, "solo_walls_s": solo_s,
+           "d_admitted_equals_solo": held_d,
+           "b_flows": REDUCED_FLOWS, "b_card_equals_cpu": held_b,
+           "b_cuda_wall_s": red["cuda"][1]["wall_s"],
+           "b_cpu_wall_s": red["cpu"][1]["wall_s"],
+           "b_fires": red["cuda"][1]["fires"],
+           "c_launches_b1": per[1], "c_launches_b8": per[FLEET_B],
+           "c_equal": held_c}
+    log(rec)
+    report["main_path_fleet"] = rec
+    if not (held_a and held_b and held_c and held_d):
+        raise AssertionError(f"fleet phase failed: (a) {held_a}, (b) "
+                             f"{held_b}, (c) {held_c}, (d) {held_d}")
+    if fires16 <= 0 or any(e is not None for e in row16["errors"]):
+        raise AssertionError("fleet: no fault fired, or a replica failed")
+    del red, sim16
+    torch.cuda.empty_cache()
+
+    # ---- 17. bench.py's sweep and fault stages ---------------------------
+    rows17 = fleet_run.run_sweep(device=cuda) \
+        + fleet_run.run_fault_modes(device=cuda)
+    bad17 = []
+    for row in rows17:
+        key = (f"sweep_b{row['batch']}" if row["stage"] == "sweep"
+               else f"fault_{row['fault_mode']}")
+        want = fleet_run.JAX_COUNTS[key]
+        got = {k: row[k] for k in want}
+        if got != want:
+            bad17.append((key, got, want))
+        if row.get("events_consistent") is False \
+                or row.get("solo_bit_identical") is False:
+            bad17.append((key, "events"))
+        log({"phase": "fleet_stage", **row, "jax_counts": want})
+    report["fleet_stages"] = rows17
+    if bad17:
+        raise AssertionError(f"fleet stage counts differ: {bad17}")
+
+    # K11, K1-K3 replica arms at phase 16's shapes (B = FLEET_B)
+    V, C = FLOWS, dsys.n_cnst
+    plans = {k: plan16.with_device(dev) for k, dev in devs}
+    sims = {k: p.executor(specs16) for k, p in plans.items()}
+    g, c = sims["cuda"], sims["cpu"]
+    Bk = g.B
+    ovs = [plans["cuda"].overrides_for(sp) for sp in specs16]
+    pay = _pack_overrides(ovs, C, V)
+    ei, ewv = _pack_elem_w(ovs, g.sys.n_e, np.float64)
+    put = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)  # noqa
+    pay_d = {k: [put(a, d) for a in pay] for k, d in devs}
+    ew_d = {k: (put(ei, d), put(ewv, d)) for k, d in devs}
+    outs = {k: ([torch.empty((Bk, n), dtype=torch.float64, device=d)
+                 for n in (C, V, V, V)],
+                torch.empty((Bk, g.sys.n_e), dtype=torch.float64, device=d))
+            for k, d in devs}
+
+    def birth(dev, plain=False):
+        s_ = sims[dev]
+        o, ew = outs[dev]
+        if plain:
+            k11.state_plain(s_._base_dev, pay_d[dev], o, 0, 1e-4, True)
+            k11.ew_plain(s_._base_ew, ew, *ew_d[dev], 0)
+        else:
+            k11.materialize(s_._base_dev, pay_d[dev], o, 1e-4, True)
+            k11.materialize_ew(s_._base_ew, ew, *ew_d[dev])
+    birth("cuda")
+    birth("cpu")
+    torch.cuda.synchronize()
+    err = max(max(diff(a, b) for a, b in zip(outs["cuda"][0],
+                                             outs["cpu"][0])),
+              diff(outs["cuda"][1], outs["cpu"][1]))
+    if err != 0.0:
+        raise AssertionError(f"K11 (birth) differs from its plain "
+                             f"version ({err})")
+    m_ms = events_ms(lambda: birth("cuda"), 20)
+    m_plain = events_ms(lambda: birth("cuda", plain=True), 3)
+    base_b = nbytes(*g._base_dev, g._base_ew)
+    m_bytes = (base_b + sum(a.nbytes for a in pay) + ei.nbytes + ewv.nbytes
+               + nbytes(*outs["cuda"][0], outs["cuda"][1]))
+    kernels.append(dict(
+        name="fleet_materialize", route="cuda",
+        source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:390",
+        launches=c16["fleet_materialize"] + c16["fleet_materialize_ew"],
+        max_abs_err=err, ms=m_ms, plain_ms=m_plain,
+        bound_ms=bound_ms(m_bytes), bound_by="bytes", library_ms=None,
+        replicas=Bk, launches_from="main path 10 (the config-#4 fleet: "
+                                   "its state and its weights at birth)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # admission: the admitted spec into row 1 (state, tape row, weights)
+    ov1 = plans["cuda"].overrides_for(admit16)
+    wid = (_pow2_bucket(len(ov1.link_scale)),
+           _pow2_bucket(len(ov1.flow_scale)),
+           _pow2_bucket(len(ov1.dead_flows)))
+    pay1 = _pack_overrides([ov1], C, V, wid)
+    ei1, ewv1 = _pack_elem_w([ov1], g.sys.n_e, np.float64, 1)
+    T = g._tape_width
+    row_t = (np.full(T, np.inf), np.full(T, C, np.int32), np.zeros(T))
+    args1 = {k: ([put(a, d) for a in pay1], put(ei1, d), put(ewv1, d),
+                 [put(a, d) for a in row_t]) for k, d in devs}
+
+    def admit_row(dev, plain=False):
+        s_ = sims[dev]
+        p1, e1, v1, rt = args1[dev]
+        o, ew = outs[dev]
+        if plain:
+            k11.state_plain(s_._base_dev, p1, o, 1, 1e-4, True)
+            k11.tape_plain(s_._tape, 1, rt)
+            k11.ew_plain(s_._base_ew, ew, e1[None], v1[None], 1)
+        else:
+            k11.admit_state(s_._base_dev, p1, o, 1, 1e-4, True)
+            k11.admit_tape(s_._tape, 1, rt)
+            k11.admit_ew(s_._base_ew, ew, e1[None], v1[None], 1)
+    admit_row("cuda")
+    admit_row("cpu")
+    torch.cuda.synchronize()
+    err = max(max(diff(a, b) for a, b in zip(outs["cuda"][0],
+                                             outs["cpu"][0])),
+              diff(outs["cuda"][1], outs["cpu"][1]),
+              max(diff(a, b) for a, b in zip(g._tape, c._tape)))
+    if err != 0.0:
+        raise AssertionError(f"K11 (admission) differs from its plain "
+                             f"version ({err})")
+    a_ms = events_ms(lambda: admit_row("cuda"), 20)
+    a_plain = events_ms(lambda: admit_row("cuda", plain=True), 5)
+    rem_row = outs["cuda"][0][2][1].clone()
+    idx1 = torch.tensor([1], device=cuda)
+    a_lib = events_ms(lambda: outs["cuda"][0][2].index_put_(
+        (idx1,), rem_row[None]), 20)
+    a_bytes = (base_b + sum(a.nbytes for a in pay1) + ei1.nbytes
+               + ewv1.nbytes + sum(a.nbytes for a in row_t) * 2
+               + 8 * (C + 3 * V) + 8 * g.sys.n_e)
+    kernels.append(dict(
+        name="fleet_admit", route="cuda",
+        source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:409",
+        launches=(c16["fleet_admit"] + c16["fleet_admit_tape"]
+                  + c16["fleet_admit_ew"]),
+        max_abs_err=err, ms=a_ms, plain_ms=a_plain,
+        bound_ms=bound_ms(a_bytes), bound_by="bytes", library_ms=a_lib,
+        library="index_put_ of the admitted row of the remains (one call)",
+        launches_from="main path 10 (one admission: its state, tape and "
+                      "weight rows)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K1's replica arm: init and the first rounds card vs plain, then the
+    # whole first solve of every replica timed on the card
+    def init_rounds(s_, n):
+        lmm_init(s_.sys, s_.w, s_._pen, EPS)
+        for _ in range(n):
+            lmm_round(s_.sys, s_.w, s_._pen, EPS)
+    init_rounds(g, 4)
+    init_rounds(c, 4)
+    torch.cuda.synchronize()
+    err = max(diff(getattr(g.w, n), getattr(c.w, n)) for n in (
+        "v_value", "v_fixed", "remaining", "usage", "light", "ctrl"))
+    if err != 0.0:
+        raise AssertionError(f"K1's replica arm differs from its plain "
+                             f"version ({err})")
+    lmm_init(g.sys, g.w, g._pen, EPS)
+    rounds_k = 0
+    while int(g.w.ctrl[:, LIGHT].max()):
+        for _ in range(16):
+            lmm_round(g.sys, g.w, g._pen, EPS)
+        rounds_k = int(g.w.ctrl[:, IT].max())
+    per_solve = events_ms(lambda: init_rounds(g, rounds_k), 3)
+    per_init = events_ms(lambda: init_rounds(g, 0), 3)
+    k1f_ms = (per_solve - per_init) / rounds_k
+
+    def plain_rounds(s_, n, **kw):
+        """The plain fleet on the card's tensors: the solo plain
+        functions over each replica's views."""
+        for b in range(s_.B):
+            sb, wb = s_.sys.replica(b), s_.w.replica(b)
+            lmm_init_plain(sb, wb, s_._pen[b], EPS)
+            for _ in range(n):
+                lmm_round_plain(sb, wb, s_._pen[b], EPS, **kw)
+    k1f_plain = (events_ms(lambda: plain_rounds(g, 2), 1)
+                 - events_ms(lambda: plain_rounds(g, 0), 1)) / 2
+    w = g.w
+    k1f_bytes = (nbytes(g.sys.e_var, g.sys.e_cnst, g.sys.e_w,
+                        g.sys.c_bound, g._pen)
+                 + 2 * nbytes(w.v_value, w.v_fixed, w.remaining, w.usage,
+                              w.light))
+    kernels.append(dict(
+        name="lmm_round_fleet", route="cuda",
+        source="simgrid_tpu_torch/csrc/lmm_round.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:508",
+        launches=c16["lmm_round_fleet"], max_abs_err=err, ms=k1f_ms,
+        plain_ms=k1f_plain, bound_ms=bound_ms(k1f_bytes), bound_by="bytes",
+        library_ms=None, replicas=Bk, first_solve_rounds=rounds_k,
+        launches_from=f"main path 10; lmm_init_fleet "
+                      f"{c16['lmm_init_fleet']}"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K1's bound-first, FATPIPE and global arms with the replica axis:
+    # whole solves of B = FLEET_B replicas (solve_arrays_batch) card
+    # against the plain fleet on the CPU, and ms per round from init
+    rng = np.random.default_rng(5)
+    n_c17, n_v17 = ARMS_FLEET["n_c"], ARMS_FLEET["n_v"]
+    arr = build_arrays(rng, n_c17, n_v17, ARMS_FLEET["deg"], np.float64)
+    E17 = arr.n_elem
+    cb17 = arr.c_bound[:n_c17] * rng.uniform(0.8, 1.2, (Bk, n_c17))
+    pen17 = np.ones((Bk, n_v17))
+    vb17 = np.where(rng.random((Bk, n_v17)) < 0.5,
+                    rng.uniform(1e-3, 1e-2, (Bk, n_v17)), -1.0)
+    fat17 = np.zeros(n_c17, bool)
+    fat17[rng.choice(n_c17, n_c17 // 10, replace=False)] = True
+    args17 = (arr.e_var[:E17], arr.e_cnst[:E17], arr.e_w[:E17], cb17,
+              fat17, pen17, vb17, 1e-9)
+    ev17, ec17 = (torch.from_numpy(a.copy()).to(cuda) for a in args17[:2])
+    ew17 = torch.from_numpy(args17[2].copy()).to(cuda)
+    s17 = LmmSystem(ev17, ec17, ew17, torch.from_numpy(cb17).to(cuda),
+                    build_csr(ev17, ec17, ew17, n_c17, n_v17), n_v17,
+                    torch.from_numpy(fat17).to(cuda))
+    p17, vb17_g = (torch.from_numpy(a).to(cuda) for a in (pen17, vb17))
+    w17 = Work(n_v17, n_c17, torch.float64, cuda, B=Bk)
+    for label, glob in (("lmm_round_bounds_fatpipe_fleet", False),
+                        ("lmm_round_global_bounds_fatpipe_fleet", True)):
+        kw = dict(parallel_rounds=not glob)
+        reset_launch_counts()
+        got = solve_arrays_batch(*args17, device=cuda, **kw)
+        torch.cuda.synchronize()
+        n_l = launch_counts().get(label, 0)
+        want = solve_arrays_batch(*args17, device=cpu, **kw)
+        err = max(diff(torch.from_numpy(np.asarray(a)),
+                       torch.from_numpy(np.asarray(b)))
+                  for a, b in zip(got, want))
+        if err != 0.0 or n_l <= 0:
+            raise AssertionError(f"{label}: card differs from plain "
+                                 f"({err}) or never launched")
+        rk = int(np.max(got[3]))
+        one = lambda n: (lmm_init(s17, w17, p17, 1e-9, has_fatpipe=True),  # noqa
+                         [lmm_round(s17, w17, p17, 1e-9, vb17_g, True, True,
+                                    glob) for _ in range(n)])
+        ms = (events_ms(lambda: one(rk), 2) - events_ms(lambda: one(0), 2)
+              ) / rk
+
+        def plain(n):
+            for b in range(Bk):
+                sb, wb = s17.replica(b), w17.replica(b)
+                lmm_init_plain(sb, wb, p17[b], 1e-9, has_fatpipe=True)
+                for _ in range(n):
+                    lmm_round_plain(sb, wb, p17[b], 1e-9, vb17_g[b], True,
+                                    True, glob)
+        plain_ms = (events_ms(lambda: plain(2), 1)
+                    - events_ms(lambda: plain(0), 1)) / 2
+        k1b_bytes = (nbytes(ev17, ec17, ew17, s17.c_bound, p17, vb17_g,
+                            s17.c_fatpipe)
+                     + 2 * nbytes(w17.v_value, w17.v_fixed, w17.remaining,
+                                  w17.usage, w17.light))
+        kernels.append(dict(
+            name=label, route="cuda",
+            source="simgrid_tpu_torch/csrc/lmm_round.cu",
+            replaces="simgrid_tpu/ops/lmm_jax.py:1054",
+            launches=n_l, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms(k1b_bytes), bound_by="bytes",
+            library_ms=None, replicas=Bk, rounds=rk, **ARMS_FLEET,
+            launches_from="its own whole solve (solve_arrays_batch; no "
+                          "main path has rate bounds)"))
+        log({"phase": "kernel", **kernels[-1]})
+    del s17, w17
+
+    # K2's event arm and K3's tape arm with the replica axis: the first
+    # advance of every replica from the converged rates of the card solve
+    rates = g.w.v_value.clone()
+    st = {}
+
+    def k2_setup(s_, dev):
+        st[dev] = dict(pen=g._pen.to(dict(devs)[dev], copy=True),
+                       rem=g._rem.to(dict(devs)[dev], copy=True))
+        s_.w.v_value.copy_(rates)
+        for t in (s_.w.ctrl, s_.w.fctrl, s_.w.evf):
+            t.zero_()
+    k2_setup(g, "cuda")
+    k2_setup(c, "cpu")
+    drain_advance(st["cuda"]["pen"], st["cuda"]["rem"], g._thresh, g.w,
+                  tape_t=g._tape[0])
+    drain_advance_plain_fleet = [drain_advance_plain(
+        st["cpu"]["pen"][b], st["cpu"]["rem"][b], c._thresh[b],
+        c.w.replica(b), tape_t=c._tape[0][b]) for b in range(Bk)]
+    torch.cuda.synchronize()
+    err = max(diff(st["cuda"]["pen"], st["cpu"]["pen"]),
+              diff(st["cuda"]["rem"], st["cpu"]["rem"]),
+              diff(g.w.done, c.w.done), diff(g.w.ctrl, c.w.ctrl),
+              diff(g.w.fctrl, c.w.fctrl), diff(g.w.evf, c.w.evf))
+    fired = int((c.w.ctrl[:, FFIRE] > 0).sum())
+    if err != 0.0 or not fired or not all(drain_advance_plain_fleet):
+        raise AssertionError(f"K2's replica event arm differs from its "
+                             f"plain version ({err}) or no tape fired")
+    k2f_ms = events_ms(lambda: drain_advance(
+        st["cuda"]["pen"], st["cuda"]["rem"], g._thresh, g.w,
+        tape_t=g._tape[0]), 20, lambda: k2_setup(g, "cuda"))
+    k2f_plain = events_ms(lambda: [drain_advance_plain(
+        st["cuda"]["pen"][b], st["cuda"]["rem"][b], g._thresh[b],
+        g.w.replica(b), tape_t=g._tape[0][b]) for b in range(Bk)], 2,
+        lambda: k2_setup(g, "cuda"))
+    k2f_bytes = (nbytes(g._pen, g._rem, g._thresh, rates)
+                 + 2 * nbytes(g._pen) + Bk * V + 8 * Bk)
+    kernels.append(dict(
+        name="drain_advance_event_fleet", route="cuda",
+        source="simgrid_tpu_torch/csrc/drain_advance.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:508",
+        launches=c16["drain_advance_event_fleet"], max_abs_err=err,
+        ms=k2f_ms, plain_ms=k2f_plain, bound_ms=bound_ms(k2f_bytes),
+        bound_by="bytes", library_ms=None, replicas=Bk, fired=fired,
+        launches_from="main path 10 (the config-#4 fleet)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    ring_n = V + FLEET_K
+    psz = packed_size(FLEET_K, ring_n)
+    pk = {k: torch.zeros((Bk, psz), dtype=torch.float64, device=d)
+          for k, d in devs}
+    cb0 = g.sys.c_bound.clone()
+    snap = (g.w.ctrl.clone(), g.w.fctrl.clone())
+
+    def k3_prime(s_, dev):
+        s_.w.ctrl[:, SS_ACTIVE] = 1
+        s_.w.ctrl[:, ADV_GO] = 1
+        s_.w.ctrl[:, TPOS] = 0
+        pk[dev].zero_()
+        s_.sys.c_bound.copy_(cb0)
+    k3_prime(g, "cuda")
+    k3_prime(c, "cpu")
+    superstep_commit(g.w, g._ids, pk["cuda"], FLEET_K, ring_n,
+                     tape=g._tape[1:], c_bound=g.sys.c_bound)
+    for b in range(Bk):
+        superstep_commit_plain(c.w.replica(b), c._ids, pk["cpu"][b],
+                               FLEET_K, ring_n,
+                               tape=(c._tape[1][b], c._tape[2][b]),
+                               c_bound=c.sys.c_bound[b])
+    torch.cuda.synchronize()
+    err = max(diff(pk["cuda"], pk["cpu"]), diff(g.w.ctrl, c.w.ctrl),
+              diff(g.w.fctrl, c.w.fctrl),
+              diff(g.sys.c_bound, c.sys.c_bound))
+    if err != 0.0 or int((c.w.ctrl[:, TPOS] > 0).sum()) != fired:
+        raise AssertionError(f"K3's replica tape arm differs from its "
+                             f"plain version ({err})")
+
+    def k3_setup():
+        g.w.ctrl.copy_(snap[0])
+        g.w.fctrl.copy_(snap[1])
+        k3_prime(g, "cuda")
+    k3f_ms = events_ms(lambda: superstep_commit(
+        g.w, g._ids, pk["cuda"], FLEET_K, ring_n, tape=g._tape[1:],
+        c_bound=g.sys.c_bound), 20, k3_setup)
+    k3f_plain = events_ms(lambda: [superstep_commit_plain(
+        g.w.replica(b), g._ids, pk["cuda"][b], FLEET_K, ring_n,
+        tape=(g._tape[1][b], g._tape[2][b]), c_bound=g.sys.c_bound[b])
+        for b in range(Bk)], 2, k3_setup)
+    n_done = int(c.w.done.sum())
+    k3f_bytes = (Bk * V + nbytes(g._ids) + (n_done + fired) * 16
+                 + fired * 16)
+    slot0 = torch.tensor([0], device=cuda)
+    k3f_lib = events_ms(lambda: g.sys.c_bound[0].index_put_(
+        (slot0,), cb0[0, :1]), 20)
+    kernels.append(dict(
+        name="superstep_commit_tape_fleet", route="cuda",
+        source="simgrid_tpu_torch/csrc/superstep_commit.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:508",
+        launches=c16["superstep_commit_tape_fleet"], max_abs_err=err,
+        ms=k3f_ms, plain_ms=k3f_plain, bound_ms=bound_ms(k3f_bytes),
+        bound_by="bytes", library_ms=k3f_lib,
+        library="index_put_ of one fired bound (one call)", replicas=Bk,
+        launches_from="main path 10 (the config-#4 fleet)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del sims, g, c, outs
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2123,6 +2616,11 @@ def main() -> int:
     log({"phase": "kernel", **kernels[-1]})
     del w14g, w14c, s14, st10, st14
     torch.cuda.empty_cache()
+
+    fleet_phases(dict(dsys=dsys, rsys=rsys, wall13=row13["wall_s"],
+                      events_ms=events_ms, nbytes=nbytes,
+                      bound_ms=bound_ms, diff=diff, kernels=kernels,
+                      report=report, EPS=EPS))
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -23,6 +23,11 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
 * :class:`simgrid_tpu_torch.collectives.CollectiveSpec` (``build()``,
   then ``make_sim``) and :class:`~simgrid_tpu_torch.collectives.
   HostMaestro` — compiled MPI collective schedules and their host oracle;
+* :class:`simgrid_tpu_torch.parallel.Campaign` (over
+  :class:`~simgrid_tpu_torch.ops.lmm_batch.BatchDrainSim`) and
+  :func:`simgrid_tpu_torch.ops.lmm_batch.solve_arrays_batch` — scenario
+  fleets: B replicas of one system drained or solved in lockstep, one
+  kernel launch serving every replica;
 * :func:`simgrid_tpu_torch.workloads.dragonfly.build_system` — the
   config-#4 system generator.
 """

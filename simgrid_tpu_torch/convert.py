@@ -26,6 +26,10 @@
   port's ``DrainSim(tape=...)`` takes, and :func:`collective_from_jax`
   turns a JAX ``DeviceCollective`` (by attribute) into the port's, so
   that both packages drain the same compiled DAG.
+* :func:`fleet_state` turns a JAX ``BatchDrainSim.committed_state()``
+  (a dict of numpy arrays and host records) into the input of the
+  port's ``BatchDrainSim.restore_state``, so a fleet can run N
+  supersteps in JAX and finish here.
 
 Nothing here imports ``simgrid_tpu`` or ``jax``.
 """
@@ -252,3 +256,20 @@ def collective_from_jax(dc) -> DeviceCollective:
     by attribute; its schedule object is not carried over)."""
     return DeviceCollective.from_arrays(
         int(dc.n_c), *(np.asarray(getattr(dc, f)) for f in _DC_FIELDS))
+
+
+def fleet_state(jax_state: dict) -> dict:
+    """A JAX fleet's committed state (``BatchDrainSim.committed_state()``,
+    unsharded: its padded width is its width) as the port's
+    ``BatchDrainSim.restore_state`` takes it: numpy copies of every
+    array, the element weights flattened from the JAX fleet's
+    ``[B, E/8, 8]`` table to ``[B, E]``, and the host records as they
+    are."""
+    arrays = {k: np.array(v) for k, v in jax_state["arrays"].items()}
+    if "ew" in arrays:
+        arrays["ew"] = arrays["ew"].reshape(arrays["ew"].shape[0], -1)
+    return {"arrays": arrays,
+            "errors": list(jax_state.get("errors") or []),
+            "faults": [None if f is None else dict(f)
+                       for f in jax_state.get("faults") or []],
+            "counters": dict(jax_state.get("counters") or {})}

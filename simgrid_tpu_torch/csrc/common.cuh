@@ -42,12 +42,16 @@
 #define C_PENDING 28
 #define C_ADV_OK 29
 
+#define N_CTRL 32
+
 // ---- fctrl (dtype) slots ----
+#define N_FCTRL 4
 #define F_TSUM 0
 #define F_TCOMP 1
 #define F_DT 2
 
 // ---- evf (float64) slots: the superstep's event clock ----
+#define N_EVF 2
 #define EV_T0 0
 #define EV_NEXT_T 1
 
@@ -282,3 +286,17 @@ static inline int grid_for(long long items, int per_block) {
   if (b < 1) b = 1;
   return (int)b;
 }
+
+// The grid of a kernel with a replica axis: blockIdx.y picks the
+// replica (B of them), blockIdx.x runs `grid_for`'s grid-stride loop
+// with the cap shared among the replicas.  B = 1 is the solo grid.
+static inline dim3 grid_b(long long items, int per_block, int B) {
+  int g = grid_for(items, per_block);
+  int cap = (8 * sm_count()) / (B > 0 ? B : 1);
+  if (cap < 1) cap = 1;
+  if (g > cap) g = cap;
+  return dim3(g, B);
+}
+
+// One single-thread (or single-block) launch per replica.
+static inline dim3 grid_r(int B) { return dim3(1, B); }

@@ -48,6 +48,15 @@
 // advance with more rounds.  The flow state is updated only when the
 // fixpoint converged and dt is finite (the JAX `ok` select).
 
+// The replica axis (simgrid_tpu/ops/lmm_batch.py, the fleet superstep
+// and the fused rescue, `_batch_fused_fresh`/`_cont` `:564/:584`):
+// blockIdx.y picks the replica; its flow state, rates, completion mask,
+// control words, dt/min-date bit slots, event clock and tape row move
+// to its row, so each replica's minima are its own (one shared
+// atomicMin slot would mix replicas).  Gated mode 2 is the fused
+// rescue's guard: the step runs in the replicas whose SS_ACTIVE is set,
+// with no STARVED hand-back (the host checks convergence per chunk).
+
 #include "common.cuh"
 
 namespace {
@@ -55,8 +64,14 @@ namespace {
 template <typename T>
 __global__ void adv_pre(int* ctrl, unsigned long long* dtbits,
                         unsigned long long* atbits, int gated) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
+  dtbits += b;
+  if (atbits) atbits += b;
   int go = 1;
-  if (gated) {
+  if (gated == 2) {
+    go = ctrl[C_SS_ACTIVE];
+  } else if (gated) {
     go = ctrl[C_SS_ACTIVE] && !ctrl[C_SS_STARVED];
     if (go && ctrl[C_LIGHT] > 0 && ctrl[C_IT] < ctrl[C_LIMIT]) {
       ctrl[C_SS_STARVED] = 1;
@@ -81,7 +96,17 @@ __global__ void adv_min(int V, const T* __restrict__ pen,
                         unsigned long long* dtbits,
                         const double* __restrict__ ready,
                         unsigned long long* atbits, const int* ctrl) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
   if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
+  pen += b * V;
+  rem += b * V;
+  rate += b * V;
+  dtbits += b;
+  if (ready) {
+    ready += b * V;
+    atbits += b;
+  }
   T m = inf_v<T>();
   double a = inf_v<double>();
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
@@ -120,7 +145,14 @@ __global__ void adv_event(int* ctrl, const T* fctrl,
                           const unsigned long long* atbits, double* evf,
                           const double* __restrict__ tape_t, int n_tape,
                           int has_ready) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
   if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
+  fctrl += b * N_FCTRL;
+  dtbits += b;
+  if (atbits) atbits += b;
+  evf += b * N_EVF;
+  if (tape_t) tape_t += b * n_tape;
   const double inf = inf_v<double>();
   T dt_plan = from_key<T>(*dtbits);
   int tpos = ctrl[C_TPOS];
@@ -146,7 +178,16 @@ __global__ void adv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
                           const T* __restrict__ rate, bool* done,
                           const unsigned long long* dtbits, int* ctrl,
                           T* fctrl) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
   if (!ctrl[C_ADV_GO]) return;
+  pen += b * V;
+  rem += b * V;
+  thresh += b * V;
+  rate += b * V;
+  done += b * V;
+  dtbits += b;
+  fctrl += b * N_FCTRL;
   T dt = from_key<T>(*dtbits);
   bool ok = ctrl[C_ADV_CONV] && finite_v(dt);
   if (blockIdx.x == 0 && threadIdx.x == 0) fctrl[F_DT] = dt;
@@ -176,22 +217,22 @@ __global__ void adv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
 }
 
 template <typename T>
-int launch(int V, void* pen, void* rem, const void* thresh,
+int launch(int B, int V, void* pen, void* rem, const void* thresh,
            const void* rate, void* done, void* ctrl, void* fctrl,
            void* dtbits, int gated, void* evf, void* atbits,
            const void* tape_t, int n_tape, const void* ready,
            cudaStream_t s) {
   const int TB = 256;
-  int g = grid_for(V, TB);
+  dim3 g = grid_b(V, TB, B);
   bool event = tape_t != nullptr || ready != nullptr;
   unsigned long long* ab = ready ? (unsigned long long*)atbits : nullptr;
-  adv_pre<T><<<1, 1, 0, s>>>((int*)ctrl, (unsigned long long*)dtbits, ab,
-                             gated);
+  adv_pre<T><<<grid_r(B), 1, 0, s>>>((int*)ctrl, (unsigned long long*)dtbits,
+                                     ab, gated);
   adv_min<T><<<g, TB, 0, s>>>(V, (const T*)pen, (const T*)rem,
                               (const T*)rate, (unsigned long long*)dtbits,
                               (const double*)ready, ab, (const int*)ctrl);
   if (event)
-    adv_event<T><<<1, 1, 0, s>>>((int*)ctrl, (const T*)fctrl,
+    adv_event<T><<<grid_r(B), 1, 0, s>>>((int*)ctrl, (const T*)fctrl,
                                  (unsigned long long*)dtbits, ab,
                                  (double*)evf, (const double*)tape_t,
                                  n_tape, ready != nullptr);
@@ -259,20 +300,21 @@ extern "C" int drain_forced_advance(int dbl, int V, void* pen, void* rem,
                               s);
 }
 
-// tape_t (f64 dates, n_tape of them) and ready (f64 activation dates)
-// are NULL when their arm is off; evf and atbits are read only by the
-// event arm.
-extern "C" int drain_advance(int dbl, int V, void* pen, void* rem,
+// tape_t (f64 dates, n_tape of them per replica) and ready (f64
+// activation dates) are NULL when their arm is off; evf and atbits are
+// read only by the event arm.  B replicas in one launch.
+extern "C" int drain_advance(int dbl, int B, int V, void* pen, void* rem,
                              const void* thresh, const void* rate,
                              void* done, void* ctrl, void* fctrl,
                              void* dtbits, int gated, void* evf,
                              void* atbits, const void* tape_t, int n_tape,
                              const void* ready, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dbl)
-    return launch<double>(V, pen, rem, thresh, rate, done, ctrl, fctrl,
+    return launch<double>(B, V, pen, rem, thresh, rate, done, ctrl, fctrl,
                           dtbits, gated, evf, atbits, tape_t, n_tape, ready,
                           s);
-  return launch<float>(V, pen, rem, thresh, rate, done, ctrl, fctrl, dtbits,
-                       gated, evf, atbits, tape_t, n_tape, ready, s);
+  return launch<float>(B, V, pen, rem, thresh, rate, done, ctrl, fctrl,
+                       dtbits, gated, evf, atbits, tape_t, n_tape, ready, s);
 }

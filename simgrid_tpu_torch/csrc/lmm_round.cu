@@ -43,6 +43,19 @@
 //   the fixpoint has converged or its round limit is spent, so the host
 //   queues rounds without waiting on the device.
 
+// The replica axis (a fleet of B scenarios, simgrid_tpu/ops/lmm_batch.py
+// `_batch_superstep_program`, `_batch_fused_fresh`/`_cont` and
+// lmm_jax.py `_solve_kernel_chunk_batched[_fresh]`, the solo programs
+// vmapped over the replicas): blockIdx.y picks the replica, and `rep`
+// moves every per-replica pointer to its row (penalties, bounds, the
+// fixpoint state and scratch, the two minima, the control words; the
+// element weights and rate bounds when they are per replica).  The
+// element list, both row indexes and the FATPIPE flags are shared.  A
+// replica's rows fold in exactly the solo warp-lane order, and its
+// guards read its own control words, so a replica equals its solo run
+// by bits and one launch serves the whole fleet.  B = 1 is the solo
+// launch, with the solo grid.
+
 #include "common.cuh"
 
 #define ARM_BOUNDS 1
@@ -58,6 +71,10 @@ template <typename T>
 struct Sys {
   int V, C, flags;
   T eps;
+  // the replica axis: per-replica strides (in elements) of the element
+  // weights, bounds and rate bounds (0: shared by every replica)
+  long long s_ew;
+  int s_cb, s_vb;
   const T* pen;
   const T* vb;
   const int* e_var;
@@ -89,12 +106,16 @@ struct Sys {
 };
 
 template <typename T>
-Sys<T> make_sys(int V, int C, int flags, double eps, void** p) {
+Sys<T> make_sys(int V, int C, int flags, double eps, void** p,
+                long long s_ew, int s_cb, int s_vb) {
   Sys<T> s;
   s.V = V;
   s.C = C;
   s.flags = flags;
   s.eps = (T)eps;
+  s.s_ew = s_ew;
+  s.s_cb = s_cb;
+  s.s_vb = s_vb;
   s.pen = (const T*)p[0];
   s.vb = (const T*)p[1];
   s.e_var = (const int*)p[2];
@@ -123,6 +144,38 @@ Sys<T> make_sys(int V, int C, int flags, double eps, void** p) {
   s.min_usage = (unsigned long long*)p[25];
   s.min_bound = (unsigned long long*)p[26];
   s.ctrl = (int*)p[27];
+  return s;
+}
+
+// Replica blockIdx.y of a fleet: its penalties, bounds, weights (when
+// per replica), fixpoint state, scratch, minima and control words.  The
+// element list, row indexes and FATPIPE flags are shared.
+template <typename T>
+__device__ __forceinline__ Sys<T> rep(Sys<T> s) {
+  long long b = blockIdx.y;
+  if (b == 0) return s;
+  long long bv = b * s.V, bc = b * s.C;
+  s.pen += bv;
+  if (s.vb) s.vb += b * s.s_vb;
+  s.e_w += b * s.s_ew;
+  s.c_bound += b * s.s_cb;
+  s.v_value += bv;
+  s.v_fixed += bv;
+  s.nmin_v += bv;
+  s.fix_now += bv;
+  s.low_v += bv;
+  s.mb_v += bv;
+  s.level2_v += bv;
+  s.remaining += bc;
+  s.usage += bc;
+  s.light += bc;
+  s.proc += bc;
+  s.mb_c += bc;
+  s.blocked_c += bc;
+  s.rou += bc;
+  s.min_usage += b;
+  s.min_bound += b;
+  s.ctrl += b * N_CTRL;
   return s;
 }
 
@@ -155,7 +208,8 @@ __device__ __forceinline__ T rou_of(const Sys<T>& s, int c) {
 // ---------------------------------------------------------------- init
 
 template <typename T>
-__global__ void init_var(Sys<T> s, int gated, int limit) {
+__global__ void init_var(Sys<T> s0, int gated, int limit) {
+  Sys<T> s = rep(s0);
   int* ctrl = s.ctrl;
   int go = gated ? ctrl[C_SS_ACTIVE] : 1;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -184,7 +238,8 @@ __global__ void init_var(Sys<T> s, int gated, int limit) {
 
 // usage0: in-order sum of w/penalty for SHARED rows, max for FATPIPE rows
 template <typename T>
-__global__ void init_cnst(Sys<T> s) {
+__global__ void init_cnst(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!s.ctrl[C_ARMED]) return;
   int cnt = 0;
   FOR_CNST_WARPS(c) {
@@ -208,7 +263,8 @@ __global__ void init_cnst(Sys<T> s) {
 
 // Pass A: nmin_v = min rou over the variable's live elements.
 template <typename T>
-__global__ void round_a(Sys<T> s) {
+__global__ void round_a(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_VARS(v) {
     T m = inf_v<T>();
@@ -228,7 +284,8 @@ __global__ void round_a(Sys<T> s) {
 // Pass B: a light constraint is processable when its rou is at most
 // the two-hop neighbourhood min.
 template <typename T>
-__global__ void round_b(Sys<T> s) {
+__global__ void round_b(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
     T m = inf_v<T>();
@@ -250,7 +307,8 @@ __global__ void round_b(Sys<T> s) {
 // Bound pass 1: low_v = saturated (touches a processable constraint),
 // bounded, and bound * penalty below its level nmin_v.
 template <typename T>
-__global__ void bnd_low(Sys<T> s) {
+__global__ void bnd_low(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_VARS(v) {
     bool lv = false;
@@ -270,7 +328,8 @@ __global__ void bnd_low(Sys<T> s) {
 // Bound pass 2: mb_c = min bound * penalty over the constraint's live
 // low-bound variables, inf unless the constraint is processable.
 template <typename T>
-__global__ void bnd_mbc(Sys<T> s) {
+__global__ void bnd_mbc(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
     T m = inf_v<T>();
@@ -289,7 +348,8 @@ __global__ void bnd_mbc(Sys<T> s) {
 // Bound pass 3: mb_v = min mb_c over the variable's processable
 // constraints.
 template <typename T>
-__global__ void bnd_mbv(Sys<T> s) {
+__global__ void bnd_mbv(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_VARS(v) {
     T m = inf_v<T>();
@@ -309,7 +369,8 @@ __global__ void bnd_mbv(Sys<T> s) {
 // Bound pass 4: a processable constraint is blocked when one of its
 // live variables has a finite mb_v (it waits for the bound fixes).
 template <typename T>
-__global__ void bnd_blk(Sys<T> s) {
+__global__ void bnd_blk(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
     bool pc = s.proc[c];
@@ -333,7 +394,8 @@ __global__ void bnd_blk(Sys<T> s) {
 // low-bound variable at its constraint's minimal bound is fixed at its
 // bound first.
 template <typename T>
-__global__ void round_c(Sys<T> s) {
+__global__ void round_c(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   bool bounds = s.flags & ARM_BOUNDS;
   FOR_VARS(v) {
@@ -372,7 +434,8 @@ __global__ void round_c(Sys<T> s) {
 // --------------------------------------------------------- global order
 
 template <typename T>
-__global__ void glob_reset(Sys<T> s) {
+__global__ void glob_reset(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   *s.min_usage = key_of(inf_v<T>());
   *s.min_bound = key_of(inf_v<T>());
@@ -380,7 +443,8 @@ __global__ void glob_reset(Sys<T> s) {
 
 // rou of every constraint, stored once, and its grid-wide min
 template <typename T>
-__global__ void glob_rou(Sys<T> s) {
+__global__ void glob_rou(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   T m = inf_v<T>();
   for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < s.C;
@@ -397,7 +461,8 @@ __global__ void glob_rou(Sys<T> s) {
 // With bounds: record v_sat (in low_v) and the grid-wide min of
 // bound * penalty over saturated bounded variables below the min.
 template <typename T>
-__global__ void glob_sat(Sys<T> s) {
+__global__ void glob_sat(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   bool bounds = s.flags & ARM_BOUNDS;
   T mu = from_key<T>(*s.min_usage);
@@ -436,7 +501,8 @@ __global__ void glob_sat(Sys<T> s) {
 // the variables at the smallest such bound, at their bound; otherwise
 // every saturated variable at min/penalty
 template <typename T>
-__global__ void glob_fix(Sys<T> s) {
+__global__ void glob_fix(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   T mu = from_key<T>(*s.min_usage);
   T mb = from_key<T>(*s.min_bound);
@@ -470,7 +536,8 @@ __global__ void glob_fix(Sys<T> s) {
 // argument: this is the round's hottest pass, and the SHARED-only
 // loop must not carry the max's branch.
 template <typename T, bool FAT>
-__global__ void round_d(Sys<T> s) {
+__global__ void round_d(Sys<T> s0) {
+  Sys<T> s = rep(s0);
   if (!round_go(s.ctrl)) return;
   int cnt = 0;
   FOR_CNST_WARPS(c) {
@@ -534,6 +601,7 @@ __global__ void round_d(Sys<T> s) {
 }
 
 __global__ void round_e(int* ctrl) {
+  ctrl += (long long)blockIdx.y * N_CTRL;
   if (!round_go(ctrl)) return;
   ctrl[C_LIGHT] = ctrl[C_LIGHT_ACC];
   ctrl[C_LIGHT_ACC] = 0;
@@ -543,18 +611,18 @@ __global__ void round_e(int* ctrl) {
 const int TB = 256;
 
 template <typename T>
-int launch_init(Sys<T> s, int gated, int limit, cudaStream_t st) {
-  init_var<T><<<grid_for(s.V, TB), TB, 0, st>>>(s, gated, limit);
-  init_cnst<T><<<grid_for((long long)s.C * 32, TB), TB, 0, st>>>(s);
+int launch_init(Sys<T> s, int B, int gated, int limit, cudaStream_t st) {
+  init_var<T><<<grid_b(s.V, TB, B), TB, 0, st>>>(s, gated, limit);
+  init_cnst<T><<<grid_b((long long)s.C * 32, TB, B), TB, 0, st>>>(s);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_round(Sys<T> s, cudaStream_t st) {
-  int gv = grid_for(s.V, TB), gc = grid_for((long long)s.C * 32, TB);
+int launch_round(Sys<T> s, int B, cudaStream_t st) {
+  dim3 gv = grid_b(s.V, TB, B), gc = grid_b((long long)s.C * 32, TB, B);
   if (s.flags & ARM_GLOBAL) {
-    glob_reset<T><<<1, 1, 0, st>>>(s);
-    glob_rou<T><<<grid_for(s.C, TB), TB, 0, st>>>(s);
+    glob_reset<T><<<grid_r(B), 1, 0, st>>>(s);
+    glob_rou<T><<<grid_b(s.C, TB, B), TB, 0, st>>>(s);
     glob_sat<T><<<gv, TB, 0, st>>>(s);
     if (s.flags & ARM_BOUNDS) glob_fix<T><<<gv, TB, 0, st>>>(s);
   } else {
@@ -572,7 +640,7 @@ int launch_round(Sys<T> s, cudaStream_t st) {
     round_d<T, true><<<gc, TB, 0, st>>>(s);
   else
     round_d<T, false><<<gc, TB, 0, st>>>(s);
-  round_e<<<1, 1, 0, st>>>(s.ctrl);
+  round_e<<<grid_r(B), 1, 0, st>>>(s.ctrl);
   return (int)cudaGetLastError();
 }
 
@@ -580,24 +648,33 @@ int launch_round(Sys<T> s, cudaStream_t st) {
 
 extern "C" {
 
-int lmm_init(int dbl, int V, int C, int flags, void** ptrs, int n_ptrs,
-             double eps, int gated, int limit, void* stream) {
-  if (n_ptrs != N_PTRS) return (int)cudaErrorInvalidValue;
+// B replicas in one launch (blockIdx.y); s_ew, s_cb and s_vb are the
+// per-replica strides of e_w, c_bound and vb (0: shared).
+int lmm_init(int dbl, int B, int V, int C, int flags, void** ptrs,
+             int n_ptrs, double eps, int gated, int limit, long long s_ew,
+             int s_cb, int s_vb, void* stream) {
+  if (n_ptrs != N_PTRS || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dbl)
-    return launch_init(make_sys<double>(V, C, flags, eps, ptrs), gated,
-                       limit, st);
-  return launch_init(make_sys<float>(V, C, flags, eps, ptrs), gated, limit,
-                     st);
+    return launch_init(
+        make_sys<double>(V, C, flags, eps, ptrs, s_ew, s_cb, s_vb), B,
+        gated, limit, st);
+  return launch_init(make_sys<float>(V, C, flags, eps, ptrs, s_ew, s_cb, s_vb),
+                     B, gated, limit, st);
 }
 
-int lmm_round(int dbl, int V, int C, int flags, void** ptrs, int n_ptrs,
-              double eps, void* stream) {
-  if (n_ptrs != N_PTRS) return (int)cudaErrorInvalidValue;
+int lmm_round(int dbl, int B, int V, int C, int flags, void** ptrs,
+              int n_ptrs, double eps, long long s_ew, int s_cb, int s_vb,
+              void* stream) {
+  if (n_ptrs != N_PTRS || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dbl)
-    return launch_round(make_sys<double>(V, C, flags, eps, ptrs), st);
-  return launch_round(make_sys<float>(V, C, flags, eps, ptrs), st);
+    return launch_round(
+        make_sys<double>(V, C, flags, eps, ptrs, s_ew, s_cb, s_vb), B, st);
+  return launch_round(make_sys<float>(V, C, flags, eps, ptrs, s_ew, s_cb, s_vb),
+                      B, st);
 }
 
 }  // extern "C"

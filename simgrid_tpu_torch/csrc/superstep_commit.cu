@@ -46,6 +46,19 @@
 // scan of the chunk counts; that keeps slot order (the order the host
 // paths emit completions in) with no second launch and no atomics.
 
+// The replica axis (simgrid_tpu/ops/lmm_batch.py
+// `_batch_superstep_program`, :477-523: the solo superstep vmapped over
+// a fleet): blockIdx.y picks the replica, whose control words, Kahan
+// pair, event clock, ring row of `packed`, flow state, tape row and
+// bounds move to its row (the ids are shared).  `ss_reset` takes a
+// per-replica k (`k_l = where(alive, k, 0)`, :510), base clock t0 and
+// tape cursor, so a dead replica's guards are false from entry and its
+// state comes back unchanged; `ss_resume` resumes exactly the replicas
+// that came back STARVED and turns every other replica's slot off, so
+// one queued resume serves the fleet and the grouping of advances into
+// supersteps stays JAX's; `superstep_finish` packs [B, packed_size] for
+// one fetch per fleet superstep.
+
 #include "common.cuh"
 
 namespace {
@@ -55,7 +68,18 @@ __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
                          T* fctrl, int k, int budget, int stop, double* evf,
                          double t0, int tpos,
                          const double* __restrict__ ready,
-                         const double* __restrict__ clk) {
+                         const double* __restrict__ clk, const int* k_arr,
+                         const double* t0_arr, const int* tpos_arr) {
+  long long b = blockIdx.y;
+  pen += b * V;
+  ctrl += b * N_CTRL;
+  fctrl += b * N_FCTRL;
+  evf += b * N_EVF;
+  if (ready) ready += b * V;
+  if (clk) clk += 2 * b;
+  if (k_arr) k = k_arr[b];
+  if (t0_arr) t0 = t0_arr[b];
+  if (tpos_arr) tpos = tpos_arr[b];
   int live = 0, pend = 0;
   for (int v = threadIdx.x; v < V; v += blockDim.x) {
     live += pen[v] > T(0);
@@ -85,6 +109,7 @@ __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
 }
 
 __global__ void ss_begin(int* ctrl) {
+  ctrl += (long long)blockIdx.y * N_CTRL;
   ctrl[C_SS_ACTIVE] = !ctrl[C_SS_STARVED] && ctrl[C_SS_FLAG] == FLAG_OK &&
                       ctrl[C_SS_ADV] < ctrl[C_SS_K] &&
                       ctrl[C_SS_ROUNDS] < ctrl[C_SS_BUDGET] &&
@@ -93,9 +118,15 @@ __global__ void ss_begin(int* ctrl) {
 }
 
 __global__ void ss_resume(int* ctrl) {
-  ctrl[C_SS_STARVED] = 0;
-  ctrl[C_SS_ACTIVE] = 1;
-  ctrl[C_ARMED] = 1;
+  ctrl += (long long)blockIdx.y * N_CTRL;
+  if (ctrl[C_SS_STARVED]) {
+    ctrl[C_SS_STARVED] = 0;
+    ctrl[C_SS_ACTIVE] = 1;
+    ctrl[C_ARMED] = 1;
+  } else {
+    // a replica that did not starve has ended its superstep
+    ctrl[C_SS_ACTIVE] = 0;
+  }
 }
 
 // The event arms' arrays (NULL when the arm is off).
@@ -103,7 +134,9 @@ template <typename T>
 struct Arms {
   const int* tape_slot;  // [T] int32 constraint slots
   const T* tape_val;     // [T] new bounds, in the drain's dtype
+  int n_tape;            // T, the tape row's stride
   T* c_bound;            // [C] the drain's bounds (scattered into)
+  int cb_stride;         // C, the bounds row's stride
   int n_c;
   double* ready;         // [V] f64 pending activation dates
   T* pen;                // [V] penalties (activations set 1.0)
@@ -114,7 +147,22 @@ __global__ void ss_commit(int V, const bool* __restrict__ done,
                           const int* __restrict__ ids, T* packed, int* ctrl,
                           T* fctrl, int k_max, int ring_n,
                           const double* evf, Arms<T> arm) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
   if (!ctrl[C_ADV_GO]) return;
+  done += b * V;
+  packed += b * (7 + 2 * (long long)k_max + 2 * (long long)ring_n);
+  fctrl += b * N_FCTRL;
+  evf += b * N_EVF;
+  if (arm.tape_slot) {
+    arm.tape_slot += b * arm.n_tape;
+    arm.tape_val += b * arm.n_tape;
+    arm.c_bound += b * arm.cb_stride;
+  }
+  if (arm.ready) {
+    arm.ready += b * V;
+    arm.pen += b * V;
+  }
   T dt = fctrl[F_DT];
   bool conv = ctrl[C_ADV_CONV] != 0;
   bool ok = conv && finite_v(dt);
@@ -195,12 +243,19 @@ __global__ void ss_commit(int V, const bool* __restrict__ done,
   }
 }
 
-__global__ void ss_zero_le(int* ctrl) { ctrl[C_LE_ACC] = 0; }
+__global__ void ss_zero_le(int* ctrl) {
+  ctrl[(long long)blockIdx.y * N_CTRL + C_LE_ACC] = 0;
+}
 
 template <typename T>
 __global__ void ss_live_elems(int E, const int* __restrict__ e_var,
                               const T* __restrict__ e_w,
-                              const T* __restrict__ pen, int* ctrl) {
+                              const T* __restrict__ pen, int* ctrl, int V,
+                              long long s_ew) {
+  long long b = blockIdx.y;
+  e_w += b * s_ew;
+  pen += b * V;
+  ctrl += b * N_CTRL;
   int n = 0;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < E;
        e += gridDim.x * blockDim.x)
@@ -211,7 +266,12 @@ __global__ void ss_live_elems(int E, const int* __restrict__ e_var,
 
 template <typename T>
 __global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl,
-                         double* clk) {
+                         double* clk, long long psize) {
+  long long b = blockIdx.y;
+  packed += b * psize;
+  ctrl += b * N_CTRL;
+  fctrl += b * N_FCTRL;
+  if (clk) clk += 2 * b;
   if (clk) {
     clk[0] = (double)fctrl[F_TSUM];
     clk[1] = (double)fctrl[F_TCOMP];
@@ -226,39 +286,42 @@ __global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl,
 }
 
 template <typename T>
-int reset_t(int V, const void* pen, void* ctrl, void* fctrl, int k,
+int reset_t(int B, int V, const void* pen, void* ctrl, void* fctrl, int k,
             int budget, int stop, void* evf, double t0, int tpos,
-            const void* ready, const void* clk, cudaStream_t s) {
-  ss_reset<T><<<1, 1024, 0, s>>>(V, (const T*)pen, (int*)ctrl, (T*)fctrl, k,
-                                 budget, stop, (double*)evf, t0, tpos,
-                                 (const double*)ready, (const double*)clk);
+            const void* ready, const void* clk, const void* k_arr,
+            const void* t0_arr, const void* tpos_arr, cudaStream_t s) {
+  ss_reset<T><<<grid_r(B), 1024, 0, s>>>(
+      V, (const T*)pen, (int*)ctrl, (T*)fctrl, k, budget, stop,
+      (double*)evf, t0, tpos, (const double*)ready, (const double*)clk,
+      (const int*)k_arr, (const double*)t0_arr, (const int*)tpos_arr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int commit_t(int V, const void* done, const void* ids, void* packed,
+int commit_t(int B, int V, const void* done, const void* ids, void* packed,
              void* ctrl, void* fctrl, int k_max, int ring_n,
              const void* evf, const void* tape_slot, const void* tape_val,
-             void* c_bound, int n_c, void* ready, void* pen,
-             cudaStream_t s) {
-  Arms<T> arm{(const int*)tape_slot, (const T*)tape_val, (T*)c_bound, n_c,
-              (double*)ready, (T*)pen};
-  ss_commit<T><<<1, 1024, 0, s>>>(V, (const bool*)done, (const int*)ids,
-                                  (T*)packed, (int*)ctrl, (T*)fctrl, k_max,
-                                  ring_n, (const double*)evf, arm);
+             int n_tape, void* c_bound, int cb_stride, int n_c, void* ready,
+             void* pen, cudaStream_t s) {
+  Arms<T> arm{(const int*)tape_slot, (const T*)tape_val, n_tape,
+              (T*)c_bound, cb_stride, n_c, (double*)ready, (T*)pen};
+  ss_commit<T><<<grid_r(B), 1024, 0, s>>>(
+      V, (const bool*)done, (const int*)ids, (T*)packed, (int*)ctrl,
+      (T*)fctrl, k_max, ring_n, (const double*)evf, arm);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int finish_t(int E, const void* e_var, const void* e_w, const void* pen,
-             void* packed, void* ctrl, void* fctrl, void* clk,
-             cudaStream_t s) {
+int finish_t(int B, int E, int V, const void* e_var, const void* e_w,
+             long long s_ew, const void* pen, void* packed, long long psize,
+             void* ctrl, void* fctrl, void* clk, cudaStream_t s) {
   const int TB = 256;
-  ss_zero_le<<<1, 1, 0, s>>>((int*)ctrl);
-  ss_live_elems<T><<<grid_for(E, TB), TB, 0, s>>>(
-      E, (const int*)e_var, (const T*)e_w, (const T*)pen, (int*)ctrl);
-  ss_stats<T><<<1, 1, 0, s>>>((T*)packed, (const int*)ctrl,
-                              (const T*)fctrl, (double*)clk);
+  ss_zero_le<<<grid_r(B), 1, 0, s>>>((int*)ctrl);
+  ss_live_elems<T><<<grid_b(E, TB, B), TB, 0, s>>>(
+      E, (const int*)e_var, (const T*)e_w, (const T*)pen, (int*)ctrl, V,
+      s_ew);
+  ss_stats<T><<<grid_r(B), 1, 0, s>>>((T*)packed, (const int*)ctrl,
+                                      (const T*)fctrl, (double*)clk, psize);
   return (int)cudaGetLastError();
 }
 
@@ -266,53 +329,65 @@ int finish_t(int E, const void* e_var, const void* e_w, const void* pen,
 
 extern "C" {
 
-// ready (f64 activation dates) and clk (the f64 Kahan pair) are NULL
-// without a collective.
-int superstep_reset(int dbl, int V, const void* pen, void* ctrl,
+// B replicas in one launch each.  ready (f64 activation dates) and clk
+// (the f64 Kahan pair) are NULL without a collective; k_arr, t0_arr
+// and tpos_arr (per replica) are NULL for the solo scalars.
+int superstep_reset(int dbl, int B, int V, const void* pen, void* ctrl,
                     void* fctrl, int k, int budget, int stop, void* evf,
                     double t0, int tpos, const void* ready, const void* clk,
-                    void* stream) {
+                    const void* k_arr, const void* t0_arr,
+                    const void* tpos_arr, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dbl ? reset_t<double>(V, pen, ctrl, fctrl, k, budget, stop, evf, t0,
-                               tpos, ready, clk, s)
-             : reset_t<float>(V, pen, ctrl, fctrl, k, budget, stop, evf, t0,
-                              tpos, ready, clk, s);
+  return dbl ? reset_t<double>(B, V, pen, ctrl, fctrl, k, budget, stop, evf,
+                               t0, tpos, ready, clk, k_arr, t0_arr, tpos_arr,
+                               s)
+             : reset_t<float>(B, V, pen, ctrl, fctrl, k, budget, stop, evf,
+                              t0, tpos, ready, clk, k_arr, t0_arr, tpos_arr,
+                              s);
 }
 
-int superstep_begin(void* ctrl, void* stream) {
-  ss_begin<<<1, 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
+int superstep_begin(int B, void* ctrl, void* stream) {
+  ss_begin<<<grid_r(B), 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
   return (int)cudaGetLastError();
 }
 
-int superstep_resume(void* ctrl, void* stream) {
-  ss_resume<<<1, 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
+int superstep_resume(int B, void* ctrl, void* stream) {
+  ss_resume<<<grid_r(B), 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
   return (int)cudaGetLastError();
 }
 
 // tape_slot/tape_val/c_bound are NULL without a tape, ready/pen without
-// a collective.
-int superstep_commit(int dbl, int V, const void* done, const void* ids,
-                     void* packed, void* ctrl, void* fctrl, int k_max,
-                     int ring_n, const void* evf, const void* tape_slot,
-                     const void* tape_val, void* c_bound, int n_c,
-                     void* ready, void* pen, void* stream) {
+// a collective; n_tape and cb_stride are the per-replica strides of the
+// tape rows and the bounds, n_c the collective arm's ring id offset.
+int superstep_commit(int dbl, int B, int V, const void* done,
+                     const void* ids, void* packed, void* ctrl, void* fctrl,
+                     int k_max, int ring_n, const void* evf,
+                     const void* tape_slot, const void* tape_val, int n_tape,
+                     void* c_bound, int cb_stride, int n_c, void* ready,
+                     void* pen, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dbl ? commit_t<double>(V, done, ids, packed, ctrl, fctrl, k_max,
-                                ring_n, evf, tape_slot, tape_val, c_bound,
-                                n_c, ready, pen, s)
-             : commit_t<float>(V, done, ids, packed, ctrl, fctrl, k_max,
-                               ring_n, evf, tape_slot, tape_val, c_bound,
-                               n_c, ready, pen, s);
+  return dbl ? commit_t<double>(B, V, done, ids, packed, ctrl, fctrl, k_max,
+                                ring_n, evf, tape_slot, tape_val, n_tape,
+                                c_bound, cb_stride, n_c, ready, pen, s)
+             : commit_t<float>(B, V, done, ids, packed, ctrl, fctrl, k_max,
+                               ring_n, evf, tape_slot, tape_val, n_tape,
+                               c_bound, cb_stride, n_c, ready, pen, s);
 }
 
-int superstep_finish(int dbl, int E, const void* e_var, const void* e_w,
-                     const void* pen, void* packed, void* ctrl,
-                     void* fctrl, void* clk, void* stream) {
+// s_ew: the per-replica stride of e_w (0: shared); psize: the stride of
+// one replica's packed row.
+int superstep_finish(int dbl, int B, int E, int V, const void* e_var,
+                     const void* e_w, long long s_ew, const void* pen,
+                     void* packed, long long psize, void* ctrl, void* fctrl,
+                     void* clk, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return dbl ? finish_t<double>(E, e_var, e_w, pen, packed, ctrl, fctrl, clk,
-                                s)
-             : finish_t<float>(E, e_var, e_w, pen, packed, ctrl, fctrl, clk,
-                               s);
+  return dbl ? finish_t<double>(B, E, V, e_var, e_w, s_ew, pen, packed,
+                                psize, ctrl, fctrl, clk, s)
+             : finish_t<float>(B, E, V, e_var, e_w, s_ew, pen, packed, psize,
+                               ctrl, fctrl, clk, s);
 }
 
 }  // extern "C"

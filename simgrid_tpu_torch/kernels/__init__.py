@@ -22,6 +22,12 @@ their plain PyTorch versions.
   partition, row gather and fetch
 * K10 :mod:`.dag_walk`        — a collective schedule's DAG walk: the
   completions' successor decrements and the activation dates they free
+* K11 :mod:`.fleet_materialize` — a fleet's per-replica state from the
+  base arrays and compact payloads, at birth and at the admission of
+  one replica
+
+K1-K3 also take a replica axis (a fleet :class:`~.common.Work`): one
+launch serves every replica of a fleet, counted under ``<name>_fleet``.
 
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each wrapper counts its launches.
@@ -35,8 +41,9 @@ from .common import COUNTERS
 def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
     from . import (dag_walk, drain_advance, ell_chain,  # noqa: F401
-                   ell_round, livefirst_repack, lmm_round, superstep_commit,
-                   transition_scatter, vc_round, warm_init)
+                   ell_round, fleet_materialize, livefirst_repack,
+                   lmm_round, superstep_commit, transition_scatter,
+                   vc_round, warm_init)
     return {name: c.n for name, c in COUNTERS.items()}
 
 

@@ -30,7 +30,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
                          "simgrid_tpu_torch")
 SOURCES = ("lmm_round", "drain_advance", "superstep_commit",
            "livefirst_repack", "transition_scatter", "warm_init",
-           "ell_round", "vc_round", "ell_chain", "dag_walk")
+           "ell_round", "vc_round", "ell_chain", "dag_walk",
+           "fleet_materialize")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-shared", "-Xcompiler",
          "-fPIC"]

@@ -9,6 +9,13 @@ small int32 tensor ``ctrl`` and one dtype tensor ``fctrl``.  Every
 kernel reads them first and returns at once when it has nothing to do,
 so queued launches past convergence cost a launch and nothing else.
 The slot numbers below are mirrored in ``csrc/common.cuh``.
+
+A fleet of B replicas (``Work(..., B=B)``) gives every per-replica
+tensor a leading replica axis (``ctrl`` is ``[B, N_CTRL]``, ``v_value``
+``[B, n_v]``, the ``atomicMin`` bit slots ``[B, 1]``, ...), so that one
+launch serves every replica and each replica's kernel guards read its
+own control words.  The default ``B=None`` is the solo layout of
+earlier callers; its memory is that of a fleet of one.
 """
 
 from __future__ import annotations
@@ -87,11 +94,19 @@ class LmmSystem(NamedTuple):
 
     @property
     def n_c(self) -> int:
-        return int(self.c_bound.shape[0])
+        return int(self.c_bound.shape[-1])
 
     @property
     def n_e(self) -> int:
         return int(self.e_var.shape[0])
+
+    def replica(self, b: int) -> "LmmSystem":
+        """Replica ``b`` of a fleet system (``c_bound`` [B, C], ``e_w``
+        [E] shared or [B, E]), as a solo system of views."""
+        return self._replace(
+            c_bound=self.c_bound[b] if self.c_bound.dim() == 2
+            else self.c_bound,
+            e_w=self.e_w[b] if self.e_w.dim() == 2 else self.e_w)
 
 
 class Work:
@@ -109,9 +124,13 @@ class Work:
     not None)."""
 
     def __init__(self, n_v: int, n_c: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, B: Optional[int] = None):
+        #: replicas of a fleet (None: the solo layout)
+        self.B = B
+
         def vec(n, dt):
-            return torch.zeros(n, dtype=dt, device=device)
+            shape = (n,) if B is None else (B, n)
+            return torch.zeros(shape, dtype=dt, device=device)
         self.v_value = vec(n_v, dtype)
         self.v_fixed = vec(n_v, torch.bool)
         self.nmin_v = vec(n_v, dtype)
@@ -139,6 +158,27 @@ class Work:
         self.carry_valid = False
         #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)
         self.ptr_cache: dict = {}
+
+    @property
+    def nb(self) -> int:
+        """Replicas a launch serves (1 for the solo layout)."""
+        return 1 if self.B is None else self.B
+
+    def replica(self, b: int) -> "Work":
+        """Replica ``b`` of a fleet's work, as a solo :class:`Work` of
+        views (what the plain versions run on, one replica at a time)."""
+        views = self.__dict__.setdefault("_views", {})
+        r = views.get(b)
+        if r is None:
+            r = object.__new__(type(self))
+            for k, v in vars(self).items():
+                if k != "_views":
+                    setattr(r, k, v[b] if isinstance(v, torch.Tensor)
+                            else v)
+            r.B = None
+            r.ptr_cache = {}
+            views[b] = r
+        return r
 
 
 class EllSystem(NamedTuple):
@@ -260,4 +300,5 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 D = ctypes.c_double

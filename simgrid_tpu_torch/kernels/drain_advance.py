@@ -20,6 +20,14 @@ next event against the clock ``w.evf[EV_T0] + t_sum`` (or ``t_sum``
 with a collective), clamps dt to land on it, and leaves ``FIRE``,
 ``FFIRE``, ``AANY`` in ``w.ctrl`` and the event date in
 ``w.evf[EV_NEXT_T]`` for K3.
+
+With a fleet :class:`Work` (``B`` replicas; ``pen``, ``rem``,
+``thresh`` ``[B, V]``, ``tape_t`` ``[B, T]``) one launch advances every
+replica, each against its own control words, minima and clock
+(``lmm_batch.py``'s vmapped superstep); ``gated=2`` is the fleet's
+fused rescue (``_batch_fused_fresh``/``_cont``): the step runs where
+``SS_ACTIVE`` is set, without the STARVED hand-back.  The plain version
+runs the solo plain step on each replica in turn.
 """
 
 from __future__ import annotations
@@ -38,8 +46,10 @@ from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, DT, EV_NEXT_T, EV_T0,
 COUNT = counter("drain_advance")
 FORCED_COUNT = counter("drain_forced_advance")
 EVENT_COUNT = counter("drain_advance_event")
+FLEET_COUNT = counter("drain_advance_fleet")
+FLEET_EVENT_COUNT = counter("drain_advance_event_fleet")
 
-_SIG = {"drain_advance": [I, I] + [P] * 8 + [I, P, P, P, I, P, P],
+_SIG = {"drain_advance": [I, I, I] + [P] * 8 + [I, P, P, P, I, P, P],
         "drain_forced_advance": [I, I] + [P] * 6 + [D, P]}
 
 
@@ -103,12 +113,14 @@ def event_peek(w: Work, dt_plan: torch.Tensor,
 
 def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
                         thresh: torch.Tensor, w: Work,
-                        gated: bool = False,
+                        gated: int = 0,
                         tape_t: Optional[torch.Tensor] = None,
                         ready: Optional[torch.Tensor] = None) -> bool:
     c = w.ctrl
     go = True
-    if gated:
+    if gated == 2:
+        go = bool(int(c[SS_ACTIVE]))
+    elif gated:
         go = bool(int(c[SS_ACTIVE])) and not int(c[SS_STARVED])
         if go and int(c[LIGHT]) > 0 and int(c[IT]) < int(c[LIMIT]):
             c[SS_STARVED] = 1
@@ -142,7 +154,7 @@ def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
 
 
 def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
-                  thresh: torch.Tensor, w: Work, gated: bool = False,
+                  thresh: torch.Tensor, w: Work, gated: int = 0,
                   tape_t: Optional[torch.Tensor] = None,
                   ready: Optional[torch.Tensor] = None):
     """One time advance from the rates in ``w.v_value``; with
@@ -151,18 +163,33 @@ def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
     event = tape_t is not None or ready is not None
     extra = [t for t in (tape_t, ready) if t is not None]
     if on_cpu(pen, rem, thresh, w.ctrl, *extra):
+        if w.B is not None:
+            return any([drain_advance_plain(
+                pen[b], rem[b], thresh[b], w.replica(b), gated,
+                None if tape_t is None else tape_t[b],
+                None if ready is None else ready[b])
+                for b in range(w.B)])
         return drain_advance_plain(pen, rem, thresh, w, gated, tape_t,
                                    ready)
+    if w.B is not None:
+        for t in (pen, rem, thresh, ready):
+            if t is not None and tuple(t.shape) != tuple(w.v_value.shape):
+                raise ValueError("fleet flow state must be [B, V]")
+        if tape_t is not None and tape_t.shape[0] != w.B:
+            raise ValueError("fleet tape dates must be [B, T]")
     lib = build.load("drain_advance", _SIG)
     rc = lib.drain_advance(
-        is_double(pen.dtype), int(pen.shape[0]), ptr(pen), ptr(rem),
+        is_double(pen.dtype), w.nb, int(pen.shape[-1]), ptr(pen), ptr(rem),
         ptr(thresh), ptr(w.v_value), ptr(w.done), ptr(w.ctrl),
         ptr(w.fctrl), ptr(w.dtbits), int(gated), ptr(w.evf),
         ptr(w.atbits), opt_ptr(tape_t),
-        0 if tape_t is None else int(tape_t.shape[0]), opt_ptr(ready),
+        0 if tape_t is None else int(tape_t.shape[-1]), opt_ptr(ready),
         stream())
     check(rc, "drain_advance")
-    (EVENT_COUNT if event else COUNT).n += 1
+    if w.B is None:
+        (EVENT_COUNT if event else COUNT).n += 1
+    else:
+        (FLEET_EVENT_COUNT if event else FLEET_COUNT).n += 1
     return None
 
 

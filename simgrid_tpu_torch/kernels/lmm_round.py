@@ -14,6 +14,12 @@ decides them the way its JAX counterpart does, so the same round body
 runs.  ``vb`` (the per-variable rate bounds) travels beside the
 penalties ``pen``; the round reads it only with ``has_bounds``.
 
+A fleet :class:`Work` (``B`` replicas) runs every replica in the same
+launch (the replica axis of ``lmm_batch.py``'s vmapped programs):
+penalties and bounds are ``[B, ·]``, ``sys.c_bound`` is ``[B, C]``,
+``sys.e_w`` and ``vb`` are shared or per replica; the plain version
+then runs the solo plain function on each replica in turn.
+
 Both wrappers take the system, the fixpoint :class:`Work` and the
 penalties.  On CPU tensors they run the plain PyTorch version below (a
 line-by-line transcription of the JAX round over the COO elements) and
@@ -29,7 +35,7 @@ import torch
 
 from . import build
 from .common import (ARMED, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS,
-                     SS_ACTIVE, SS_BUDGET, SS_ROUNDS, D, I, LmmSystem, P,
+                     SS_ACTIVE, SS_BUDGET, SS_ROUNDS, D, I, L, LmmSystem, P,
                      Work, check, counter, is_double, on_cpu, ptr_array,
                      stream)
 
@@ -49,16 +55,19 @@ def arm_name(flags: int) -> str:
             + ("_fatpipe" if flags & ARM_FATPIPE else ""))
 
 
-#: one launch counter per arm combination
+#: one launch counter per arm combination; a fleet's launches (a
+#: :class:`Work` with a replica axis) count under ``<arm>_fleet``
 ARM_COUNTS = {f: counter(arm_name(f)) for f in range(8)}
+FLEET_ARM_COUNTS = {f: counter(arm_name(f) + "_fleet") for f in range(8)}
 COUNT = ARM_COUNTS[0]
+FLEET_INIT_COUNT = counter("lmm_init_fleet")
 
 #: buffers handed to the C entries as one pointer array, in this order
 N_PTRS = 28
 
 _SIG = {
-    "lmm_init": [I, I, I, I, P, I, D, I, I, P],
-    "lmm_round": [I, I, I, I, P, I, D, P],
+    "lmm_init": [I, I, I, I, I, P, I, D, I, I, L, I, I, P],
+    "lmm_round": [I, I, I, I, I, P, I, D, L, I, I, P],
 }
 
 
@@ -297,6 +306,23 @@ def _ptrs(sys: LmmSystem, w: Work, pen, vb, flags: int):
     return arr
 
 
+def _strides(sys: LmmSystem, w: Work, pen: torch.Tensor,
+             vb: Optional[torch.Tensor]):
+    """The per-replica strides of ``e_w``, ``c_bound`` and ``vb`` (0:
+    shared), after checking a fleet's shapes."""
+    if w.B is None:
+        return 0, 0, 0
+    B, V, C = w.B, sys.n_v, sys.n_c
+    if tuple(pen.shape) != (B, V):
+        raise ValueError(f"fleet penalties must be [{B}, {V}]")
+    for name, t, n in (("e_w", sys.e_w, sys.n_e), ("c_bound", sys.c_bound,
+                                                   C), ("vb", vb, V)):
+        if t is not None and t.dim() == 2 and tuple(t.shape) != (B, n):
+            raise ValueError(f"fleet {name} must be [{n}] or [{B}, {n}]")
+    per = lambda t, n: n if t is not None and t.dim() == 2 else 0  # noqa
+    return per(sys.e_w, sys.n_e), per(sys.c_bound, C), per(vb, V)
+
+
 def lmm_init(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
              gated: bool = False, limit: int = MAX_ROUNDS,
              has_fatpipe: bool = False) -> Optional[bool]:
@@ -304,14 +330,19 @@ def lmm_init(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
     ``gated`` runs it only in an active superstep advance slot and takes
     the round limit from the superstep's remaining budget."""
     if on_cpu(pen, sys.e_w, w.ctrl):
+        if w.B is not None:
+            return any([lmm_init_plain(sys.replica(b), w.replica(b), pen[b],
+                                       eps, gated, limit, has_fatpipe)
+                        for b in range(w.B)])
         return lmm_init_plain(sys, w, pen, eps, gated, limit, has_fatpipe)
     lib = build.load("lmm_round", _SIG)
     flags = arm_flags(False, has_fatpipe, False)
-    rc = lib.lmm_init(is_double(pen.dtype), sys.n_v, sys.n_c, flags,
+    s_ew, s_cb, _ = _strides(sys, w, pen, None)
+    rc = lib.lmm_init(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c, flags,
                       _ptrs(sys, w, pen, None, flags), N_PTRS, float(eps),
-                      int(gated), int(limit), stream())
+                      int(gated), int(limit), s_ew, s_cb, 0, stream())
     check(rc, "lmm_init")
-    INIT_COUNT.n += 1
+    (INIT_COUNT if w.B is None else FLEET_INIT_COUNT).n += 1
     return None
 
 
@@ -320,15 +351,24 @@ def lmm_round(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
               has_fatpipe: bool = False,
               global_rounds: bool = False) -> Optional[bool]:
     """One saturation round (local unless ``global_rounds``), skipped
-    when the fixpoint has converged or spent its round limit."""
+    when the fixpoint has converged or spent its round limit; a fleet's
+    plain version returns whether any replica ran."""
     if on_cpu(pen, sys.e_w, w.ctrl):
+        if w.B is not None:
+            return any([lmm_round_plain(
+                sys.replica(b), w.replica(b), pen[b], eps,
+                None if vb is None else (vb[b] if vb.dim() == 2 else vb),
+                has_bounds, has_fatpipe, global_rounds)
+                for b in range(w.B)])
         return lmm_round_plain(sys, w, pen, eps, vb, has_bounds,
                                has_fatpipe, global_rounds)
     lib = build.load("lmm_round", _SIG)
     flags = arm_flags(has_bounds, has_fatpipe, global_rounds)
-    rc = lib.lmm_round(is_double(pen.dtype), sys.n_v, sys.n_c, flags,
+    s_ew, s_cb, s_vb = _strides(sys, w, pen,
+                                vb if flags & ARM_BOUNDS else None)
+    rc = lib.lmm_round(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c, flags,
                        _ptrs(sys, w, pen, vb, flags), N_PTRS, float(eps),
-                       stream())
+                       s_ew, s_cb, s_vb, stream())
     check(rc, "lmm_round")
-    ARM_COUNTS[flags].n += 1
+    (ARM_COUNTS if w.B is None else FLEET_ARM_COUNTS)[flags].n += 1
     return None

@@ -20,6 +20,15 @@ both counts in both), as ``superstep_commit`` otherwise.
 ``ring_id[ring_n]``, all in the drain's dtype.  A flag of
 ``FLAG_STARVED`` (-1) means the queued rounds ran out before the JAX
 round budget did and the host must resume the advance.
+
+A fleet :class:`Work` (``B`` replicas, the replica axis of
+``lmm_batch.py``'s ``_batch_superstep_program``) runs every replica in
+the same launches: ``superstep_reset`` takes per-replica ``k`` (0 for
+a dead replica, whose guards are then false from entry), ``t0`` and
+``tpos`` as ``[B]`` tensors, ``superstep_resume`` resumes the STARVED
+replicas and turns every other replica's slot off, and ``packed`` is
+``[B, packed_size]``.  The plain versions run the solo plain function
+on each replica in turn.
 """
 
 from __future__ import annotations
@@ -36,8 +45,8 @@ from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, ARMED, DT, EV_NEXT_T,
                      FLAG_STARVED, IT, LE_ACC, LIVE_ACC, PENDING, SS_ACTIVE,
                      SS_ADV, SS_BUDGET, SS_FLAG, SS_K, SS_NEV, SS_NLIVE,
                      SS_ROUNDS, SS_STARVED, SS_STOP, T_COMP, T_SUM, TPOS, D,
-                     I, P, Work, check, counter, is_double, on_cpu, opt_ptr,
-                     ptr, stream)
+                     I, L, P, Work, check, counter, is_double, on_cpu,
+                     opt_ptr, ptr, stream)
 
 COUNT = counter("superstep_commit")
 TAPE_COUNT = counter("superstep_commit_tape")
@@ -46,14 +55,22 @@ RESET_COUNT = counter("superstep_reset")
 BEGIN_COUNT = counter("superstep_begin")
 RESUME_COUNT = counter("superstep_resume")
 FINISH_COUNT = counter("superstep_finish")
+#: a fleet's launches (a Work with a replica axis)
+FLEET_COUNT = counter("superstep_commit_fleet")
+FLEET_TAPE_COUNT = counter("superstep_commit_tape_fleet")
+FLEET_RESET_COUNT = counter("superstep_reset_fleet")
+FLEET_BEGIN_COUNT = counter("superstep_begin_fleet")
+FLEET_RESUME_COUNT = counter("superstep_resume_fleet")
+FLEET_FINISH_COUNT = counter("superstep_finish_fleet")
 
 _SIG = {
-    "superstep_reset": [I, I, P, P, P, I, I, I, P, D, I, P, P, P],
-    "superstep_begin": [P, P],
-    "superstep_resume": [P, P],
-    "superstep_commit": [I, I, P, P, P, P, P, I, I, P, P, P, P, I, P, P,
-                         P],
-    "superstep_finish": [I, I, P, P, P, P, P, P, P, P],
+    "superstep_reset": [I, I, I, P, P, P, I, I, I, P, D, I, P, P, P, P, P,
+                        P],
+    "superstep_begin": [I, P, P],
+    "superstep_resume": [I, P, P],
+    "superstep_commit": [I, I, I, P, P, P, P, P, I, I, P, P, P, I, P, I, I,
+                         P, P, P],
+    "superstep_finish": [I, I, I, I, P, P, L, P, P, L, P, P, P, P],
 }
 
 #: the fault-tape arm's device arrays: constraint slots (int32) and new
@@ -104,6 +121,10 @@ def superstep_begin_plain(w: Work) -> bool:
 
 
 def superstep_resume_plain(w: Work) -> None:
+    if not int(w.ctrl[SS_STARVED]):
+        # a replica that did not starve has ended its superstep
+        w.ctrl[SS_ACTIVE] = 0
+        return
     w.ctrl[SS_STARVED] = 0
     w.ctrl[SS_ACTIVE] = 1
     w.ctrl[ARMED] = 1
@@ -195,43 +216,86 @@ def superstep_finish_plain(e_var, e_w, pen, packed: torch.Tensor,
 # wrappers
 
 
-def superstep_reset(pen, w: Work, k: int, budget: int, stop: int,
-                    t0: float = 0.0, tpos: int = 0,
+def _host(x, b):
+    """Replica ``b``'s value of a per-replica argument (a [B] tensor or
+    sequence) or the scalar every replica shares."""
+    if isinstance(x, torch.Tensor):
+        return x[b].item()
+    if isinstance(x, (list, tuple)):
+        return x[b]
+    return x
+
+
+def superstep_reset(pen, w: Work, k, budget: int, stop: int,
+                    t0=0.0, tpos=0,
                     ready: Optional[torch.Tensor] = None,
                     clk: Optional[torch.Tensor] = None) -> None:
     """The superstep's loop carry; ``t0`` (the f64 host clock the event
     peek adds ``t_sum`` to) and ``tpos`` (the tape cursor) for a fault
     tape, ``ready`` (pending activation dates) and ``clk`` (the carried
-    f64 Kahan pair) for a collective."""
+    f64 Kahan pair) for a collective.  For a fleet, ``k``, ``t0`` and
+    ``tpos`` are per replica: int32, float64 and int32 ``[B]`` tensors
+    on the fleet's device (or scalars every replica shares)."""
     extra = [t for t in (ready, clk) if t is not None]
-    if on_cpu(pen, w.ctrl, *extra):
+    arrs = [x for x in (k, t0, tpos) if isinstance(x, torch.Tensor)]
+    if on_cpu(pen, w.ctrl, *extra, *arrs):
+        if w.B is not None:
+            for b in range(w.B):
+                superstep_reset_plain(
+                    pen[b], w.replica(b), int(_host(k, b)), budget, stop,
+                    float(_host(t0, b)), int(_host(tpos, b)),
+                    None if ready is None else ready[b],
+                    None if clk is None else clk[b])
+            return None
         return superstep_reset_plain(pen, w, k, budget, stop, t0, tpos,
                                      ready, clk)
-    rc = _lib().superstep_reset(is_double(pen.dtype), int(pen.shape[0]),
-                                ptr(pen), ptr(w.ctrl), ptr(w.fctrl),
-                                int(k), int(budget), int(stop), ptr(w.evf),
-                                float(t0), int(tpos), opt_ptr(ready),
-                                opt_ptr(clk), stream())
+    if w.B is not None:
+        if tuple(pen.shape[:1]) != (w.B,):
+            raise ValueError("fleet penalties must be [B, V]")
+        for x, dt in ((k, torch.int32), (t0, torch.float64),
+                      (tpos, torch.int32)):
+            if isinstance(x, torch.Tensor) and (x.dtype != dt or tuple(
+                    x.shape) != (w.B,)):
+                raise ValueError(f"fleet k/t0/tpos must be [B] {dt}")
+    arr = lambda x: x if isinstance(x, torch.Tensor) else None  # noqa
+    scal = lambda x, d: d if isinstance(x, torch.Tensor) else x  # noqa
+    rc = _lib().superstep_reset(
+        is_double(pen.dtype), w.nb, int(pen.shape[-1]), ptr(pen), ptr(w.ctrl),
+        ptr(w.fctrl), int(scal(k, 0)), int(budget), int(stop), ptr(w.evf),
+        float(scal(t0, 0.0)), int(scal(tpos, 0)), opt_ptr(ready),
+        opt_ptr(clk), opt_ptr(arr(k)), opt_ptr(arr(t0)), opt_ptr(arr(tpos)),
+        stream())
     check(rc, "superstep_reset")
-    RESET_COUNT.n += 1
+    (RESET_COUNT if w.B is None else FLEET_RESET_COUNT).n += 1
 
 
 def superstep_begin(w: Work):
     """The while_loop cond for the next advance slot (the plain version
-    returns it; the kernel leaves it on the device)."""
+    returns it, for a fleet whether any replica's slot runs; the kernel
+    leaves it on the device)."""
     if on_cpu(w.ctrl):
+        if w.B is not None:
+            return any([superstep_begin_plain(w.replica(b))
+                        for b in range(w.B)])
         return superstep_begin_plain(w)
-    check(_lib().superstep_begin(ptr(w.ctrl), stream()), "superstep_begin")
-    BEGIN_COUNT.n += 1
+    check(_lib().superstep_begin(w.nb, ptr(w.ctrl), stream()),
+          "superstep_begin")
+    (BEGIN_COUNT if w.B is None else FLEET_BEGIN_COUNT).n += 1
     return None
 
 
 def superstep_resume(w: Work) -> None:
+    """Resume the STARVED replicas' advance (every other replica's slot
+    goes off)."""
     if on_cpu(w.ctrl):
+        if w.B is not None:
+            for b in range(w.B):
+                superstep_resume_plain(w.replica(b))
+            return None
         return superstep_resume_plain(w)
-    check(_lib().superstep_resume(ptr(w.ctrl), stream()),
+    check(_lib().superstep_resume(w.nb, ptr(w.ctrl), stream()),
           "superstep_resume")
-    RESUME_COUNT.n += 1
+    (RESUME_COUNT if w.B is None else FLEET_RESUME_COUNT).n += 1
 
 
 def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
@@ -242,21 +306,41 @@ def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
     """Commit the advance K2 just computed into the superstep carry; with
     ``tape`` the fired fault entry (bound into ``c_bound``), with
     ``ready``/``pen`` the fired activations (ring ids offset by
-    ``n_c``)."""
+    ``n_c``).  A fleet's ``packed``, tape rows, ``c_bound``, ``ready``
+    and ``pen`` are per replica (``[B, ·]``); the ids are shared."""
     extra = [t for t in (*(tape or ()), c_bound, ready, pen)
              if t is not None]
     if on_cpu(w.ctrl, ids, packed, *extra):
+        if w.B is not None:
+            ts, tv = tape if tape is not None else (None, None)
+            return any([superstep_commit_plain(
+                w.replica(b), ids, packed[b], k_max, ring_n,
+                None if tape is None else (ts[b], tv[b]),
+                None if c_bound is None else c_bound[b], n_c,
+                None if ready is None else ready[b],
+                None if pen is None else pen[b]) for b in range(w.B)])
         return superstep_commit_plain(w, ids, packed, k_max, ring_n, tape,
                                       c_bound, n_c, ready, pen)
     ts, tv = tape if tape is not None else (None, None)
+    if w.B is not None and tuple(packed.shape) != (
+            w.B, packed_size(k_max, ring_n)):
+        raise ValueError("fleet packed must be [B, packed_size]")
+    cb = c_bound if tape is not None else None
+    if w.B is not None and cb is not None and (cb.dim() != 2
+                                               or cb.shape[0] != w.B):
+        raise ValueError("a fleet's tape arm scatters into [B, C] bounds")
     rc = _lib().superstep_commit(
-        is_double(packed.dtype), int(w.done.shape[0]), ptr(w.done),
+        is_double(packed.dtype), w.nb, int(w.done.shape[-1]), ptr(w.done),
         ptr(ids), ptr(packed), ptr(w.ctrl), ptr(w.fctrl), int(k_max),
         int(ring_n), ptr(w.evf), opt_ptr(ts), opt_ptr(tv),
-        opt_ptr(c_bound if tape is not None else None), int(n_c),
+        0 if ts is None else int(ts.shape[-1]), opt_ptr(cb),
+        0 if cb is None else int(cb.shape[-1]), int(n_c),
         opt_ptr(ready), opt_ptr(pen if ready is not None else None),
         stream())
     check(rc, "superstep_commit")
+    if w.B is not None:
+        (FLEET_TAPE_COUNT if tape is not None else FLEET_COUNT).n += 1
+        return None
     if tape is not None:
         TAPE_COUNT.n += 1
     if ready is not None:
@@ -269,13 +353,22 @@ def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
 def superstep_finish(e_var, e_w, pen, packed: torch.Tensor, w: Work,
                      clk: Optional[torch.Tensor] = None) -> None:
     """Live elements and the packed stats; with a collective, the Kahan
-    pair back into ``clk``."""
+    pair back into ``clk``.  A fleet's ``e_w`` is shared or ``[B, E]``."""
     extra = [clk] if clk is not None else []
     if on_cpu(e_var, pen, packed, *extra):
+        if w.B is not None:
+            for b in range(w.B):
+                superstep_finish_plain(
+                    e_var, e_w[b] if e_w.dim() == 2 else e_w, pen[b],
+                    packed[b], w.replica(b),
+                    None if clk is None else clk[b])
+            return None
         return superstep_finish_plain(e_var, e_w, pen, packed, w, clk)
+    s_ew = int(e_w.shape[-1]) if e_w.dim() == 2 else 0
     rc = _lib().superstep_finish(
-        is_double(packed.dtype), int(e_var.shape[0]), ptr(e_var), ptr(e_w),
-        ptr(pen), ptr(packed), ptr(w.ctrl), ptr(w.fctrl), opt_ptr(clk),
-        stream())
+        is_double(packed.dtype), w.nb, int(e_var.shape[0]),
+        int(pen.shape[-1]), ptr(e_var), ptr(e_w), s_ew, ptr(pen),
+        ptr(packed), int(packed.shape[-1]), ptr(w.ctrl), ptr(w.fctrl),
+        opt_ptr(clk), stream())
     check(rc, "superstep_finish")
-    FINISH_COUNT.n += 1
+    (FINISH_COUNT if w.B is None else FLEET_FINISH_COUNT).n += 1

@@ -111,14 +111,16 @@ class DrainSim:
     ``fused``, ``superstep=K`` and its round budget
     ``superstep_rounds`` (default K*512), optional per-flow rate bounds
     ``v_bound`` (-1 or 0: none), and an optional mid-run
-    ``penalty``/``remains``.  ``dtype`` defaults to float64.  ``tape``
+    ``penalty``/``remains``.  ``dtype`` defaults to float32, as the JAX
+    ``DrainSim``'s does (so a call that leaves it out runs the same
+    program in both packages).  ``tape``
     and ``collective`` arm the superstep's event arms (module
     docstring); both need ``superstep=K``.
     """
 
     def __init__(self, e_var, e_cnst, e_w, c_bound, sizes,
                  eps: float = 1e-5, done_eps: float = 1e-4,
-                 dtype=np.float64, solve_chunk: int = 0,
+                 dtype=np.float32, solve_chunk: int = 0,
                  repack_at: float = 0.5, device: DeviceLike = None,
                  v_bound=None, done_mode: str = "rel",
                  fused: bool = False, superstep: int = 0,

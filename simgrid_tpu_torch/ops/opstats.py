@@ -28,24 +28,33 @@ into, under the same names).
   were re-solved dense (port only: the path a solve took)
 
 * ``fault_tape_slots`` / ``fault_tape_events`` — fault-tape entries
-  uploaded with a drain, and entries that fired inside its supersteps
+  uploaded with a drain or a fleet, and entries that fired inside its
+  supersteps
+* ``batch_dispatches`` / ``batch_replicas`` / ``lanes_admitted`` —
+  fleet dispatches (also counted in ``dispatches``), replicas built or
+  admitted, admissions; ``lane_quarantined_<cause>`` — fleet replicas
+  quarantined, by cause
 * ``collective_tape_slots`` / ``collective_tape_fires`` — flows of a
   collective schedule uploaded with a drain, and activations fired
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.
-Counters only ever increase; snapshot before a phase and diff after.
+Counters only ever increase; snapshot before a phase and diff after, or
+bracket it with :func:`scoped`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Dict
+from typing import Dict, Iterator
 
 import numpy as np
 import torch
 
 _counters: Dict[str, float] = {}
+#: the counter deltas of each completed :func:`scoped` stage, by name
+stage_stats: Dict[str, Dict[str, float]] = {}
 
 
 def bump(name: str, n=1) -> None:
@@ -78,8 +87,29 @@ def diff(before: Dict[str, float]) -> Dict[str, float]:
     return out
 
 
+@contextlib.contextmanager
+def scoped(name: str) -> Iterator[Dict[str, float]]:
+    """Bracket a phase: yields a dict that receives the phase's counter
+    deltas on exit (also kept in ``stage_stats[name]``)."""
+    before = snapshot()
+    stats: Dict[str, float] = {}
+    stage_stats[name] = stats
+    try:
+        yield stats
+    finally:
+        stats.update(diff(before))
+
+
+def get_stage(name: str) -> Dict[str, float]:
+    """The recorded deltas of a completed ``scoped`` stage ({} when the
+    stage never ran)."""
+    return dict(stage_stats.get(name, {}))
+
+
 def reset() -> None:
+    """Clear every counter and the recorded stage deltas."""
     _counters.clear()
+    stage_stats.clear()
 
 
 def launch_counts() -> Dict[str, int]:

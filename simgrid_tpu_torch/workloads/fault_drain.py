@@ -1,32 +1,29 @@
 """Faulted drains: a seeded link-failure campaign over a drain system's
 used links, compiled to the superstep's device event tape.
 
-The port's counterpart of ``simgrid_tpu/parallel/campaign.py``
-``ScenarioPlan.tape_for`` for a plain system (no sweep overrides): a
-:class:`~simgrid_tpu_torch.faults.FaultCampaign` with one link per used
-constraint (``e_cnst[e_w > 0]``), registered in slot order under its
-engine name, so the RNG substream layout is a pure function of the
-system and the seed; failures clamp the link to ``MIN_LINK_FACTOR`` of
-its bound, recoveries restore it, and the tape values are absolute
-bounds.
-
-* :func:`tape_for` compiles that tape;
+* :func:`tape_for` compiles that tape for a plain system (no sweep
+  overrides): the port's ``ScenarioPlan.tape_for``
+  (:mod:`simgrid_tpu_torch.parallel.campaign`) of a neutral spec, so the
+  tape code exists once.  One link per used constraint
+  (``e_cnst[e_w > 0]``), registered in slot order under its engine name,
+  so the RNG substream layout is a pure function of the system and the
+  seed; failures clamp the link to ``MIN_LINK_FACTOR`` of its bound,
+  recoveries restore it, and the tape values are absolute bounds;
 * :func:`run_fault_drain` drains a system under a tape, with the tape's
   counters beside the drain's (``drain_run.run_drain``'s row).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..faults import FaultCampaign
+from ..parallel.campaign import MIN_LINK_FACTOR, ScenarioPlan, ScenarioSpec
 from .drain_run import run_drain
 
-#: a fully failed link would zero its capacity and stall every flow
-#: routed over it; failures clamp the bound to this factor
-MIN_LINK_FACTOR = 0.05
+__all__ = ["MIN_LINK_FACTOR", "Tape", "used_links", "tape_for",
+           "run_fault_drain"]
 
 Tape = Tuple[np.ndarray, np.ndarray, np.ndarray]
 
@@ -40,33 +37,18 @@ def used_links(e_cnst, e_w, n_c: int) -> np.ndarray:
 
 def tape_for(e_cnst, e_w, c_bound, seed: int, horizon: float, mtbf: float,
              mttr: float, dist: str = "exponential", shape: float = 1.0,
-             link_names: Optional[Sequence[Optional[str]]] = None,
-             floor: float = MIN_LINK_FACTOR) -> Optional[Tape]:
+             link_names: Optional[Sequence[Optional[str]]] = None
+             ) -> Optional[Tape]:
     """The device event tape ``(dates f64, constraint slots i32, new
     bounds f64)`` of the seeded campaign over the used links (a slot
     without a name is ``link<slot>``), or None when it is empty."""
-    cb = np.asarray(c_bound, np.float64)
-    fc = FaultCampaign(seed=seed, horizon=horizon)
-    names: Dict[str, int] = {}
-    for slot in used_links(e_cnst, e_w, len(cb)):
-        slot = int(slot)
-        name = (str(link_names[slot]) if link_names is not None
-                and slot < len(link_names) and link_names[slot]
-                else f"link{slot}")
-        names[name] = slot
-        fc.add_link(name, mtbf=mtbf, mttr=mttr, dist=dist, shape=shape)
-    entries = fc.compile_tape(floor=floor)
-    if not entries:
-        return None
-    t = np.empty(len(entries), np.float64)
-    s = np.empty(len(entries), np.int32)
-    v = np.empty(len(entries), np.float64)
-    for i, (date, _kind, name, factor) in enumerate(entries):
-        slot = names[name]
-        t[i] = date
-        s[i] = slot
-        v[i] = cb[slot] * factor
-    return t, s, v
+    e_cnst = np.asarray(e_cnst)
+    plan = ScenarioPlan(np.zeros(len(e_cnst), np.int32), e_cnst, e_w,
+                        c_bound, np.zeros(0), link_names=link_names,
+                        fault_mode="on")
+    return plan.tape_for(ScenarioSpec(
+        seed=seed, fault_mtbf=mtbf, fault_mttr=mttr, fault_dist=dist,
+        fault_shape=shape, fault_horizon=horizon))
 
 
 def run_fault_drain(system, tape: Optional[Tape], **kw):

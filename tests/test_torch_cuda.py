@@ -256,6 +256,7 @@ def test_element_transitions_card_equals_plain(cuda):
     runs = []
     for dev in (cuda, torch.device("cpu")):
         sim = DrainSim(e_var, e_cnst, e_w, s.c_bound, sizes, eps=1e-5,
+                       dtype=np.float64,
                        done_mode="abs", done_eps=1e-10, penalty=pen,
                        remains=rem, v_bound=vb, superstep=16, device=dev,
                        repack_min=1 << 62)
@@ -295,7 +296,7 @@ def test_bound_free_rounds_share_one_pointer_array(cuda):
     K1's pointer cache alike: a drain without bounds builds one entry."""
     s = dragonfly.build_system(3000)
     sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes, eps=1e-5,
-                   superstep=16, device=cuda)
+                   dtype=np.float64, superstep=16, device=cuda)
     sim.superstep_batch()
     assert not sim.has_bounds and list(sim.w.ptr_cache) == [0]
     arr = sim.w.ptr_cache[0][3]
@@ -683,3 +684,125 @@ def test_dag_walk_card_equals_plain(cuda):
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
     assert out[0][2] == out[1][2] > 0
+
+
+# ---------------------------------------------------------------------------
+# Fleets: K11 and the replica axis of K1-K3
+# ---------------------------------------------------------------------------
+
+
+def _fleet_plan(dev, flows=2000, superstep=8):
+    from simgrid_tpu_torch.parallel.campaign import ScenarioPlan
+    s = dragonfly.build_system(flows)
+    return s, ScenarioPlan(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes,
+                           link_names=dragonfly.link_names(s), eps=1e-5,
+                           superstep=superstep, device=dev)
+
+
+def _fleet_specs(s):
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    return [ScenarioSpec(seed=42, fault_mtbf=100.0, fault_mttr=0.1,
+                         fault_horizon=2.0),
+            ScenarioSpec(seed=1, bw_scale=1.2, size_scale=1.05,
+                         dead_flows=(3, 17), elem_w={5: 0.5, 40: 2.0})]
+
+
+def _rows(sim):
+    return [t.cpu().clone() for t in (sim.sys.c_bound, sim._pen, sim._rem,
+                                      sim._thresh, sim.sys.e_w)]
+
+
+def test_k11_birth_and_admission_card_equal_plain(cuda):
+    """K11 at birth (pad slots in every payload row) and at the
+    admission of one row, on the card and through the plain version."""
+    from simgrid_tpu_torch.ops.lmm_batch import ReplicaOverrides
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        s, plan = _fleet_plan(dev)
+        reset_launch_counts()
+        sim = plan.executor(_fleet_specs(s), width=3, tape_slots=64)
+        born = _rows(sim)
+        sim.admit_lane(2, ReplicaOverrides(0.8, 1.3, {7: 0.5, 9: 2.0},
+                                           {11: 3.0}, (0, 1, 2),
+                                           {12: 0.25}),
+                       plan.tape_for(_fleet_specs(s)[0]))
+        out.append((born, _rows(sim), [t.cpu() for t in sim._tape],
+                    launch_counts()))
+    for a, b in zip(out[0][0] + out[0][1] + out[0][2],
+                    out[1][0] + out[1][1] + out[1][2]):
+        assert torch.equal(a, b)
+    lc = out[0][3]
+    for name in ("fleet_materialize", "fleet_materialize_ew",
+                 "fleet_admit", "fleet_admit_ew", "fleet_admit_tape"):
+        assert lc[name] == 1, name
+
+
+def test_fleet_b3_one_dead_card_equals_plain(cuda):
+    """K1-K3 at B = 3, a faulted replica, a swept one with per-replica
+    weights and a row dead from birth: the card equals the plain fleet
+    on the CPU by bits, and the dead row comes back unchanged."""
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        s, plan = _fleet_plan(dev)
+        sim = plan.executor(_fleet_specs(s), width=3)
+        born = _rows(sim)
+        reset_launch_counts()
+        sim.run()
+        runs.append((sim, born, _rows(sim), launch_counts()))
+    (g, g0, g1, lc), (c, _, _, _) = runs
+    for b in range(3):
+        rg, rc = g.replicas[b], c.replicas[b]
+        assert rg.events == rc.events and rg.t == rc.t
+        assert rg.fault_events == rc.fault_events
+    assert g.replicas[0].fault_events and not g.replicas[2].events
+    for a, b in zip(g0, g1):
+        assert torch.equal(a[2], b[2])
+    assert g.pad_events == 0
+    for name in ("lmm_init_fleet", "lmm_round_fleet",
+                 "drain_advance_event_fleet", "superstep_commit_tape_fleet",
+                 "superstep_reset_fleet", "superstep_finish_fleet"):
+        assert lc[name] > 0, name
+
+
+def test_fleet_b1_equals_solo_on_card(cuda):
+    """A fleet of one is the solo drain, by bits, on the card."""
+    s, plan = _fleet_plan(cuda)
+    for spec in _fleet_specs(s):
+        sim = plan.executor([spec])
+        sim.run()
+        solo = plan.solo(spec)
+        rep = sim.replicas[0]
+        assert rep.events == solo.events and rep.t == solo.t
+        assert rep.fault_events == solo.fault_events
+
+
+@pytest.mark.parametrize("case", ["bounds_fatpipe", "global", "batch_w"])
+def test_solve_arrays_batch_card_equals_plain(cuda, case):
+    """K1's bound, FATPIPE and global arms with the replica axis, whole
+    solves of B = 4 replicas, card against the plain fleet."""
+    from simgrid_tpu_torch.ops.lmm_batch import solve_arrays_batch
+    rng = np.random.default_rng(5)
+    n_c, n_v, deg, nb = 400, 3000, 3, 4
+    E = n_v * deg
+    e_var = np.repeat(np.arange(n_v, dtype=np.int32), deg)
+    e_cnst = rng.integers(0, n_c, E).astype(np.int32)
+    e_w = rng.uniform(0.5, 1.5, E)
+    cb = rng.uniform(1.0, 10.0, (nb, n_c))
+    pen = np.ones((nb, n_v))
+    pen[1, ::9] = 0.0
+    vb = np.full((nb, n_v), -1.0)
+    fat = np.zeros(n_c, bool)
+    kw = {}
+    if case == "batch_w":
+        e_w = e_w * rng.uniform(0.5, 1.5, (nb, E))
+    else:
+        vb = np.where(rng.random((nb, n_v)) < 0.5,
+                      rng.uniform(0.001, 0.01, (nb, n_v)), -1.0)
+        fat[rng.choice(n_c, 40, replace=False)] = True
+    if case == "global":
+        kw["parallel_rounds"] = False
+    out = [solve_arrays_batch(e_var, e_cnst, e_w, cb, fat, pen, vb, 1e-9,
+                              device=dev, **kw)
+           for dev in (cuda, torch.device("cpu"))]
+    for a, b in zip(*out):
+        assert np.array_equal(np.asarray(a), np.asarray(b))

@@ -290,7 +290,8 @@ def test_transition_slot_out_of_range_raises():
     JAX program drops such an update; the kernel would write past the
     array)."""
     sim = DrainSim(np.zeros(8, np.int32), np.zeros(8, np.int32),
-                   np.ones(8), np.ones(1), np.ones(1), device="cpu")
+                   np.ones(8), np.ones(1), np.ones(1), dtype=np.float64,
+                   device="cpu")
     with pytest.raises(ValueError, match="out of range"):
         sim.apply_transitions({"c_bound": ([1], [2.0])})
     with pytest.raises(ValueError, match="out of range"):

@@ -236,8 +236,8 @@ def test_campaign_drain_equals_jax(faulted, case):
         assert p.repacks > 0
     if k == 1:
         q = DrainSim(sys_.e_var, sys_.e_cnst, sys_.e_w, sys_.c_bound,
-                     sys_.sizes, eps=1e-5, superstep=8, tape=tape,
-                     device="cpu")
+                     sys_.sizes, eps=1e-5, dtype=dtype, superstep=8,
+                     tape=tape, device="cpu")
         q.run()
         assert [f for _, f in q.events] == [f for _, f in p.events]
         assert [c for _, c in q.fault_events] \
@@ -254,8 +254,8 @@ def test_unfired_tape_equals_no_tape(faulted):
         if t == "late":
             t = (tape[0] + 10.0 * runs[0].t + 1.0, tape[1], tape[2])
         s = DrainSim(sys_.e_var, sys_.e_cnst, sys_.e_w, sys_.c_bound,
-                     sys_.sizes, eps=1e-5, superstep=8, tape=t,
-                     device="cpu")
+                     sys_.sizes, eps=1e-5, dtype=np.float64, superstep=8,
+                     tape=t, device="cpu")
         s.run()
         runs.append(s)
     plain, late = runs

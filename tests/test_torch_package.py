@@ -77,6 +77,10 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.workloads.fault_drain\n"
         "import simgrid_tpu_torch.workloads.collective_run\n"
         "import simgrid_tpu_torch.kernels\n"
+        "import simgrid_tpu_torch.kernels.fleet_materialize\n"
+        "import simgrid_tpu_torch.ops.lmm_batch\n"
+        "import simgrid_tpu_torch.parallel.campaign\n"
+        "import simgrid_tpu_torch.workloads.fleet_run\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'simgrid_tpu')]\n"
@@ -94,6 +98,46 @@ def tiny_arrays():
                      np.array([1.0, 1.0, 1.0]), np.array([1.0, 2.0]),
                      np.zeros(2, bool), np.ones(2), np.full(2, -1.0),
                      3, 2, 2)
+
+
+def test_drain_dtype_defaults_agree_with_jax():
+    """A drain or fleet that leaves ``dtype`` out runs the same program
+    in both packages (the solo drain float32, the fleet float64)."""
+    import inspect
+    from simgrid_tpu.ops import lmm_batch as jb
+    from simgrid_tpu.ops import lmm_drain as jd
+    from simgrid_tpu_torch.ops import lmm_batch as pb
+    from simgrid_tpu_torch.ops import lmm_drain as pd
+
+    def default(cls):
+        return np.dtype(inspect.signature(cls).parameters["dtype"].default)
+    assert default(pd.DrainSim) == default(jd.DrainSim) == np.float32
+    assert default(pb.BatchDrainSim) == default(jb.BatchDrainSim) \
+        == np.float64
+
+
+def test_fleet_entry_points_need_a_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from simgrid_tpu_torch.ops.lmm_batch import (BatchDrainSim,
+                                                 ReplicaOverrides,
+                                                 solve_arrays_batch)
+    from simgrid_tpu_torch.parallel import Campaign, ScenarioSpec
+    a = tiny_arrays()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchDrainSim(a.e_var, a.e_cnst, a.e_w, a.c_bound, np.ones(2),
+                      [ReplicaOverrides()])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_arrays_batch(a.e_var, a.e_cnst, a.e_w, a.c_bound[None],
+                           a.c_fatpipe, a.v_penalty[None],
+                           a.v_bound[None], 1e-9)
+    camp = Campaign(a.e_var, a.e_cnst, a.e_w, a.c_bound, np.ones(2),
+                    [ScenarioSpec()])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        camp.run_batched()
+    res = Campaign(a.e_var, a.e_cnst, a.e_w, a.c_bound, np.ones(2),
+                   [ScenarioSpec()], device="cpu").run_batched()
+    assert len(res[0].events) == 2 and res[0].error is None
 
 
 def test_entry_points_need_a_device():
