@@ -161,6 +161,32 @@ state on the card:
    ``solve_arrays_batch`` solves), K2's event arm and K3's tape arm at
    B = ``FLEET_B``, each against its plain version.
 
+Then collective fleets (float64, tolerance 0): one compiled collective
+swept over bandwidth, link and fault scenarios, every replica walking
+the shared schedule with its own DAG state:
+
+18. main path 11, ``Campaign.for_collective`` over phase 14's 1,024-rank
+   recursive doubling (``workloads/collective_fleet.py``, superstep 8)
+   at B = ``COLL_B``: half the replicas sweep ``bw_scale`` (the plain
+   scenario first, then 0.5-2.0), a quarter scale rank 0's uplink by
+   0.25-1.0, a quarter carry fault campaigns (seeds 42, 43, ..., MTBF
+   20 t_end, MTTR 0.1 t_end, horizon t_end, t_end phase 14's completion
+   date); after ``COLL_ADMIT_AT`` supersteps replica 1 is retired and a
+   fresh spec admitted into its row.  (a) Replicas 0, 2, 16, 24 and the
+   admitted one equal their solo ``DrainSim(collective=)`` on the card
+   by bits (completions, activations, fault events, clock), replica 0
+   also phase 14's tape drain (its Kahan pair too), and every faulted
+   replica fires before its last completion; (b) fleets of
+   ``COLL_B_SMALL`` over the 64-rank ring and the 256-rank recursive
+   doubling (the same mix), and the 64-rank fleet at ``COLL_B_CPU`` on
+   the card against the plain fleet on the host CPU; (c) the launches of
+   each of the first 3 supersteps at B = 1 (a faulted lane: the same
+   arms) and B = ``COLL_B``, with the queued rounds per slot held equal; (d) K2's event arm and K3's
+   collective arm on the fleet's dates, K10's replica arm and K11's
+   collective admission at (a)'s shapes, each against its plain version
+   (K10 beside ``index_add_`` on int32, K11 beside ``index_put_`` of a
+   row).
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
@@ -238,6 +264,14 @@ FLEET_K = 8
 ADMIT_AT = 4
 #: phase 17: K1's bound-first, FATPIPE and global replica arms
 ARMS_FLEET = dict(n_c=128, n_v=1000, deg=3)
+#: phase 18: the 1,024-rank collective fleet's width, the other cases'
+#: width, the width of the 64-rank fleet held against the plain CPU
+#: fleet, and the superstep after which replica 1 is retired and a new
+#: spec admitted
+COLL_B = 32
+COLL_B_SMALL = 8
+COLL_B_CPU = 4
+COLL_ADMIT_AT = 2
 
 T0 = time.perf_counter()
 
@@ -714,6 +748,400 @@ def fleet_phases(ctx: dict) -> None:
         launches_from="main path 10 (the config-#4 fleet)"))
     log({"phase": "kernel", **kernels[-1]})
     del sims, g, c, outs
+    torch.cuda.empty_cache()
+
+
+def collective_fleet_phase(ctx: dict) -> None:
+    """Phase 18 (module docstring): collective fleets over phase 14's
+    cases, the lanes held against their solo drains and the plain CPU
+    fleet, the launches per superstep, and K10's replica arm, K3's
+    collective arm and K2's event arm on a fleet, and K11's collective
+    admission against their plain versions.  ``ctx`` carries main's
+    helpers and phase 14's tape drains (``tape14``, by rank count)."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    from simgrid_tpu_torch.kernels.common import (AANY, ADV_OK, LIGHT,
+                                                  PENDING, SS_ACTIVE, T_SUM,
+                                                  Work)
+    from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from simgrid_tpu_torch.kernels.drain_advance import (
+        drain_advance, drain_advance_plain)
+    from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
+    from simgrid_tpu_torch.kernels.superstep_commit import (
+        packed_size, superstep_commit, superstep_commit_plain)
+    from simgrid_tpu_torch.ops.lmm_arrays import to2d
+    from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
+    from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    from simgrid_tpu_torch.workloads import collective_fleet as cf
+    from simgrid_tpu_torch.workloads import collective_run, fleet_run
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    f64 = torch.float64
+    events_ms, nbytes, bound_ms, diff = (ctx[k] for k in (
+        "events_ms", "nbytes", "bound_ms", "diff"))
+    kernels, report, tape14 = ctx["kernels"], ctx["report"], ctx["tape14"]
+
+    def slim(row):
+        return {k: v for k, v in row.items()
+                if k not in ("t_sim", "advances", "errors")}
+
+    # ---- 18. main path 11: collective fleets ----------------------------
+    cs = collective_run.CASES[2]
+    t14 = tape14[cs.ranks]
+    specs = cf.fleet_specs(cs, t14["t"], COLL_B)
+    camp = cf.fleet_campaign(cs, specs, cuda)
+    plan = camp.plan
+    fresh = ScenarioSpec(seed=50, bw_scale=1.15, size_scale=0.95,
+                         collective=cs, label="admitted")
+    admitted = []
+
+    def admit(sim):
+        if sim.supersteps == COLL_ADMIT_AT and not admitted:
+            sim.retire(1)
+            sim.admit_lane(1, plan.overrides_for(fresh),
+                           plan.tape_for(fresh))
+            admitted.append(sim.supersteps)
+
+    sim, row = cf.run_fleet(camp, between=admit)
+    c18 = row["launches"]
+    for name in ("fleet_materialize", "fleet_materialize_coll",
+                 "fleet_admit", "fleet_admit_tape", "fleet_admit_coll",
+                 "lmm_init_fleet", "lmm_round_fleet",
+                 "drain_advance_event_fleet", "superstep_commit_coll_fleet",
+                 "superstep_commit_tape_fleet", "dag_walk_fleet",
+                 "superstep_reset_fleet", "superstep_begin_fleet",
+                 "superstep_finish_fleet"):
+        if c18.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on main path 11")
+    faulted = range(COLL_B - COLL_B // 4, COLL_B)
+    fires = {b: cf.fires_before_end(sim.replicas[b]) for b in faulted}
+    t0 = time.perf_counter()
+    lanes = {b: plan.solo(specs[b]) for b in (0, 2, 16, 24)}
+    lanes["admitted"] = plan.solo(fresh)
+    solo_s = time.perf_counter() - t0
+    rep_of = lambda k: sim.replicas[1 if k == "admitted" else k]  # noqa
+    held_a = {str(k): cf.same_lane(rep_of(k), r) for k, r in lanes.items()}
+    lane0 = sim.replicas[0]
+    held_14 = (lane0.events == t14["events"]
+               and lane0.collective_events == t14["collective_events"]
+               and sim.collective_clock_of(0) == tuple(t14["clock"]))
+    rec = {"phase": "main_path_collective_fleet", **slim(row),
+           "admitted_at_superstep": admitted,
+           "solo_tape_wall_s": t14["wall_s"],
+           "b_times_solo_wall_s": COLL_B * t14["wall_s"],
+           "a_lanes_equal_solo": held_a, "a_lane0_equals_phase14": held_14,
+           "solo_walls_s": solo_s,
+           "faulted_fires_before_end": list(fires.values()),
+           "advances_max": max(row["advances"]),
+           "t_sim_range": [min(row["t_sim"]), max(row["t_sim"])]}
+    log(rec)
+    report["main_path_collective_fleet"] = dict(rec, t_sim=row["t_sim"],
+                                                advances=row["advances"])
+    if not (all(held_a.values()) and held_14 and admitted):
+        raise AssertionError(f"collective fleet (a) failed: {held_a}, "
+                             f"lane 0 == phase 14: {held_14}, admitted "
+                             f"{admitted}")
+    if min(fires.values()) <= 0 or any(e is not None
+                                       for e in row["errors"]):
+        raise AssertionError(f"collective fleet: a faulted lane never "
+                             f"fired before its end ({fires}) or a lane "
+                             f"failed ({row['errors']})")
+
+    # (b) the 64-rank ring and the 256-rank recursive doubling at a
+    # quarter the width, and the 64-rank fleet at COLL_B_CPU on the card
+    # and through the plain fleet on the host CPU
+    rows_b = []
+    for cs_b in collective_run.CASES[:2]:
+        tb = tape14[cs_b.ranks]
+        sp_b = cf.fleet_specs(cs_b, tb["t"], COLL_B_SMALL)
+        sim_b, row_b = cf.run_fleet(cf.fleet_campaign(cs_b, sp_b, cuda))
+        fires_b = [cf.fires_before_end(sim_b.replicas[b])
+                   for b in range(COLL_B_SMALL - COLL_B_SMALL // 4,
+                                  COLL_B_SMALL)]
+        held_b = (sim_b.replicas[0].events == tb["events"]
+                  and sim_b.replicas[0].collective_events
+                  == tb["collective_events"]
+                  and sim_b.collective_clock_of(0) == tuple(tb["clock"]))
+        rec_b = {"phase": "collective_fleet", **slim(row_b),
+                 "lane0_equals_phase14": held_b,
+                 "faulted_fires_before_end": fires_b}
+        if cs_b.ranks == collective_run.CASES[0].ranks:
+            sp_c = cf.fleet_specs(cs_b, tb["t"], COLL_B_CPU)
+            pair = {k: cf.run_fleet(cf.fleet_campaign(cs_b, sp_c, dev))
+                    for k, dev in (("cuda", cuda), ("cpu", cpu))}
+            g_c, c_c = pair["cuda"][0], pair["cpu"][0]
+            rec_b["cpu_b"] = COLL_B_CPU
+            rec_b["card_equals_cpu"] = all(
+                cf.same_lane(g_c.replicas[b], c_c.replicas[b],
+                             g_c.collective_clock_of(b),
+                             c_c.collective_clock_of(b))
+                for b in range(COLL_B_CPU))
+            rec_b["cpu_b_cuda_wall_s"] = pair["cuda"][1]["wall_s"]
+            rec_b["cpu_b_cpu_wall_s"] = pair["cpu"][1]["wall_s"]
+        log(rec_b)
+        rows_b.append(rec_b)
+        if not held_b or min(fires_b) <= 0 \
+                or not rec_b.get("card_equals_cpu", True) \
+                or any(e is not None for e in row_b["errors"]):
+            raise AssertionError(f"collective fleet (b) failed: {rec_b}")
+    report["collective_fleets_b"] = rows_b
+
+    # (c) launches of each of the first 3 supersteps at B = 1 and COLL_B;
+    # the fleet of one is a faulted lane, so that both fleets run the
+    # same arms (a commit with the tape and the collective arm on counts
+    # under both)
+    one = specs[COLL_B - COLL_B // 4:][:1]
+    per = {w_: fleet_run.launches_per_superstep(plan.executor(sp), 3,
+                                                slot_rounds=SLOT_ROUNDS)
+           for w_, sp in ((1, one), (COLL_B, specs))}
+    held_c = all(a["first_pass"] == b["first_pass"]
+                 for a, b in zip(per[1], per[COLL_B]))
+    rec = {"phase": "collective_fleet_launches", "c_launches_b1": per[1],
+           f"c_launches_b{COLL_B}": per[COLL_B], "c_equal": held_c}
+    log(rec)
+    report["collective_fleet_launches"] = rec
+    if not held_c:
+        raise AssertionError(f"collective fleet (c): launches per "
+                             f"superstep grow with B: {per}")
+    del sim
+    torch.cuda.empty_cache()
+
+    # (d) the kernels at (a)'s shapes, B = COLL_B: from the converged
+    # rates of the schedule's roots, every replica's first advance with
+    # a quarter of the dormant flows (a different quarter per replica)
+    # pending inside it: K2's event arm on the replicas' dates, then
+    # K3's collective arm; then K10 with the roots completed; then K11's
+    # admission of one row
+    dc = plan._dc
+    V, C, Bk = dc.n_v, dc.n_c, COLL_B
+    flat = [to2d(a).reshape(-1) for a in (dc.e_var, dc.e_cnst, dc.e_w)]
+    s1 = to_device_system(flat[0], flat[1], flat[2], dc.c_bound, V, f64,
+                          cuda)
+    pen0 = torch.from_numpy(dc.penalty0.copy())
+    w1 = Work(V, C, f64, cuda)
+    lmm_init(s1, w1, pen0.to(cuda), cf.EPS)
+    while True:
+        for _ in range(16):
+            lmm_round(s1, w1, pen0.to(cuda), cf.EPS)
+        if int(w1.ctrl[LIGHT]) == 0:
+            break
+    rates = w1.v_value.clone()
+    dormant = np.flatnonzero(dc.penalty0 == 0)
+    ready0 = np.full((Bk, V), np.inf)
+    for b in range(Bk):
+        ready0[b, dormant[b % 4::4]] = 1e-6 * (1 + b % 3)
+    ready0 = torch.from_numpy(ready0)
+    pend0 = torch.isfinite(ready0).sum(1).to(torch.int32)
+    rem0 = torch.from_numpy(np.tile(dc.sizes, (Bk, 1)))
+    thr0 = 1e-4 * rem0
+    ids_g = torch.arange(V, dtype=torch.int32, device=cuda)
+    ring_n = 2 * V
+    works = {k: Work(V, C, f64, d, B=Bk) for k, d in (("cuda", cuda),
+                                                      ("cpu", cpu))}
+    st = {}
+
+    def k2_setup(k):
+        d = dict(cuda=cuda, cpu=cpu)[k]
+        w = works[k]
+        st[k] = dict(pen=pen0.to(d).repeat(Bk, 1), rem=rem0.to(d, copy=True),
+                     ready=ready0.to(d, copy=True), thr=thr0.to(d),
+                     pk=torch.zeros((Bk, packed_size(cf.SUPERSTEP, ring_n)),
+                                    dtype=f64, device=d))
+        w.v_value.copy_(rates.expand(Bk, V))
+        for t in (w.ctrl, w.fctrl, w.evf):
+            t.zero_()
+        w.ctrl[:, SS_ACTIVE] = 1
+        w.ctrl[:, PENDING] = pend0.to(d)
+
+    def k2_run(k):
+        x = st[k]
+        drain_advance(x["pen"], x["rem"], x["thr"], works[k], gated=True,
+                      ready=x["ready"])
+
+    def k3_run(k):
+        x = st[k]
+        superstep_commit(works[k], ids_g if k == "cuda" else ids_g.cpu(),
+                         x["pk"], cf.SUPERSTEP, ring_n, n_c=C,
+                         ready=x["ready"], pen=x["pen"])
+    for k in ("cuda", "cpu"):
+        k2_setup(k)
+        k2_run(k)
+    torch.cuda.synchronize()
+    wg, wc = works["cuda"], works["cpu"]
+    xg, xc = st["cuda"], st["cpu"]
+    err2 = max(diff(wg.ctrl, wc.ctrl), diff(wg.fctrl, wc.fctrl),
+               diff(wg.evf, wc.evf), diff(wg.done, wc.done),
+               diff(xg["pen"], xc["pen"]), diff(xg["rem"], xc["rem"]))
+    aany = int(wc.ctrl[:, AANY].sum())
+    if err2 != 0.0 or aany != Bk:
+        raise AssertionError(f"K2's event arm on a collective fleet "
+                             f"differs from its plain version ({err2}) or "
+                             f"did not land on the dates ({aany})")
+    snap = [t.clone() for t in (wg.ctrl, wg.fctrl, wg.evf, wg.done)]
+    for k in ("cuda", "cpu"):
+        k3_run(k)
+    torch.cuda.synchronize()
+    err3 = max(diff(xg["pk"], xc["pk"]), diff(wg.ctrl, wc.ctrl),
+               diff(wg.fctrl, wc.fctrl), diff(xg["pen"], xc["pen"]),
+               diff(xg["ready"], xc["ready"]))
+    n_act = int(pend0.sum())
+    if err3 != 0.0 or int(wc.ctrl[:, PENDING].sum()) != 0:
+        raise AssertionError(f"K3's collective arm on a fleet differs "
+                             f"from its plain version ({err3}) or left "
+                             f"activations pending")
+    n_done = int(wc.done.sum())
+
+    def k2_restore():
+        xg["pen"].copy_(pen0.expand(Bk, V))
+        xg["rem"].copy_(rem0)
+        xg["ready"].copy_(ready0)
+        for t in (wg.ctrl, wg.fctrl, wg.evf):
+            t.zero_()
+        wg.ctrl[:, SS_ACTIVE] = 1
+        wg.ctrl[:, PENDING] = pend0.to(cuda)
+
+    def k3_restore():
+        for t, s_ in zip((wg.ctrl, wg.fctrl, wg.evf, wg.done), snap):
+            t.copy_(s_)
+        xg["pen"].copy_(pen0.expand(Bk, V))
+        xg["ready"].copy_(ready0)
+    k2_ms = events_ms(lambda: k2_run("cuda"), 20, k2_restore)
+    k2_plain = events_ms(lambda: [drain_advance_plain(
+        xg["pen"][b], xg["rem"][b], xg["thr"][b], wg.replica(b), True,
+        ready=xg["ready"][b]) for b in range(Bk)], 2, k2_restore)
+    k3_ms = events_ms(lambda: k3_run("cuda"), 20, k3_restore)
+    k3_plain = events_ms(lambda: [superstep_commit_plain(
+        wg.replica(b), ids_g, xg["pk"][b], cf.SUPERSTEP, ring_n, n_c=C,
+        ready=xg["ready"][b], pen=xg["pen"][b]) for b in range(Bk)], 2,
+        k3_restore)
+    # K2: flow state, rates and dates read, flow state and mask written
+    k2_bytes = (nbytes(xg["pen"], xg["rem"], xg["thr"], xg["ready"])
+                + Bk * V * 8 + 2 * nbytes(xg["pen"]) + Bk * V)
+    kernels.append(dict(
+        name="drain_advance_event_fleet_coll", route="cuda",
+        source="simgrid_tpu_torch/csrc/drain_advance.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:508",
+        launches=c18["drain_advance_event_fleet"], max_abs_err=err2,
+        ms=k2_ms, plain_ms=k2_plain, bound_ms=bound_ms(k2_bytes),
+        bound_by="bytes", library_ms=None, replicas=Bk, flows=V,
+        launches_from="main path 11 (the 1,024-rank collective fleet)"))
+    log({"phase": "kernel", **kernels[-1]})
+    # K3: the masks, ids and dates read; per completion a ring entry,
+    # per activation a ring entry, a penalty and a date written
+    k3_bytes = (Bk * V + nbytes(ids_g, xg["ready"]) + n_done * 16
+                + n_act * 32)
+    kernels.append(dict(
+        name="superstep_commit_coll_fleet", route="cuda",
+        source="simgrid_tpu_torch/csrc/superstep_commit.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:508",
+        launches=c18["superstep_commit_coll_fleet"], max_abs_err=err3,
+        ms=k3_ms, plain_ms=k3_plain, bound_ms=bound_ms(k3_bytes),
+        bound_by="bytes", library_ms=None, replicas=Bk, activations=n_act,
+        launches_from="main path 11 (the 1,024-rank collective fleet)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K10's replica arm: every replica's roots complete in one advance,
+    # at a clock that differs per replica
+    es, ed, ex = (torch.from_numpy(a.copy()) for a in (
+        dc.edge_src, dc.edge_dst, dc.exec_cost))
+    edges_g = [t.to(cuda) for t in (es, ed, ex)]
+    roots = torch.from_numpy(dc.penalty0 > 0)
+    pred0 = torch.from_numpy(dc.pred0.copy())
+    walk = {}
+
+    def k10_setup(k):
+        d = dict(cuda=cuda, cpu=cpu)[k]
+        w = works[k]
+        w.ctrl[:, ADV_OK] = 1
+        w.ctrl[:, PENDING] = 0
+        w.fctrl[:, T_SUM] = torch.arange(1, Bk + 1, dtype=f64) * 1e-3
+        w.done.copy_(roots.expand(Bk, V))
+        walk[k] = dict(pred=pred0.to(d).repeat(Bk, 1),
+                       ready=torch.full((Bk, V), float("inf"), dtype=f64,
+                                        device=d))
+    for k in ("cuda", "cpu"):
+        k10_setup(k)
+    dag_walk(wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
+             edges_g[2])
+    dag_walk(wc, es, ed, walk["cpu"]["pred"], walk["cpu"]["ready"], ex)
+    torch.cuda.synchronize()
+    err10 = max(diff(walk["cuda"]["pred"], walk["cpu"]["pred"]),
+                diff(walk["cuda"]["ready"], walk["cpu"]["ready"]),
+                diff(wg.ctrl[:, PENDING], wc.ctrl[:, PENDING]))
+    freed = int(wc.ctrl[:, PENDING].sum())
+    if err10 != 0.0 or freed <= 0:
+        raise AssertionError(f"K10's replica arm differs from its plain "
+                             f"version ({err10}) or freed nothing")
+    k10_ms = events_ms(lambda: dag_walk(
+        wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
+        edges_g[2]), 20, lambda: k10_setup("cuda"))
+    k10_plain = events_ms(lambda: [dag_walk_plain(
+        wg.replica(b), *edges_g[:2], walk["cuda"]["pred"][b],
+        walk["cuda"]["ready"][b], edges_g[2]) for b in range(Bk)], 2,
+        lambda: k10_setup("cuda"))
+    keep = edges_g[1] < V
+    src, dst = edges_g[0][keep].long(), edges_g[1][keep].long()
+    flat_dst = (dst[None, :] + V * torch.arange(Bk, device=cuda)[:, None]
+                ).reshape(-1)
+    dec = (-wg.done[:, src].to(torch.int32)).reshape(-1)
+    k10_lib = events_ms(lambda: walk["cuda"]["pred"].view(-1).index_add_(
+        0, flat_dst, dec), 20, lambda: k10_setup("cuda"))
+    n_dec = Bk * int(roots[es[ed < V].long()].sum())
+    # the shared edge list read once, each replica's done flag per edge;
+    # per decrement a count read and written; per freed flow a cost read
+    # and a date written
+    k10_bytes = nbytes(es, ed) + Bk * len(es) + n_dec * 8 + freed * 16
+    kernels.append(dict(
+        name="dag_walk_fleet", route="cuda",
+        source="simgrid_tpu_torch/csrc/dag_walk.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:479",
+        launches=c18["dag_walk_fleet"], max_abs_err=err10, ms=k10_ms,
+        plain_ms=k10_plain, bound_ms=bound_ms(k10_bytes), bound_by="bytes",
+        library_ms=k10_lib,
+        library="index_add_ of every replica's decrements on int32 (one "
+                "call)", replicas=Bk, edges=dc.n_edges, decrements=n_dec,
+        freed=freed,
+        launches_from="main path 11 (the 1,024-rank collective fleet)"))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K11's collective admission: row 1 back to the schedule's birth rows
+    base = {k: (pred0.to(d), torch.from_numpy(dc.ready0.copy()).to(d))
+            for k, d in (("cuda", cuda), ("cpu", cpu))}
+    # every row mid-walk (counts down by one, dates set, a clock running)
+    mid = (pred0.repeat(Bk, 1) - 1, torch.full((Bk, V), 0.25, dtype=f64),
+           torch.full((Bk, 2), 0.5, dtype=f64))
+    coll = {k: tuple(t.to(d, copy=True) for t in mid)
+            for k, d in (("cuda", cuda), ("cpu", cpu))}
+    k11.admit_coll(coll["cuda"], 1, base["cuda"])
+    k11.admit_coll(coll["cpu"], 1, base["cpu"])
+    torch.cuda.synchronize()
+    err11 = max(diff(a, b) for a, b in zip(coll["cuda"], coll["cpu"]))
+    if err11 != 0.0 or float(coll["cpu"][2][1].abs().sum()) != 0.0:
+        raise AssertionError(f"K11's collective admission differs from "
+                             f"its plain version ({err11})")
+    a_ms = events_ms(lambda: k11.admit_coll(coll["cuda"], 1, base["cuda"]),
+                     20)
+    a_plain = events_ms(lambda: k11.coll_plain(coll["cuda"], 1, 1,
+                                               base["cuda"]), 20)
+    idx1 = torch.tensor([1], device=cuda)
+    a_lib = events_ms(lambda: coll["cuda"][1].index_put_(
+        (idx1,), base["cuda"][1][None]), 20)
+    # the birth rows read once, the replica's rows and clock pair written
+    a_bytes = 2 * nbytes(*base["cuda"]) + 16
+    kernels.append(dict(
+        name="fleet_admit_coll", route="cuda",
+        source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
+        replaces="simgrid_tpu/ops/lmm_batch.py:453",
+        launches=c18["fleet_admit_coll"], max_abs_err=err11, ms=a_ms,
+        plain_ms=a_plain, bound_ms=bound_ms(a_bytes), bound_by="bytes",
+        library_ms=a_lib,
+        library="index_put_ of the admitted row of the dates (one call)",
+        birth_launches=c18["fleet_materialize_coll"],
+        launches_from="main path 11 (one admission; the birth of every "
+                      "row is fleet_materialize_coll)"))
+    log({"phase": "kernel", **kernels[-1]})
+    del works, walk, coll, st
     torch.cuda.empty_cache()
 
 
@@ -2282,12 +2710,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 14. main path 9: bench.py's collective tapes --------------------
-    rows14, legs14 = [], {}
+    rows14, legs14, tape14 = [], {}, {}
     c14 = {}
     for cs in collective_run.CASES:
         row, legs, _ = collective_run.run_case(cs, device=cuda)
         label = f"{cs.algo}-r{cs.ranks}"
         legs14[label] = (cs, legs)
+        tape14[cs.ranks] = dict(
+            t=legs["tape"]["events"][-1][0],
+            wall_s=legs["tape"]["wall_ms"] / 1e3,
+            **{k: legs["tape"][k] for k in ("events", "collective_events",
+                                            "clock")})
         for leg, rec_ in legs.items():
             for name, n in rec_["launches"].items():
                 c14[(leg, name)] = c14.get((leg, name), 0) + n
@@ -2617,10 +3050,11 @@ def main() -> int:
     del w14g, w14c, s14, st10, st14
     torch.cuda.empty_cache()
 
+    helpers = dict(events_ms=events_ms, nbytes=nbytes, bound_ms=bound_ms,
+                   diff=diff, kernels=kernels, report=report)
     fleet_phases(dict(dsys=dsys, rsys=rsys, wall13=row13["wall_s"],
-                      events_ms=events_ms, nbytes=nbytes,
-                      bound_ms=bound_ms, diff=diff, kernels=kernels,
-                      report=report, EPS=EPS))
+                      EPS=EPS, **helpers))
+    collective_fleet_phase(dict(tape14=tape14, **helpers))
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -262,9 +262,11 @@ def fleet_state(jax_state: dict) -> dict:
     """A JAX fleet's committed state (``BatchDrainSim.committed_state()``,
     unsharded: its padded width is its width) as the port's
     ``BatchDrainSim.restore_state`` takes it: numpy copies of every
-    array, the element weights flattened from the JAX fleet's
-    ``[B, E/8, 8]`` table to ``[B, E]``, and the host records as they
-    are."""
+    array (a collective fleet's ``coll_pred``, ``coll_ready`` and
+    ``coll_clk`` rows and its ragged ``cev_*`` activation streams among
+    them, as they are), the element weights flattened from the JAX
+    fleet's ``[B, E/8, 8]`` table to ``[B, E]``, and the host records as
+    they are."""
     arrays = {k: np.array(v) for k, v in jax_state["arrays"].items()}
     if "ew" in arrays:
         arrays["ew"] = arrays["ew"].reshape(arrays["ew"].shape[0], -1)

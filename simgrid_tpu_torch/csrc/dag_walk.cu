@@ -24,6 +24,14 @@
 // round-to-nearest; no floating-point atomic feeds anything.  The count
 // of flows freed goes into the pending-activation word the superstep's
 // loop condition reads (one integer atomicAdd per block).
+//
+// The replica axis (simgrid_tpu/ops/lmm_batch.py `_batch_superstep_
+// program`'s `has_coll` arm, :479-529: the walk vmapped over a fleet):
+// blockIdx.y picks the replica, whose control words (`ADV_OK`,
+// `PENDING`), Kahan sum, completion mask and `pred`/`ready` rows move to
+// its row; the edge list and the exec costs are shared.  A dead replica
+// (k = 0, so its slot never runs) or one whose advance did not commit
+// has `ADV_OK` 0 and moves nothing.  B = 1 is the solo walk.
 
 #include "common.cuh"
 
@@ -34,7 +42,13 @@ __global__ void walk(int n_edges, int n_v, const bool* __restrict__ done,
                      const int* __restrict__ edge_dst, int* pred,
                      double* ready, const double* __restrict__ exec_cost,
                      int* ctrl, const double* fctrl) {
+  long long b = blockIdx.y;
+  ctrl += b * N_CTRL;
   if (!ctrl[C_ADV_OK]) return;
+  fctrl += b * N_FCTRL;
+  done += b * n_v;
+  pred += b * n_v;
+  ready += b * n_v;
   double t_new = fctrl[F_TSUM];
   int freed = 0;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
@@ -52,12 +66,15 @@ __global__ void walk(int n_edges, int n_v, const bool* __restrict__ done,
 
 }  // namespace
 
-extern "C" int dag_walk(int n_edges, int n_v, const void* done,
+// B replicas in one launch (B = 1: the solo walk); done, pred and
+// ready are [B, n_v], ctrl and fctrl the replicas' control words.
+extern "C" int dag_walk(int B, int n_edges, int n_v, const void* done,
                         const void* edge_src, const void* edge_dst,
                         void* pred, void* ready, const void* exec_cost,
                         void* ctrl, const void* fctrl, void* stream) {
+  if (B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   const int TB = 256;
-  walk<<<grid_for(n_edges, TB), TB, 0, (cudaStream_t)stream>>>(
+  walk<<<grid_b(n_edges, TB, B), TB, 0, (cudaStream_t)stream>>>(
       n_edges, n_v, (const bool*)done, (const int*)edge_src,
       (const int*)edge_dst, (int*)pred, (double*)ready,
       (const double*)exec_cost, (int*)ctrl, (const double*)fctrl);

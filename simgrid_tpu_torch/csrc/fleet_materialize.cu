@@ -4,7 +4,8 @@
 // Replaces: simgrid_tpu/ops/lmm_batch.py `_materialize` (:390-407) and
 // `_materialize_ew` (:375-388), the fleet's birth, and the admission of
 // one replica into row b of a live fleet, `_admit_lane_state` (:409-437),
-// `_admit_lane_tape` (:440-449) and `_admit_lane_ew` (:463-470).  Birth
+// `_admit_lane_tape` (:440-449), `_admit_lane_coll` (:453-461) and
+// `_admit_lane_ew` (:463-470).  Birth
 // and admission are the same kernels over a range of rows [b0, b0+nb):
 // the whole fleet, or the one admitted row.
 //
@@ -21,6 +22,11 @@
 // scatters do not race.  Element weights: the shared table copied into
 // the row, then ew[ei] = ewv (scatter-SET, pad index E drops).  The
 // admitted tape row is a copy of the row the host built (inf-padded).
+// A collective fleet's DAG-walk state (`fleet_coll`): rows [b0, b0+nb)
+// of the predecessor counts and activation dates become the compiled
+// schedule's birth rows and the rows' Kahan clock pairs (0, 0): the
+// collective birth (lmm_batch.py:1083-1089, B copies of the base rows)
+// over every row, `_admit_lane_coll` over the admitted one.
 //
 // What bounds it on this card: memory, and at a fleet's sizes launch
 // latency.  Birth reads the four base arrays once per replica and writes
@@ -152,6 +158,18 @@ __global__ void fm_tape(int b, int n, double* tt, int* ts, T* tv,
   }
 }
 
+__global__ void fm_coll(int V, int b0, int* pred, double* ready,
+                        double* clk, const int* __restrict__ row_p,
+                        const double* __restrict__ row_r) {
+  long long b = b0 + (long long)blockIdx.y;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < V;
+       i += gridDim.x * blockDim.x) {
+    pred[b * V + i] = row_p[i];
+    ready[b * V + i] = row_r[i];
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 2) clk[2 * b + threadIdx.x] = 0.0;
+}
+
 const int TB = 256;
 
 template <typename T>
@@ -228,6 +246,18 @@ int fleet_tape(int dbl, int b, int n, void* tt, void* ts, void* tv,
     fm_tape<float><<<g, TB, 0, s>>>(b, n, (double*)tt, (int*)ts, (float*)tv,
                                     (const double*)row_t, (const int*)row_s,
                                     (const float*)row_v);
+  return (int)cudaGetLastError();
+}
+
+// Rows [b0, b0+nb) of a collective fleet's [B, V] predecessor counts
+// (int32) and activation dates (f64) from the schedule's birth rows, and
+// their [B, 2] Kahan clock pairs set to (0, 0).
+int fleet_coll(int nb, int b0, int V, void* pred, void* ready, void* clk,
+               const void* row_p, const void* row_r, void* stream) {
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  fm_coll<<<grid_b(V, TB, nb), TB, 0, (cudaStream_t)stream>>>(
+      V, b0, (int*)pred, (double*)ready, (double*)clk, (const int*)row_p,
+      (const double*)row_r);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,11 @@
 Replaces ``simgrid_tpu/ops/lmm_batch.py`` ``_materialize``
 (``:390-407``) and ``_materialize_ew`` (``:375-388``) at the fleet's
 birth, and ``_admit_lane_state`` (``:409-437``), ``_admit_lane_tape``
-(``:440-449``) and ``_admit_lane_ew`` (``:463-470``) when one replica is
-admitted into row ``b`` of a live fleet.  The CUDA source is
+(``:440-449``), ``_admit_lane_coll`` (``:453-461``) and
+``_admit_lane_ew`` (``:463-470``) when one replica is admitted into row
+``b`` of a live fleet, and a collective fleet's birth rows (``:1083-
+1089``, B copies of the schedule's predecessor counts and activation
+dates, the Kahan pairs at zero).  The CUDA source is
 ``csrc/fleet_materialize.cu``; birth and admission run the same kernels
 over the whole fleet or over the one row.
 
@@ -35,11 +38,14 @@ EW_COUNT = counter("fleet_materialize_ew")
 ADMIT_COUNT = counter("fleet_admit")
 ADMIT_EW_COUNT = counter("fleet_admit_ew")
 ADMIT_TAPE_COUNT = counter("fleet_admit_tape")
+COLL_COUNT = counter("fleet_materialize_coll")
+ADMIT_COLL_COUNT = counter("fleet_admit_coll")
 
 _SIG = {
     "fleet_state": [I, I, I, I, I, P, I, I, I, I, D, I, P],
     "fleet_ew": [I, I, I, L, P, P, P, P, I, P],
     "fleet_tape": [I, I, I, P, P, P, P, P, P, P],
+    "fleet_coll": [I, I, I, P, P, P, P, P, P],
 }
 
 #: the base arrays (f64): c_bound [C], sizes, remains, penalties [V]
@@ -101,6 +107,17 @@ def tape_plain(tape: Sequence[torch.Tensor], b: int,
                row: Sequence[torch.Tensor]) -> None:
     for dst, src in zip(tape, row):
         dst[b].copy_(src)
+
+
+def coll_plain(coll: Sequence[torch.Tensor], b0: int, nb: int,
+               row: Sequence[torch.Tensor]) -> None:
+    """Rows ``b0 .. b0+nb-1`` of a collective fleet's ``(pred, ready,
+    clk)``: the schedule's birth rows, the clock pairs at zero."""
+    pred, ready, clk = coll
+    for b in range(b0, b0 + nb):
+        pred[b].copy_(row[0])
+        ready[b].copy_(row[1])
+        clk[b].zero_()
 
 
 # ---------------------------------------------------------------------------
@@ -198,3 +215,41 @@ def admit_tape(tape: Sequence[torch.Tensor], b: int,
                            *(ptr(t) for t in (*tape, *row)), stream())
     check(rc, "fleet_tape")
     ADMIT_TAPE_COUNT.n += 1
+
+
+def _coll(coll: Sequence[torch.Tensor], b0: int, nb: int,
+          row: Sequence[torch.Tensor]) -> bool:
+    if on_cpu(*coll, *row):
+        coll_plain(coll, b0, nb, row)
+        return False
+    pred, ready, clk = coll
+    B, V = (int(n) for n in pred.shape)
+    if pred.dtype != torch.int32 or row[0].dtype != torch.int32 \
+            or any(t.dtype != torch.float64 for t in (ready, clk, row[1])) \
+            or tuple(ready.shape) != (B, V) or tuple(clk.shape) != (B, 2) \
+            or any(tuple(r.shape) != (V,) for r in row):
+        raise ValueError("K11's collective rows: pred [B, V] int32, ready "
+                         "[B, V] and clk [B, 2] float64, birth rows [V]")
+    if not 0 <= b0 <= B - nb:
+        raise ValueError(f"rows {b0}..{b0 + nb} outside the fleet")
+    rc = _lib().fleet_coll(int(nb), int(b0), V,
+                           *(ptr(t) for t in (*coll, *row)), stream())
+    check(rc, "fleet_coll")
+    return True
+
+
+def materialize_coll(coll: Sequence[torch.Tensor],
+                     row: Sequence[torch.Tensor]) -> None:
+    """Birth: every row of a collective fleet's ``(pred [B, V] int32,
+    ready [B, V] f64, clk [B, 2] f64)`` from the compiled schedule's
+    ``row = (pred0, ready0)``, the clock pairs at zero."""
+    if _coll(coll, 0, int(coll[0].shape[0]), row):
+        COLL_COUNT.n += 1
+
+
+def admit_coll(coll: Sequence[torch.Tensor], b: int,
+               row: Sequence[torch.Tensor]) -> None:
+    """Admission: row ``b`` of a collective fleet's DAG-walk state back
+    to the schedule's birth state (``_admit_lane_coll``)."""
+    if _coll(coll, int(b), 1, row):
+        ADMIT_COLL_COUNT.n += 1

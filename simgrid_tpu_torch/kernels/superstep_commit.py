@@ -12,7 +12,8 @@ fired entry, scatters its bound and bumps the cursor; the collective
 arm (``ready``, ``pen``) fires the activations.  A launch counts as
 ``superstep_commit_tape`` when its tape arm is on and as
 ``superstep_commit_coll`` when its collective arm is on (a launch with
-both counts in both), as ``superstep_commit`` otherwise.
+both counts in both), as ``superstep_commit`` otherwise; a fleet's
+launches count under the same names with ``_fleet`` appended.
 
 ``packed`` is the superstep's result vector in the JAX layout:
 ``[rounds, adv, n_ev, t_sum, n_live, flag, live_elems]``, then
@@ -25,9 +26,10 @@ A fleet :class:`Work` (``B`` replicas, the replica axis of
 ``lmm_batch.py``'s ``_batch_superstep_program``) runs every replica in
 the same launches: ``superstep_reset`` takes per-replica ``k`` (0 for
 a dead replica, whose guards are then false from entry), ``t0`` and
-``tpos`` as ``[B]`` tensors, ``superstep_resume`` resumes the STARVED
-replicas and turns every other replica's slot off, and ``packed`` is
-``[B, packed_size]``.  The plain versions run the solo plain function
+``tpos`` as ``[B]`` tensors (and a collective's ``ready`` ``[B, V]``
+and Kahan pairs ``clk`` ``[B, 2]``), ``superstep_resume`` resumes the
+STARVED replicas and turns every other replica's slot off, and
+``packed`` is ``[B, packed_size]``.  The plain versions run the solo plain function
 on each replica in turn.
 """
 
@@ -58,6 +60,7 @@ FINISH_COUNT = counter("superstep_finish")
 #: a fleet's launches (a Work with a replica axis)
 FLEET_COUNT = counter("superstep_commit_fleet")
 FLEET_TAPE_COUNT = counter("superstep_commit_tape_fleet")
+FLEET_COLL_COUNT = counter("superstep_commit_coll_fleet")
 FLEET_RESET_COUNT = counter("superstep_reset_fleet")
 FLEET_BEGIN_COUNT = counter("superstep_begin_fleet")
 FLEET_RESUME_COUNT = counter("superstep_resume_fleet")
@@ -257,6 +260,10 @@ def superstep_reset(pen, w: Work, k, budget: int, stop: int,
             if isinstance(x, torch.Tensor) and (x.dtype != dt or tuple(
                     x.shape) != (w.B,)):
                 raise ValueError(f"fleet k/t0/tpos must be [B] {dt}")
+        if (ready is not None and ready.shape != pen.shape) or (
+                clk is not None and tuple(clk.shape) != (w.B, 2)):
+            raise ValueError("a collective fleet's ready is [B, V] and its "
+                             "clock pairs [B, 2]")
     arr = lambda x: x if isinstance(x, torch.Tensor) else None  # noqa
     scal = lambda x, d: d if isinstance(x, torch.Tensor) else x  # noqa
     rc = _lib().superstep_reset(
@@ -338,15 +345,15 @@ def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
         opt_ptr(ready), opt_ptr(pen if ready is not None else None),
         stream())
     check(rc, "superstep_commit")
-    if w.B is not None:
-        (FLEET_TAPE_COUNT if tape is not None else FLEET_COUNT).n += 1
-        return None
+    plain, taped, coll = ((COUNT, TAPE_COUNT, COLL_COUNT) if w.B is None
+                          else (FLEET_COUNT, FLEET_TAPE_COUNT,
+                                FLEET_COLL_COUNT))
     if tape is not None:
-        TAPE_COUNT.n += 1
+        taped.n += 1
     if ready is not None:
-        COLL_COUNT.n += 1
+        coll.n += 1
     if tape is None and ready is None:
-        COUNT.n += 1
+        plain.n += 1
     return None
 
 

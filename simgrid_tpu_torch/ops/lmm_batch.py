@@ -25,7 +25,17 @@ whatever B is: the amortisation the JAX package's ``vmap`` gives.
 * **one fetch per fleet superstep**: K3 packs ``[B, packed_size]``, and
   the host demultiplexes the rings into per-replica events, fault events
   and clocks (each clock folded in f64 per superstep, as the solo
-  collect folds it).
+  collect folds it);
+* **collective fleets** (``collective=``, one compiled comm DAG ``(pred,
+  ready, edge_src, edge_dst, exec_cost)``): the edges and exec costs are
+  shared, and every replica walks the schedule with its own predecessor
+  counts, activation dates ``[B, V]`` and Kahan clock pair ``[B, 2]``
+  (K11 writes their birth rows).  Each advance slot runs K2's event arm
+  on the replicas' dates, K3's collective arm and K10's replica arm;
+  the rings carry absolute dates, activations are tagged ``-(n_c + v) -
+  1``, a replica with no live flow stays alive while its schedule owes
+  completions, and one that then makes no advance is quarantined as
+  ``collective_deadlock``.
 
 Each replica's events, fault events and clock equal by bits the same
 scenario drained solo by :class:`~.lmm_drain.DrainSim` (``ScenarioPlan.
@@ -40,8 +50,7 @@ The round budget of a superstep is the port's solo ``DrainSim``'s,
 CPU); it changes no result, only when a budget rescue runs.
 
 Not ported yet: ``pipeline`` (ROADMAP A2), ``mesh`` (A9), ``plan`` and
-``watchdog`` (A8), ``collective`` (B12b); each raises
-``NotImplementedError`` naming its item.
+``watchdog`` (A8); each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -54,6 +63,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import fleet_materialize as k11
+from ..kernels.dag_walk import dag_walk
 from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, FLAG_STARVED,
                               IT, LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem,
                               Work)
@@ -66,7 +76,7 @@ from ..kernels.superstep_commit import (N_STATS, packed_size,
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import to2d
-from .lmm_drain import SLOT_ROUNDS, _torch_dtype
+from .lmm_drain import SLOT_ROUNDS, _torch_dtype, collective_arrays
 from .lmm_torch import chunk_rounds
 
 
@@ -78,7 +88,8 @@ class AdmissionError(RuntimeError):
     """A replica admission the fleet cannot honour within the capacity
     fixed at its birth: the row is alive or out of range, the overrides
     carry ``elem_w`` entries but the fleet shares one weight table, or
-    the fault tape is wider than the fleet's tape rows."""
+    the fault tape is wider than the fleet's tape rows, or the overrides
+    kill flows of a collective schedule."""
 
 
 class LaneFault:
@@ -87,7 +98,9 @@ class LaneFault:
     (a NaN clock advance, or NaN in the replica's state behind a stall),
     ``stall`` (no flow holds bandwidth), ``non_convergence`` (the budget
     rescue could not finish one advance), ``ring_overflow`` (more events
-    than ring slots).  Each bumps ``lane_quarantined_<cause>``."""
+    than ring slots), ``collective_deadlock`` (no live flow and no pending
+    activation while the schedule still owes completions).  Each bumps
+    ``lane_quarantined_<cause>``."""
 
     __slots__ = ("cause", "detail", "lane", "superstep", "t")
 
@@ -324,7 +337,7 @@ class ReplicaState:
         self.events: List[Tuple[float, int]] = []
         #: (time, constraint slot) per fired tape entry, fire order
         self.fault_events: List[Tuple[float, int]] = []
-        #: collective activations (collective fleets are not ported)
+        #: (time, flow slot) per fired collective activation, fire order
         self.collective_events: List[Tuple[float, int]] = []
         self.t = 0.0              # f64 clock, folded on the host
         self.advances = 0
@@ -346,9 +359,10 @@ class BatchDrainSim:
     ``v_bound``/``penalty``/``remains``, ``tapes`` (one ``(dates, slots,
     values)`` fault tape or None per replica), ``tape_slots`` (tape rows
     reserved for admissions, bucketed to a power of two), ``start_dead``
-    (rows dead from birth, waiting for :meth:`admit_lane`) and
-    ``batch_w`` (per-replica weight tables even when no initial replica
-    overrides weights)."""
+    (rows dead from birth, waiting for :meth:`admit_lane`), ``batch_w``
+    (per-replica weight tables even when no initial replica overrides
+    weights) and ``collective`` (one compiled comm DAG every replica
+    walks, module docstring)."""
 
     def __init__(self, e_var, e_cnst, e_w, c_bound, sizes,
                  overrides: List[ReplicaOverrides],
@@ -368,9 +382,7 @@ class BatchDrainSim:
                 (plan, "BatchDrainSim(plan=)",
                  "queue A item 8 (the AOT plan cache)"),
                 (watchdog, "BatchDrainSim(watchdog=)",
-                 "queue A item 8 (the serving layer)"),
-                (collective, "BatchDrainSim(collective=)",
-                 "queue B item 12b (collective fleets)")):
+                 "queue A item 8 (the serving layer)")):
             if arg:
                 raise _not_ported(what, item)
         if not overrides:
@@ -455,6 +467,7 @@ class BatchDrainSim:
         self.sys = LmmSystem(ev, ec, ew, cb, csr, self.n_v)
         self.w = Work(self.n_v, self.n_c, self.tdtype, dev, B=B)
         self._arm_tapes(tapes, tape_slots)
+        self._arm_collective(collective)
 
         self.replicas = [ReplicaState(b) for b in range(B)]
         self._alive = np.ones(B, bool)
@@ -529,6 +542,47 @@ class BatchDrainSim:
         opstats.bump("uploaded_bytes_delta", tt.nbytes + ts.nbytes
                      + tvd.nbytes)
 
+    # -- the collective schedule ------------------------------------------
+
+    def _arm_collective(self, collective) -> None:
+        """One compiled comm DAG for the whole fleet, checked as the JAX
+        fleet checks it: the edges and exec costs are shared, each
+        replica's predecessor counts, activation dates and Kahan pair
+        start from the schedule's birth rows (K11)."""
+        self.has_coll = False
+        #: (pred [B, V] int32, ready [B, V] f64, clk [B, 2] f64)
+        self._coll: Optional[Tuple[torch.Tensor, ...]] = None
+        if collective is None:
+            return
+        cp, cr, ces, ced, cec = collective_arrays(collective, self.n_v)
+        if self.dtype != np.float64:
+            raise ValueError("collective= needs dtype=float64 "
+                             "(see DrainSim)")
+        if any(ov.dead_flows for ov in self.overrides):
+            raise ValueError("collective fleets cannot kill DAG "
+                             "flows via dead_flows overrides")
+        self.has_coll = True
+        put = lambda a: torch.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a)).to(self.device)
+        #: the schedule's birth rows (pred0, ready0) and the shared
+        #: structure (edge_src, edge_dst, exec_cost)
+        self._coll_base = (put(cp), put(cr))
+        self._coll_edges = tuple(put(a) for a in (ces, ced, cec))
+        B, V = self.B, self.n_v
+        self._coll = (
+            torch.empty((B, V), dtype=torch.int32, device=self.device),
+            torch.empty((B, V), dtype=torch.float64, device=self.device),
+            torch.empty((B, 2), dtype=torch.float64, device=self.device))
+        k11.materialize_coll(self._coll, self._coll_base)
+        opstats.bump("collective_tape_slots", V * B)
+        opstats.bump("uploaded_bytes_delta", cp.nbytes + cr.nbytes
+                     + ces.nbytes + ced.nbytes + cec.nbytes)
+
+    def collective_clock_of(self, b: int) -> Tuple[float, float]:
+        """Replica ``b``'s carried Kahan clock pair (t, compensation)."""
+        return tuple(float(x) for x in
+                     opstats.timed_fetch(self._coll[2][b]))
+
     # -- the fleet superstep -----------------------------------------------
 
     def _queue_rounds(self, n: int) -> None:
@@ -538,12 +592,20 @@ class BatchDrainSim:
                 break
 
     def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
+        """K2, K3 and with a collective K10: the solo order
+        (``lmm_drain.DrainSim._queue_advance``)."""
+        ready = self._coll[1] if self.has_coll else None
         drain_advance(self._pen, self._rem, self._thresh, self.w,
                       gated=True,
-                      tape_t=self._tape[0] if self.has_tape else None)
+                      tape_t=self._tape[0] if self.has_tape else None,
+                      ready=ready)
         superstep_commit(self.w, self._ids, packed, k_max, ring_n,
                          tape=self._tape[1:] if self.has_tape else None,
-                         c_bound=self.sys.c_bound, n_c=self.n_c)
+                         c_bound=self.sys.c_bound, n_c=self.n_c,
+                         ready=ready, pen=self._pen)
+        if self.has_coll:
+            dag_walk(self.w, *self._coll_edges[:2], self._coll[0], ready,
+                     self._coll_edges[2])
 
     def _queue_slots(self, n: int, packed, k_max: int, ring_n: int) -> None:
         for _ in range(n):
@@ -555,20 +617,24 @@ class BatchDrainSim:
 
     def _finish(self, packed) -> np.ndarray:
         superstep_finish(self.sys.e_var, self.sys.e_w, self._pen, packed,
-                         self.w)
+                         self.w,
+                         clk=self._coll[2] if self.has_coll else None)
         p = opstats.timed_fetch(packed)
         self.syncs += 1
         return p
 
     def _reset(self, k: np.ndarray, budget: int, stop: int = 0) -> None:
         """The fleet's loop carry: per-replica k, tape cursor and f64
-        base clock (the committed host clock), in two small uploads."""
+        base clock (the committed host clock), in two small uploads; a
+        collective's Kahan pairs and pending dates are on the card."""
         ints = torch.from_numpy(np.stack([k.astype(np.int32),
                                           self._tpos])).to(self.device)
         t0 = torch.from_numpy(np.array([r.t for r in self.replicas],
                                        np.float64)).to(self.device)
         superstep_reset(self._pen, self.w, ints[0], budget, stop, t0=t0,
-                        tpos=ints[1])
+                        tpos=ints[1],
+                        ready=self._coll[1] if self.has_coll else None,
+                        clk=self._coll[2] if self.has_coll else None)
 
     def _superstep(self, k: Optional[int] = None, alive=None,
                    round_budget: int = 0, rescue: bool = False) -> int:
@@ -580,7 +646,9 @@ class BatchDrainSim:
         budget = int(round_budget) or self.superstep_rounds
         alive = (self._alive.copy() if alive is None
                  else np.asarray(alive, bool).copy())
-        ring_n = self.n_v + (k_max if self.has_tape else 0)
+        # completions, one tape entry per advance, one activation per flow
+        ring_n = (self.n_v + (k_max if self.has_tape else 0)
+                  + (self.n_v if self.has_coll else 0))
         packed = torch.zeros((self.B, packed_size(k_max, ring_n)),
                              dtype=self.tdtype, device=self.device)
         k_b = np.where(alive, k, 0)
@@ -653,6 +721,7 @@ class BatchDrainSim:
         o = N_STATS + 2 * k_max
         stuck: List[int] = []
         fired = 0
+        coll_fired = 0
         for b in range(self.B):
             if not alive[b]:
                 continue
@@ -676,21 +745,40 @@ class BatchDrainSim:
             ring_t = row[o:o + n_ev]
             ring_id = row[o + ring_n:o + ring_n + n_ev].astype(np.int64)
             rep.advances += adv
-            t_base = rep.t
+            # a collective replica's ring dates and clock are absolute
+            # (its Kahan pair is carried on the card across supersteps)
+            t_base = 0.0 if self.has_coll else rep.t
             for j in range(n_ev):
                 fid = int(ring_id[j])
                 tj = t_base + float(ring_t[j])
-                if fid < 0:
-                    rep.fault_events.append((tj, -fid - 1))
-                    fired += 1
-                else:
+                if fid >= 0:
                     rep.events.append((tj, fid))
+                    continue
+                # a tagged entry: a fault fire (idx < n_c) or an
+                # activation of flow idx - n_c
+                idx = -fid - 1
+                if idx >= self.n_c:
+                    rep.collective_events.append((tj, idx - self.n_c))
+                    coll_fired += 1
+                else:
+                    rep.fault_events.append((tj, idx))
+                    fired += 1
             rep.t = t_base + t_sum
+            coll_pending = self.has_coll and len(rep.events) < self.n_v
             if flag == FLAG_STALLED:
                 self._quarantine(b, *self._stall_cause(b, n_live))
-            elif n_live == 0:
+            elif n_live == 0 and not coll_pending:
                 rep.alive = False
                 self._alive[b] = False
+            elif n_live == 0 and coll_pending and adv == 0:
+                # no live flow, no progress, and the schedule still owes
+                # completions (a cyclic or truncated DAG): kill exactly
+                # this replica
+                self._quarantine(
+                    b, "collective_deadlock",
+                    f"collective schedule deadlocked: "
+                    f"{len(rep.events)}/{self.n_v} flows completed "
+                    f"and nothing is pending")
             elif flag == FLAG_BUDGET and adv == 0:
                 if rescue:
                     self._quarantine(b, "non_convergence",
@@ -702,12 +790,14 @@ class BatchDrainSim:
                 self._tpos[b] = len(self.replicas[b].fault_events)
         if fired:
             opstats.bump("fault_tape_events", fired)
+        if coll_fired:
+            opstats.bump("collective_tape_fires", coll_fired)
         if stuck:
             # the round budget ran out inside a replica's first solve:
-            # finish one advance for those replicas (a tape fleet on the
-            # superstep path, which sees the events; else the fused
-            # rescue)
-            if self.has_tape:
+            # finish one advance for those replicas (a tape or collective
+            # fleet on the superstep path, which sees the events; else
+            # the fused rescue)
+            if self.has_tape or self.has_coll:
                 self._rescue_superstep(stuck)
             else:
                 self._rescue_fused(stuck)
@@ -820,6 +910,9 @@ class BatchDrainSim:
         if self._alive[b]:
             raise AdmissionError(f"lane {b} is still alive")
         ov = overrides
+        if self.has_coll and ov.dead_flows:
+            raise AdmissionError("collective fleets cannot kill DAG flows "
+                                 "via dead_flows overrides")
         if ov.elem_w and not self.batch_w:
             raise AdmissionError(
                 "fleet shares one element-weight table (batch_w False); a "
@@ -869,6 +962,13 @@ class BatchDrainSim:
             self._tpos[b] = 0
             opstats.bump("uploaded_bytes_delta",
                          row_t.nbytes + row_s.nbytes + row_vd.nbytes)
+            opstats.bump("dispatches")
+            opstats.bump("batch_dispatches")
+        if self.has_coll:
+            # the admitted replica replays the shared schedule from its
+            # own t = 0: fresh DAG-walk state, clock pair at zero
+            k11.admit_coll(self._coll, b, self._coll_base)
+            opstats.bump("collective_tape_slots", self.n_v)
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
         if self.batch_w:
@@ -922,6 +1022,18 @@ class BatchDrainSim:
         if self.has_tape:
             for name, t in zip(("tape_t", "tape_s", "tape_v"), self._tape):
                 arrays[name] = host(t)
+        if self.has_coll:
+            for name, t in zip(("coll_pred", "coll_ready", "coll_clk"),
+                               self._coll):
+                arrays[name] = host(t)
+            arrays["cev_counts"] = np.array(
+                [len(r.collective_events) for r in reps], np.int64)
+            arrays["cev_t"] = np.array(
+                [t for r in reps for t, _ in r.collective_events],
+                np.float64)
+            arrays["cev_id"] = np.array(
+                [i for r in reps for _, i in r.collective_events],
+                np.int64)
         if self.batch_w:
             arrays["ew"] = host(self.sys.e_w)
         return {
@@ -981,9 +1093,24 @@ class BatchDrainSim:
             self._tape = (put(_chk("tape_t", np.float64, (B, T))),
                           put(_chk("tape_s", np.int32, (B, T))),
                           put(_chk("tape_v", self.dtype, (B, T))))
+        cev_counts = None
         if "coll_pred" in arrays:
-            raise _not_ported("restoring a collective fleet",
-                              "queue B item 12b (collective fleets)")
+            if not self.has_coll:
+                raise ValueError("fleet snapshot carries a collective "
+                                 "schedule but this fleet was built "
+                                 "without collective=")
+            coll = (put(_chk("coll_pred", np.int32, (B, self.n_v))),
+                    put(_chk("coll_ready", np.float64, (B, self.n_v))),
+                    put(_chk("coll_clk", np.float64, (B, 2))))
+            cev_counts = _chk("cev_counts", np.int64, (B,))
+            n_cev = int(cev_counts.sum())
+            cev_t = _chk("cev_t", np.float64, (n_cev,))
+            cev_id = _chk("cev_id", np.int64, (n_cev,))
+            self._coll = coll
+        elif self.has_coll:
+            raise ValueError("this fleet carries a collective schedule but "
+                             "the snapshot has no collective arrays: it is "
+                             "from a different plan")
         if "ew" in arrays:
             if not self.batch_w:
                 raise ValueError("fleet snapshot carries per-replica "
@@ -999,7 +1126,7 @@ class BatchDrainSim:
         self._tpos = tpos.copy()
         errors = st.get("errors") or [None] * B
         faults = st.get("faults") or [None] * B
-        eo = fo = 0
+        eo = fo = co = 0
         for b in range(B):
             rep = ReplicaState(b)
             n_e, n_f = int(ev_counts[b]), int(fev_counts[b])
@@ -1009,6 +1136,12 @@ class BatchDrainSim:
                                  int(fev_slot[fo + j])) for j in range(n_f)]
             eo += n_e
             fo += n_f
+            if cev_counts is not None:
+                n_cv = int(cev_counts[b])
+                rep.collective_events = [(float(cev_t[co + j]),
+                                          int(cev_id[co + j]))
+                                         for j in range(n_cv)]
+                co += n_cv
             rep.t = float(clocks[b])
             rep.advances = int(advances[b])
             rep.alive = bool(alive[b])

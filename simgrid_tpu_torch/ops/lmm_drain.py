@@ -100,6 +100,30 @@ def _torch_dtype(dtype) -> torch.dtype:
     raise TypeError(f"drain dtype must be float32 or float64, not {dtype}")
 
 
+def collective_arrays(collective, n_v: int):
+    """A collective schedule's ``(pred, ready, edge_src, edge_dst,
+    exec_cost)`` as int32/f64 numpy arrays, checked as the JAX drain
+    checks them, and its edges held in range for K10."""
+    cp, cr, ces, ced, cec = collective
+    cp = np.asarray(cp, np.int32)
+    cr = np.asarray(cr, np.float64)
+    ces = np.asarray(ces, np.int32)
+    ced = np.asarray(ced, np.int32)
+    cec = np.asarray(cec, np.float64)
+    if not (len(cp) == len(cr) == len(cec) == n_v):
+        raise ValueError("collective arrays must be per-flow "
+                         f"(n_v={n_v})")
+    if len(ces) != len(ced):
+        raise ValueError("collective edge arrays must have "
+                         "equal length")
+    # K10 reads done[src] and decrements pred[dst] where it is told
+    # (dst == n_v marks a pad row)
+    if np.any((ces < 0) | (ces >= n_v)) or np.any((ced < 0) | (ced > n_v)):
+        raise ValueError("collective edge out of range (sources in "
+                         f"[0, {n_v}), targets in [0, {n_v}])")
+    return cp, cr, ces, ced, cec
+
+
 class DrainSim:
     """Drain a fixed flow set to completion on the port's kernels.
 
@@ -252,25 +276,7 @@ class DrainSim:
         self._coll_clk: Optional[torch.Tensor] = None
         if collective is None:
             return
-        cp, cr, ces, ced, cec = collective
-        cp = np.asarray(cp, np.int32)
-        cr = np.asarray(cr, np.float64)
-        ces = np.asarray(ces, np.int32)
-        ced = np.asarray(ced, np.int32)
-        cec = np.asarray(cec, np.float64)
-        if not (len(cp) == len(cr) == len(cec) == self.n_v):
-            raise ValueError("collective arrays must be per-flow "
-                             f"(n_v={self.n_v})")
-        if len(ces) != len(ced):
-            raise ValueError("collective edge arrays must have "
-                             "equal length")
-        # K10 reads done[src] and decrements pred[dst] where it is told
-        # (dst == n_v marks a pad row)
-        if np.any((ces < 0) | (ces >= self.n_v)) \
-                or np.any((ced < 0) | (ced > self.n_v)):
-            raise ValueError("collective edge out of range (sources in "
-                             f"[0, {self.n_v}), targets in [0, "
-                             f"{self.n_v}])")
+        cp, cr, ces, ced, cec = collective_arrays(collective, self.n_v)
         if not superstep:
             raise ValueError("collective= needs superstep=K (the "
                              "DAG walks inside the superstep loop)")

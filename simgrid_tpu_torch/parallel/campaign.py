@@ -10,7 +10,10 @@ reference stages it:
   configuration; it derives each spec's overrides and fault tape,
   builds fleets (:meth:`ScenarioPlan.executor`, an
   :class:`~simgrid_tpu_torch.ops.lmm_batch.BatchDrainSim`) and runs the
-  solo oracle (:meth:`ScenarioPlan.solo`, the port's ``DrainSim``);
+  solo oracle (:meth:`ScenarioPlan.solo`, the port's ``DrainSim``).  A
+  plan built by :meth:`ScenarioPlan.for_collective` is one collective's
+  compiled comm DAG: its fleets and solo drains walk the schedule (the
+  ``collective=`` arm), and its key names the collective;
 * :class:`Campaign`: the front end over (plan, specs), ``run_batched``
   in fleets of ``batch`` replicas, ``run_solo``, ``run_scoped``.
 
@@ -22,8 +25,7 @@ link factors) or ``off``.  The port has no config module, so
 ``fault_mode`` is an argument with the reference's default, ``on``.
 
 Not ported yet: ``from_engine`` (ROADMAP queue A item 3, the engine
-capture), ``for_collective`` and plans carrying a collective (queue B
-item 12b), ``mesh`` (A9), ``pipeline`` (A2) and ``plan_cache`` (A8);
+capture), ``mesh`` (A9), ``pipeline`` (A2) and ``plan_cache`` (A8);
 each raises ``NotImplementedError``.
 """
 
@@ -106,8 +108,8 @@ class ScenarioSpec:
         self.fault_horizon = float(fault_horizon)
         if isinstance(collective, dict):
             collective = CollectiveSpec.from_dict(collective)
-        #: a collective workload the spec is meant for (its plans are
-        #: not ported yet; the field keeps keys and JSON as JAX's)
+        #: the collective workload the spec is meant for: it runs only on
+        #: a plan compiled for the same one
         self.collective = collective
         self.label = label if label is not None else f"seed{seed}"
 
@@ -168,7 +170,8 @@ class ScenarioSpec:
 
 class ReplicaResult:
     """One replica's outcome: events ``[(time, flow slot)]``, clock,
-    advances, error, and fired fault entries ``[(time, slot)]``."""
+    advances, error, fired fault entries ``[(time, slot)]`` and, on a
+    collective plan, fired activations ``[(time, flow slot)]``."""
 
     __slots__ = ("spec", "events", "t", "advances", "error",
                  "fault_events", "collective_events")
@@ -196,11 +199,9 @@ class ScenarioPlan:
                  eps: float = 1e-9, done_eps: float = 1e-4,
                  dtype=np.float64, done_mode: str = "rel",
                  superstep: int = 8, pipeline: int = 0, mesh=None,
-                 fault_mode: str = "on", collective=None,
-                 device=None):
-        if collective is not None:
-            raise _not_ported("a plan carrying a collective",
-                              "queue B item 12b (collective fleets)")
+                 fault_mode: str = "on",
+                 collective: Optional[CollectiveSpec] = None,
+                 device=None, _device_collective=None):
         if fault_mode not in ("on", "static", "off"):
             raise ValueError(f"Unknown fault_mode {fault_mode!r} "
                              "(expected on, static or off)")
@@ -226,7 +227,33 @@ class ScenarioPlan:
         #: "on" = device event tapes, "static" = folded mean-availability
         #: factors, "off" = the fault dimension ignored
         self.fault_mode = fault_mode
-        self.collective = None
+        if isinstance(collective, dict):
+            collective = CollectiveSpec.from_dict(collective)
+        #: a CollectiveSpec: the plan's system is its compiled comm DAG,
+        #: and every executor walks its schedule
+        self.collective = collective
+        self._dc = None
+        if collective is not None:
+            if self.dtype != np.float64:
+                raise ValueError(
+                    "collective schedule tapes require dtype float64 "
+                    "(the superstep clock is carried on device)")
+            dc = (_device_collective if _device_collective is not None
+                  else collective.build())
+            if len(self.sizes) != dc.n_v or len(self.c_bound) != dc.n_c:
+                raise ValueError(
+                    f"plan arrays ({len(self.sizes)} flows, "
+                    f"{len(self.c_bound)} links) do not match the "
+                    f"collective's compiled tape ({dc.n_v} flows, "
+                    f"{dc.n_c} links); build the plan with "
+                    f"ScenarioPlan.for_collective")
+            if self.penalty is None:
+                self.penalty = np.asarray(dc.penalty0, np.float64)
+            elif not np.array_equal(self.penalty, dc.penalty0):
+                raise ValueError(
+                    "plan penalty does not match the collective's "
+                    "root-activation mask (dc.penalty0)")
+            self._dc = dc
         #: the device fleets and solo drains run on (None: the card)
         self.device = device
         #: constraint slots that carry an element of positive weight:
@@ -273,6 +300,10 @@ class ScenarioPlan:
             h.update(json.dumps(names).encode())
             h.update(json.dumps([self.eps, self.done_eps,
                                  self.done_mode]).encode())
+            if self.collective is not None:
+                # only when present, so plans without one keep their hash
+                h.update(b"collective")
+                h.update(self.collective.key().encode())
             self._topology_hash = h.hexdigest()
         return self._topology_hash
 
@@ -291,14 +322,40 @@ class ScenarioPlan:
         return hashlib.sha256(canon.encode("utf-8")).hexdigest()
 
     @classmethod
-    def for_collective(cls, cspec, exec_cost=None, **kw):
-        raise _not_ported("ScenarioPlan.for_collective",
-                          "queue B item 12b (collective fleets)")
+    def for_collective(cls, cspec: CollectiveSpec, exec_cost=None,
+                       **kw) -> "ScenarioPlan":
+        """A plan whose system is one collective's compiled comm DAG
+        (``cspec.build(exec_cost)``), carrying the spec so that
+        ``plan_key`` names the (algorithm, ranks, topology) point; the
+        other arguments pass through."""
+        dc = cspec.build(exec_cost=exec_cost)
+        return cls(dc.e_var, dc.e_cnst, dc.e_w, dc.c_bound, dc.sizes,
+                   penalty=dc.penalty0, collective=cspec,
+                   _device_collective=dc, **kw)
 
-    def _check_spec(self, spec: ScenarioSpec) -> None:
-        if spec.collective is not None:
-            raise _not_ported("a spec carrying a collective",
-                              "queue B item 12b (collective fleets)")
+    def _check_collective(self, spec: ScenarioSpec) -> None:
+        """A spec carrying a collective runs only on a plan compiled for
+        the same one, and no spec kills a flow of a schedule."""
+        if self.collective is not None and spec.dead_flows:
+            raise ValueError(
+                f"spec {spec.label!r} kills flows "
+                f"{spec.dead_flows} but the plan walks a schedule "
+                f"tape — a dead record would deadlock its successors")
+        if spec.collective is None:
+            return
+        if self.collective is None:
+            raise ValueError(
+                f"spec {spec.label!r} carries collective "
+                f"{spec.collective.label()} but the plan has none")
+        if spec.collective.key() != self.collective.key():
+            raise ValueError(
+                f"spec {spec.label!r} carries collective "
+                f"{spec.collective.label()} but the plan was compiled "
+                f"for {self.collective.label()}")
+
+    def _collective_args(self):
+        """The ``collective=`` 5-tuple of the plan's DAG, or None."""
+        return None if self._dc is None else self._dc.drain_args()
 
     # -- per-spec derivation -----------------------------------------------
 
@@ -405,7 +462,7 @@ class ScenarioPlan:
         if width < len(specs):
             raise ValueError("executor width smaller than spec count")
         for s in specs:
-            self._check_spec(s)
+            self._check_collective(s)
         overrides = [self.overrides_for(s) for s in specs]
         overrides += [ReplicaOverrides() for _ in range(width - len(specs))]
         tapes = [self.tape_for(s) for s in specs]
@@ -423,7 +480,7 @@ class ScenarioPlan:
             remains=self.remains, pipeline=depth, mesh=use_mesh,
             tapes=tapes, tape_slots=tape_slots,
             start_dead=tuple(range(len(specs), width)), batch_w=batch_w,
-            watchdog=watchdog)
+            watchdog=watchdog, collective=self._collective_args())
 
     def solo(self, spec: ScenarioSpec, superstep_rounds: int = 0,
              device=None) -> ReplicaResult:
@@ -431,7 +488,7 @@ class ScenarioPlan:
         host-derived arrays: the oracle every fleet replica equals by
         bits.  Repacks are off, as in the fleet."""
         from ..ops.lmm_drain import DrainSim
-        self._check_spec(spec)
+        self._check_collective(spec)
         ov = self.overrides_for(spec)
         cb, sz, rem, pen = derive_replica_arrays(
             self.c_bound, self.sizes, *self._base_rem_pen(), ov)
@@ -445,14 +502,16 @@ class ScenarioPlan:
                        v_bound=(self.v_bound.astype(self.dtype)
                                 if self.v_bound is not None else None),
                        penalty=pen, remains=rem, repack_min=1 << 62,
-                       tape=self.tape_for(spec))
+                       tape=self.tape_for(spec),
+                       collective=self._collective_args())
         error = None
         try:
             sim.run()
         except RuntimeError as exc:
             error = str(exc)
         return ReplicaResult(spec, sim.events, sim.t, sim.advances, error,
-                             fault_events=sim.fault_events)
+                             fault_events=sim.fault_events,
+                             collective_events=sim.collective_events)
 
 
 class Campaign:
@@ -491,9 +550,13 @@ class Campaign:
                           "queue A item 3 (the engine capture)")
 
     @classmethod
-    def for_collective(cls, cspec, specs, **kw):
-        raise _not_ported("Campaign.for_collective",
-                          "queue B item 12b (collective fleets)")
+    def for_collective(cls, cspec: CollectiveSpec,
+                       specs: Sequence[ScenarioSpec], **kw) -> "Campaign":
+        """A campaign over one collective's compiled comm DAG (see
+        :meth:`ScenarioPlan.for_collective`)."""
+        dc = cspec.build()
+        return cls(dc.e_var, dc.e_cnst, dc.e_w, dc.c_bound, dc.sizes,
+                   specs, penalty=dc.penalty0, collective=cspec, **kw)
 
     def run_batched(self, batch: int = 64, superstep_rounds: int = 0,
                     pipeline: Optional[int] = None, mesh=None
@@ -513,7 +576,8 @@ class Campaign:
                 rep = sim.replicas[b]
                 results.append(ReplicaResult(
                     spec, rep.events, rep.t, rep.advances, rep.error,
-                    fault_events=rep.fault_events))
+                    fault_events=rep.fault_events,
+                    collective_events=rep.collective_events))
         return results
 
     def run_solo(self, index: int,

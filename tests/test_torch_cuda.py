@@ -806,3 +806,114 @@ def test_solve_arrays_batch_card_equals_plain(cuda, case):
            for dev in (cuda, torch.device("cpu"))]
     for a, b in zip(*out):
         assert np.array_equal(np.asarray(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# Collective fleets: K10's replica arm, K3's collective arm and K2's event
+# arm on a fleet, K11's collective birth and admission
+# ---------------------------------------------------------------------------
+
+
+def test_dag_walk_fleet_card_equals_plain(cuda):
+    """K10's replica arm over a random DAG, three replicas with their own
+    completions and clocks, one whose advance did not commit (it moves
+    nothing)."""
+    rng = np.random.default_rng(9)
+    V, E, B = 5_000, 20_000, 3
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    dst[::89] = V
+    pred = np.bincount(dst[dst < V], minlength=V).astype(np.int32)
+    done = rng.random((B, V)) < 0.3
+    exec_cost = rng.uniform(0, 1e-3, V)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        w = Work(V, 4, torch.float64, dev, B=B)
+        w.ctrl[:, ADV_OK] = torch.tensor([1, 0, 1], dtype=torch.int32)
+        w.fctrl[:, T_SUM] = torch.tensor([0.125, 0.25, 0.5],
+                                         dtype=torch.float64)
+        w.done.copy_(torch.from_numpy(done))
+        p = torch.from_numpy(np.tile(pred, (B, 1))).to(dev)
+        r = torch.full((B, V), float("inf"), dtype=torch.float64,
+                       device=dev)
+        reset_launch_counts()
+        dag_walk(w, torch.from_numpy(src).to(dev),
+                 torch.from_numpy(dst).to(dev), p, r,
+                 torch.from_numpy(exec_cost).to(dev))
+        out.append((p.cpu(), r.cpu(), w.ctrl[:, PENDING].cpu(),
+                    launch_counts()))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][2], out[1][2])
+    assert out[1][2][1] == 0 and out[1][2][0] > 0
+    assert torch.equal(out[0][0][1], torch.from_numpy(pred))
+    assert out[0][3]["dag_walk_fleet"] == 1
+
+
+def test_k11_coll_card_equals_plain(cuda):
+    """K11's collective birth (every row) and admission (one row)."""
+    from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    rng = np.random.default_rng(2)
+    B, V = 5, 3_000
+    row = (rng.integers(0, 4, V).astype(np.int32),
+           np.where(rng.random(V) < 0.1, 1e-3, np.inf))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        coll = (torch.full((B, V), -7, dtype=torch.int32, device=dev),
+                torch.full((B, V), 0.5, dtype=torch.float64, device=dev),
+                torch.full((B, 2), 0.25, dtype=torch.float64, device=dev))
+        base = tuple(torch.from_numpy(a).to(dev) for a in row)
+        reset_launch_counts()
+        k11.materialize_coll(coll, base)
+        born = [t.cpu().clone() for t in coll]
+        coll[0][3].fill_(1)
+        coll[1][3].fill_(9.0)
+        coll[2][3].fill_(2.0)
+        k11.admit_coll(coll, 3, base)
+        out.append((born, [t.cpu() for t in coll], launch_counts()))
+    for a, b in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
+        assert torch.equal(a, b)
+    assert torch.equal(out[0][1][0][3], torch.from_numpy(row[0]))
+    assert not out[0][1][2].any()
+    assert out[0][2]["fleet_materialize_coll"] == 1
+    assert out[0][2]["fleet_admit_coll"] == 1
+
+
+def test_collective_fleet_card_equals_plain(cuda):
+    """A collective fleet of four (plain, bandwidth, one uplink, a fault
+    campaign) with an admission after the first superstep: the card
+    equals the plain fleet on the CPU in every lane's completions,
+    activations, fault events and Kahan pair, lane 0 equals the tape
+    drain of the compiled collective, and every collective arm
+    launched."""
+    from simgrid_tpu_torch.collectives import CollectiveSpec
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    from simgrid_tpu_torch.workloads import collective_fleet as cf
+    cs = CollectiveSpec("allreduce", "rdb", 64, "nic", 1 << 20, bw=1e9)
+    ref = cs.build().make_sim(superstep=cf.SUPERSTEP, device=cuda)
+    ref.run()
+    specs = cf.fleet_specs(cs, ref.t, 4)
+    fresh = ScenarioSpec(seed=50, bw_scale=1.15, collective=cs)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        camp = cf.fleet_campaign(cs, specs, dev)
+
+        def admit(sim, plan=camp.plan):
+            if sim.supersteps == 1:
+                sim.retire(1)
+                sim.admit_lane(1, plan.overrides_for(fresh),
+                               plan.tape_for(fresh))
+        runs.append(cf.run_fleet(camp, between=admit))
+    (g, row), (c, _) = runs
+    for b in range(4):
+        assert cf.same_lane(g.replicas[b], c.replicas[b],
+                            g.collective_clock_of(b),
+                            c.collective_clock_of(b))
+    assert g.replicas[0].events == ref.events
+    assert g.replicas[0].collective_events == ref.collective_events
+    assert g.collective_clock_of(0) == tuple(ref._coll_clk.tolist())
+    assert cf.fires_before_end(g.replicas[3]) > 0
+    for name in ("dag_walk_fleet", "superstep_commit_coll_fleet",
+                 "superstep_commit_tape_fleet", "drain_advance_event_fleet",
+                 "fleet_materialize_coll", "fleet_admit_coll"):
+        assert row["launches"].get(name, 0) > 0, name

@@ -295,8 +295,7 @@ def test_unported_options_raise():
     for kw, item in ((dict(pipeline=2), "queue A item 2"),
                      (dict(mesh=2), "queue A item 9"),
                      (dict(plan=object()), "queue A item 8"),
-                     (dict(watchdog=object()), "queue A item 8"),
-                     (dict(collective=(1,)), "queue B item 12b")):
+                     (dict(watchdog=object()), "queue A item 8")):
         with pytest.raises(NotImplementedError, match=item):
             pb.BatchDrainSim(*arrays, ov, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="queue A item 9"):
@@ -304,7 +303,3 @@ def test_unported_options_raise():
                               mesh=2)
     with pytest.raises(NotImplementedError, match="queue A item 3"):
         pc.Campaign.from_engine(None, [])
-    with pytest.raises(NotImplementedError, match="queue B item 12b"):
-        pc.Campaign.for_collective(None, [])
-    with pytest.raises(NotImplementedError, match="queue B item 12b"):
-        pc.ScenarioPlan.for_collective(None)
