@@ -180,9 +180,9 @@ the shared schedule with its own DAG state:
    ``COLL_B_SMALL`` over the 64-rank ring and the 256-rank recursive
    doubling (the same mix), and the 64-rank fleet at ``COLL_B_CPU`` on
    the card against the plain fleet on the host CPU; (c) the launches of
-   each of the first 3 supersteps at B = 1 (a faulted lane: the same
-   arms) and B = ``COLL_B``, with the queued rounds per slot held equal; (d) K2's event arm and K3's
-   collective arm on the fleet's dates, K10's replica arm and K11's
+   each of the first 3 supersteps at B = 1 (the plain replica) and
+   B = ``COLL_B``, with the queued rounds per slot held equal; (d) K2's
+   event arm and K3's collective arm on the fleet's dates, K10's replica arm and K11's
    collective admission at (a)'s shapes, each against its plain version
    (K10 beside ``index_add_`` on int32, K11 beside ``index_put_`` of a
    row).
@@ -803,13 +803,13 @@ def collective_fleet_phase(ctx: dict) -> None:
                            plan.tape_for(fresh))
             admitted.append(sim.supersteps)
 
-    sim, row = cf.run_fleet(camp, between=admit)
+    sim, row = fleet_run.run_fleet_full(camp, between=admit)
     c18 = row["launches"]
     for name in ("fleet_materialize", "fleet_materialize_coll",
                  "fleet_admit", "fleet_admit_tape", "fleet_admit_coll",
                  "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_coll_fleet",
-                 "superstep_commit_tape_fleet", "dag_walk_fleet",
+                 "dag_walk_fleet",
                  "superstep_reset_fleet", "superstep_begin_fleet",
                  "superstep_finish_fleet"):
         if c18.get(name, 0) <= 0:
@@ -855,7 +855,8 @@ def collective_fleet_phase(ctx: dict) -> None:
     for cs_b in collective_run.CASES[:2]:
         tb = tape14[cs_b.ranks]
         sp_b = cf.fleet_specs(cs_b, tb["t"], COLL_B_SMALL)
-        sim_b, row_b = cf.run_fleet(cf.fleet_campaign(cs_b, sp_b, cuda))
+        sim_b, row_b = fleet_run.run_fleet_full(
+            cf.fleet_campaign(cs_b, sp_b, cuda))
         fires_b = [cf.fires_before_end(sim_b.replicas[b])
                    for b in range(COLL_B_SMALL - COLL_B_SMALL // 4,
                                   COLL_B_SMALL)]
@@ -868,7 +869,8 @@ def collective_fleet_phase(ctx: dict) -> None:
                  "faulted_fires_before_end": fires_b}
         if cs_b.ranks == collective_run.CASES[0].ranks:
             sp_c = cf.fleet_specs(cs_b, tb["t"], COLL_B_CPU)
-            pair = {k: cf.run_fleet(cf.fleet_campaign(cs_b, sp_c, dev))
+            pair = {k: fleet_run.run_fleet_full(
+                        cf.fleet_campaign(cs_b, sp_c, dev))
                     for k, dev in (("cuda", cuda), ("cpu", cpu))}
             g_c, c_c = pair["cuda"][0], pair["cpu"][0]
             rec_b["cpu_b"] = COLL_B_CPU
@@ -887,14 +889,11 @@ def collective_fleet_phase(ctx: dict) -> None:
             raise AssertionError(f"collective fleet (b) failed: {rec_b}")
     report["collective_fleets_b"] = rows_b
 
-    # (c) launches of each of the first 3 supersteps at B = 1 and COLL_B;
-    # the fleet of one is a faulted lane, so that both fleets run the
-    # same arms (a commit with the tape and the collective arm on counts
-    # under both)
-    one = specs[COLL_B - COLL_B // 4:][:1]
+    # (c) launches of each of the first 3 supersteps at B = 1 (the plain
+    # lane) and COLL_B
     per = {w_: fleet_run.launches_per_superstep(plan.executor(sp), 3,
                                                 slot_rounds=SLOT_ROUNDS)
-           for w_, sp in ((1, one), (COLL_B, specs))}
+           for w_, sp in ((1, specs[:1]), (COLL_B, specs))}
     held_c = all(a["first_pass"] == b["first_pass"]
                  for a, b in zip(per[1], per[COLL_B]))
     rec = {"phase": "collective_fleet_launches", "c_launches_b1": per[1],
@@ -1088,10 +1087,11 @@ def collective_fleet_phase(ctx: dict) -> None:
     k10_lib = events_ms(lambda: walk["cuda"]["pred"].view(-1).index_add_(
         0, flat_dst, dec), 20, lambda: k10_setup("cuda"))
     n_dec = Bk * int(roots[es[ed < V].long()].sum())
-    # the shared edge list read once, each replica's done flag per edge;
-    # per decrement a count read and written; per freed flow a cost read
-    # and a date written
-    k10_bytes = nbytes(es, ed) + Bk * len(es) + n_dec * 8 + freed * 16
+    # the shared edge list read once, each replica's done flag of every
+    # edge source once; per decrement a count read and written; per freed
+    # flow a cost read and a date written
+    k10_bytes = (nbytes(es, ed) + Bk * int(torch.unique(es).numel())
+                 + n_dec * 8 + freed * 16)
     kernels.append(dict(
         name="dag_walk_fleet", route="cuda",
         source="simgrid_tpu_torch/csrc/dag_walk.cu",
@@ -2780,8 +2780,9 @@ def main() -> int:
     if not held15 or not tape15["fault_events"] \
             or tape15["events"] == base15:
         raise AssertionError(f"composed arms: {rec}")
-    for name in ("superstep_commit_tape", "superstep_commit_coll",
-                 "dag_walk"):
+    # a commit with both arms on counts once, as the collective arm; the
+    # tape arm's runs show in the fault events checked above
+    for name in ("superstep_commit_coll", "dag_walk"):
         if tape15["launches"].get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on phase 15")
     del legs14, legs15, tape15, maes15
@@ -3031,9 +3032,11 @@ def main() -> int:
             0, dst14, -done14_g[src14].to(torch.int32))
     k10_lib = events_ms(library_k10, 20, lambda: k10_setup(w14g, "cuda"))
     n_dec = int(done14[es14[ed14 < V14].long()].sum())
-    # the edge list and each edge's done flag read; per decrement a count
-    # read and written; per freed flow a cost read and a date written
-    k10_bytes = nbytes(es14, ed14) + len(es14) + n_dec * 8 + freed14 * 16
+    # the edge list and the done flag of every edge source read once; per
+    # decrement a count read and written; per freed flow a cost read and a
+    # date written
+    k10_bytes = (nbytes(es14, ed14) + int(torch.unique(es14).numel())
+                 + n_dec * 8 + freed14 * 16)
     kernels.append(dict(
         name="dag_walk", route="cuda",
         source="simgrid_tpu_torch/csrc/dag_walk.cu",

@@ -9,11 +9,12 @@ advance slots.
 The commit's two event arms follow K2's event peek: the fault-tape arm
 (``tape=(tape_slot, tape_val)`` and the drain's ``c_bound``) logs the
 fired entry, scatters its bound and bumps the cursor; the collective
-arm (``ready``, ``pen``) fires the activations.  A launch counts as
-``superstep_commit_tape`` when its tape arm is on and as
-``superstep_commit_coll`` when its collective arm is on (a launch with
-both counts in both), as ``superstep_commit`` otherwise; a fleet's
-launches count under the same names with ``_fleet`` appended.
+arm (``ready``, ``pen``) fires the activations.  Every launch counts
+once: as ``superstep_commit_coll`` when its collective arm is on (with
+or without the tape arm, whose runs show in the fault events it logs),
+as ``superstep_commit_tape`` when only its tape arm is on, as
+``superstep_commit`` otherwise; a fleet's launches count under the same
+names with ``_fleet`` appended.
 
 ``packed`` is the superstep's result vector in the JAX layout:
 ``[rounds, adv, n_ev, t_sum, n_live, flag, live_elems]``, then
@@ -348,12 +349,8 @@ def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
     plain, taped, coll = ((COUNT, TAPE_COUNT, COLL_COUNT) if w.B is None
                           else (FLEET_COUNT, FLEET_TAPE_COUNT,
                                 FLEET_COLL_COUNT))
-    if tape is not None:
-        taped.n += 1
-    if ready is not None:
-        coll.n += 1
-    if tape is None and ready is None:
-        plain.n += 1
+    (coll if ready is not None else taped if tape is not None
+     else plain).n += 1
     return None
 
 

@@ -7,43 +7,36 @@ fault campaigns, each scenario a replica of one fleet
 with its own DAG state).  This module builds such fleets over
 ``collective_run.CASES`` (``bench.py``'s collective stage) and runs them:
 
-* :func:`fleet_specs`: the mix, at fleet width ``B``: the first half
+* :func:`fleet_specs`: the mix, at fleet width ``width``: the first half
   sweeps ``bw_scale`` (the plain scenario first, then 0.5 to 2.0), a
   quarter scales rank 0's NIC uplink (``link_scale``, 0.25 to 1.0), a
   quarter carries fault campaigns (``fault_mode="on"``) over every used
   link at seeds 42, 43, ..., MTBF ``20 t_end``, MTTR ``0.1 t_end`` and
   horizon ``t_end`` (``t_end`` the case's completion date), failures
   clamped to 5% of the link's bound;
-* :func:`fleet_campaign` and :func:`run_fleet`: the fleet through the
-  port's ``Campaign.for_collective``, with its wall, wall per replica,
-  supersteps, dispatches, rounds, resumes, completions, activations and
-  fault fires, and its kernel launches (counts zeroed just before and
-  read just after);
+* :func:`fleet_campaign`: the fleet through the port's
+  ``Campaign.for_collective``; ``fleet_run.run_fleet_full`` drains it
+  (wall, wall per replica, supersteps, dispatches, rounds, resumes,
+  completions, activations, fault fires, kernel launches) and
+  ``fleet_run.launches_per_superstep`` counts its launches;
 * :func:`fires_before_end` and :func:`same_lane`: what a lane is held
   to (fires before its last completion; completions, activations, fault
-  events, the clock and the Kahan pair); ``fleet_run.
-  launches_per_superstep`` counts a collective fleet's launches too.
+  events, the clock and the Kahan pair).
 
 Every entry point runs on the card unless given ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
-import torch
 
 from ..collectives import CollectiveSpec
 from ..device import DeviceLike, resolve_device
-from ..kernels import launch_counts, reset_launch_counts
-from ..ops import opstats
 from ..parallel.campaign import Campaign, ScenarioSpec
 from .collective_run import SUPERSTEP
 
-#: the fleet width of the 1,024-rank case
-B = 32
 #: the solve eps of ``bench.py``'s collective stage (the tape drain's
 #: ``DrainSim`` default), so the plain replica is that stage's drain
 EPS = 1e-5
@@ -51,7 +44,7 @@ EPS = 1e-5
 FAULT_SEED = 42
 
 
-def fleet_specs(cs: CollectiveSpec, t_end: float, width: int = B
+def fleet_specs(cs: CollectiveSpec, t_end: float, width: int
                 ) -> List[ScenarioSpec]:
     """The module docstring's mix of ``width`` scenarios (a multiple of
     4) of collective ``cs`` whose plain drain ends at ``t_end``."""
@@ -79,47 +72,6 @@ def fleet_campaign(cs: CollectiveSpec, specs: List[ScenarioSpec],
     return Campaign.for_collective(cs, specs, eps=EPS, dtype=np.float64,
                                    superstep=superstep, fault_mode="on",
                                    device=resolve_device(device))
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def run_fleet(camp: Campaign, between=None):
-    """Drain a collective campaign's specs as one fleet.  ``between(sim)``
-    runs after every superstep (an admission window).  Returns the fleet
-    and its row."""
-    dev = resolve_device(camp.plan.device)
-    _sync(dev)
-    before = opstats.snapshot()
-    reset_launch_counts()
-    t0 = time.perf_counter()
-    sim = camp.plan.executor(camp.specs)
-    sim.run(between=between)
-    _sync(dev)
-    wall = time.perf_counter() - t0
-    counts = {k: v for k, v in launch_counts().items() if v}
-    st = opstats.diff(before)
-    reps = sim.replicas
-    cs = camp.plan.collective
-    row = dict(case=f"{cs.algo}-r{cs.ranks}", replicas=sim.B,
-               flows=sim.n_v, edges=int(camp.plan._dc.n_edges),
-               superstep=sim.superstep_k, wall_s=wall,
-               wall_s_per_replica=wall / sim.B,
-               supersteps=sim.supersteps,
-               dispatches=int(st.get("dispatches", 0)),
-               resumes=sim.resumes, rescues=sim.rescues, rounds=sim.rounds,
-               admitted=sim.admitted,
-               advances=[r.advances for r in reps],
-               completions=sum(len(r.events) for r in reps),
-               activations=sum(len(r.collective_events) for r in reps),
-               fault_fires=[len(r.fault_events) for r in reps],
-               collective_tape_fires=int(st.get("collective_tape_fires", 0)),
-               fault_tape_events=int(st.get("fault_tape_events", 0)),
-               t_sim=[r.t for r in reps], errors=[r.error for r in reps],
-               launches=counts)
-    return sim, row
 
 
 def fires_before_end(rep) -> int:

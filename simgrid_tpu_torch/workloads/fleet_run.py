@@ -12,8 +12,10 @@
 * :func:`fleet_specs`, :func:`fleet_campaign` and
   :func:`run_fleet_full` — a fleet over a drain system (config #4's
   random drain at full width): sweep replicas and faulted replicas in
-  one fleet, with its wall, supersteps, rounds and launch counts;
-  :func:`launches_per_superstep` counts a fleet's launches.
+  one fleet, with its wall, supersteps, rounds and launch counts
+  (:func:`run_fleet_full` also drains ``workloads/collective_fleet.py``'s
+  collective campaigns); :func:`launches_per_superstep` counts a fleet's
+  launches.
 
 Every function returns rows (dicts) and runs on the card unless given
 ``device="cpu"``.
@@ -29,6 +31,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import launch_counts, reset_launch_counts
+from ..ops import opstats
 from ..parallel.campaign import Campaign, ScenarioSpec
 from .bench_solve import build_arrays
 
@@ -211,9 +214,11 @@ def run_fleet_full(camp: Campaign, between=None,
                    max_supersteps: int = 10_000_000):
     """Drain a campaign's specs as one fleet, launch counts zeroed just
     before and read just after.  ``between(sim)`` runs after every
-    superstep (an admission window).  Returns the fleet and its row."""
+    superstep (an admission window).  Returns the fleet and its row; a
+    collective campaign's row also names its case and edge count."""
     dev = resolve_device(camp.plan.device)
     _sync(dev)
+    before = opstats.snapshot()
     reset_launch_counts()
     t0 = time.perf_counter()
     sim = camp.plan.executor(camp.specs)
@@ -221,15 +226,25 @@ def run_fleet_full(camp: Campaign, between=None,
     _sync(dev)
     wall = time.perf_counter() - t0
     counts = {k: v for k, v in launch_counts().items() if v}
+    st = opstats.diff(before)
+    reps = sim.replicas
     row = dict(replicas=sim.B, flows=sim.n_v, superstep=sim.superstep_k,
                wall_s=wall, wall_s_per_replica=wall / sim.B,
-               supersteps=sim.supersteps, resumes=sim.resumes,
-               rescues=sim.rescues, rounds=sim.rounds,
-               advances=[r.advances for r in sim.replicas],
-               fires=[len(r.fault_events) for r in sim.replicas],
-               t_sim=[r.t for r in sim.replicas],
-               errors=[r.error for r in sim.replicas],
+               supersteps=sim.supersteps,
+               dispatches=int(st.get("dispatches", 0)),
+               resumes=sim.resumes, rescues=sim.rescues, rounds=sim.rounds,
+               admitted=sim.admitted, advances=[r.advances for r in reps],
+               completions=sum(len(r.events) for r in reps),
+               activations=sum(len(r.collective_events) for r in reps),
+               fires=[len(r.fault_events) for r in reps],
+               fault_tape_events=int(st.get("fault_tape_events", 0)),
+               collective_tape_fires=int(st.get("collective_tape_fires", 0)),
+               t_sim=[r.t for r in reps], errors=[r.error for r in reps],
                batch_w=sim.batch_w, launches=counts)
+    cs = camp.plan.collective
+    if cs is not None:
+        row.update(case=f"{cs.algo}-r{cs.ranks}",
+                   edges=int(camp.plan._dc.n_edges))
     return sim, row
 
 

@@ -889,6 +889,7 @@ def test_collective_fleet_card_equals_plain(cuda):
     from simgrid_tpu_torch.collectives import CollectiveSpec
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
     from simgrid_tpu_torch.workloads import collective_fleet as cf
+    from simgrid_tpu_torch.workloads import fleet_run
     cs = CollectiveSpec("allreduce", "rdb", 64, "nic", 1 << 20, bw=1e9)
     ref = cs.build().make_sim(superstep=cf.SUPERSTEP, device=cuda)
     ref.run()
@@ -903,7 +904,7 @@ def test_collective_fleet_card_equals_plain(cuda):
                 sim.retire(1)
                 sim.admit_lane(1, plan.overrides_for(fresh),
                                plan.tape_for(fresh))
-        runs.append(cf.run_fleet(camp, between=admit))
+        runs.append(fleet_run.run_fleet_full(camp, between=admit))
     (g, row), (c, _) = runs
     for b in range(4):
         assert cf.same_lane(g.replicas[b], c.replicas[b],
@@ -914,6 +915,6 @@ def test_collective_fleet_card_equals_plain(cuda):
     assert g.collective_clock_of(0) == tuple(ref._coll_clk.tolist())
     assert cf.fires_before_end(g.replicas[3]) > 0
     for name in ("dag_walk_fleet", "superstep_commit_coll_fleet",
-                 "superstep_commit_tape_fleet", "drain_advance_event_fleet",
-                 "fleet_materialize_coll", "fleet_admit_coll"):
+                 "drain_advance_event_fleet", "fleet_materialize_coll",
+                 "fleet_admit_coll"):
         assert row["launches"].get(name, 0) > 0, name

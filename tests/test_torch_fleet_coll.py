@@ -324,3 +324,34 @@ def test_plan_key_equals_jax():
         assert plain.topology_hash() != pp.topology_hash()
         spec = pc.ScenarioSpec(seed=4, bw_scale=0.5, collective=cs)
         assert spec.key() == jspec(spec).key()
+
+
+def test_collective_fleet_workload_row():
+    """``workloads/collective_fleet.py``'s mix through ``fleet_run.
+    run_fleet_full`` on the CPU: the row's completions, activations and
+    fires are its lanes', its dispatches and activation fires the
+    counters', and every lane equals its solo drain."""
+    from simgrid_tpu_torch.workloads import collective_fleet as cf
+    from simgrid_tpu_torch.workloads import fleet_run
+    cs = CASES["rdb"]
+    ref = cs.build().make_sim(superstep=cf.SUPERSTEP, eps=cf.EPS,
+                              device="cpu")
+    ref.run()
+    specs = cf.fleet_specs(cs, ref.t, 4)
+    camp = cf.fleet_campaign(cs, specs, "cpu")
+    with opstats.scoped("workload") as d:
+        sim, row = fleet_run.run_fleet_full(camp)
+    reps = sim.replicas
+    assert (row["case"], row["edges"]) == ("rdb-r6", camp.plan._dc.n_edges)
+    assert row["completions"] == sum(len(r.events) for r in reps) \
+        == 4 * sim.n_v
+    assert row["activations"] == row["collective_tape_fires"] \
+        == d["collective_tape_fires"] > 0
+    assert row["dispatches"] == d["dispatches"]
+    assert row["fires"] == [len(r.fault_events) for r in reps]
+    assert row["errors"] == [None] * 4 and row["launches"] == {}
+    for b, spec in enumerate(specs):
+        assert cf.same_lane(reps[b], camp.plan.solo(spec))
+    assert cf.same_lane(reps[0], ref)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cf.fleet_specs(cs, ref.t, 6)
