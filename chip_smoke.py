@@ -187,6 +187,19 @@ the shared schedule with its own DAG state:
    (K10 beside ``index_add_`` on int32, K11 beside ``index_put_`` of a
    row).
 
+19. the op-cost probe (on no main path; ``simgrid_tpu_torch/probes/``):
+   ``run_opcost`` (P1-P8 of the TPU tools and ``tools/tpu_opcost.py``'s
+   table at their full shapes, float32 and float64: every kernel arm
+   checked against the tools' numpy want, timed beside its library
+   call) and ``run_scaling`` (per-element against per-op cost), with
+   the launch counts zeroed before and read after (every arm of K12-K15
+   and ``probe_double`` must launch); then every arm on the card
+   against its plain version on the host CPU at P1's, P2's, P3's and
+   P6's shapes (by bits: the gathers, the in-order segment sum, the
+   sequential scan, the minima and the three loop arms; the atomic
+   segment sums and the block scan within the reordered-sum bound
+   ``2 m u |want|``), and the kernel rows K12-K15.
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 Then the card line again, one JSON line with a record per kernel, and
@@ -1143,6 +1156,182 @@ def collective_fleet_phase(ctx: dict) -> None:
     log({"phase": "kernel", **kernels[-1]})
     del works, walk, coll, st
     torch.cuda.empty_cache()
+
+
+def probe_phase(ctx: dict) -> None:
+    """Phase 19 (module docstring): the op-cost probe, P1-P8 on K12-K15,
+    its launches, every arm held against its plain version, and the four
+    kernel rows.  ``ctx`` carries main's helpers and output directory."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from simgrid_tpu_torch.kernels import probe_gather as k12
+    from simgrid_tpu_torch.kernels import probe_loop as k15
+    from simgrid_tpu_torch.kernels import probe_scan as k14
+    from simgrid_tpu_torch.kernels import probe_segsum as k13
+    from simgrid_tpu_torch.probes import data
+    from simgrid_tpu_torch.probes.common import reorder_tol, torch_dtype
+    from simgrid_tpu_torch.probes.opcost import run_opcost
+    from simgrid_tpu_torch.probes.scaling import run_scaling
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    events_ms, diff, kernels, report = (ctx[k] for k in (
+        "events_ms", "diff", "kernels", "report"))
+    t0 = time.perf_counter()
+
+    # (a) the probe through its entry points, launches counted
+    reset_launch_counts()
+    runs = [run_opcost(cuda), run_scaling(cuda)]
+    counts = {k: v for k, v in launch_counts().items()
+              if k.startswith("probe_")}
+    rows = [r for run in runs for r in run["rows"]]
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"phase 19: {len(bad)} probe rows failed "
+                             f"their check: {bad[:3]}")
+    arms = {"probe_gather": k12.ARMS, "probe_segsum": k13.ARMS,
+            "probe_scan": k14.ARMS, "probe_loop": k15.ARMS}
+    names = [f"{k}_{a}" for k, al in arms.items() for a in al] + \
+        ["probe_double"]
+    idle = [n for n in names if counts.get(n, 0) == 0]
+    if idle:
+        raise AssertionError(f"phase 19: {idle} never launched")
+    a_s = time.perf_counter() - t0
+    with open(os.path.join(ctx["out_dir"], "torch_opcost.jsonl"), "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+    # (b) every arm against its plain version on the host CPU, on the
+    # same inputs at the tools' full shapes, in both dtypes
+    d1, d3 = data.pallas_probe(), data.pallas_gather3()
+    C1, C3 = d1["C"], d3["C"]
+    held, errs = {}, {k: 0.0 for k in arms}
+
+    def hold(kernel, label, got, want, tol=None):
+        got = got.cpu()
+        err = diff(got, want)
+        errs[kernel] = max(errs[kernel], err)
+        if tol is None:
+            ok = err == 0.0
+        else:
+            g, w = got.double().numpy(), want.double().numpy()
+            ok = bool(np.all(np.abs(g - w) <= tol))
+        held[label] = ok
+        if not ok:
+            raise AssertionError(f"phase 19: {label} differs from its "
+                                 f"plain version ({err})")
+
+    idx_c = torch.from_numpy(d1["idx"])
+    idx_g = idx_c.to(cuda)
+    csr = k13.segment_csr(idx_g, C1)
+    terms = np.maximum(np.bincount(d1["idx"].ravel(), minlength=C1), 1)
+    for name in ("float32", "float64"):
+        dt = torch_dtype(name)
+        tab_c = torch.from_numpy(data.as_dtype(d1["tab"], dt))
+        w_c = torch.from_numpy(data.as_dtype(d1["w"], dt))
+        tab_g, w_g = tab_c.to(cuda), w_c.to(cuda)
+        want = k12.probe_gather_plain(tab_c, idx_c)
+        for arm in k12.ARMS:
+            hold("probe_gather", f"K12 {arm} {name}",
+                 k12.probe_gather(tab_g, idx_g, arm), want)
+        want = k13.probe_segsum_plain(idx_c, w_c, C1)
+        tol = reorder_tol(want.numpy(), terms, dt)
+        for arm in k13.ARMS:
+            hold("probe_segsum", f"K13 {arm} {name}",
+                 k13.probe_segsum(idx_g, w_g, C1, arm, csr=csr), want,
+                 None if arm == "inorder" else tol)
+        hold("probe_segsum", f"K13 inorder min {name}",
+             k13.probe_segsum(idx_g, w_g, C1, "inorder", "min", csr),
+             k13.probe_segsum_plain(idx_c, w_c, C1, "min"))
+        x_c = torch.from_numpy(data.as_dtype(d3["w_cum"], dt))
+        x_g = x_c.to(cuda)
+        for op in k14.OPS:
+            want = k14.probe_scan_plain(x_c, op)
+            tol = reorder_tol(want.numpy(), np.arange(1, C3 + 1), dt) \
+                if op == "sum" else None
+            for arm in k14.ARMS:
+                hold("probe_scan", f"K14 {arm} {op} {name}",
+                     k14.probe_scan(x_g, arm, op), want,
+                     tol if arm == "block" else None)
+        want = k15.probe_loop_plain(tab_c, idx_c)
+        for arm in k15.ARMS:
+            hold("probe_loop", f"K15 {arm} {name}",
+                 k15.probe_loop(tab_g, idx_g, arm=arm), want)
+        x8 = torch.ones((256, 128), dtype=dt)
+        hold("probe_loop", f"P8 probe_double {name}",
+             k15.probe_double(x8.to(cuda)), k15.probe_double_plain(x8))
+    torch.cuda.synchronize()
+
+    # (c) the kernel rows: each kernel's float32 row at its probe's
+    # shape (the tools' dtype), every arm and dtype beside it; the plain
+    # version timed on the card at the same shape
+    def pick(probe, name, dtype="float32"):
+        return [r for r in rows if r["probe"] == probe and r["name"] == name
+                and r["dtype"] == dtype]
+
+    def arm_list(kernel_rows):
+        return [{k: r[k] for k in ("probe", "name", "arm", "dtype", "ms",
+                                   "paced_ms", "enqueue_us", "bound_ms",
+                                   "library_ms", "max_abs_err")}
+                for r in kernel_rows]
+    tab32 = torch.from_numpy(data.as_dtype(d1["tab"], torch.float32)) \
+        .to(cuda)
+    w32 = torch.from_numpy(data.as_dtype(d1["w"], torch.float32)).to(cuda)
+    x32 = torch.from_numpy(data.as_dtype(d3["w_cum"], torch.float32)) \
+        .to(cuda)
+    plain_ms = {
+        "probe_gather": events_ms(lambda: k12.probe_gather_plain(
+            tab32, idx_g), 10),
+        "probe_segsum": events_ms(lambda: k13.probe_segsum_plain(
+            idx_g, w32, C1, csr=csr), 3),
+        "probe_scan": events_ms(lambda: k14.probe_scan_plain(x32), 1),
+        "probe_loop": events_ms(lambda: k15.probe_loop_plain(tab32, idx_g),
+                                3)}
+    # (kernel, its probe, its row at the tools' shape, main arm, the TPU
+    # kernel, the rows listed beside it: every arm and dtype there)
+    spec = [
+        ("probe_gather", "pallas_probe", "P1_gather", "global",
+         "tools/tpu_pallas_probe.py:59", ("P1_gather",)),
+        ("probe_segsum", "pallas_probe", "P2_segsum", "inorder",
+         "tools/tpu_pallas_probe.py:80", ("P2_segsum",)),
+        ("probe_scan", "pallas_gather3", "P6_cumsum_axis1", "seq",
+         "tools/tpu_pallas_gather3.py:93", ("P6_cumsum_axis1",)),
+        ("probe_loop", "pallas_probe", "P3_loop16", "coop",
+         "tools/tpu_pallas_probe.py:105", ("P3_loop16", "P8_double"))]
+    for kernel, probe, main_name, main_arm, replaces, listed in spec:
+        main = [r for r in pick(probe, main_name) if r["arm"] == main_arm][0]
+        own = [r for r in rows if r["name"] in listed]
+        mine = {k: v for k, v in counts.items() if k.startswith(kernel)
+                or (kernel == "probe_loop" and k == "probe_double")}
+        row = dict(
+            name=kernel, route="cuda",
+            source=f"simgrid_tpu_torch/csrc/{kernel}.cu", replaces=replaces,
+            launches=sum(mine.values()), launch_counts=mine,
+            max_abs_err=errs[kernel], ms=main["ms"],
+            plain_ms=plain_ms[kernel], bound_ms=main["bound_ms"],
+            bound_by="bytes", library_ms=main["library_ms"],
+            library=main["library"],
+            main_row=f"{probe} {main_name} {main_arm} float32",
+            arms=arm_list(own),
+            launches_from="phase 19 (the op-cost probe; on no main path)")
+        if kernel == "probe_loop":
+            launch = [r for r in pick(probe, main_name)
+                      if r["arm"] == "launch"][0]
+            row["yardstick_ms"] = launch["ms"]
+            row["yardstick"] = "the launch arm (16 launches of one round)"
+        kernels.append(row)
+        log({"phase": "kernel", **{k: v for k, v in row.items()
+                                   if k != "arms"}})
+    rec = {"phase": "opcost_probe", "rows": len(rows), "a_s": a_s,
+           "sync_ms": runs[0]["sync_ms"], "launches": counts,
+           "held": all(held.values()), "n_held": len(held),
+           "wall_s": time.perf_counter() - t0,
+           "columns": ["probe", "name", "arm", "dtype", "ms", "paced_ms",
+                       "enqueue_us", "bound_ms", "library_ms"],
+           "table": [[r["probe"], r["name"], r["arm"], r["dtype"],
+                      r["ms"], r["paced_ms"], r["enqueue_us"], r["bound_ms"],
+                      r["library_ms"]] for r in rows]}
+    log(rec)
+    report["opcost_probe"] = {**rec, "rows": rows, "held": held}
 
 
 def main() -> int:
@@ -3054,19 +3243,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     helpers = dict(events_ms=events_ms, nbytes=nbytes, bound_ms=bound_ms,
-                   diff=diff, kernels=kernels, report=report)
+                   diff=diff, kernels=kernels, report=report, out_dir=out_dir)
     fleet_phases(dict(dsys=dsys, rsys=rsys, wall13=row13["wall_s"],
                       EPS=EPS, **helpers))
     collective_fleet_phase(dict(tape14=tape14, **helpers))
+    probe_phase(helpers)
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     print(smi, flush=True)
-    log({"kernels": [{k: kr[k] for k in (
+    log({"kernels": [{**{k: kr[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_from")}
+        "launches_from")}, **({"arms": kr["arms"]} if "arms" in kr else {})}
         for kr in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

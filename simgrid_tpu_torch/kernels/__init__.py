@@ -26,6 +26,19 @@ their plain PyTorch versions.
   base arrays and compact payloads, at birth and at the admission of
   one replica
 
+The op-cost probe's kernels (``simgrid_tpu_torch/probes/``; on no
+package path, in place of the Pallas probes P1-P8 under ``tools/``):
+
+* K12 :mod:`.probe_gather`    — ``tab[idx]`` (global and shared-memory
+  arms)
+* K13 :mod:`.probe_segsum`    — a segment sum or min (global atomics,
+  shared-memory atomics, an in-order fold over a CSR)
+* K14 :mod:`.probe_scan`      — an inclusive scan along the lanes of each
+  row (a sequential fold per row, a block-parallel scan)
+* K15 :mod:`.probe_loop`      — K dependent gather rounds (one
+  cooperative launch, K launches, a replayed CUDA graph) and P8's
+  ``x * 2``
+
 K1-K3 also take a replica axis (a fleet :class:`~.common.Work`): one
 launch serves every replica of a fleet, counted under ``<name>_fleet``.
 
@@ -42,7 +55,8 @@ def launch_counts() -> Dict[str, int]:
     """Launches of each kernel wrapper since the last reset."""
     from . import (dag_walk, drain_advance, ell_chain,  # noqa: F401
                    ell_round, fleet_materialize, livefirst_repack,
-                   lmm_round, superstep_commit, transition_scatter,
+                   lmm_round, probe_gather, probe_loop, probe_scan,
+                   probe_segsum, superstep_commit, transition_scatter,
                    vc_round, warm_init)
     return {name: c.n for name, c in COUNTERS.items()}
 

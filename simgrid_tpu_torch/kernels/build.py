@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build",
 SOURCES = ("lmm_round", "drain_advance", "superstep_commit",
            "livefirst_repack", "transition_scatter", "warm_init",
            "ell_round", "vc_round", "ell_chain", "dag_walk",
-           "fleet_materialize")
+           "fleet_materialize", "probe_gather", "probe_segsum",
+           "probe_scan", "probe_loop")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-shared", "-Xcompiler",
          "-fPIC"]

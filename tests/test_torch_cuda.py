@@ -918,3 +918,129 @@ def test_collective_fleet_card_equals_plain(cuda):
                  "drain_advance_event_fleet", "fleet_materialize_coll",
                  "fleet_admit_coll"):
         assert row["launches"].get(name, 0) > 0, name
+
+
+# ---- K12-K15: the op-cost probe's kernels --------------------------------
+
+PROBE_DTYPES = [torch.float32, torch.float64]
+
+
+def probe_inputs(dev, dtype, C=16384, V=131072, seed=7):
+    """P1's shapes (tools/tpu_pallas_probe.py:37-42)."""
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, C, (V, 4)).astype(np.int32))
+    tab = torch.from_numpy(rng.uniform(1, 2, C)).to(dtype)
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, (V, 4))).to(dtype)
+    return tab.to(dev), idx.to(dev), w.to(dev), (tab, idx, w)
+
+
+def reordered(got, want, terms, dtype):
+    """|got - want| within two orders of a sum of `terms` positive
+    values (probes/common.reorder_tol)."""
+    from simgrid_tpu_torch.probes.common import reorder_tol
+    g, w = got.cpu().double().numpy(), want.double().numpy()
+    return bool(np.all(np.abs(g - w) <= reorder_tol(w, terms, dtype)))
+
+
+@pytest.mark.parametrize("dtype", PROBE_DTYPES, ids=["f32", "f64"])
+def test_probe_gather_card_equals_plain(cuda, dtype):
+    from simgrid_tpu_torch.kernels import probe_gather as k12
+    tab, idx, _, (tab_c, idx_c, _) = probe_inputs(cuda, dtype)
+    want = k12.probe_gather_plain(tab_c, idx_c)
+    for ix, ix_c in ((idx, idx_c), (idx.reshape(-1, 128),
+                                    idx_c.reshape(-1, 128))):
+        for arm in k12.ARMS:
+            reset_launch_counts()
+            got = k12.probe_gather(tab, ix, arm)
+            assert got.shape == ix.shape
+            assert torch.equal(got.cpu().reshape(want.shape), want)
+            assert launch_counts()[f"probe_gather_{arm}"] == 1
+    big = torch.ones(30_000, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        k12.probe_gather(big, idx, "smem")
+
+
+@pytest.mark.parametrize("dtype", PROBE_DTYPES, ids=["f32", "f64"])
+def test_probe_segsum_card_equals_plain(cuda, dtype):
+    from simgrid_tpu_torch.kernels import probe_segsum as k13
+    C = 16384
+    _, idx, w, (_, idx_c, w_c) = probe_inputs(cuda, dtype)
+    csr = k13.segment_csr(idx, C)
+    want = k13.probe_segsum_plain(idx_c, w_c, C)
+    terms = np.maximum(np.bincount(idx_c.reshape(-1).numpy(),
+                                   minlength=C), 1)
+    for arm in k13.ARMS:
+        got = k13.probe_segsum(idx, w, C, arm, csr=csr)
+        if arm == "inorder":
+            assert torch.equal(got.cpu(), want)
+        else:
+            assert reordered(got, want, terms, dtype), arm
+    got = k13.probe_segsum(idx, w, C, "inorder", "min", csr)
+    assert torch.equal(got.cpu(), k13.probe_segsum_plain(idx_c, w_c, C,
+                                                         "min"))
+    w3 = torch.stack([w, 2 * w, w], dim=-1)
+    want3 = k13.probe_segsum_plain(idx_c, w3.cpu(), C)
+    assert torch.equal(k13.probe_segsum(idx, w3, C, "inorder", csr=csr)
+                       .cpu(), want3)
+    assert reordered(k13.probe_segsum(idx, w3, C, "atomic"), want3,
+                     terms[:, None], dtype)
+    if dtype == torch.float64:
+        with pytest.raises(ValueError, match="do not fit"):
+            k13.probe_segsum(idx, w3, C, "smem_atomic")
+
+
+@pytest.mark.parametrize("dtype", PROBE_DTYPES, ids=["f32", "f64"])
+def test_probe_scan_card_equals_plain(cuda, dtype):
+    from simgrid_tpu_torch.kernels import probe_scan as k14
+    rng = np.random.default_rng(7)
+    for shape in ((32, 16384), (5, 3000), (70_001,)):
+        x_c = torch.from_numpy(rng.uniform(0.5, 1.5, shape)).to(dtype)
+        x = x_c.to(cuda)
+        want = k14.probe_scan_plain(x_c)
+        assert torch.equal(k14.probe_scan(x, "seq").cpu(), want)
+        terms = np.broadcast_to(np.arange(1, shape[-1] + 1), shape)
+        assert reordered(k14.probe_scan(x, "block"), want, terms, dtype)
+        want_min = k14.probe_scan_plain(x_c, "min")
+        for arm in k14.ARMS:
+            assert torch.equal(k14.probe_scan(x, arm, "min").cpu(),
+                               want_min)
+
+
+@pytest.mark.parametrize("dtype", PROBE_DTYPES, ids=["f32", "f64"])
+def test_probe_loop_card_equals_plain(cuda, dtype):
+    from simgrid_tpu_torch.kernels import probe_loop as k15
+    tab, idx, _, (tab_c, idx_c, _) = probe_inputs(cuda, dtype)
+    for rounds in (16, 1, 0):
+        want = k15.probe_loop_plain(tab_c, idx_c, rounds)
+        for arm in k15.ARMS:
+            got = k15.probe_loop(tab, idx, rounds, arm)
+            assert torch.equal(got.cpu(), want), (arm, rounds)
+    lg = k15.LoopGraph(tab, idx, 16)       # captured outside the counts
+    reset_launch_counts()
+    k15.probe_loop(tab, idx, 16, "coop")
+    k15.probe_loop(tab, idx, 16, "launch")
+    for _ in range(3):
+        got = lg.replay()
+    assert torch.equal(got.cpu(), k15.probe_loop_plain(tab_c, idx_c, 16))
+    counts = launch_counts()
+    assert (counts["probe_loop_coop"], counts["probe_loop_launch"],
+            counts["probe_loop_graph"]) == (1, 16, 3)
+    grid = k15.coop_grid(dtype)
+    assert grid >= torch.cuda.get_device_properties(0).multi_processor_count
+    with pytest.raises(RuntimeError, match="cudaError"):
+        k15.probe_loop(tab, idx, 16, "coop", grid=grid + 1)
+    assert torch.equal(k15.probe_loop(tab, idx, 16, "coop").cpu(),
+                       k15.probe_loop_plain(tab_c, idx_c, 16))
+    x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (256, 128))
+                         ).to(dtype)
+    assert torch.equal(k15.probe_double(x.to(cuda)).cpu(), x * 2)
+
+
+def test_run_opcost_on_card(cuda):
+    """The whole probe at 1/16 of the tools' shapes: every row checked."""
+    from simgrid_tpu_torch.probes.opcost import run_opcost
+    from simgrid_tpu_torch.probes.scaling import run_scaling
+    r = run_opcost(cuda, scale=1 / 16)
+    assert r["ok"], [x for x in r["rows"] if not x["ok"]]
+    assert all(x["bound_ms"] is not None for x in r["rows"])
+    assert run_scaling(cuda, scale=1 / 16, dtypes=("float32",))["ok"]

@@ -16,6 +16,10 @@ from simgrid_tpu_torch.kernels import common, launch_counts
 from simgrid_tpu_torch.kernels import drain_advance as k2
 from simgrid_tpu_torch.kernels import livefirst_repack as k4
 from simgrid_tpu_torch.kernels import lmm_round as k1
+from simgrid_tpu_torch.kernels import probe_gather as k12
+from simgrid_tpu_torch.kernels import probe_loop as k15
+from simgrid_tpu_torch.kernels import probe_scan as k14
+from simgrid_tpu_torch.kernels import probe_segsum as k13
 from simgrid_tpu_torch.kernels import superstep_commit as k3
 from simgrid_tpu_torch.kernels import transition_scatter as k5
 from simgrid_tpu_torch.kernels import warm_init as k6
@@ -31,6 +35,12 @@ def port_sources():
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    # the port's tools; tools/torch_parity_*.py hold the port against the
+    # JAX package on the host, as the tests do, and import both
+    tools = os.path.join(ROOT, "tools")
+    out += [os.path.join(tools, f) for f in os.listdir(tools)
+            if f.startswith("torch_") and f.endswith(".py")
+            and not f.startswith("torch_parity_")]
     return sorted(out)
 
 
@@ -81,7 +91,10 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.ops.lmm_batch\n"
         "import simgrid_tpu_torch.parallel.campaign\n"
         "import simgrid_tpu_torch.workloads.fleet_run\n"
+        "import simgrid_tpu_torch.probes.opcost\n"
+        "import simgrid_tpu_torch.probes.scaling\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "runpy.run_path('tools/torch_opcost.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'simgrid_tpu')]\n"
         "assert not bad, bad\n")
@@ -166,9 +179,13 @@ def test_entry_points_need_a_device():
     from simgrid_tpu_torch.collectives import CollectiveSpec, HostMaestro
     from simgrid_tpu_torch.workloads import collective_run
     dc = CollectiveSpec("allreduce", "rdb", 4).build()
+    from simgrid_tpu_torch.probes.opcost import run_opcost
+    from simgrid_tpu_torch.probes.scaling import run_scaling
     for entry in (lambda: dc.make_sim(superstep=4),
                   lambda: HostMaestro(dc),
-                  lambda: collective_run.run_case(CollectiveSpec())):
+                  lambda: collective_run.run_case(CollectiveSpec()),
+                  lambda: run_opcost(scale=1 / 256),
+                  lambda: run_scaling(scale=1 / 256)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry()
 
@@ -238,10 +255,28 @@ def test_wrappers_run_plain_version_on_cpu():
                              rem, thresh, ids, 1, 8, 2)
     assert rp.ids.tolist() == [1]
     assert rp.sys.e_w.tolist()[:2] == [1.0, 1.0]
+    # K12-K15 (the op-cost probe's kernels)
+    tab = torch.tensor([1.5, 2.5, 3.5], dtype=torch.float64)
+    idx = torch.tensor([[2, 0], [1, 1]] * 4, dtype=torch.int32)
+    assert k12.probe_gather(tab, idx, "smem").tolist() == \
+        [[3.5, 1.5], [2.5, 2.5]] * 4
+    wt = torch.full((8, 2), 0.25, dtype=torch.float64)
+    assert k13.probe_segsum(idx, wt, 3, "atomic").tolist() == [1.0, 2.0, 1.0]
+    assert k14.probe_scan(tab, "block").tolist() == [1.5, 4.0, 7.5]
+    assert k15.probe_loop(tab, idx, 2, "graph").shape == (8, 1)
+    assert k15.probe_double(tab).tolist() == [3.0, 5.0, 7.0]
     assert launch_counts() == before
 
     with pytest.raises(ValueError):
         k2.drain_advance(pen, rem, thresh.to("meta"), w)
+    with pytest.raises(ValueError):
+        k12.probe_gather(tab, idx.to("meta"))
+    with pytest.raises(ValueError):
+        k13.probe_segsum(idx, wt.to("meta"), 3)
+    with pytest.raises(ValueError):
+        k14.probe_scan(tab.to("meta"))
+    with pytest.raises(ValueError):
+        k15.probe_double(tab.to("meta"))
 
 
 def test_superstep_commit_plain_ring_order():
