@@ -13,7 +13,18 @@ Phases (each prints one JSON line of its results):
    host CPU, so every sum is in element order; the tolerance is 0:
    results must be bit-identical), with its mean time from CUDA events,
    the plain version's time on the card, and the least time the card
-   could take (bytes over 3.35 TB/s);
+   could take (bytes over 3.35 TB/s).  K1's rows (here, in phases 5-6
+   and 17), K3's tape and replica arms, K10's replica arm and K11's
+   admissions are timed twice: ``ms``, the card's own time, the calls
+   queued behind ``torch.cuda._sleep`` (``probes/timing.py``
+   ``time_rounds``/``time_call``), and ``paced_ms``, CUDA events around
+   the host's calls as before.  K1's row plan (``lmm_plan``, built at
+   system build and after every repack) is held against its plain
+   version by bits on this system (main path 1's shape) and timed; the
+   plan each K1 row ran on (here, phases 5 and 16: the alltoall's index
+   and main path 10's) is held the same way, and the row logs its
+   classes (rows a block, a warp and a thread walk).  Main paths 1, 10
+   and 11 must launch the plan;
 3. main path: the full config-#4 drain, superstep=16, float64, through
    the kernels, with every kernel's launch count from that run;
 4. reduced drain: 10,000 flows of the same generator through the
@@ -305,6 +316,25 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def held_plan(w) -> dict:
+    """K1's row plan on the row index the Work ``w`` last ran on, held
+    against ``lmm_plan_plain`` of that index on the host CPU (order and
+    class sizes equal, or raise); returns its classes: the rows a block
+    walks (long), a warp (medium) and a thread (short)."""
+    import torch
+    from simgrid_tpu_torch.kernels import lmm_round as k1
+    csr, plan = w.k1_plan
+    want = k1.lmm_plan_plain(csr.c_ptr.cpu(), k1.SHORT_ROW, k1.LONG_ROW)
+    if not (torch.equal(plan.order.cpu(), want.order)
+            and torch.equal(plan.ncls.cpu(), want.ncls)):
+        raise AssertionError(f"K1's row plan of {csr.c_ptr.shape[0] - 1} "
+                             f"rows differs from its plain version")
+    n = [int(x) for x in want.ncls.tolist()]
+    return {"long": n[0], "medium": n[1], "short": n[2],
+            "short_max": k1.SHORT_ROW, "long_min": k1.LONG_ROW,
+            "plan_held": True}
+
+
 def fleet_phases(ctx: dict) -> None:
     """Phases 16-17 (module docstring): the config-#4 fleet, the stage
     counts, and K11 and the replica arms of K1-K3 against their plain
@@ -329,6 +359,7 @@ def fleet_phases(ctx: dict) -> None:
                                                  solve_arrays_batch)
     from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    from simgrid_tpu_torch.probes.timing import time_call, time_rounds
     from simgrid_tpu_torch.workloads import dragonfly, fleet_run
     from simgrid_tpu_torch.workloads.bench_solve import build_arrays
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -362,12 +393,15 @@ def fleet_phases(ctx: dict) -> None:
     sim16, row16 = fleet_run.run_fleet_full(camp16, between=admit)
     c16 = row16["launches"]
     for name in ("fleet_materialize", "fleet_materialize_ew", "fleet_admit",
-                 "fleet_admit_ew", "fleet_admit_tape", "lmm_init_fleet",
-                 "lmm_round_fleet", "drain_advance_event_fleet",
-                 "superstep_commit_tape_fleet", "superstep_reset_fleet",
-                 "superstep_begin_fleet", "superstep_finish_fleet"):
+                 "fleet_admit_ew", "fleet_admit_tape", "lmm_plan",
+                 "lmm_init_fleet", "lmm_round_fleet",
+                 "drain_advance_event_fleet", "superstep_commit_tape_fleet",
+                 "superstep_reset_fleet", "superstep_begin_fleet",
+                 "superstep_finish_fleet"):
         if c16.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on main path 10")
+    plan_row = next(k for k in kernels if k["name"] == "lmm_plan")
+    plan_row["launches_main_path_10"] = c16["lmm_plan"]
     t0 = time.perf_counter()
     solo = {b: plan16.solo(specs16[b]) for b in (0, 4)}
     solo_adm = plan16.solo(admit16)
@@ -517,12 +551,17 @@ def fleet_phases(ctx: dict) -> None:
     if err != 0.0:
         raise AssertionError(f"K11 (admission) differs from its plain "
                              f"version ({err})")
-    a_ms = events_ms(lambda: admit_row("cuda"), 20)
+    # the card's time (queued behind a sleep) beside the host-paced one
+    a_paced = events_ms(lambda: admit_row("cuda"), 20)
+    a_t = time_call(lambda: admit_row("cuda"))
     a_plain = events_ms(lambda: admit_row("cuda", plain=True), 5)
     rem_row = outs["cuda"][0][2][1].clone()
     idx1 = torch.tensor([1], device=cuda)
-    a_lib = events_ms(lambda: outs["cuda"][0][2].index_put_(
-        (idx1,), rem_row[None]), 20)
+
+    def a_lib_fn():
+        outs["cuda"][0][2].index_put_((idx1,), rem_row[None])
+    a_lib_paced = events_ms(a_lib_fn, 20)
+    a_lib = time_call(a_lib_fn)["ms"]
     a_bytes = (base_b + sum(a.nbytes for a in pay1) + ei1.nbytes
                + ewv1.nbytes + sum(a.nbytes for a in row_t) * 2
                + 8 * (C + 3 * V) + 8 * g.sys.n_e)
@@ -532,9 +571,12 @@ def fleet_phases(ctx: dict) -> None:
         replaces="simgrid_tpu/ops/lmm_batch.py:409",
         launches=(c16["fleet_admit"] + c16["fleet_admit_tape"]
                   + c16["fleet_admit_ew"]),
-        max_abs_err=err, ms=a_ms, plain_ms=a_plain,
+        max_abs_err=err, ms=a_t["ms"], paced_ms=a_paced,
+        queued=a_t["queued"], plain_ms=a_plain,
         bound_ms=bound_ms(a_bytes), bound_by="bytes", library_ms=a_lib,
-        library="index_put_ of the admitted row of the remains (one call)",
+        library_paced_ms=a_lib_paced,
+        library="a partial yardstick: index_put_ of one row of the "
+                "remains, one of the admission's writes (one call)",
         launches_from="main path 10 (one admission: its state, tape and "
                       "weight rows)"))
     log({"phase": "kernel", **kernels[-1]})
@@ -559,9 +601,8 @@ def fleet_phases(ctx: dict) -> None:
         for _ in range(16):
             lmm_round(g.sys, g.w, g._pen, EPS)
         rounds_k = int(g.w.ctrl[:, IT].max())
-    per_solve = events_ms(lambda: init_rounds(g, rounds_k), 3)
-    per_init = events_ms(lambda: init_rounds(g, 0), 3)
-    k1f_ms = (per_solve - per_init) / rounds_k
+    k1f = time_rounds(lambda: init_rounds(g, 0),
+                      lambda: lmm_round(g.sys, g.w, g._pen, EPS), rounds_k)
 
     def plain_rounds(s_, n, **kw):
         """The plain fleet on the card's tensors: the solo plain
@@ -582,9 +623,11 @@ def fleet_phases(ctx: dict) -> None:
         name="lmm_round_fleet", route="cuda",
         source="simgrid_tpu_torch/csrc/lmm_round.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:508",
-        launches=c16["lmm_round_fleet"], max_abs_err=err, ms=k1f_ms,
+        launches=c16["lmm_round_fleet"], max_abs_err=err, ms=k1f["ms"],
+        paced_ms=k1f["paced_ms"], queued=k1f["queued"],
         plain_ms=k1f_plain, bound_ms=bound_ms(k1f_bytes), bound_by="bytes",
         library_ms=None, replicas=Bk, first_solve_rounds=rounds_k,
+        row_classes=held_plan(g.w),
         launches_from=f"main path 10; lmm_init_fleet "
                       f"{c16['lmm_init_fleet']}"))
     log({"phase": "kernel", **kernels[-1]})
@@ -626,11 +669,10 @@ def fleet_phases(ctx: dict) -> None:
             raise AssertionError(f"{label}: card differs from plain "
                                  f"({err}) or never launched")
         rk = int(np.max(got[3]))
-        one = lambda n: (lmm_init(s17, w17, p17, 1e-9, has_fatpipe=True),  # noqa
-                         [lmm_round(s17, w17, p17, 1e-9, vb17_g, True, True,
-                                    glob) for _ in range(n)])
-        ms = (events_ms(lambda: one(rk), 2) - events_ms(lambda: one(0), 2)
-              ) / rk
+        t17 = time_rounds(
+            lambda: lmm_init(s17, w17, p17, 1e-9, has_fatpipe=True),
+            lambda: lmm_round(s17, w17, p17, 1e-9, vb17_g, True, True,
+                              glob), rk)
 
         def plain(n):
             for b in range(Bk):
@@ -649,8 +691,10 @@ def fleet_phases(ctx: dict) -> None:
             name=label, route="cuda",
             source="simgrid_tpu_torch/csrc/lmm_round.cu",
             replaces="simgrid_tpu/ops/lmm_jax.py:1054",
-            launches=n_l, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms(k1b_bytes), bound_by="bytes",
+            launches=n_l, max_abs_err=err, ms=t17["ms"],
+            paced_ms=t17["paced_ms"], queued=t17["queued"],
+            plain_ms=plain_ms, bound_ms=bound_ms(k1b_bytes),
+            bound_by="bytes",
             library_ms=None, replicas=Bk, rounds=rk, **ARMS_FLEET,
             launches_from="its own whole solve (solve_arrays_batch; no "
                           "main path has rate bounds)"))
@@ -737,9 +781,12 @@ def fleet_phases(ctx: dict) -> None:
         g.w.ctrl.copy_(snap[0])
         g.w.fctrl.copy_(snap[1])
         k3_prime(g, "cuda")
-    k3f_ms = events_ms(lambda: superstep_commit(
-        g.w, g._ids, pk["cuda"], FLEET_K, ring_n, tape=g._tape[1:],
-        c_bound=g.sys.c_bound), 20, k3_setup)
+
+    def k3f_fn():
+        superstep_commit(g.w, g._ids, pk["cuda"], FLEET_K, ring_n,
+                         tape=g._tape[1:], c_bound=g.sys.c_bound)
+    k3f_paced = events_ms(k3f_fn, 20, k3_setup)
+    k3f_t = time_call(k3f_fn, k3_setup)
     k3f_plain = events_ms(lambda: [superstep_commit_plain(
         g.w.replica(b), g._ids, pk["cuda"][b], FLEET_K, ring_n,
         tape=(g._tape[1][b], g._tape[2][b]), c_bound=g.sys.c_bound[b])
@@ -748,16 +795,22 @@ def fleet_phases(ctx: dict) -> None:
     k3f_bytes = (Bk * V + nbytes(g._ids) + (n_done + fired) * 16
                  + fired * 16)
     slot0 = torch.tensor([0], device=cuda)
-    k3f_lib = events_ms(lambda: g.sys.c_bound[0].index_put_(
-        (slot0,), cb0[0, :1]), 20)
+
+    def k3f_lib_fn():
+        g.sys.c_bound[0].index_put_((slot0,), cb0[0, :1])
+    k3f_lib_paced = events_ms(k3f_lib_fn, 20)
+    k3f_lib = time_call(k3f_lib_fn)["ms"]
     kernels.append(dict(
         name="superstep_commit_tape_fleet", route="cuda",
         source="simgrid_tpu_torch/csrc/superstep_commit.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:508",
         launches=c16["superstep_commit_tape_fleet"], max_abs_err=err,
-        ms=k3f_ms, plain_ms=k3f_plain, bound_ms=bound_ms(k3f_bytes),
+        ms=k3f_t["ms"], paced_ms=k3f_paced, queued=k3f_t["queued"],
+        plain_ms=k3f_plain, bound_ms=bound_ms(k3f_bytes),
         bound_by="bytes", library_ms=k3f_lib,
-        library="index_put_ of one fired bound (one call)", replicas=Bk,
+        library_paced_ms=k3f_lib_paced,
+        library="a partial yardstick: index_put_ of one fired bound, one "
+                "of the commit's writes (one call)", replicas=Bk,
         launches_from="main path 10 (the config-#4 fleet)"))
     log({"phase": "kernel", **kernels[-1]})
     del sims, g, c, outs
@@ -786,6 +839,7 @@ def collective_fleet_phase(ctx: dict) -> None:
     from simgrid_tpu_torch.ops.lmm_arrays import to2d
     from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
     from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    from simgrid_tpu_torch.probes.timing import time_call
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
     from simgrid_tpu_torch.workloads import collective_fleet as cf
     from simgrid_tpu_torch.workloads import collective_run, fleet_run
@@ -820,13 +874,15 @@ def collective_fleet_phase(ctx: dict) -> None:
     c18 = row["launches"]
     for name in ("fleet_materialize", "fleet_materialize_coll",
                  "fleet_admit", "fleet_admit_tape", "fleet_admit_coll",
-                 "lmm_init_fleet", "lmm_round_fleet",
+                 "lmm_plan", "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_coll_fleet",
                  "dag_walk_fleet",
                  "superstep_reset_fleet", "superstep_begin_fleet",
                  "superstep_finish_fleet"):
         if c18.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on main path 11")
+    plan_row = next(k for k in kernels if k["name"] == "lmm_plan")
+    plan_row["launches_main_path_11"] = c18["lmm_plan"]
     faulted = range(COLL_B - COLL_B // 4, COLL_B)
     fires = {b: cf.fires_before_end(sim.replicas[b]) for b in faulted}
     t0 = time.perf_counter()
@@ -1088,6 +1144,9 @@ def collective_fleet_phase(ctx: dict) -> None:
     k10_ms = events_ms(lambda: dag_walk(
         wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
         edges_g[2]), 20, lambda: k10_setup("cuda"))
+    k10_t = time_call(lambda: dag_walk(
+        wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
+        edges_g[2]), lambda: k10_setup("cuda"))
     k10_plain = events_ms(lambda: [dag_walk_plain(
         wg.replica(b), *edges_g[:2], walk["cuda"]["pred"][b],
         walk["cuda"]["ready"][b], edges_g[2]) for b in range(Bk)], 2,
@@ -1097,8 +1156,11 @@ def collective_fleet_phase(ctx: dict) -> None:
     flat_dst = (dst[None, :] + V * torch.arange(Bk, device=cuda)[:, None]
                 ).reshape(-1)
     dec = (-wg.done[:, src].to(torch.int32)).reshape(-1)
-    k10_lib = events_ms(lambda: walk["cuda"]["pred"].view(-1).index_add_(
-        0, flat_dst, dec), 20, lambda: k10_setup("cuda"))
+
+    def k10_lib_fn():
+        walk["cuda"]["pred"].view(-1).index_add_(0, flat_dst, dec)
+    k10_lib_paced = events_ms(k10_lib_fn, 20, lambda: k10_setup("cuda"))
+    k10_lib = time_call(k10_lib_fn, lambda: k10_setup("cuda"))["ms"]
     n_dec = Bk * int(roots[es[ed < V].long()].sum())
     # the shared edge list read once, each replica's done flag of every
     # edge source once; per decrement a count read and written; per freed
@@ -1109,11 +1171,14 @@ def collective_fleet_phase(ctx: dict) -> None:
         name="dag_walk_fleet", route="cuda",
         source="simgrid_tpu_torch/csrc/dag_walk.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:479",
-        launches=c18["dag_walk_fleet"], max_abs_err=err10, ms=k10_ms,
+        launches=c18["dag_walk_fleet"], max_abs_err=err10,
+        ms=k10_t["ms"], paced_ms=k10_ms, queued=k10_t["queued"],
         plain_ms=k10_plain, bound_ms=bound_ms(k10_bytes), bound_by="bytes",
-        library_ms=k10_lib,
-        library="index_add_ of every replica's decrements on int32 (one "
-                "call)", replicas=Bk, edges=dc.n_edges, decrements=n_dec,
+        library_ms=k10_lib, library_paced_ms=k10_lib_paced,
+        library="a partial yardstick: index_add_ of every replica's "
+                "decrements on int32, the walk's counts without its freed "
+                "dates (one call)", replicas=Bk, edges=dc.n_edges,
+        decrements=n_dec,
         freed=freed,
         launches_from="main path 11 (the 1,024-rank collective fleet)"))
     log({"phase": "kernel", **kernels[-1]})
@@ -1135,21 +1200,27 @@ def collective_fleet_phase(ctx: dict) -> None:
                              f"its plain version ({err11})")
     a_ms = events_ms(lambda: k11.admit_coll(coll["cuda"], 1, base["cuda"]),
                      20)
+    a_t = time_call(lambda: k11.admit_coll(coll["cuda"], 1, base["cuda"]))
     a_plain = events_ms(lambda: k11.coll_plain(coll["cuda"], 1, 1,
                                                base["cuda"]), 20)
     idx1 = torch.tensor([1], device=cuda)
-    a_lib = events_ms(lambda: coll["cuda"][1].index_put_(
-        (idx1,), base["cuda"][1][None]), 20)
+
+    def a_lib_fn():
+        coll["cuda"][1].index_put_((idx1,), base["cuda"][1][None])
+    a_lib_paced = events_ms(a_lib_fn, 20)
+    a_lib = time_call(a_lib_fn)["ms"]
     # the birth rows read once, the replica's rows and clock pair written
     a_bytes = 2 * nbytes(*base["cuda"]) + 16
     kernels.append(dict(
         name="fleet_admit_coll", route="cuda",
         source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:453",
-        launches=c18["fleet_admit_coll"], max_abs_err=err11, ms=a_ms,
+        launches=c18["fleet_admit_coll"], max_abs_err=err11,
+        ms=a_t["ms"], paced_ms=a_ms, queued=a_t["queued"],
         plain_ms=a_plain, bound_ms=bound_ms(a_bytes), bound_by="bytes",
-        library_ms=a_lib,
-        library="index_put_ of the admitted row of the dates (one call)",
+        library_ms=a_lib, library_paced_ms=a_lib_paced,
+        library="a partial yardstick: index_put_ of the admitted row of "
+                "the dates, one of the admission's writes (one call)",
         birth_launches=c18["fleet_materialize_coll"],
         launches_from="main path 11 (one admission; the birth of every "
                       "row is fleet_materialize_coll)"))
@@ -1358,7 +1429,8 @@ def main() -> int:
     from simgrid_tpu_torch.kernels.livefirst_repack import (
         livefirst_repack, livefirst_repack_plain)
     from simgrid_tpu_torch.kernels.lmm_round import (
-        lmm_init, lmm_init_plain, lmm_round, lmm_round_plain)
+        lmm_init, lmm_init_plain, lmm_plan, lmm_plan_plain, lmm_round,
+        lmm_round_plain)
     from simgrid_tpu_torch.kernels.superstep_commit import (
         packed_size, superstep_begin, superstep_commit,
         superstep_commit_plain, superstep_finish, superstep_reset)
@@ -1379,6 +1451,7 @@ def main() -> int:
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   TPOS)
     from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from simgrid_tpu_torch.probes.timing import time_call, time_rounds
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -1494,7 +1567,10 @@ def main() -> int:
         per_solve = events_ms(solve, n)
         per_init = events_ms(lambda: init(sg, wg, pen_g, EPS), n)
         return (per_solve - per_init) / rounds_g
-    k1_ms = k1_round_ms(lmm_init, lmm_round, 3)
+    # the card's time per round (queued behind a sleep) and the time as
+    # the host paces the wrapper calls
+    k1_t = time_rounds(lambda: lmm_init(sg, wg, pen_g, EPS),
+                       lambda: lmm_round(sg, wg, pen_g, EPS), rounds_g)
     k1_plain = k1_round_ms(lmm_init_plain, lmm_round_plain, 1)
     # each element's flow, link and weight read once, the bounds and
     # penalties read once, the state read and written once; the row
@@ -1506,9 +1582,35 @@ def main() -> int:
         name="lmm_round", route="cuda",
         source="simgrid_tpu_torch/csrc/lmm_round.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:556",
-        max_abs_err=err, ms=k1_ms, plain_ms=k1_plain,
+        max_abs_err=err, ms=k1_t["ms"], paced_ms=k1_t["paced_ms"],
+        queued=k1_t["queued"], plain_ms=k1_plain,
         bound_ms=bound_ms(k1_bytes), bound_by="bytes", library_ms=None,
-        first_solve_rounds=rounds_g))
+        first_solve_rounds=rounds_g, row_classes=held_plan(wg)))
+    log({"phase": "kernel", **kernels[-1]})
+
+    # K1's row plan at main path 1's shape: card against plain (by bits)
+    plan_g = lmm_plan(sg.csr.c_ptr)
+    plan_c = lmm_plan_plain(sc.csr.c_ptr)
+    err = max(diff(plan_g.order, plan_c.order), diff(plan_g.ncls,
+                                                     plan_c.ncls))
+    if err != 0.0:
+        raise AssertionError(f"K1's row plan differs from its plain "
+                             f"version: {err}")
+    plan_t = time_call(lambda: lmm_plan(sg.csr.c_ptr))
+    # c_ptr read once, the order and the three class sizes written once
+    plan_bytes = nbytes(sg.csr.c_ptr, plan_g.order, plan_g.ncls)
+    kernels.append(dict(
+        name="lmm_plan", route="cuda",
+        source="simgrid_tpu_torch/csrc/lmm_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:436",
+        note="K1's row plan, part of K1's design with no JAX "
+             "counterpart: it serves the fixpoint that starts there",
+        max_abs_err=err, ms=plan_t["ms"],
+        paced_ms=events_ms(lambda: lmm_plan(sg.csr.c_ptr), 20),
+        queued=plan_t["queued"],
+        plain_ms=events_ms(lambda: lmm_plan_plain(sg.csr.c_ptr), 3),
+        bound_ms=bound_ms(plan_bytes), bound_by="bytes", library_ms=None,
+        rows=C, classes=[int(x) for x in plan_c.ncls.tolist()]))
     log({"phase": "kernel", **kernels[-1]})
 
     # K2: one advance from the converged rates
@@ -1642,8 +1744,8 @@ def main() -> int:
     # ---- 3. the main path: the config-#4 drain ---------------------------
     sim, row = run_drain(dsys, device=cuda, superstep=K)
     counts = row["launches"]
-    for name in ("lmm_round", "drain_advance", "superstep_commit",
-                 "livefirst_repack"):
+    for name in ("lmm_plan", "lmm_round", "drain_advance",
+                 "superstep_commit", "livefirst_repack"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the main path")
     rec = {"phase": "main_path", **row}
@@ -1705,6 +1807,14 @@ def main() -> int:
             raise AssertionError(f"K1 {what} differs from its plain "
                                  f"version: {err}")
         return err
+
+    def k1_queued(sg_, wg_, pen_g_, vb_g, arms, rounds):
+        """The card's ms per round over the first ``rounds`` rounds,
+        queued behind a sleep, and the host-paced ms."""
+        fat = arms.get("has_fatpipe", False)
+        return time_rounds(
+            lambda: lmm_init(sg_, wg_, pen_g_, EPS, has_fatpipe=fat),
+            lambda: lmm_round(sg_, wg_, pen_g_, EPS, vb_g, **arms), rounds)
 
     def k1_ms(sg_, wg_, pen_g_, vb_g, arms, rounds, init, rnd, n):
         """Mean ms of one round over the first ``rounds`` rounds."""
@@ -1778,8 +1888,7 @@ def main() -> int:
                         lmm_round_plain(sc_, wc_, pen_c_, EPS, vb_c, **arms)
                 err = max(err, held(wg_, wc_, f"{label} (rounds {r0}+)"))
         check_s = time.perf_counter() - t0
-        ms = k1_ms(sg_, wg_, pen_g_, vb_g, arms, rounds, lmm_init,
-                   lmm_round, 1 if window else 2)
+        t = k1_queued(sg_, wg_, pen_g_, vb_g, arms, rounds)
         timed = window or rounds
         plain = k1_ms(sg_, wg_, pen_g_, vb_g, arms, timed, lmm_init_plain,
                       lmm_round_plain, 1)
@@ -1788,7 +1897,9 @@ def main() -> int:
                "checked_rounds": ("all" if window is None else
                                   f"{window} from each of rounds "
                                   f"{starts}"),
-               "max_abs_err": err, "ms": ms, "plain_ms": plain,
+               "max_abs_err": err, "ms": t["ms"],
+               "paced_ms": t["paced_ms"], "queued": t["queued"],
+               "plain_ms": plain, "row_classes": held_plan(wg_),
                "plain_timed_rounds": timed, "bound_ms": bound,
                "flows_at_bound": int(np.count_nonzero(rates == vb_np)),
                "check_s": check_s}
@@ -1837,8 +1948,7 @@ def main() -> int:
     garms = dict(has_bounds=True, global_rounds=True)
     # ms per round over the first (up to) 200 rounds, kernel and plain
     r_t = min(g48[3], 200)
-    glob_ms = k1_ms(sg48, wg48, pen48, vb48, garms, r_t, lmm_init,
-                    lmm_round, 2)
+    glob_t = k1_queued(sg48, wg48, pen48, vb48, garms, r_t)
     glob_plain = k1_ms(sg48, wg48, pen48, vb48, garms, r_t, lmm_init_plain,
                        lmm_round_plain, 1)
     # 5(b)'s local bound arm at 48 ranks, the whole solve on both sides
@@ -1863,8 +1973,9 @@ def main() -> int:
            "flows": arr48.n_var, "rounds": g48[3], "timed_rounds": r_t,
            "local_bounds_rounds": l48[3], "local_bounds_err": err_l,
            "fatpipe_rounds": f48[3], "fatpipe_err": err_f,
-           "max_abs_err": err_g,
-           "ms": glob_ms, "plain_ms": glob_plain,
+           "max_abs_err": err_g, "ms": glob_t["ms"],
+           "paced_ms": glob_t["paced_ms"], "queued": glob_t["queued"],
+           "plain_ms": glob_plain,
            "bound_ms": bound_ms(k1_bytes(sg48, wg48, True, False)),
            "wall_s": glob_row["wall_s"], "launches": glob_row["launches"]}
     log(rec)
@@ -2100,6 +2211,7 @@ def main() -> int:
         replaces="simgrid_tpu/ops/lmm_jax.py:589",
         launches=solve_row["launches"]["lmm_round_bounds"],
         max_abs_err=rec_b["max_abs_err"], ms=rec_b["ms"],
+        paced_ms=rec_b["paced_ms"], queued=rec_b["queued"],
         plain_ms=rec_b["plain_ms"], bound_ms=rec_b["bound_ms"],
         bound_by="bytes", library_ms=None,
         launches_from="main path 2 (solve)",
@@ -2111,6 +2223,7 @@ def main() -> int:
         replaces="simgrid_tpu/ops/lmm_jax.py:490",
         launches=fat_row["launches"]["lmm_round_bounds_fatpipe"],
         max_abs_err=rec_c["max_abs_err"], ms=rec_c["ms"],
+        paced_ms=rec_c["paced_ms"], queued=rec_c["queued"],
         plain_ms=rec_c["plain_ms"], bound_ms=rec_c["bound_ms"],
         bound_by="bytes", library_ms=None,
         launches_from="phase 5c solve_arrays (kernel check)"))
@@ -2119,7 +2232,8 @@ def main() -> int:
         source="simgrid_tpu_torch/csrc/lmm_round.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:520",
         launches=glob_row["launches"]["lmm_round_global_bounds"],
-        max_abs_err=err_g, ms=glob_ms, plain_ms=glob_plain,
+        max_abs_err=err_g, ms=glob_t["ms"], paced_ms=glob_t["paced_ms"],
+        queued=glob_t["queued"], plain_ms=glob_plain,
         bound_ms=report["global_arm"]["bound_ms"], bound_by="bytes",
         library_ms=None,
         launches_from="phase 6 solve_arrays(parallel_rounds=False)"))
@@ -3060,15 +3174,22 @@ def main() -> int:
         w13g.ctrl.copy_(snap13[0])
         w13g.fctrl.copy_(snap13[1])
         k3t_prime(w13g, pk13g, cb13g)
-    k3t_ms = events_ms(lambda: superstep_commit(
-        w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g, c_bound=cb13g), 20,
-        k3t_setup)
+
+    def k3t_fn():
+        superstep_commit(w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g,
+                         c_bound=cb13g)
+    k3t_paced = events_ms(k3t_fn, 20, k3t_setup)
+    k3t_t = time_call(k3t_fn, k3t_setup)
     k3t_plain = events_ms(lambda: superstep_commit_plain(
         w13g, ids_g, pk13g, K, V13 + K, tape=tap13_g, c_bound=cb13g), 5,
         k3t_setup)
     slot13, val13 = int(ts13[0]), tv13[0:1].to(cuda)
     slot13_g = torch.tensor([slot13], device=cuda)
-    k3t_lib = events_ms(lambda: cb13g.index_put_((slot13_g,), val13), 20)
+
+    def k3t_lib_fn():
+        cb13g.index_put_((slot13_g,), val13)
+    k3t_lib_paced = events_ms(k3t_lib_fn, 20)
+    k3t_lib = time_call(k3t_lib_fn)["ms"]
     n13 = int(w13c.done.sum())
     # the mask and ids read, the ring written (completions and the fault
     # entry), one tape entry read and one bound written
@@ -3077,10 +3198,12 @@ def main() -> int:
         name="superstep_commit_tape", route="cuda",
         source="simgrid_tpu_torch/csrc/superstep_commit.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:423",
-        launches=c13["superstep_commit_tape"], max_abs_err=err, ms=k3t_ms,
+        launches=c13["superstep_commit_tape"], max_abs_err=err,
+        ms=k3t_t["ms"], paced_ms=k3t_paced, queued=k3t_t["queued"],
         plain_ms=k3t_plain, bound_ms=bound_ms(k3t_bytes), bound_by="bytes",
-        library_ms=k3t_lib,
-        library="index_put_ of the fired bound (one call)",
+        library_ms=k3t_lib, library_paced_ms=k3t_lib_paced,
+        library="a partial yardstick: index_put_ of the fired bound, one "
+                "of the commit's writes (one call)",
         launches_from="main path 8 (the faulted config-#4 drain)"))
     log({"phase": "kernel", **kernels[-1]})
     del w13g, w13c, st13, pk13g, pk13c

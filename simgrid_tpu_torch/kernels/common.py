@@ -118,7 +118,11 @@ class Work:
     arm's ``rou`` and its two grid-wide minima (``min_usage``,
     ``min_bound``: the bits of a non-negative float, as ``dtbits``) are
     written by the rounds that use them and read by nothing else.
-    ``c_mod`` is K6's scratch (the modified-constraint mask), and
+    ``touch`` marks the constraints a round's fixed variables lie on
+    (K1 sets and clears it within one round), ``k1_plan`` holds K1's row
+    plan of the last row index it ran on (``kernels/lmm_round.py``
+    ``plan_of``), ``c_mod`` is K6's scratch (the modified-constraint
+    mask), and
     ``carry_valid`` says whether the state holds a converged solve that
     a warm restart may start from (the JAX warm solver's ``carry`` is
     not None)."""
@@ -155,6 +159,8 @@ class Work:
         self.evf = vec(N_EVF, torch.float64)
         self.atbits = vec(1, torch.int64)
         self.c_mod = vec(n_c, torch.bool)
+        self.touch = vec(n_c, torch.bool)
+        self.k1_plan = None
         self.carry_valid = False
         #: K1's pointer arrays by arm (kernels/lmm_round.py ``_ptrs``)
         self.ptr_cache: dict = {}

@@ -20,6 +20,15 @@ penalties and bounds are ``[B, ·]``, ``sys.c_bound`` is ``[B, C]``,
 ``sys.e_w`` and ``vb`` are shared or per replica; the plain version
 then runs the solo plain function on each replica in turn.
 
+The kernel walks the constraint rows by a row plan (``lmm_plan``): a
+stable partition of the rows by length into long rows (more than
+``LONG_ROW`` elements, a block each), medium rows (more than
+``SHORT_ROW``, a warp each) and short rows (a thread each), built on the
+card from ``csr.c_ptr`` at the first launch on a new row index (system
+build, every K4 repack) and kept on the :class:`Work`.  The plan decides
+only which threads walk a row, never an order of addition, so the plain
+round has no use for it; ``lmm_plan_plain`` is its plain twin.
+
 Both wrappers take the system, the fixpoint :class:`Work` and the
 penalties.  On CPU tensors they run the plain PyTorch version below (a
 line-by-line transcription of the JAX round over the COO elements) and
@@ -29,17 +38,18 @@ return None (the device decides whether it runs).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import build
 from .common import (ARMED, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS,
                      SS_ACTIVE, SS_BUDGET, SS_ROUNDS, D, I, L, LmmSystem, P,
-                     Work, check, counter, is_double, on_cpu, ptr_array,
-                     stream)
+                     Work, check, counter, is_double, on_cpu, ptr,
+                     ptr_array, stream)
 
 INIT_COUNT = counter("lmm_init")
+PLAN_COUNT = counter("lmm_plan")
 
 #: arm flags of the C entries (keep in sync with csrc/lmm_round.cu)
 ARM_BOUNDS = 1
@@ -63,12 +73,32 @@ COUNT = ARM_COUNTS[0]
 FLEET_INIT_COUNT = counter("lmm_init_fleet")
 
 #: buffers handed to the C entries as one pointer array, in this order
-N_PTRS = 28
+N_PTRS = 31
+
+#: the row plan's classes: a row of at most SHORT_ROW elements is walked
+#: by one thread, one of more than LONG_ROW by one block, the rest by
+#: one warp
+SHORT_ROW = 8
+LONG_ROW = 256
+#: replicas a thread, warp or block of a fleet's launch serves together
+#: (0: the kernel chooses 1 or 2 from B and the system's size; 1 or 2
+#: forces it, and the C entries refuse any other value)
+GROUP = 0
 
 _SIG = {
     "lmm_init": [I, I, I, I, I, P, I, D, I, I, L, I, I, P],
     "lmm_round": [I, I, I, I, I, P, I, D, L, I, I, P],
+    "lmm_plan": [I, I, I, P, P, P, P, P],
 }
+
+
+class RowPlan(NamedTuple):
+    """The constraint rows by class: ``order`` [C] int32 lists the long
+    rows, then the medium rows, then the short rows, each class in
+    increasing row order; ``ncls`` [3] int32 holds the three class
+    sizes (long, medium, short)."""
+    order: torch.Tensor
+    ncls: torch.Tensor
 
 
 def arm_flags(has_bounds: bool, has_fatpipe: bool,
@@ -271,8 +301,55 @@ def lmm_round_plain(sys: LmmSystem, w: Work, pen: torch.Tensor,
     return True
 
 
+def lmm_plan_plain(c_ptr: torch.Tensor, short_max: int = SHORT_ROW,
+                   long_min: int = LONG_ROW) -> RowPlan:
+    n = (c_ptr[1:] - c_ptr[:-1]).long()
+    long_ = n > long_min
+    med = (n > short_max) & ~long_
+    short = ~(long_ | med)
+    order = torch.cat([torch.nonzero(m).reshape(-1)
+                       for m in (long_, med, short)])
+    ncls = torch.stack([long_.sum(), med.sum(), short.sum()])
+    return RowPlan(order.to(torch.int32), ncls.to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # wrappers
+
+
+def lmm_plan(c_ptr: torch.Tensor, short_max: int = SHORT_ROW,
+             long_min: int = LONG_ROW) -> RowPlan:
+    """The row plan of a constraint row index ``c_ptr`` [C+1], built on
+    the device that holds it, with no host sync."""
+    if short_max < 0 or long_min < short_max:
+        raise ValueError(f"row classes need 0 <= short_max <= long_min "
+                         f"({short_max}, {long_min})")
+    if on_cpu(c_ptr):
+        return lmm_plan_plain(c_ptr, short_max, long_min)
+    lib = build.load("lmm_round", _SIG)
+    C = int(c_ptr.shape[0]) - 1
+    dev = c_ptr.device
+    order = torch.empty(C, dtype=torch.int32, device=dev)
+    ncls = torch.empty(3, dtype=torch.int32, device=dev)
+    # flags 2C bytes, then int32 exl[C] exm[C] bsum[C / 2048 + 1] tot[2]
+    n_int = 2 * C + C // 2048 + 3
+    scratch = torch.empty(((2 * C + 15) & ~15) + 4 * n_int,
+                          dtype=torch.uint8, device=dev)
+    rc = lib.lmm_plan(C, int(short_max), int(long_min), ptr(c_ptr),
+                      ptr(order), ptr(ncls), ptr(scratch), stream())
+    check(rc, "lmm_plan")
+    PLAN_COUNT.n += 1
+    return RowPlan(order, ncls)
+
+
+def plan_of(sys: LmmSystem, w: Work) -> RowPlan:
+    """The row plan of ``sys``'s row index, built at the first launch on
+    it and kept on ``w`` (one plan: a new index replaces it)."""
+    hit = w.k1_plan
+    if hit is None or hit[0] is not sys.csr:
+        hit = w.k1_plan = (sys.csr, lmm_plan(sys.csr.c_ptr, SHORT_ROW,
+                                             LONG_ROW))
+    return hit[1]
 
 
 def _ptrs(sys: LmmSystem, w: Work, pen, vb, flags: int):
@@ -293,6 +370,7 @@ def _ptrs(sys: LmmSystem, w: Work, pen, vb, flags: int):
     csr = sys.csr
     if flags & ARM_FATPIPE and sys.c_fatpipe is None:
         raise ValueError("the FATPIPE arm needs sys.c_fatpipe")
+    plan = plan_of(sys, w)
     arr = ptr_array([
         pen, vb, sys.e_var, sys.e_cnst,
         sys.e_w, sys.c_bound,
@@ -300,9 +378,10 @@ def _ptrs(sys: LmmSystem, w: Work, pen, vb, flags: int):
         csr.c_ptr, csr.c_idx, csr.v_ptr, csr.v_idx, w.v_value, w.v_fixed,
         w.remaining, w.usage, w.light, w.nmin_v, w.proc, w.fix_now,
         w.low_v, w.mb_v, w.level2_v, w.mb_c, w.blocked_c, w.rou,
-        w.min_usage, w.min_bound, w.ctrl])
-    # the tuple holds sys, pen and vb, so their ids cannot be reused
-    w.ptr_cache[flags] = (sys, pen, vb, arr)
+        w.min_usage, w.min_bound, w.ctrl, plan.order, plan.ncls, w.touch])
+    # the tuple holds sys, pen, vb and the plan, so their ids cannot be
+    # reused and the plan's buffers outlive the pointers
+    w.ptr_cache[flags] = (sys, pen, vb, arr, plan)
     return arr
 
 
@@ -338,7 +417,8 @@ def lmm_init(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
     lib = build.load("lmm_round", _SIG)
     flags = arm_flags(False, has_fatpipe, False)
     s_ew, s_cb, _ = _strides(sys, w, pen, None)
-    rc = lib.lmm_init(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c, flags,
+    rc = lib.lmm_init(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c,
+                      flags | GROUP << 8,
                       _ptrs(sys, w, pen, None, flags), N_PTRS, float(eps),
                       int(gated), int(limit), s_ew, s_cb, 0, stream())
     check(rc, "lmm_init")
@@ -366,7 +446,8 @@ def lmm_round(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
     flags = arm_flags(has_bounds, has_fatpipe, global_rounds)
     s_ew, s_cb, s_vb = _strides(sys, w, pen,
                                 vb if flags & ARM_BOUNDS else None)
-    rc = lib.lmm_round(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c, flags,
+    rc = lib.lmm_round(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c,
+                       flags | GROUP << 8,
                        _ptrs(sys, w, pen, vb, flags), N_PTRS, float(eps),
                        s_ew, s_cb, s_vb, stream())
     check(rc, "lmm_round")

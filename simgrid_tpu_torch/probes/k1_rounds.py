@@ -1,0 +1,306 @@
+"""K1's rounds on the card: time per round and where it goes, by case.
+
+    python simgrid_tpu_torch/probes/k1_rounds.py [--root DIR] [--out PATH]
+        [--cases solo,fleet8,a2a_bounds,a2a_fat,glob48] [--profile]
+
+Each case builds one system of the port's main paths, solves it once
+from init to convergence with K1 (``kernels/lmm_round.py``) and then
+times its rounds three ways:
+
+* ``paced_ms``: CUDA events around the host's loop of wrapper calls
+  (init plus the rounds, less the init), the host-clock figure
+  ``chip_smoke.py`` keeps beside the card's: where the host's enqueue
+  is slower than the card, this is the host's time;
+* ``ms``: the card's own time per round.  The rounds are queued in
+  windows of ``ROUND_WINDOW`` behind ``torch.cuda._sleep`` (held longer than
+  the host takes to enqueue a window), so they run back to back;
+  ``queued`` says that the stream was still busy after every window's
+  last enqueue;
+* with ``--profile``, the card's time per kernel name over one solve
+  (``torch.profiler``), and the row-length classes of the system.
+
+The timing is ``probes/timing.py``'s ``time_rounds``, which
+``chip_smoke.py`` uses for K1's rows too; it is always this checkout's,
+whichever package ``--root`` imports.
+
+``--root`` imports ``simgrid_tpu_torch`` from another checkout (a
+parent commit unpacked under ``build/``), so two versions of K1 can be
+timed on one card in one call.  The cases:
+
+* ``solo``: config #4's random drain system (100,000 flows on the
+  dragonfly, unit penalties), the local bound-free round;
+* ``fleet8``: the same system as a fleet of 8 replicas (bounds scaled
+  1.0-1.3, per-replica weights), K1's replica arm;
+* ``a2a_bounds``: the 320-rank LV08 alltoall, the bound-first rule;
+* ``a2a_5b``: the same with its bounds redrawn as its rates times
+  U(0.5, 1.5) (``chip_smoke.py``'s phase 5(b): about half of them bind,
+  and the solve takes tens of thousands of rounds);
+* ``a2a_fat``: the same with a seeded 10% of its links FATPIPE;
+* ``glob48``: the 48-rank alltoall in the global order with bounds,
+  the bounds redrawn as its rates times U(0.5, 1.5) so that they bind;
+* ``arms128`` and ``arms128_global``: ``chip_smoke.py``'s phase-17 fleet
+  of 8 over a random 128 x 1,000 system (degree 3, bounds scaled
+  U(0.8, 1.2) per replica, half the flows bounded, 10% FATPIPE), the
+  local bound-first and the global arm, both with FATPIPE;
+* ``stage8``: ``bench.py``'s sweep system (96 x 400, degree 3) as a
+  fleet of 8 (bounds scaled 1.0-1.7), the local bound-free round;
+* ``sweep`` and ``sweep8`` (not in the default list): ``bench.py``'s
+  sweep stage (``workloads/fleet_run.run_sweep``) at widths 1, 8 and 64,
+  or at width 8 alone, its wall by width (host clock, ending in a sync)
+  in place of the round times;
+* ``coll1024`` (not in the default list): ``chip_smoke.py``'s main path
+  11 without its admission, the 1,024-rank recursive-doubling allreduce
+  as a collective fleet of 32 (``workloads/collective_fleet.py``), its
+  wall and K1's launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import importlib.util
+import os
+import sys
+import time
+
+CASES = ("solo", "fleet8", "a2a_bounds", "a2a_5b", "a2a_fat", "glob48",
+         "arms128", "arms128_global", "stage8")
+#: row-length thresholds the class counts are reported at
+LENGTHS = (0, 1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+
+
+def kernel_profile(fn) -> dict:
+    """Card ms per kernel name over one fn() (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        name = (ev.key or "").replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        if t and name and not name.startswith(("cuda", "aten", "Memcpy")):
+            out[name] = out.get(name, 0.0) + t / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def length_classes(c_ptr) -> dict:
+    """Rows of each length class: ``{"<=n": count}`` at ``LENGTHS`` and
+    the longest row."""
+    import numpy as np
+    n = np.diff(c_ptr.cpu().numpy())
+    out = {f"<={t}": int((n <= t).sum()) for t in LENGTHS}
+    out["rows"] = int(n.size)
+    out["max"] = int(n.max()) if n.size else 0
+    return out
+
+
+def build_case(name: str, device):
+    """(sys, work, pen, vb, arms, eps) of one case on ``device``."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels.common import LmmSystem, Work
+    from simgrid_tpu_torch.ops.lmm_arrays import to2d
+    from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads.drain_run import EPS, solve_inputs
+    f64 = torch.float64
+    if name in ("solo", "fleet8"):
+        dsys = dragonfly.build_system(100_000)
+        flat = [to2d(a).reshape(-1) for a in (dsys.e_var, dsys.e_cnst,
+                                              dsys.e_w)]
+        V = len(dsys.sizes)
+        s = to_device_system(flat[0], flat[1], flat[2], dsys.c_bound, V,
+                             f64, device)
+        if name == "solo":
+            return (s, Work(V, s.n_c, f64, device),
+                    torch.ones(V, dtype=f64, device=device), None, {}, EPS)
+        B = 8
+        scale = torch.linspace(1.0, 1.3, B, dtype=f64, device=device)
+        s = s._replace(c_bound=s.c_bound[None, :] * scale[:, None],
+                       e_w=s.e_w[None, :].repeat(B, 1).contiguous())
+        return (s, Work(V, s.n_c, f64, device, B=B),
+                torch.ones((B, V), dtype=f64, device=device), None, {}, EPS)
+    if name == "stage8":
+        from simgrid_tpu_torch.workloads import fleet_run
+        ev, ec, ew, cb, _ = fleet_run.stage_system(**fleet_run.STAGE)
+        n_v = fleet_run.STAGE["n_v"]
+        s = to_device_system(ev, ec, ew, cb, n_v, f64, device)
+        B = 8
+        scale = torch.linspace(1.0, 1.7, B, dtype=f64, device=device)
+        s = s._replace(c_bound=s.c_bound[None, :] * scale[:, None])
+        return (s, Work(n_v, s.n_c, f64, device, B=B),
+                torch.ones((B, n_v), dtype=f64, device=device), None, {},
+                fleet_run.EPS)
+    if name.startswith("arms128"):
+        from simgrid_tpu_torch.ops.csr import build_csr
+        from simgrid_tpu_torch.workloads.bench_solve import build_arrays
+        rng = np.random.default_rng(5)
+        B, n_c, n_v = 8, 128, 1000
+        arr = build_arrays(rng, n_c, n_v, 3, np.float64)
+        E = arr.n_elem
+        cb = arr.c_bound[:n_c] * rng.uniform(0.8, 1.2, (B, n_c))
+        vb = np.where(rng.random((B, n_v)) < 0.5,
+                      rng.uniform(1e-3, 1e-2, (B, n_v)), -1.0)
+        fat = np.zeros(n_c, bool)
+        fat[rng.choice(n_c, n_c // 10, replace=False)] = True
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+        ev, ec, ew = t(arr.e_var[:E]), t(arr.e_cnst[:E]), t(arr.e_w[:E])
+        s = LmmSystem(ev, ec, ew, t(cb), build_csr(ev, ec, ew, n_c, n_v),
+                      n_v, t(fat))
+        arms = dict(has_bounds=True, has_fatpipe=True,
+                    global_rounds=name.endswith("global"))
+        return (s, Work(n_v, n_c, f64, device, B=B),
+                torch.ones((B, n_v), dtype=f64, device=device), t(vb), arms,
+                1e-9)
+    ranks = 48 if name == "glob48" else 320
+    arr = solve_inputs(dragonfly.build_alltoall(ranks))
+    fat = None
+    if name == "a2a_fat":
+        fat = np.random.default_rng(12).random(arr.n_cnst) < 0.10
+    s = to_device_system(arr.e_var, arr.e_cnst, arr.e_w, arr.c_bound,
+                         arr.n_var, f64, device, fat)
+    pen = torch.from_numpy(arr.v_penalty.copy()).to(device)
+    vb = torch.from_numpy(arr.v_bound.copy()).to(device)
+    w = Work(arr.n_var, arr.n_cnst, f64, device)
+    arms = dict(has_bounds=True, has_fatpipe=fat is not None)
+    if name in ("glob48", "a2a_5b"):
+        _solve(s, w, pen, vb, arms, EPS)
+        rates = w.v_value.cpu().numpy()
+        vb = torch.from_numpy(rates * np.random.default_rng(11).uniform(
+            0.5, 1.5, arr.n_var)).to(device)
+    if name == "glob48":
+        arms = dict(has_bounds=True, global_rounds=True)
+    assert isinstance(s, LmmSystem)
+    return s, w, pen, vb, arms, EPS
+
+
+def _solve(s, w, pen, vb, arms, eps, limit=200_000) -> int:
+    """Init and rounds to convergence; the round count (the most of any
+    replica)."""
+    from simgrid_tpu_torch.kernels.common import IT, LIGHT
+    from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
+    lmm_init(s, w, pen, eps, has_fatpipe=arms.get("has_fatpipe", False))
+    while True:
+        for _ in range(16):
+            lmm_round(s, w, pen, eps, vb, **arms)
+        ctrl = w.ctrl.reshape(-1, w.ctrl.shape[-1])
+        it = int(ctrl[:, IT].max())
+        if int(ctrl[:, LIGHT].max()) == 0:
+            return it
+        if it > limit:
+            raise RuntimeError("K1 did not converge")
+
+
+def run_sweep_walls(batches=(1, 8, 64)) -> dict:
+    """``bench.py``'s sweep stage on the card: the wall by width."""
+    from simgrid_tpu_torch.workloads import fleet_run
+    rows = fleet_run.run_sweep(device="cuda", batches=batches)
+    return {"walls_s": {r["batch"]: r["wall_s"] for r in rows},
+            "dispatches": {r["batch"]: r["dispatches"] for r in rows}}
+
+
+#: the collective fleet's width (chip_smoke.py's COLL_B)
+COLL_WIDTH = 32
+
+
+def run_coll_fleet() -> dict:
+    """The 1,024-rank collective fleet of ``COLL_WIDTH`` on the card: its
+    wall and its launches of K1 and of the row plan."""
+    from simgrid_tpu_torch.workloads import collective_fleet as cf
+    from simgrid_tpu_torch.workloads import collective_run, fleet_run
+    import torch
+    cs = collective_run.CASES[2]
+    _, legs, _ = collective_run.run_case(cs, device=torch.device("cuda"))
+    t_end = legs["tape"]["events"][-1][0]
+    camp = cf.fleet_campaign(cs, cf.fleet_specs(cs, t_end, COLL_WIDTH),
+                             "cuda")
+    _, row = fleet_run.run_fleet_full(camp)
+    keep = ("lmm_plan", "lmm_init_fleet", "lmm_round_fleet")
+    return {"wall_s": row["wall_s"], "supersteps": row["supersteps"],
+            "dispatches": row["dispatches"], "rounds": row["rounds"],
+            "launches": {k: row["launches"].get(k, 0) for k in keep}}
+
+
+def _timing():
+    """This checkout's ``probes/timing.py``, loaded from its file: the
+    package that ``--root`` imports may predate ``time_rounds``."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "timing.py")
+    spec = importlib.util.spec_from_file_location("k1_rounds_timing", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_case(name: str, profile: bool = False) -> dict:
+    import torch
+    from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
+    if name in ("sweep", "sweep8"):
+        return {"case": name, **run_sweep_walls(
+            (8,) if name == "sweep8" else (1, 8, 64))}
+    if name == "coll1024":
+        return {"case": name, **run_coll_fleet()}
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    s, w, pen, vb, arms, eps = build_case(name, dev)
+    build_s = time.perf_counter() - t0
+    rounds = _solve(s, w, pen, vb, arms, eps)
+    fat = arms.get("has_fatpipe", False)
+
+    def init():
+        lmm_init(s, w, pen, eps, has_fatpipe=fat)
+
+    def rnd():
+        lmm_round(s, w, pen, eps, vb, **arms)
+    rec = {"case": name, "V": s.n_v, "C": s.n_c, "nnz": s.csr.nnz,
+           "B": w.nb, "build_s": build_s,
+           **_timing().time_rounds(init, rnd, rounds)}
+    if profile:
+        rec["classes"] = length_classes(s.csr.c_ptr)
+        prof = kernel_profile(lambda: (init(), [rnd() for _ in
+                                                range(rounds)]))
+        rec["profile_ms_per_round"] = {k: v / max(rounds, 1)
+                                       for k, v in prof.items()}
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=None,
+                    help="import simgrid_tpu_torch from this checkout")
+    ap.add_argument("--out", default=None, help="append JSON lines here")
+    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--label", default="")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        print("k1_rounds: no CUDA device", file=sys.stderr)
+        return 2
+    from simgrid_tpu_torch.kernels import build
+    build.build_all()
+    kind = torch.cuda.get_device_name(0)
+    for name in args.cases.split(","):
+        rec = {"label": args.label, "root": root, "kind": kind,
+               **run_case(name, args.profile)}
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,6 +28,12 @@ launches and CUDA events time them:
 
 On the CPU a host timer takes the place of the events and no bound is
 given (a CPU time is not a device time).
+
+``time_rounds`` (a solve's rounds, queued in windows) and ``time_call``
+(one call, queued behind its own sleep) apply the same protocol to the
+kernels of the main paths: ``chip_smoke.py`` times K1's rows and the
+calls whose enqueue outlasts their kernel with them, and
+``probes/k1_rounds.py`` K1's rounds by case.
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ SLOW_MS = 2.0
 SLOW_REPS = 3
 #: the CPU's protocol: one call (the plain versions are slow)
 CPU_REPS = 1
+#: rounds of a solve queued behind one sleep (``time_rounds``)
+ROUND_WINDOW = 48
 
 
 def bound_ms(n_bytes: float) -> float:
@@ -113,6 +121,61 @@ def _events(fn, k: int, sleep_us: Optional[float]):
     busy = not torch.cuda.current_stream().query()
     b.synchronize()
     return a.elapsed_time(b) / k, host, busy
+
+
+def time_rounds(init: Callable[[], object], rnd: Callable[[], object],
+                rounds: int, window: int = ROUND_WINDOW) -> dict:
+    """Card time per round of a solve of ``rounds`` rounds, queued in
+    windows of ``window`` behind a sleep (``ms``), and as the host paces
+    it (``paced_ms``): ``init()`` starts the solve, ``rnd()`` queues one
+    round.  The state moves on from window to window, so every round of
+    the solve is timed once; ``queued`` says that the stream was still
+    busy after every window's last enqueue."""
+    init()
+    torch.cuda.synchronize()
+    # paced: the whole solve, less its init
+    init_ms = statistics.median(_events(init, 1, None)[0] for _ in range(3))
+    paced = _events(lambda: (init(), [rnd() for _ in range(rounds)]), 1,
+                    None)
+    out = {"rounds": rounds,
+           "paced_ms": (paced[0] - init_ms) / max(rounds, 1),
+           "enqueue_us": paced[1] / max(rounds, 1)}
+    # queued: windows behind a sleep twice the host's enqueue
+    init()
+    torch.cuda.synchronize()
+    card, busy = 0.0, True
+    left = rounds
+    while left > 0:
+        n = min(window, left)
+        ms, _, ok = _events(rnd, n, 2 * n * out["enqueue_us"] + 100)
+        card += ms * n
+        busy = busy and ok
+        left -= n
+    out.update(ms=card / max(rounds, 1), queued=busy)
+    return out
+
+
+def time_call(fn: Callable[[], object],
+              setup: Optional[Callable[[], object]] = None,
+              reps: int = 20) -> dict:
+    """Card ms of one ``fn()`` queued behind a sleep (``ms``, the median
+    over ``reps``), ``setup()`` queued ahead of the sleep before each
+    timed call; ``queued`` says that the stream was still busy after
+    every timed call's last enqueue."""
+    for _ in range(2):
+        if setup is not None:
+            setup()
+        fn()
+    torch.cuda.synchronize()
+    host_us = _events(fn, 1, None)[1]
+    cards, busy = [], True
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        ms, _, ok = _events(fn, 1, 2 * host_us + 100)
+        cards.append(ms)
+        busy = busy and ok
+    return {"ms": statistics.median(cards), "queued": busy}
 
 
 def sync_ms(device: torch.device) -> Optional[float]:

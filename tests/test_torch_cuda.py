@@ -1044,3 +1044,217 @@ def test_run_opcost_on_card(cuda):
     assert r["ok"], [x for x in r["rows"] if not x["ok"]]
     assert all(x["bound_ms"] is not None for x in r["rows"])
     assert run_scaling(cuda, scale=1 / 16, dtypes=("float32",))["ok"]
+
+
+# ---------------------------------------------------------------------------
+# K1's row plan: rows walked by a thread, a warp or a block by length,
+# dead rows skipped, one index walk for a group of replicas
+# ---------------------------------------------------------------------------
+
+from simgrid_tpu_torch.kernels import lmm_round as k1  # noqa: E402
+from simgrid_tpu_torch.kernels.common import IT, LIGHT, LmmSystem  # noqa
+from simgrid_tpu_torch.ops.csr import build_csr  # noqa: E402
+
+K1_STATE = ("v_value", "v_fixed", "remaining", "usage", "light")
+K1_ARMS = {
+    "local": dict(),
+    "bounds": dict(has_bounds=True),
+    "fatpipe": dict(has_fatpipe=True),
+    "bounds_fatpipe": dict(has_bounds=True, has_fatpipe=True),
+    "global": dict(global_rounds=True),
+    "global_bounds": dict(global_rounds=True, has_bounds=True),
+    "global_fatpipe": dict(global_rounds=True, has_fatpipe=True),
+}
+#: (replicas, per-replica weights, forced replicas per group, short_max,
+#: long_min): the solo layout and fleets at B = 8 and 5 (a partial
+#: group), at the production classes and at small ones (most rows long)
+K1_LAYOUTS = {
+    "solo": (None, False, 0, k1.SHORT_ROW, k1.LONG_ROW),
+    "b8_shared_g2": (8, False, 2, k1.SHORT_ROW, k1.LONG_ROW),
+    "b8_per_w_g1": (8, True, 1, k1.SHORT_ROW, k1.LONG_ROW),
+    "b5_per_w_g2": (5, True, 2, k1.SHORT_ROW, k1.LONG_ROW),
+    "solo_small_classes": (None, False, 0, 2, 16),
+    "b8_small_classes_g2": (8, True, 2, 2, 16),
+}
+
+
+def class_system(seed, dtype, short_max, long_min, n_v=2000, extra=150):
+    """Constraint rows at every class boundary (empty, length 1, each
+    threshold -1/0/+1, one row of 700 elements: more than two block
+    stages) and ``extra`` random rows of 1-40 elements, over elements in
+    random order, a few of weight 0; bounds with a zero, penalties with
+    zeros, rate bounds on 40% of the flows, 15% of the rows FATPIPE."""
+    rng = np.random.default_rng(seed)
+    lens = [0, 1, 2, short_max - 1, short_max, short_max + 1,
+            long_min - 1, long_min, long_min + 1, 700, 0, 1]
+    lens += list(rng.integers(1, 41, extra))
+    pairs = np.concatenate([
+        np.stack([rng.choice(n_v, n, replace=False),
+                  np.full(n, c)], 1) for c, n in enumerate(lens) if n > 0])
+    pairs = pairs[rng.permutation(len(pairs))]
+    E, C = len(pairs), len(lens)
+    e_w = rng.uniform(0.5, 1.5, E)
+    # weight-0 elements only on the random rows: the boundary rows keep
+    # their lengths in the row index
+    extra_e = np.flatnonzero(pairs[:, 1] >= 12)
+    e_w[rng.choice(extra_e, len(extra_e) // 50, replace=False)] = 0.0
+    c_bound = rng.uniform(1.0, 10.0, C)
+    c_bound[4] = 0.0
+    pen = rng.uniform(0.5, 2.0, n_v)
+    pen[::13] = 0.0
+    vb = np.where(rng.random(n_v) < 0.4, rng.uniform(1e-3, 5e-2, n_v),
+                  -1.0)
+    fat = rng.random(C) < 0.15
+    return (pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32),
+            e_w.astype(dtype), c_bound.astype(dtype), fat,
+            pen.astype(dtype), vb.astype(dtype), n_v)
+
+
+def _k1_fleet(dev, dtype, B, per_w, classes, seed=3):
+    """The class system on ``dev`` (row lengths about ``classes``):
+    solo (B None) or a fleet of B with bounds scaled per replica,
+    penalties zeroed per replica, rate bounds per replica and
+    (``per_w``) weights per replica."""
+    e_var, e_cnst, e_w, cb, fat, pen, vb, n_v = class_system(
+        seed, dtype, *classes)
+    rng = np.random.default_rng(seed + 100)
+    if B is not None:
+        cb = cb[None, :] * (1.0 + 0.05 * np.arange(B))[:, None]
+        pen = np.repeat(pen[None, :], B, 0)
+        for b in range(B):
+            pen[b, rng.choice(n_v, 20 * b, replace=False)] = 0.0
+        vb = vb[None, :] * rng.uniform(0.5, 1.5, (B, n_v))
+        if per_w:
+            e_w = e_w[None, :] * rng.uniform(0.8, 1.2, (B, len(e_w)))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    ev, ec, ew = t(e_var), t(e_cnst), t(e_w.astype(dtype))
+    csr = build_csr(ev, ec, ew if ew.dim() == 1 else ew.amax(0),
+                    len(fat), n_v)
+    sys_ = LmmSystem(ev, ec, ew, t(cb.astype(dtype)), csr, n_v, t(fat))
+    w = Work(n_v, len(fat), ew.dtype, dev, B=B)
+    return sys_, w, t(pen.astype(dtype)), t(vb.astype(dtype))
+
+
+def _k1_plain_round(s, w, pen, vb, eps, arms):
+    if w.B is None:
+        return k1.lmm_round_plain(s, w, pen, eps, vb, **arms)
+    return any([k1.lmm_round_plain(s.replica(b), w.replica(b), pen[b], eps,
+                                   vb[b], **arms) for b in range(w.B)])
+
+
+@pytest.mark.parametrize("layout", list(K1_LAYOUTS))
+@pytest.mark.parametrize("arm", list(K1_ARMS))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+def test_k1_classes_card_equals_plain(cuda, monkeypatch, dtype, arm, layout):
+    """K1 from init to convergence on the class system, the card against
+    the plain round on the CPU after every round (the first 48, then
+    every 8th and the last): state and control words equal by bits, in
+    every arm, solo and as a fleet, with the plan's classes and the
+    replica groups forced as the layout says."""
+    B, per_w, group, short_max, long_min = K1_LAYOUTS[layout]
+    monkeypatch.setattr(k1, "GROUP", group)
+    monkeypatch.setattr(k1, "SHORT_ROW", short_max)
+    monkeypatch.setattr(k1, "LONG_ROW", long_min)
+    arms = K1_ARMS[arm]
+    eps = 1e-5 if dtype == np.float32 else 1e-9
+    (sg, wg, pg, vg), (sc, wc, pc_, vc) = (
+        _k1_fleet(dev, dtype, B, per_w, (short_max, long_min))
+        for dev in (cuda, torch.device("cpu")))
+    fat = arms.get("has_fatpipe", False)
+    reset_launch_counts()
+    k1.lmm_init(sg, wg, pg, eps, has_fatpipe=fat)
+    k1.lmm_init(sc, wc, pc_, eps, has_fatpipe=fat)
+    plan = wg.k1_plan[1]
+    want = k1.lmm_plan_plain(sc.csr.c_ptr, short_max, long_min)
+    assert torch.equal(plan.order.cpu(), want.order)
+    assert torch.equal(plan.ncls.cpu(), want.ncls)
+    assert min(int(x) for x in want.ncls) >= 1
+
+    def held(what):
+        torch.cuda.synchronize()
+        for n in K1_STATE:
+            assert torch.equal(getattr(wg, n).cpu(), getattr(wc, n)), \
+                (what, n)
+        assert torch.equal(wg.ctrl.cpu(), wc.ctrl), what
+        assert not bool(wg.touch.any()), what
+    held("init")
+    rounds = 0
+    while _k1_plain_round(sc, wc, pc_, vc, eps, arms):
+        k1.lmm_round(sg, wg, pg, eps, vg, **arms)
+        rounds += 1
+        if rounds <= 48 or rounds % 8 == 0:
+            held(rounds)
+        assert rounds < 20_000
+    k1.lmm_round(sg, wg, pg, eps, vg, **arms)  # converged: a no-op
+    held("end")
+    assert rounds > 2
+    name = k1.arm_name(k1.arm_flags(arms.get("has_bounds", False), fat,
+                                    arms.get("global_rounds", False)))
+    assert launch_counts()[name + ("" if B is None else "_fleet")] == \
+        rounds + 1
+    assert launch_counts()["lmm_plan"] == 1
+
+
+@pytest.mark.parametrize("C", [0, 1, 5000, 300_000])
+def test_k1_plan_card_equals_plain(cuda, C):
+    """The row plan of random row indexes (several scan tiles at 300,000
+    rows), card against plain, at two pairs of class limits."""
+    rng = np.random.default_rng(C)
+    lens = rng.choice([0, 1, 3, 8, 9, 30, 256, 257, 900], C)
+    c_ptr = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])
+                             .astype(np.int32))
+    for short_max, long_min in ((k1.SHORT_ROW, k1.LONG_ROW), (0, 8)):
+        got = k1.lmm_plan(c_ptr.to(cuda), short_max, long_min)
+        want = k1.lmm_plan_plain(c_ptr, short_max, long_min)
+        assert torch.equal(got.order.cpu(), want.order)
+        assert torch.equal(got.ncls.cpu(), want.ncls)
+
+
+@pytest.mark.parametrize("group", [-1, 3, 4, 8])
+def test_k1_forced_group_out_of_range_refused(cuda, monkeypatch, group):
+    """The C entries take a forced replica group of 0, 1 or 2 only: any
+    other value raises, and no launch is counted."""
+    monkeypatch.setattr(k1, "GROUP", group)
+    sg, wg, pg, vg = _k1_fleet(cuda, np.float64, 8, False,
+                               (k1.SHORT_ROW, k1.LONG_ROW))
+    reset_launch_counts()
+    with pytest.raises(RuntimeError):
+        k1.lmm_init(sg, wg, pg, 1e-9)
+    with pytest.raises(RuntimeError):
+        k1.lmm_round(sg, wg, pg, 1e-9)
+    counts = launch_counts()
+    assert counts["lmm_init_fleet"] == 0 and counts["lmm_round_fleet"] == 0
+
+
+def test_k1_plan_rebuilt_after_repack_card_equals_plain(cuda, monkeypatch):
+    """A bounded 3,000-flow LV08 drain that repacks on the card (K4
+    rewrites the row index there): K1 builds a new plan for every new
+    index, the last one equal to the plain plan of the last index, and
+    the drain equals the plain drain on the CPU, at classes small enough
+    that every class is walked."""
+    monkeypatch.setattr(k1, "SHORT_ROW", 2)
+    monkeypatch.setattr(k1, "LONG_ROW", 16)
+    s = dragonfly.build_system(3000, lv08=True)
+    rates = lmm_torch.solve_arrays(drain_run.solve_inputs(s), 1e-5,
+                                   device="cpu")[0]
+    vb = s.v_bound * np.median(rates / s.v_bound)
+    sims = []
+    for dev in (cuda, torch.device("cpu")):
+        reset_launch_counts()
+        sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes,
+                       eps=1e-5, dtype=np.float64, repack_min=64,
+                       device=dev, penalty=s.v_penalty, v_bound=vb,
+                       superstep=16)
+        sim.run()
+        sims.append((sim, launch_counts()))
+    (g, lg), (c, _) = sims
+    assert g.events == c.events and g.t == c.t
+    assert g.repacks >= 2 and lg["livefirst_repack_vbound"] >= 1
+    assert lg["lmm_plan"] >= g.repacks + 1
+    csr, plan = g.w.k1_plan
+    assert csr is g.sys.csr
+    want = k1.lmm_plan_plain(csr.c_ptr.cpu(), 2, 16)
+    assert torch.equal(plan.order.cpu(), want.order)
+    assert torch.equal(plan.ncls.cpu(), want.ncls)
+    assert min(int(x) for x in want.ncls) >= 1
