@@ -14,11 +14,16 @@ Phases (each prints one JSON line of its results):
    results must be bit-identical), with its mean time from CUDA events,
    the plain version's time on the card, and the least time the card
    could take (bytes over 3.35 TB/s).  K1's rows (here, in phases 5-6
-   and 17), K3's tape and replica arms, K10's replica arm and K11's
-   admissions are timed twice: ``ms``, the card's own time, the calls
-   queued behind ``torch.cuda._sleep`` (``probes/timing.py``
-   ``time_rounds``/``time_call``), and ``paced_ms``, CUDA events around
-   the host's calls as before.  K1's row plan (``lmm_plan``, built at
+   and 17), K2's and K3's rows here, K3's tape and replica arms, K10's
+   replica arm and K11's admissions are timed twice: ``ms``, the card's
+   own time, the calls queued behind ``torch.cuda._sleep``
+   (``probes/timing.py`` ``time_rounds``/``time_call``), and
+   ``paced_ms``, CUDA events around the host's calls as before.  Every
+   K2 and K3 row (here, in phases 8, 15, 17 and 18) records the CUDA
+   kernels one wrapper call launches (``cuda_launches_per_call``, by
+   ``torch.profiler`` over the K2/K3 probe's states, ``probes/
+   k1_rounds.py`` ``k23_call``, at 5,000 flows after phase 19, so that
+   no timing follows a profiler session).  K1's row plan (``lmm_plan``, built at
    system build and after every repack) is held against its plain
    version by bits on this system (main path 1's shape) and timed; the
    plan each K1 row ran on (here, phases 5 and 16: the alltoall's index
@@ -333,6 +338,18 @@ def held_plan(w) -> dict:
     return {"long": n[0], "medium": n[1], "short": n[2],
             "short_max": k1.SHORT_ROW, "long_min": k1.LONG_ROW,
             "plan_held": True}
+
+
+def ids_bytes(*masks) -> int:
+    """The bytes of int32 flow ids a commit needs: 4 for each flow that
+    completes or activates in some replica (a commit reads the id of
+    such a flow only, and an id read once serves every replica).  Each
+    mask is ``[V]`` or ``[B, V]``."""
+    hit = None
+    for m in masks:
+        m = m.reshape(-1, m.shape[-1]).bool().any(0).cpu()
+        hit = m if hit is None else hit | m
+    return 4 * int(hit.sum())
 
 
 def fleet_phases(ctx: dict) -> None:
@@ -728,9 +745,10 @@ def fleet_phases(ctx: dict) -> None:
     if err != 0.0 or not fired or not all(drain_advance_plain_fleet):
         raise AssertionError(f"K2's replica event arm differs from its "
                              f"plain version ({err}) or no tape fired")
-    k2f_ms = events_ms(lambda: drain_advance(
-        st["cuda"]["pen"], st["cuda"]["rem"], g._thresh, g.w,
-        tape_t=g._tape[0]), 20, lambda: k2_setup(g, "cuda"))
+    def k2f_fn():
+        drain_advance(st["cuda"]["pen"], st["cuda"]["rem"], g._thresh, g.w,
+                      tape_t=g._tape[0])
+    k2f_ms = events_ms(k2f_fn, 20, lambda: k2_setup(g, "cuda"))
     k2f_plain = events_ms(lambda: [drain_advance_plain(
         st["cuda"]["pen"][b], st["cuda"]["rem"][b], g._thresh[b],
         g.w.replica(b), tape_t=g._tape[0][b]) for b in range(Bk)], 2,
@@ -792,7 +810,7 @@ def fleet_phases(ctx: dict) -> None:
         tape=(g._tape[1][b], g._tape[2][b]), c_bound=g.sys.c_bound[b])
         for b in range(Bk)], 2, k3_setup)
     n_done = int(c.w.done.sum())
-    k3f_bytes = (Bk * V + nbytes(g._ids) + (n_done + fired) * 16
+    k3f_bytes = (Bk * V + ids_bytes(c.w.done) + (n_done + fired) * 16
                  + fired * 16)
     slot0 = torch.tensor([0], device=cuda)
 
@@ -1095,9 +1113,11 @@ def collective_fleet_phase(ctx: dict) -> None:
         bound_by="bytes", library_ms=None, replicas=Bk, flows=V,
         launches_from="main path 11 (the 1,024-rank collective fleet)"))
     log({"phase": "kernel", **kernels[-1]})
-    # K3: the masks, ids and dates read; per completion a ring entry,
-    # per activation a ring entry, a penalty and a date written
-    k3_bytes = (Bk * V + nbytes(ids_g, xg["ready"]) + n_done * 16
+    # K3: the masks and dates read, the ids of the flows that complete
+    # or activate; per completion a ring entry, per activation a ring
+    # entry, a penalty and a date written
+    k3_bytes = (Bk * V + nbytes(xg["ready"])
+                + ids_bytes(wc.done, torch.isfinite(ready0)) + n_done * 16
                 + n_act * 32)
     kernels.append(dict(
         name="superstep_commit_coll_fleet", route="cuda",
@@ -1405,6 +1425,38 @@ def probe_phase(ctx: dict) -> None:
     report["opcost_probe"] = {**rec, "rows": rows, "held": held}
 
 
+#: the probe's K2 and K3 cases (``probes/k1_rounds.py`` ``K23_CASES``)
+#: by the kernel row they stand for
+K23_ROWS = {
+    "k2": "drain_advance", "k2_event": "drain_advance_event",
+    "k2_fleet": "drain_advance_event_fleet",
+    "k2_fleet_ready": "drain_advance_event_fleet_coll",
+    "k2_forced": "drain_forced_advance", "k3": "superstep_commit",
+    "k3_tape": "superstep_commit_tape", "k3_coll": "superstep_commit_coll",
+    "k3_fleet": "superstep_commit_tape_fleet",
+    "k3_coll_fleet": "superstep_commit_coll_fleet"}
+
+
+def k23_launch_phase(ctx: dict) -> None:
+    """The CUDA kernels one call of each K2 and K3 wrapper launches
+    (``torch.profiler``, ``probes/timing.py`` ``kernel_counts``), into
+    the kernel rows as ``cuda_launches_per_call``.  A wrapper launches
+    the same kernels at any shape, so the probe's states
+    (``probes/k1_rounds.py`` ``k23_call``) serve at 5,000 flows; it runs
+    after every timing of the script, so that none follows a profiler
+    session, and the phases have freed their own states by then."""
+    from simgrid_tpu_torch.probes.k1_rounds import k23_call
+    from simgrid_tpu_torch.probes.timing import kernel_counts
+    out = {}
+    for case, row in K23_ROWS.items():
+        _, fn, on, _ = k23_call(case, shape=(5000, 64))
+        out[row] = sum(kernel_counts(fn, on).values())
+    for k in ctx["kernels"]:
+        if k["name"] in out:
+            k["cuda_launches_per_call"] = out[k["name"]]
+    log({"phase": "k2_k3_cuda_launches", **out})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1451,7 +1503,8 @@ def main() -> int:
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   TPOS)
     from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
-    from simgrid_tpu_torch.probes.timing import time_call, time_rounds
+    from simgrid_tpu_torch.probes.timing import (events_ms, time_call,
+                                                 time_rounds)
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -1478,21 +1531,6 @@ def main() -> int:
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         for name, text in logs.items():
             f.write(f"=== {name}\n{text}\n")
-
-    def events_ms(fn, n, setup=None):
-        """Mean ms of fn() over n runs, CUDA events around each call."""
-        tot = 0.0
-        for _ in range(n):
-            if setup is not None:
-                setup()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            tot += a.elapsed_time(b)
-        return tot / n
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts
@@ -1636,8 +1674,11 @@ def main() -> int:
               diff(wg.ctrl[LIVE_ACC], wc.ctrl[LIVE_ACC]))
     if err != 0.0:
         raise AssertionError(f"K2 differs from its plain version: {err}")
-    k2_ms = events_ms(lambda: drain_advance(state["pen"], state["rem"],
-                                            thresh_g, wg), 20, k2_setup)
+    def k2_fn():
+        drain_advance(state["pen"], state["rem"], thresh_g, wg)
+    # the card's ms (queued behind a sleep) beside the host-paced ms
+    k2_paced = events_ms(k2_fn, 20, k2_setup)
+    k2_t = time_call(k2_fn, k2_setup)
     k2_plain = events_ms(lambda: drain_advance_plain(
         state["pen"], state["rem"], thresh_g, wg), 5, k2_setup)
     k2_bytes = nbytes(pen_g, rem0, thresh0, rates_g) + 2 * nbytes(pen_g) \
@@ -1646,7 +1687,8 @@ def main() -> int:
         name="drain_advance", route="cuda",
         source="simgrid_tpu_torch/csrc/drain_advance.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:162",
-        max_abs_err=err, ms=k2_ms, plain_ms=k2_plain,
+        max_abs_err=err, ms=k2_t["ms"], paced_ms=k2_paced,
+        queued=k2_t["queued"], plain_ms=k2_plain,
         bound_ms=bound_ms(k2_bytes), bound_by="bytes", library_ms=None,
         completions=int(wc.done.sum())))
     log({"phase": "kernel", **kernels[-1]})
@@ -1686,18 +1728,21 @@ def main() -> int:
         wg.ctrl.copy_(snap[0])
         wg.fctrl.copy_(snap[1])
         pk_g.copy_(snap[2])
-    k3_ms = events_ms(lambda: superstep_commit(wg, ids_g, pk_g, K, V), 20,
-                      k3_setup)
+    def k3_fn():
+        superstep_commit(wg, ids_g, pk_g, K, V)
+    k3_paced = events_ms(k3_fn, 20, k3_setup)
+    k3_t = time_call(k3_fn, k3_setup)
     k3_plain = events_ms(lambda: superstep_commit_plain(wg, ids_g, pk_g, K,
                                                         V), 5, k3_setup)
-    k3_bytes = V + nbytes(ids_g) + n_done * 16
+    k3_bytes = V + ids_bytes(wc.done) + n_done * 16
     kernels.append(dict(
         name="superstep_commit", route="cuda",
         source="simgrid_tpu_torch/csrc/superstep_commit.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:248",
-        max_abs_err=err, ms=k3_ms, plain_ms=k3_plain,
+        max_abs_err=err, ms=k3_t["ms"], paced_ms=k3_paced,
+        queued=k3_t["queued"], plain_ms=k3_plain,
         bound_ms=bound_ms(k3_bytes), bound_by="bytes", library_ms=None,
-        limited_by="latency: one block of 1024 threads per commit"))
+        limited_by="latency: two launches of a tile grid per commit"))
     log({"phase": "kernel", **kernels[-1]})
 
     # K4: repack with about half the flows live
@@ -2097,8 +2142,9 @@ def main() -> int:
     if err != 0.0:
         raise AssertionError(f"K2 forced differs from its plain version: "
                              f"{err}")
-    kf_ms = events_ms(lambda: drain_forced_advance(
-        fst["pen"], fst["rem"], thr_g, wgf, delta), 20, kf_setup)
+    def kf_fn():
+        drain_forced_advance(fst["pen"], fst["rem"], thr_g, wgf, delta)
+    kf_ms = events_ms(kf_fn, 20, kf_setup)
     kf_plain = events_ms(lambda: drain_forced_advance_plain(
         fst["pen"], fst["rem"], thr_g, wgf, delta), 5, kf_setup)
     kernels.append(dict(
@@ -3124,9 +3170,10 @@ def main() -> int:
     if err != 0.0 or not int(w13c.ctrl[FFIRE]):
         raise AssertionError(f"K2's event arm differs from its plain "
                              f"version ({err}) or did not fire")
-    k2e_ms = events_ms(lambda: drain_advance(
-        st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g, w13g,
-        tape_t=tt13_g), 20, lambda: k2e_setup(w13g, "cuda"))
+    def k2e_fn():
+        drain_advance(st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g,
+                      w13g, tape_t=tt13_g)
+    k2e_ms = events_ms(k2e_fn, 20, lambda: k2e_setup(w13g, "cuda"))
     k2e_plain = events_ms(lambda: drain_advance_plain(
         st13["cuda"]["pen"], st13["cuda"]["rem"], thresh_g, w13g,
         tape_t=tt13_g), 5, lambda: k2e_setup(w13g, "cuda"))
@@ -3191,9 +3238,10 @@ def main() -> int:
     k3t_lib_paced = events_ms(k3t_lib_fn, 20)
     k3t_lib = time_call(k3t_lib_fn)["ms"]
     n13 = int(w13c.done.sum())
-    # the mask and ids read, the ring written (completions and the fault
-    # entry), one tape entry read and one bound written
-    k3t_bytes = V13 + nbytes(ids_g) + (n13 + 1) * 16 + 4 + 8 + 8
+    # the mask and the completed flows' ids read, the ring written
+    # (completions and the fault entry), one tape entry read and one
+    # bound written
+    k3t_bytes = V13 + ids_bytes(w13c.done) + (n13 + 1) * 16 + 4 + 8 + 8
     kernels.append(dict(
         name="superstep_commit_tape", route="cuda",
         source="simgrid_tpu_torch/csrc/superstep_commit.cu",
@@ -3279,15 +3327,20 @@ def main() -> int:
         w14g.evf.copy_(snap14[2])
         x_g["pen"].copy_(pen14)
         x_g["ready"].copy_(ready14)
-    k3c_ms = events_ms(lambda: superstep_commit(
-        w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14, ready=x_g["ready"],
-        pen=x_g["pen"]), 20, k3c_restore)
+    def k3c_fn():
+        superstep_commit(w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14,
+                         ready=x_g["ready"], pen=x_g["pen"])
+    k3c_ms = events_ms(k3c_fn, 20, k3c_restore)
     k3c_plain = events_ms(lambda: superstep_commit_plain(
         w14g, ids14_g, x_g["pk"], K, 2 * V14, n_c=C14, ready=x_g["ready"],
         pen=x_g["pen"]), 5, k3c_restore)
-    # mask, ids and dates read; per activation a ring entry, a penalty
-    # and a date written
-    k3c_bytes = V14 + nbytes(ids14_g, ready14) + n_act14 * 32
+    # mask and dates read, the ids of the flows that complete or
+    # activate; per completion a ring entry, per activation a ring
+    # entry, a penalty and a date written
+    n_done14 = int(w14c.done.sum())
+    k3c_bytes = (V14 + nbytes(ready14)
+                 + ids_bytes(w14c.done, torch.isfinite(ready14))
+                 + n_done14 * 16 + n_act14 * 32)
     kernels.append(dict(
         name="superstep_commit_coll", route="cuda",
         source="simgrid_tpu_torch/csrc/superstep_commit.cu",
@@ -3371,6 +3424,7 @@ def main() -> int:
                       EPS=EPS, **helpers))
     collective_fleet_phase(dict(tape14=tape14, **helpers))
     probe_phase(helpers)
+    k23_launch_phase(helpers)
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3379,7 +3433,8 @@ def main() -> int:
     log({"kernels": [{**{k: kr[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-        "launches_from")}, **({"arms": kr["arms"]} if "arms" in kr else {})}
+        "launches_from")}, **{k: kr[k] for k in (
+            "arms", "cuda_launches_per_call") if k in kr}}
         for kr in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -41,6 +41,8 @@
 #define C_AANY 27
 #define C_PENDING 28
 #define C_ADV_OK 29
+// slots 30-31: one 64-bit ticket (last_block below), 0 between launches
+#define C_TICKET 30
 
 #define N_CTRL 32
 
@@ -296,6 +298,68 @@ static inline dim3 grid_b(long long items, int per_block, int B) {
   if (cap < 1) cap = 1;
   if (g > cap) g = cap;
   return dim3(g, B);
+}
+
+// The last block of a launch to finish, per replica.  Every block of the
+// replica's grid row calls it once, with all its threads, after its own
+// writes; `add` (thread 0's) is summed over the blocks into *sum.  One
+// 64-bit atomic a block: the high word counts the blocks in, the low
+// word sums `add` (the caller keeps the total under 2^32).  It returns
+// true in the block that came in last, and that block has reset the
+// ticket to 0 for the next launch; its reads of what the other blocks
+// wrote must bypass L1 (__ldcg, or an atomic).
+__device__ __forceinline__ bool last_block(unsigned long long* ticket,
+                                           unsigned add, unsigned* sum) {
+  __shared__ bool last;
+  __shared__ unsigned tot;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long old = atomicAdd(ticket, (1ULL << 32) | add);
+    last = (unsigned)(old >> 32) == gridDim.x - 1;
+    tot = (unsigned)old + add;
+    if (last) *ticket = 0ULL;
+  }
+  __syncthreads();
+  if (last) __threadfence();
+  *sum = tot;
+  return last;
+}
+
+__device__ __forceinline__ unsigned long long* ticket_of(int* ctrl) {
+  return reinterpret_cast<unsigned long long*>(ctrl + C_TICKET);
+}
+
+// Programmatic dependent launch (Hopper): a kernel launched by
+// `launch_dependent` may be scheduled while the kernel before it in the
+// stream still runs, once every block of that kernel has called
+// `pdl_trigger`; it must call `pdl_wait` before it touches memory that
+// kernel reads or writes (the wait returns when that kernel has
+// finished and its writes are visible).  It hides the second kernel's
+// launch latency behind the first.  Both are no-ops for a kernel
+// launched plainly.
+__device__ __forceinline__ void pdl_trigger() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+template <typename... Params, typename... Args>
+static inline cudaError_t launch_dependent(void (*kernel)(Params...), dim3 grid,
+                                    int threads, cudaStream_t s,
+                                    Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
 // One single-thread (or single-block) launch per replica.

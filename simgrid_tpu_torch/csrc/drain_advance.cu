@@ -11,24 +11,38 @@
 // What bounds it on this card: memory, and at the drain's sizes launch
 // latency.  It reads pen, rem, thresh and the rates once for the min
 // and once more for the update (V x 4 x 8 B = 3.2 MB at 100k flows in
-// f64, about a microsecond at 3.35 TB/s), so three short launches cost
-// more than the bytes.
+// f64, about a microsecond at 3.35 TB/s), so every kernel boundary of a
+// call (about 2.5 us on the H100) costs more than the bytes.
 //
-// What the design does about it: the min is one pass with a per-block
-// reduction and one unsigned atomicMin per block on the bits of the
-// non-negative quotient (exact: IEEE order of non-negative floats is
-// the integer order of their bits); the update is one elementwise pass
-// that also counts live flows with one atomic per block.
+// What the design does about it: two launches a call, and no launch of
+// one thread.  `adv_min` (the min pass) derives the gate and the
+// convergence from the control words in every block (read only; thread
+// 0 of block 0 writes them back, with the STARVED hand-back and the
+// cleared words), folds the min with a per-block reduction and one
+// unsigned atomicMin per block on the bits of the non-negative quotient
+// (exact: IEEE order of non-negative floats is the integer order of
+// their bits), and its last block (`last_block`: a fence and a
+// per-replica ticket) reads the final bits, does the event peek and
+// clamp, writes dt to fctrl[F_DT] and resets the bit slots to the key
+// of +inf for the next call (a Work creates them so).  `adv_apply` (the
+// update) is one elementwise pass that reads dt from fctrl[F_DT] and
+// counts live flows with one atomic per block into C_LIVE_ACC, which
+// the min pass cleared.  A grid sync in place of the boundary between
+// the two costs more than the boundary on this card (PERF.md, PR 8);
+// the apply pass is a programmatic dependent launch instead, so its
+// launch overlaps the min pass (`launch_dependent`, common.cuh).
 // `rem - rate*dt` is written __dsub_rn(rem, __dmul_rn(rate, dt))
 // (__fsub_rn/__fmul_rn in f32), which pins `_rounded_product` whatever
-// the compiler flags.
+// the compiler flags.  The forced mode is one launch: each block adds
+// its live count to the ticket, and the last block stores the total in
+// C_LIVE_ACC.
 //
 // The event arm (a fault tape, a collective schedule or both) replaces
 // the `has_tape or has_coll` branch of the superstep body
 // (simgrid_tpu/ops/lmm_drain.py:363-401).  After the planned dt (the
-// same min), `adv_event` peeks the next event: the next tape date
-// `tape_t[tpos]` while `tpos < T`, the earliest pending activation
-// `min(ready)` (folded by `adv_min` in the same pass, an unsigned
+// same min), the min pass's last block peeks the next event: the next
+// tape date `tape_t[tpos]` while `tpos < T`, the earliest pending
+// activation `min(ready)` (folded by the same pass, an unsigned
 // atomicMin on the bits of non-negative f64 dates, +inf included), and
 // the clock `now = t0 + t_sum` (tape) or `t_sum` (collective clocks are
 // absolute).  The advance fires when the event date lies inside it,
@@ -36,10 +50,10 @@
 // rescues an infinite plan), and dt is clamped to land on it:
 // `dt = (T) max(next_t - now, 0)`.  All of that clock arithmetic is
 // f64 with explicit round-to-nearest adds, also on an f32 drain, as in
-// JAX.  The clamped dt replaces the planned one in `dtbits`, so the
-// retire below is unchanged; `fire`, `f_fire = fire && next_ft <=
-// next_at` and `a_any = fire && next_at <= next_ft` go to control words
-// for K3, and the event date to `evf[EV_NEXT_T]`.
+// JAX.  The clamped dt goes to fctrl[F_DT], so the retire below is
+// unchanged; `fire`, `f_fire = fire && next_ft <= next_at` and
+// `a_any = fire && next_at <= next_ft` go to control words for K3, and
+// the event date to `evf[EV_NEXT_T]`.
 //
 // In a superstep (gated=1) the step runs only in an active advance
 // slot; when the fixpoint it follows has neither converged nor spent
@@ -61,123 +75,115 @@
 
 namespace {
 
-template <typename T>
-__global__ void adv_pre(int* ctrl, unsigned long long* dtbits,
-                        unsigned long long* atbits, int gated) {
-  long long b = blockIdx.y;
-  ctrl += b * N_CTRL;
-  dtbits += b;
-  if (atbits) atbits += b;
-  int go = 1;
-  if (gated == 2) {
-    go = ctrl[C_SS_ACTIVE];
-  } else if (gated) {
-    go = ctrl[C_SS_ACTIVE] && !ctrl[C_SS_STARVED];
-    if (go && ctrl[C_LIGHT] > 0 && ctrl[C_IT] < ctrl[C_LIMIT]) {
-      ctrl[C_SS_STARVED] = 1;
-      go = 0;
-    }
+// The gate of an advance, from control words no block of the call
+// writes before reading them (C_SS_STARVED is written, by one thread,
+// only to say what every block derives anyway).
+__device__ __forceinline__ int adv_gate(const int* ctrl, int gated,
+                                        bool* starve) {
+  *starve = false;
+  if (gated == 2) return ctrl[C_SS_ACTIVE];
+  if (!gated) return 1;
+  int go = ctrl[C_SS_ACTIVE] && !ctrl[C_SS_STARVED];
+  if (go && ctrl[C_LIGHT] > 0 && ctrl[C_IT] < ctrl[C_LIMIT]) {
+    *starve = true;
+    go = 0;
   }
-  ctrl[C_ADV_GO] = go;
-  ctrl[C_ADV_CONV] = ctrl[C_LIGHT] == 0;
-  ctrl[C_LIVE_ACC] = 0;
-  ctrl[C_ADV_OK] = 0;
-  ctrl[C_FIRE] = 0;
-  ctrl[C_FFIRE] = 0;
-  ctrl[C_AANY] = 0;
-  *dtbits = key_of(inf_v<T>());
-  if (atbits) *atbits = key_of(inf_v<double>());
+  return go;
 }
 
+// The min pass, the event peek and the dt (see the header).
 template <typename T>
 __global__ void adv_min(int V, const T* __restrict__ pen,
                         const T* __restrict__ rem,
                         const T* __restrict__ rate,
                         unsigned long long* dtbits,
                         const double* __restrict__ ready,
-                        unsigned long long* atbits, const int* ctrl) {
+                        unsigned long long* atbits, int* ctrl, T* fctrl,
+                        double* evf, const double* __restrict__ tape_t,
+                        int n_tape, int gated) {
+  // the apply pass may be scheduled now: it waits for this grid's end
+  pdl_trigger();
   long long b = blockIdx.y;
   ctrl += b * N_CTRL;
-  if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
+  bool starve;
+  int go = adv_gate(ctrl, gated, &starve);
+  bool conv = ctrl[C_LIGHT] == 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (starve) ctrl[C_SS_STARVED] = 1;
+    ctrl[C_ADV_GO] = go;
+    ctrl[C_ADV_CONV] = conv;
+    ctrl[C_LIVE_ACC] = 0;
+    ctrl[C_ADV_OK] = 0;
+    if (!go) {
+      // with go the last block writes them
+      ctrl[C_FIRE] = 0;
+      ctrl[C_FFIRE] = 0;
+      ctrl[C_AANY] = 0;
+    }
+  }
+  if (!go) return;
   pen += b * V;
   rem += b * V;
   rate += b * V;
   dtbits += b;
+  fctrl += b * N_FCTRL;
+  evf += b * N_EVF;
   if (ready) {
     ready += b * V;
     atbits += b;
   }
-  T m = inf_v<T>();
-  double a = inf_v<double>();
-  for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
-       v += gridDim.x * blockDim.x) {
-    T r = pen[v] > T(0) ? rate[v] : T(0);
-    if (r > T(0)) m = min_v(m, div_rn(rem[v], r));
-    if (ready) a = min_v(a, ready[v]);
-  }
-  m = warp_min(m);
-  __shared__ T wmin[32];
-  __shared__ double amin[32];
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) wmin[wid] = m;
-  if (ready) {
-    a = warp_min(a);
-    if (lane == 0) amin[wid] = a;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    int nw = blockDim.x >> 5;
-    T x = lane < nw ? wmin[lane] : inf_v<T>();
-    x = warp_min(x);
-    if (lane == 0 && x < inf_v<T>()) atomicMin(dtbits, key_of(x));
+  if (tape_t) tape_t += b * n_tape;
+  if (conv) {
+    T m = inf_v<T>();
+    double a = inf_v<double>();
+    for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
+         v += gridDim.x * blockDim.x) {
+      T r = pen[v] > T(0) ? rate[v] : T(0);
+      if (r > T(0)) m = min_v(m, div_rn(rem[v], r));
+      if (ready) a = min_v(a, ready[v]);
+    }
+    block_min_to(m, dtbits);
     if (ready) {
-      double y = lane < nw ? amin[lane] : inf_v<double>();
-      y = warp_min(y);
-      if (lane == 0 && y < inf_v<double>()) atomicMin(atbits, key_of(y));
+      __syncthreads();
+      block_min_to(a, atbits);
     }
   }
-}
-
-// The event peek and the dt clamp (one thread; see the header).
-template <typename T>
-__global__ void adv_event(int* ctrl, const T* fctrl,
-                          unsigned long long* dtbits,
-                          const unsigned long long* atbits, double* evf,
-                          const double* __restrict__ tape_t, int n_tape,
-                          int has_ready) {
-  long long b = blockIdx.y;
-  ctrl += b * N_CTRL;
-  if (!(ctrl[C_ADV_GO] && ctrl[C_ADV_CONV])) return;
-  fctrl += b * N_FCTRL;
-  dtbits += b;
-  if (atbits) atbits += b;
-  evf += b * N_EVF;
-  if (tape_t) tape_t += b * n_tape;
+  unsigned unused;
+  if (!last_block(ticket_of(ctrl), 0, &unused) || threadIdx.x != 0) return;
+  // the last block: the final minima, reset for the next call
   const double inf = inf_v<double>();
-  T dt_plan = from_key<T>(*dtbits);
-  int tpos = ctrl[C_TPOS];
-  double next_ft = (tape_t && tpos < n_tape) ? tape_t[tpos] : inf;
-  double next_at = has_ready ? from_key<double>(*atbits) : inf;
-  double ts = (double)fctrl[F_TSUM];
-  double now = has_ready ? ts : __dadd_rn(evf[EV_T0], ts);
-  double next_t = next_at < next_ft ? next_at : next_ft;
-  bool fire = isfinite(next_t) && next_t <= __dadd_rn(now, (double)dt_plan);
-  if (fire) {
-    double gap = __dsub_rn(next_t, now);
-    if (gap < 0.0) gap = 0.0;
-    *dtbits = key_of(from_f64<T>(gap));
+  T dt = from_key<T>(atomicExch(dtbits, key_of(inf_v<T>())));
+  double next_at =
+      ready ? from_key<double>(atomicExch(atbits, key_of(inf))) : inf;
+  int fire = 0, f_fire = 0, a_any = 0;
+  if (conv && (tape_t || ready)) {
+    int tpos = ctrl[C_TPOS];
+    double next_ft = (tape_t && tpos < n_tape) ? tape_t[tpos] : inf;
+    double ts = (double)fctrl[F_TSUM];
+    double now = ready ? ts : __dadd_rn(evf[EV_T0], ts);
+    double next_t = next_at < next_ft ? next_at : next_ft;
+    fire = isfinite(next_t) && next_t <= __dadd_rn(now, (double)dt);
+    if (fire) {
+      double gap = __dsub_rn(next_t, now);
+      if (gap < 0.0) gap = 0.0;
+      dt = from_f64<T>(gap);
+    }
+    f_fire = fire && next_ft <= next_at;
+    a_any = fire && next_at <= next_ft;
+    evf[EV_NEXT_T] = next_t;
   }
+  // without convergence no block folded a minimum: dt is +inf
+  fctrl[F_DT] = dt;
   ctrl[C_FIRE] = fire;
-  ctrl[C_FFIRE] = fire && next_ft <= next_at;
-  ctrl[C_AANY] = fire && next_at <= next_ft;
-  evf[EV_NEXT_T] = next_t;
+  ctrl[C_FFIRE] = f_fire;
+  ctrl[C_AANY] = a_any;
 }
 
 template <typename T>
 __global__ void adv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
-                          const T* __restrict__ rate, bool* done,
-                          const unsigned long long* dtbits, int* ctrl,
-                          T* fctrl) {
+                          const T* __restrict__ rate, bool* done, int* ctrl,
+                          const T* fctrl) {
+  pdl_wait();
   long long b = blockIdx.y;
   ctrl += b * N_CTRL;
   if (!ctrl[C_ADV_GO]) return;
@@ -186,11 +192,9 @@ __global__ void adv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
   thresh += b * V;
   rate += b * V;
   done += b * V;
-  dtbits += b;
   fctrl += b * N_FCTRL;
-  T dt = from_key<T>(*dtbits);
+  T dt = fctrl[F_DT];
   bool ok = ctrl[C_ADV_CONV] && finite_v(dt);
-  if (blockIdx.x == 0 && threadIdx.x == 0) fctrl[F_DT] = dt;
   int live = 0;
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < V;
        v += gridDim.x * blockDim.x) {
@@ -224,26 +228,18 @@ int launch(int B, int V, void* pen, void* rem, const void* thresh,
            cudaStream_t s) {
   const int TB = 256;
   dim3 g = grid_b(V, TB, B);
-  bool event = tape_t != nullptr || ready != nullptr;
   unsigned long long* ab = ready ? (unsigned long long*)atbits : nullptr;
-  adv_pre<T><<<grid_r(B), 1, 0, s>>>((int*)ctrl, (unsigned long long*)dtbits,
-                                     ab, gated);
   adv_min<T><<<g, TB, 0, s>>>(V, (const T*)pen, (const T*)rem,
                               (const T*)rate, (unsigned long long*)dtbits,
-                              (const double*)ready, ab, (const int*)ctrl);
-  if (event)
-    adv_event<T><<<grid_r(B), 1, 0, s>>>((int*)ctrl, (const T*)fctrl,
-                                 (unsigned long long*)dtbits, ab,
-                                 (double*)evf, (const double*)tape_t,
-                                 n_tape, ready != nullptr);
-  adv_apply<T><<<g, TB, 0, s>>>(V, (T*)pen, (T*)rem, (const T*)thresh,
-                                (const T*)rate, (bool*)done,
-                                (const unsigned long long*)dtbits,
-                                (int*)ctrl, (T*)fctrl);
-  return (int)cudaGetLastError();
+                              (const double*)ready, ab, (int*)ctrl,
+                              (T*)fctrl, (double*)evf, (const double*)tape_t,
+                              n_tape, gated);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_dependent(adv_apply<T>, g, TB, s, V, (T*)pen, (T*)rem,
+                               (const T*)thresh, (const T*)rate, (bool*)done,
+                               (int*)ctrl, (const T*)fctrl);
 }
-
-__global__ void fadv_pre(int* ctrl) { ctrl[C_LIVE_ACC] = 0; }
 
 template <typename T>
 __global__ void fadv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
@@ -270,8 +266,10 @@ __global__ void fadv_apply(int V, T* pen, T* rem, const T* __restrict__ thresh,
     done[v] = d;
     live += p > T(0);
   }
-  int tot = block_sum(live);
-  if (threadIdx.x == 0 && tot) atomicAdd(ctrl + C_LIVE_ACC, tot);
+  unsigned tot;
+  if (last_block(ticket_of(ctrl), (unsigned)block_sum(live), &tot) &&
+      threadIdx.x == 0)
+    ctrl[C_LIVE_ACC] = (int)tot;
 }
 
 template <typename T>
@@ -279,7 +277,6 @@ int launch_forced(int V, void* pen, void* rem, const void* thresh,
                   const void* rate, void* done, void* ctrl, double delta,
                   cudaStream_t s) {
   const int TB = 256;
-  fadv_pre<<<1, 1, 0, s>>>((int*)ctrl);
   fadv_apply<T><<<grid_for(V, TB), TB, 0, s>>>(
       V, (T*)pen, (T*)rem, (const T*)thresh, (const T*)rate, (bool*)done,
       (T)delta, (int*)ctrl);

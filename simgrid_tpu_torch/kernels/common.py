@@ -58,6 +58,9 @@ FFIRE = 26        # ... and the event is the next fault-tape entry
 AANY = 27         # ... and the event is a collective activation date
 PENDING = 28      # collective flows with a pending activation date
 ADV_OK = 29       # the last advance committed (converged, finite dt)
+#: slots 30-31: one 64-bit ticket by which a launch's last block finds
+#: itself (K2, K3); 0 between launches
+TICKET = 30
 N_CTRL = 32
 
 # ---- fctrl (dtype) slots ----
@@ -72,6 +75,21 @@ EV_NEXT_T = 1     # the date of the event the last advance looked at
 N_EVF = 2
 
 MAX_ROUNDS = 100_000
+
+#: flags a block of K3's commit covers (csrc/superstep_commit.cu)
+COMMIT_TILE = 4096
+#: the head of a replica's commit scratch row, before the tile counts
+COMMIT_HEAD = 4
+
+
+def commit_tiles(n_v: int) -> int:
+    return max(1, -(-n_v // COMMIT_TILE))
+
+
+def inf_key(dtype: torch.dtype) -> int:
+    """The bits of +inf in ``dtype`` (f32 or f64), as K2's ``atomicMin``
+    slots hold them between calls."""
+    return 0x7FF0000000000000 if dtype == torch.float64 else 0x7F800000
 
 FLAG_OK = 0
 FLAG_STALLED = 1
@@ -118,6 +136,11 @@ class Work:
     arm's ``rou`` and its two grid-wide minima (``min_usage``,
     ``min_bound``: the bits of a non-negative float, as ``dtbits``) are
     written by the rounds that use them and read by nothing else.
+    K2's minimum slots ``dtbits`` (dt, in the drain's dtype) and
+    ``atbits`` (the earliest activation date, f64) hold the bits of +inf
+    between calls: each call's last block resets them.  ``commit_scan``
+    is K3's scratch (the bases of a commit's ring entries and its tiles'
+    counts), written and read within one commit.
     ``touch`` marks the constraints a round's fixed variables lie on
     (K1 sets and clears it within one round), ``k1_plan`` holds K1's row
     plan of the last row index it ran on (``kernels/lmm_round.py``
@@ -154,10 +177,12 @@ class Work:
         self.min_bound = vec(1, torch.int64)
         self.ctrl = vec(N_CTRL, torch.int32)
         self.fctrl = vec(N_FCTRL, dtype)
-        self.dtbits = vec(1, torch.int64)
+        self.dtbits = vec(1, torch.int64).fill_(inf_key(dtype))
         #: the event arm's f64 clock words and min(ready) bits
         self.evf = vec(N_EVF, torch.float64)
-        self.atbits = vec(1, torch.int64)
+        self.atbits = vec(1, torch.int64).fill_(inf_key(torch.float64))
+        self.commit_scan = vec(COMMIT_HEAD + 2 * commit_tiles(n_v),
+                               torch.int32)
         self.c_mod = vec(n_c, torch.bool)
         self.touch = vec(n_c, torch.bool)
         self.k1_plan = None

@@ -9,12 +9,12 @@ advance slots.
 The commit's two event arms follow K2's event peek: the fault-tape arm
 (``tape=(tape_slot, tape_val)`` and the drain's ``c_bound``) logs the
 fired entry, scatters its bound and bumps the cursor; the collective
-arm (``ready``, ``pen``) fires the activations.  Every launch counts
-once: as ``superstep_commit_coll`` when its collective arm is on (with
-or without the tape arm, whose runs show in the fault events it logs),
-as ``superstep_commit_tape`` when only its tape arm is on, as
-``superstep_commit`` otherwise; a fleet's launches count under the same
-names with ``_fleet`` appended.
+arm (``ready``, ``pen``) fires the activations.  Every call (two CUDA
+launches) counts once: as ``superstep_commit_coll`` when its collective
+arm is on (with or without the tape arm, whose runs show in the fault
+events it logs), as ``superstep_commit_tape`` when only its tape arm is
+on, as ``superstep_commit`` otherwise; a fleet's calls count under the
+same names with ``_fleet`` appended.
 
 ``packed`` is the superstep's result vector in the JAX layout:
 ``[rounds, adv, n_ev, t_sum, n_live, flag, live_elems]``, then
@@ -73,7 +73,7 @@ _SIG = {
     "superstep_begin": [I, P, P],
     "superstep_resume": [I, P, P],
     "superstep_commit": [I, I, I, P, P, P, P, P, I, I, P, P, P, I, P, I, I,
-                         P, P, P],
+                         P, P, P, P],
     "superstep_finish": [I, I, I, I, P, P, L, P, P, L, P, P, P, P],
 }
 
@@ -344,7 +344,7 @@ def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,
         0 if ts is None else int(ts.shape[-1]), opt_ptr(cb),
         0 if cb is None else int(cb.shape[-1]), int(n_c),
         opt_ptr(ready), opt_ptr(pen if ready is not None else None),
-        stream())
+        ptr(w.commit_scan), stream())
     check(rc, "superstep_commit")
     plain, taped, coll = ((COUNT, TAPE_COUNT, COLL_COUNT) if w.B is None
                           else (FLEET_COUNT, FLEET_TAPE_COUNT,

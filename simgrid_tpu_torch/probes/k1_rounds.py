@@ -3,7 +3,7 @@
     python simgrid_tpu_torch/probes/k1_rounds.py [--root DIR] [--out PATH]
         [--cases solo,fleet8,a2a_bounds,a2a_fat,glob48] [--profile]
 
-Each case builds one system of the port's main paths, solves it once
+Each K1 case builds one system of the port's main paths, solves it once
 from init to convergence with K1 (``kernels/lmm_round.py``) and then
 times its rounds three ways:
 
@@ -51,7 +51,33 @@ timed on one card in one call.  The cases:
 * ``coll1024`` (not in the default list): ``chip_smoke.py``'s main path
   11 without its admission, the 1,024-rank recursive-doubling allreduce
   as a collective fleet of 32 (``workloads/collective_fleet.py``), its
-  wall and K1's launches.
+  wall and K1's launches;
+* ``wall1``, ``wall8`` and ``wall10`` (not in the default list):
+  ``chip_smoke.py``'s main paths 1 (the config-#4 random drain), 8 (the
+  same under phase 13's fault tape) and 10 (the fleet of 8 over it,
+  without its admission), their walls (host clock, ending in a sync).
+
+The K2 and K3 cases (``K23_CASES``, not in the default list) time one
+wrapper call of ``drain_advance``, ``drain_forced_advance`` or
+``superstep_commit`` at a main path's shape, each call from the same
+restored state (``probes/timing.py`` ``time_call``: ``ms`` queued behind
+a sleep, ``paced_ms`` as the host paces it), in an active advance slot
+and in a gated no-op one (K2 with ``SS_ACTIVE`` 0, K3 with ``ADV_GO``
+0; the forced mode has no gate), with the CUDA kernels one call launches
+(``torch.profiler``) and the bytes bound.  The state is one advance of
+seeded flows (90% live, rates U(1e3, 1e5), eight flows ending together
+on the planned dt), with a tape date or pending activation dates inside
+the advance where the arm is on:
+
+* ``k2``, ``k3``, ``k2_forced``: the solo drain at 100,000 flows (main
+  path 1; main path 3 for the forced mode);
+* ``k2_event``, ``k3_tape``: the same with a fault tape (main path 8);
+* ``k3_coll``: the 1,024-rank recursive doubling's 10,240 flows, a
+  quarter of the dormant ones due (main path 9);
+* ``k2_fleet``, ``k3_fleet``: 8 replicas of 100,000 flows with tapes
+  (main path 10);
+* ``k2_fleet_ready``, ``k3_coll_fleet``: 32 replicas of the 10,240
+  collective flows with tapes and pending dates (main path 11).
 """
 
 from __future__ import annotations
@@ -206,26 +232,232 @@ def run_sweep_walls(batches=(1, 8, 64)) -> dict:
             "dispatches": {r["batch"]: r["dispatches"] for r in rows}}
 
 
-#: the collective fleet's width (chip_smoke.py's COLL_B)
-COLL_WIDTH = 32
+def main_paths():
+    """This checkout's ``chip_smoke.py``, loaded from its file: its
+    ``FLOWS``, ``K``, ``FLEET_B``, ``FLEET_K``, ``FAULT`` and ``COLL_B``
+    define the main paths the walls and the K2 and K3 cases run."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("k1_rounds_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def run_coll_fleet() -> dict:
-    """The 1,024-rank collective fleet of ``COLL_WIDTH`` on the card: its
-    wall and its launches of K1 and of the row plan."""
+    """The 1,024-rank collective fleet of ``chip_smoke.py``'s width on
+    the card: its wall and its launches of K1 and of the row plan."""
     from simgrid_tpu_torch.workloads import collective_fleet as cf
     from simgrid_tpu_torch.workloads import collective_run, fleet_run
     import torch
     cs = collective_run.CASES[2]
     _, legs, _ = collective_run.run_case(cs, device=torch.device("cuda"))
     t_end = legs["tape"]["events"][-1][0]
-    camp = cf.fleet_campaign(cs, cf.fleet_specs(cs, t_end, COLL_WIDTH),
-                             "cuda")
+    camp = cf.fleet_campaign(
+        cs, cf.fleet_specs(cs, t_end, main_paths().COLL_B), "cuda")
     _, row = fleet_run.run_fleet_full(camp)
     keep = ("lmm_plan", "lmm_init_fleet", "lmm_round_fleet")
     return {"wall_s": row["wall_s"], "supersteps": row["supersteps"],
             "dispatches": row["dispatches"], "rounds": row["rounds"],
             "launches": {k: row["launches"].get(k, 0) for k in keep}}
+
+
+#: the K2 and K3 cases: (wrapper, replicas, shape, tape, ready dates);
+#: the replicas of ``fleet`` and ``coll`` are ``chip_smoke.py``'s
+#: ``FLEET_B`` and ``COLL_B``
+K23_CASES = {
+    "k2": ("advance", None, "drain", False, False),
+    "k2_event": ("advance", None, "drain", True, False),
+    "k2_fleet": ("advance", "fleet", "drain", True, False),
+    "k2_fleet_ready": ("advance", "coll", "coll", True, True),
+    "k2_forced": ("forced", None, "drain", False, False),
+    "k3": ("commit", None, "drain", False, False),
+    "k3_tape": ("commit", None, "drain", True, False),
+    "k3_coll": ("commit", None, "coll", False, True),
+    "k3_fleet": ("commit", "fleet", "drain", True, False),
+    "k3_coll_fleet": ("commit", "coll", "coll", True, True),
+}
+_SHAPES: dict = {}
+
+
+def k23_shape(kind: str):
+    """(V, C) of the config-#4 drain or of the 1,024-rank collective."""
+    if kind not in _SHAPES:
+        if kind == "drain":
+            from simgrid_tpu_torch.workloads import dragonfly
+            s = dragonfly.build_system(main_paths().FLOWS)
+            _SHAPES[kind] = (len(s.sizes), s.n_cnst)
+        else:
+            from simgrid_tpu_torch.workloads import collective_run
+            dc = collective_run.CASES[2].build()
+            _SHAPES[kind] = (dc.n_v, dc.n_c)
+    return _SHAPES[kind]
+
+
+def run_k23(name: str) -> dict:
+    """One K2 or K3 case (module docstring): the card's ms of one call,
+    active and gated off, beside the host-paced ms and the bound."""
+    t = _timing()
+    rec, fn, on, off = k23_call(name)
+    for label, setup in (("active", on), ("noop", off)):
+        if setup is None:
+            continue
+        q = t.time_call(fn, setup)
+        rec[label] = {"ms": q["ms"], "queued": q["queued"],
+                      "paced_ms": t.events_ms(fn, 20, setup)}
+    rec["cuda_launches"] = t.kernel_counts(fn, on)
+    return rec
+
+
+def k23_call(name: str, shape=None):
+    """One K2 or K3 case's state on the card (module docstring), at its
+    main path's (V, C) or at ``shape``: ``(rec, fn, on, off)``, with
+    ``fn`` one wrapper call, ``on`` and ``off`` the setups of an active
+    and of a gated no-op slot (``off`` None for the forced mode), and
+    ``rec`` the case, its counts and its bound."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import common as kc
+    from simgrid_tpu_torch.kernels.drain_advance import (
+        drain_advance, drain_forced_advance)
+    from simgrid_tpu_torch.kernels.superstep_commit import (
+        packed_size, superstep_commit)
+    t = _timing()
+    smoke = main_paths()
+    what, B, kind, tape, ready = K23_CASES[name]
+    B = {"fleet": smoke.FLEET_B, "coll": smoke.COLL_B}.get(B, B)
+    V, C = shape or k23_shape(kind)
+    k_max = smoke.K
+    dev, f64 = torch.device("cuda"), torch.float64
+    rng = np.random.default_rng(3)
+    lead = () if B is None else (B,)
+    pen = np.where(rng.random(lead + (V,)) < 0.9, 1.0, 0.0)
+    rate = rng.uniform(1e3, 1e5, lead + (V,))
+    rem = rate * rng.uniform(2.0, 50.0, lead + (V,))
+    end = rng.choice(V, 8, replace=False)
+    pen[..., end] = 1.0
+    rem[..., end] = rate[..., end]
+    T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa: E731
+    pen0, rem0, thr = T(pen), T(rem), T(1e-4 * rem)
+    tt = tap = rd0 = None
+    if tape:
+        tt = T(np.sort(rng.uniform(0.5, 40.0, lead + (64,)), axis=-1))
+        tap = (T(rng.integers(0, C, lead + (64,)).astype(np.int32)),
+               T(rng.uniform(1e8, 1e10, lead + (64,))))
+    if ready:
+        r = np.full(lead + (V,), np.inf)
+        due = np.where(pen == 0.0, rng.random(lead + (V,)) < 0.25, False)
+        r[due] = 0.25
+        rd0 = T(r)
+    w = kc.Work(V, C, f64, dev, B=B)
+    w.v_value.copy_(T(rate))
+    c = w.ctrl.reshape(-1, kc.N_CTRL)
+    c[:, kc.LIMIT] = 100
+    c[:, kc.IT] = 5
+    c[:, kc.SS_ACTIVE] = 1
+    if ready:
+        c[:, kc.PENDING] = torch.isfinite(rd0).reshape(-1, V).sum(1).to(
+            torch.int32)
+    pen, rem = pen0.clone(), rem0.clone()
+    rd = None if rd0 is None else rd0.clone()
+    snap = [w.ctrl.clone(), w.fctrl.clone(), w.evf.clone()]
+
+    def restore(go=1):
+        pen.copy_(pen0)
+        rem.copy_(rem0)
+        for x, y in zip((w.ctrl, w.fctrl, w.evf), snap):
+            x.copy_(y)
+        w.ctrl.reshape(-1, kc.N_CTRL)[:, kc.SS_ACTIVE] = go
+
+    def k2():
+        drain_advance(pen, rem, thr, w, gated=1, tape_t=tt, ready=rd)
+    rec = {"case": name, "B": w.nb, "V": V, "C": C}
+    nbytes = lambda *xs: sum(x.numel() * x.element_size()  # noqa: E731
+                             for x in xs if x is not None)
+    # K2: each input read once (flow state, rates, thresholds, dates,
+    # one tape date a replica), pen, rem and the mask written once
+    k2_bytes = (nbytes(pen0, rem0, thr, w.v_value, rd0) + 8 * w.nb * bool(
+        tape) + nbytes(pen0, rem0) + w.done.numel())
+    if what == "forced":
+        fn, on, off = (lambda: drain_forced_advance(pen, rem, thr, w, 1.0),
+                       restore, None)
+        rec["bound_ms"] = t.bound_ms(k2_bytes)
+    elif what == "advance":
+        fn, on, off = k2, restore, (lambda: restore(0))
+        rec["bound_ms"] = t.bound_ms(k2_bytes)
+    else:
+        restore()
+        k2()
+        torch.cuda.synchronize()
+        ring_n = V + 64
+        packed = torch.zeros(lead + (packed_size(k_max, ring_n),),
+                             dtype=f64, device=dev)
+        cb0 = T(rng.uniform(1e8, 1e10, lead + (C,)))
+        cb = cb0.clone()
+        ids = torch.arange(V, dtype=torch.int32, device=dev)
+        pen1 = pen.clone()
+        snap3 = [w.ctrl.clone(), w.fctrl.clone(), w.evf.clone()]
+        n_done = int(w.done.sum())
+        due = None if rd0 is None else rd0 <= w.evf.reshape(
+            -1, kc.N_EVF)[:, kc.EV_NEXT_T:].to(rd0)
+        n_act = 0 if due is None else int(due.sum())
+        # the flows whose id the commit reads, an id read once for all
+        # replicas
+        hit = w.done.reshape(-1, V).bool()
+        if due is not None:
+            hit = hit | due.reshape(-1, V)
+        n_ids = int(hit.any(0).sum())
+        n_fire = int(c[:, kc.FFIRE].sum()) if tape else 0
+
+        def restore3(go=1):
+            for x, y in zip((w.ctrl, w.fctrl, w.evf), snap3):
+                x.copy_(y)
+            pen.copy_(pen1)
+            cb.copy_(cb0)
+            if rd is not None:
+                rd.copy_(rd0)
+            w.ctrl.reshape(-1, kc.N_CTRL)[:, kc.ADV_GO] = go
+
+        def fn():
+            superstep_commit(w, ids, packed, k_max, ring_n, tape=tap,
+                             c_bound=cb, n_c=C, ready=rd, pen=pen)
+        on, off = restore3, (lambda: restore3(0))
+        rec.update(n_done=n_done, n_act=n_act, n_fire=n_fire)
+        # the mask and the ids of completing or activating flows read, a
+        # ring entry (date, id) written per event; with dates, the dates
+        # read and a pen and a date written per activation; per fire a
+        # tape entry read and a bound written
+        rec["bound_ms"] = t.bound_ms(
+            w.done.numel() + 4 * n_ids + 16 * (n_done + n_act + n_fire)
+            + nbytes(rd0) + 16 * n_act + 20 * n_fire)
+    rec["bound_by"] = "bytes"
+    return rec, fn, on, off
+
+
+def run_walls(name: str) -> dict:
+    """Main path 1, 8 or 10's wall on the card (module docstring)."""
+    import torch
+    from simgrid_tpu_torch.workloads import dragonfly, fault_drain, fleet_run
+    from simgrid_tpu_torch.workloads.drain_run import EPS, run_drain
+    smoke = main_paths()
+    dsys = dragonfly.build_system(smoke.FLOWS)
+    cuda = torch.device("cuda")
+    if name == "wall1":
+        _, row = run_drain(dsys, device=cuda, superstep=smoke.K)
+    elif name == "wall8":
+        tape = fault_drain.tape_for(dsys.e_cnst, dsys.e_w, dsys.c_bound,
+                                    link_names=dragonfly.link_names(dsys),
+                                    **smoke.FAULT)
+        _, row = fault_drain.run_fault_drain(dsys, tape, device=cuda,
+                                             superstep=smoke.K)
+    else:
+        specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
+                                      smoke.FAULT)
+        camp = fleet_run.fleet_campaign(dsys, specs, cuda, smoke.FLEET_K,
+                                        dragonfly.link_names(dsys), EPS)
+        _, row = fleet_run.run_fleet_full(camp)
+    keep = ("wall_s", "advances", "supersteps", "rounds", "fires")
+    return {k: row[k] for k in keep if k in row}
 
 
 def _timing():
@@ -247,6 +479,10 @@ def run_case(name: str, profile: bool = False) -> dict:
             (8,) if name == "sweep8" else (1, 8, 64))}
     if name == "coll1024":
         return {"case": name, **run_coll_fleet()}
+    if name in K23_CASES:
+        return run_k23(name)
+    if name in ("wall1", "wall8", "wall10"):
+        return {"case": name, **run_walls(name)}
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     s, w, pen, vb, arms, eps = build_case(name, dev)

@@ -31,9 +31,11 @@ given (a CPU time is not a device time).
 
 ``time_rounds`` (a solve's rounds, queued in windows) and ``time_call``
 (one call, queued behind its own sleep) apply the same protocol to the
-kernels of the main paths: ``chip_smoke.py`` times K1's rows and the
-calls whose enqueue outlasts their kernel with them, and
-``probes/k1_rounds.py`` K1's rounds by case.
+kernels of the main paths, ``events_ms`` gives one call's host-paced
+time and ``kernel_counts`` the CUDA kernels one call launches:
+``chip_smoke.py`` times K1's rows and the calls whose enqueue outlasts
+their kernel with them, and ``probes/k1_rounds.py`` K1's rounds and
+K2's and K3's calls by case.
 """
 
 from __future__ import annotations
@@ -176,6 +178,48 @@ def time_call(fn: Callable[[], object],
         cards.append(ms)
         busy = busy and ok
     return {"ms": statistics.median(cards), "queued": busy}
+
+
+def events_ms(fn: Callable[[], object], n: int,
+              setup: Optional[Callable[[], object]] = None) -> float:
+    """Mean ms of one ``fn()`` as the host paces it over ``n`` runs: CUDA
+    events around the call alone, ``setup()`` before each
+    (``time_call``'s twin without the sleep)."""
+    tot = 0.0
+    for _ in range(n):
+        if setup is not None:
+            setup()
+        tot += _events(fn, 1, None)[0]
+    return tot / n
+
+
+def kernel_counts(fn: Callable[[], object],
+                  setup: Optional[Callable[[], object]] = None,
+                  reps: int = 4) -> dict:
+    """CUDA kernels one ``fn()`` launches, by name: ``torch.profiler``
+    over ``reps`` calls after one ``setup()``, divided by ``reps`` (a
+    wrapper launches the same kernels whatever the state; runtime calls,
+    copies, fills and PyTorch's own kernels left out)."""
+    from torch.profiler import ProfilerActivity, profile
+    if setup is not None:
+        setup()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        name = (ev.key or "").replace("void ", "").replace(
+            "(anonymous namespace)::", "").split("(")[0]
+        if t and name and not name.startswith(
+                ("cuda", "aten", "at::", "Memcpy", "Memset")):
+            out[name] = out.get(name, 0) + ev.count / reps
+    return out
 
 
 def sync_ms(device: torch.device) -> Optional[float]:

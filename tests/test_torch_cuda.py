@@ -19,8 +19,10 @@ import torch
 from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
 from simgrid_tpu_torch.kernels import ell_chain as k9
 from simgrid_tpu_torch.kernels import warm_init as k6
-from simgrid_tpu_torch.kernels.common import (ADV_OK, LIVE_ACC, PENDING,
-                                              T_SUM, EllWork, Work)
+from simgrid_tpu_torch.kernels.common import (
+    AANY, ADV_CONV, ADV_GO, ADV_OK, COMMIT_TILE, DT, EV_NEXT_T, EV_T0, FFIRE,
+    FIRE, IT, LIGHT, LIMIT, LIVE_ACC, PENDING, SS_ACTIVE, SS_ADV, SS_NEV,
+    SS_ROUNDS, SS_STARVED, T_COMP, T_SUM, TPOS, EllWork, Work, inf_key)
 from simgrid_tpu_torch.kernels.dag_walk import dag_walk
 from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
 from simgrid_tpu_torch.kernels.transition_scatter import (
@@ -172,6 +174,287 @@ def test_forced_advance_card_equals_plain(cuda):
         assert torch.equal(x, y)
     assert out[0][3] == out[1][3]
     assert int(out[1][2].sum()) > 0
+
+
+# K2 and K3 against their plain versions at small shapes that straddle
+# K3's tiles, with every control word, clock slot and array compared by
+# bits; ``None`` is the solo layout, 1, 5 and 8 replica axes.
+LEADS = (None, 1, 5, 8)
+V_TILES = 3 * COMMIT_TILE + 37
+
+
+def _per_replica(B, fn):
+    """A [B, ...] array of fn(b) rows, or fn(0) for the solo layout."""
+    return fn(0) if B is None else np.stack([fn(b) for b in range(B)])
+
+
+def _work(dev, B, dtype, V=V_TILES, C=16):
+    return Work(V, C, dtype, dev, B=B)
+
+
+def _set(w, B, slot, vals):
+    """ctrl/fctrl/evf slot ``slot`` per replica (vals: a list or scalar)."""
+    t, i = slot
+    x = getattr(w, t)
+    if B is None:
+        x[i] = vals[0] if isinstance(vals, list) else vals
+    else:
+        x[:, i] = torch.tensor(vals if isinstance(vals, list)
+                               else [vals] * B, dtype=x.dtype)
+
+
+def _same(a, b, what):
+    a, b = a.cpu(), b.cpu()
+    if a.dtype.is_floating_point:
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        assert bool(same.all()) and torch.equal(torch.signbit(a),
+                                                torch.signbit(b)), what
+    else:
+        assert torch.equal(a, b), what
+
+
+K2_CASES = ("plain", "event_tape", "event_ready", "tie", "starved",
+            "budget", "nonfinite", "gated2", "twice", "forced")
+
+
+def _k2_inputs(case, dtype, B, V):
+    rng = np.random.default_rng(21)
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    nb = 1 if B is None else B
+
+    def row(b):
+        pen = np.where(rng.random(V) < 0.9, rng.uniform(0.5, 2, V), 0.0)
+        rate = np.where(rng.random(V) < 0.95,
+                        np.round(rng.uniform(1e3, 1e5, V)), 0.0)
+        rem = rate * rng.uniform(6.0, 60.0, V) + 1.0
+        # several flows end together on the planned dt, across tiles
+        tie = rng.choice(V, 7, replace=False)
+        pen[tie], rate[tie] = 1.0, 1024.0 * (b + 1)
+        rem[tie] = rate[tie] * 5.0
+        if case == "nonfinite":
+            rate[:] = 0.0
+        return np.stack([pen, rem, rate, np.full(V, 1e-3)]).astype(npd)
+    x = _per_replica(B, row)
+    if B is None:
+        pen, rem, rate, thr = x
+    else:
+        pen, rem, rate, thr = (x[:, i] for i in range(4))
+    tape_t = ready = None
+    if case in ("event_tape", "tie", "twice", "gated2", "starved"):
+        tape_t = _per_replica(B, lambda b: np.sort(rng.uniform(0.5, 60.0, 6)))
+    if case in ("event_ready", "tie"):
+        def rdy(b):
+            r = np.full(V, np.inf)
+            idx = rng.choice(V, 9, replace=False)
+            r[idx] = 3.0 + rng.uniform(0.0, 4.0, 9)
+            return r
+        ready = _per_replica(B, rdy)
+    ctrl = dict(light=[0] * nb, it=[4] * nb, limit=[10] * nb,
+                active=[1] * nb, gated=0)
+    if case in ("starved", "budget", "gated2"):
+        ctrl["gated"] = 2 if case == "gated2" else 1
+        ctrl["light"] = [3 if b % 2 == 0 else 0 for b in range(nb)]
+        if case == "budget":
+            ctrl["it"] = [10] * nb
+        if case == "gated2":
+            ctrl["active"] = [b % 3 != 0 for b in range(nb)]
+    return pen, rem, rate, thr, tape_t, ready, ctrl
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case,B", [(c, B) for c in K2_CASES
+                                    for B in LEADS
+                                    if c != "forced" or B is None])
+def test_k2_advance_card_equals_plain(cuda, case, B, dtype):
+    """K2 (two launches a call, the forced mode one) against its plain
+    version: the STARVED hand-back, a non-finite dt, a fixpoint out of
+    budget, ``gated=2``, the event arm on a tape and on ready dates, an
+    event date that ties the planned dt, and two calls in a row with no
+    reset between them (each call's last block resets the minimum slots
+    and the ticket)."""
+    from simgrid_tpu_torch.kernels.drain_advance import (drain_advance,
+                                                         planned_dt)
+    V = V_TILES
+    pen, rem, rate, thr, tape_t, ready, c = _k2_inputs(case, dtype, B, V)
+    nb = 1 if B is None else B
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        w = _work(dev, B, dtype, V)
+        T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa
+        p, r, th = T(pen), T(rem), T(thr)
+        w.v_value.copy_(T(rate))
+        tt = None if tape_t is None else T(tape_t)
+        rd = None if ready is None else T(ready)
+        for key, slot in (("light", LIGHT), ("it", IT), ("limit", LIMIT),
+                          ("active", SS_ACTIVE)):
+            _set(w, B, ("ctrl", slot), [int(v) for v in c[key]])
+        _set(w, B, ("ctrl", TPOS), [b % 3 for b in range(nb)])
+        _set(w, B, ("fctrl", T_SUM), [0.75 + b for b in range(nb)])
+        _set(w, B, ("evf", EV_T0), [2.0 + 0.5 * b for b in range(nb)])
+        if case == "tie":
+            # the next event date lands exactly on now + dt_plan: a tape
+            # date in even replicas, an activation date in odd ones (with
+            # a collective the clock is t_sum alone)
+            for b in range(nb):
+                wb = w if B is None else w.replica(b)
+                pb, rb = (p, r) if B is None else (p[b], r[b])
+                tb = tt if B is None else tt[b]
+                rrow = rd if B is None else rd[b]
+                dt = float(planned_dt(pb.cpu(), rb.cpu(),
+                                      wb.v_value.cpu())[0])
+                now = float(wb.fctrl[T_SUM])
+                rrow.fill_(float("inf"))
+                if b % 2 == 0:
+                    tb[int(wb.ctrl[TPOS])] = now + dt
+                else:
+                    tb += 1000.0
+                    rrow[V // 2] = now + dt
+        if case == "forced":
+            for delta in (2.5, 5.0):
+                drain_forced_advance(p, r, th, w, delta)
+        else:
+            for _ in range(2 if case == "twice" else 1):
+                drain_advance(p, r, th, w, gated=c["gated"], tape_t=tt,
+                              ready=rd)
+        runs.append((w, p, r))
+    (wg, pg, rg), (wc, pc, rc) = runs
+    for name, a, b in (("pen", pg, pc), ("rem", rg, rc),
+                       ("done", wg.done, wc.done), ("ctrl", wg.ctrl, wc.ctrl),
+                       ("fctrl", wg.fctrl, wc.fctrl), ("evf", wg.evf, wc.evf)):
+        _same(a, b, name)
+    # the minimum slots are back at +inf for the next call
+    assert bool((wg.dtbits.cpu() == inf_key(dtype)).all())
+    assert bool((wg.atbits.cpu() == inf_key(torch.float64)).all())
+    cc = wc.ctrl.reshape(nb, -1)
+    if case in ("plain", "tie", "twice", "forced"):
+        assert int(wc.done.sum()) > 0
+    if case == "tie":
+        assert bool((cc[:, FIRE] == 1).all())
+    if case == "starved":
+        assert bool((cc[:, SS_STARVED] == 1).any())
+    if case in ("budget", "nonfinite"):
+        # replica 0 ran its advance and changed nothing
+        assert int(cc[0, ADV_GO]) == 1
+        assert int(wc.done.reshape(nb, -1)[0].sum()) == 0
+
+
+K3_CASES = ("none", "all", "edges", "tape_act", "act_next", "go0",
+            "ring_end", "stalled", "budget", "ids_view")
+
+
+def _k3_inputs(case, dtype, B, V):
+    rng = np.random.default_rng(33)
+    nb = 1 if B is None else B
+    nt = 5.0
+
+    def done_row(b):
+        if case == "none":
+            return np.zeros(V, bool)
+        if case == "all":
+            return np.ones(V, bool)
+        d = rng.random(V) < 0.01
+        if case in ("edges", "ids_view"):
+            d[[0, 15, 16, 4095, 4096, 4097, 8191, 8192, 12287, 12288,
+               V - 1]] = True
+        return d
+    done = _per_replica(B, done_row)
+    tape = case in ("all", "tape_act", "go0", "ring_end", "stalled")
+    coll = case in ("tape_act", "act_next", "go0", "ring_end", "budget")
+
+    def ready_row(b):
+        r = np.full(V, np.inf)
+        idx = rng.choice(V, 40, replace=False)
+        r[idx] = nt + rng.uniform(-2.0, 2.0, 40)
+        # due exactly at the event date, across tiles
+        r[[4095, 4096, 9000 + b, V - 2]] = nt
+        r[V - 3] = np.nextafter(nt, np.inf)
+        return r
+    ready = _per_replica(B, ready_row) if coll else None
+    ok = case not in ("stalled", "budget")
+    n_done = done.reshape(nb, V).sum(1)
+    n_act = ((ready.reshape(nb, V) <= nt).sum(1) if coll
+             else np.zeros(nb, int))
+    n_ev = 100
+    # two commits in a row: completions twice, the fault twice, the
+    # activations once (the first sets their dates to inf)
+    need = n_ev + 2 * n_done + (2 if tape else 0) + n_act
+    ring_n = int(need.max()) if case == "ring_end" else n_ev + 3 * V
+    return done, tape, coll, ready, ok, n_ev, ring_n, nt
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("B", LEADS, ids=lambda B: f"B{B}")
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_commit_card_equals_plain(cuda, case, B, dtype):
+    """K3's commit (a reduce-then-scan over tiles) against its plain
+    version, two commits in a row: no completion, every flow completing,
+    completions on tile edges with V not a multiple of the tile, a tape
+    fire with activations, activations due exactly at the event date, a
+    replica whose advance did not run beside live ones, a ring filled to
+    its last slot, a non-finite dt, an unconverged fixpoint and ids
+    given as a view one entry into its storage (not 16-byte aligned)."""
+    from simgrid_tpu_torch.kernels.superstep_commit import (
+        packed_size, superstep_commit)
+    V, C, k_max, n_t = V_TILES, 16, 4, 5
+    done, tape, coll, ready, ok, n_ev, ring_n, nt = _k3_inputs(
+        case, dtype, B, V)
+    nb = 1 if B is None else B
+    rng = np.random.default_rng(34)
+    npd = np.float64 if dtype == torch.float64 else np.float32
+    ids = rng.permutation(V).astype(np.int32)
+    t_slot = _per_replica(
+        B, lambda b: rng.integers(0, C, n_t).astype(np.int32))
+    t_val = _per_replica(B, lambda b: rng.uniform(1.0, 9.0, n_t).astype(npd))
+    c_bound = _per_replica(B, lambda b: rng.uniform(1.0, 9.0, C).astype(npd))
+    pen = _per_replica(B, lambda b: rng.uniform(0.0, 2.0, V).astype(npd))
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        T = lambda a: torch.from_numpy(np.array(a)).to(dev)  # noqa
+        w = _work(dev, B, dtype, V, C)
+        w.done.copy_(T(done))
+        go = [0 if case == "go0" and (B is None or b == 1) else 1
+              for b in range(nb)]
+        for slot, vals in (
+                (("ctrl", ADV_GO), go),
+                (("ctrl", ADV_CONV), 0 if case == "budget" else 1),
+                (("ctrl", SS_NEV), n_ev), (("ctrl", SS_ADV), 1),
+                (("ctrl", TPOS), [b % 2 for b in range(nb)]),
+                (("ctrl", FFIRE), int(tape)), (("ctrl", AANY), int(coll)),
+                (("ctrl", IT), 7), (("ctrl", SS_ROUNDS), 30),
+                (("ctrl", LIVE_ACC), [V // 2 + b for b in range(nb)]),
+                (("ctrl", PENDING), 1000),
+                (("fctrl", DT), float("inf") if case == "stalled"
+                 else 0.25),
+                (("fctrl", T_SUM), [3.0 + b for b in range(nb)]),
+                (("fctrl", T_COMP), 1e-7), (("evf", EV_NEXT_T), nt)):
+            _set(w, B, slot, vals)
+        packed = torch.full(((nb,) if B is not None else ())
+                            + (packed_size(k_max, ring_n),), -3.0,
+                            dtype=dtype, device=dev)
+        arms = dict(tape=(T(t_slot), T(t_val)) if tape else None,
+                    c_bound=T(c_bound), n_c=C,
+                    ready=T(ready) if coll else None, pen=T(pen))
+        ids_t = (T(np.concatenate([[-1], ids]).astype(np.int32))[1:]
+                 if case == "ids_view" else T(ids))
+        for _ in range(2):
+            superstep_commit(w, ids_t, packed, k_max, ring_n, **arms)
+        runs.append((w, packed, arms))
+    (wg, pg, ag), (wc, pc, ac) = runs
+    for name, a, b in (("packed", pg, pc), ("ctrl", wg.ctrl, wc.ctrl),
+                       ("fctrl", wg.fctrl, wc.fctrl),
+                       ("c_bound", ag["c_bound"], ac["c_bound"]),
+                       ("pen", ag["pen"], ac["pen"])):
+        _same(a, b, name)
+    if coll:
+        _same(ag["ready"], ac["ready"], "ready")
+    if case == "ring_end":
+        # the fullest replica's last ring slot was written
+        last = pc.reshape(nb, -1)[:, -1]
+        assert bool((last != -3.0).any())
+    if ok and case != "none" and case != "go0":
+        assert int(wc.ctrl.reshape(nb, -1)[:, SS_NEV].max()) > n_ev
 
 
 def test_transition_scatter_card_equals_plain(cuda):
