@@ -18,12 +18,8 @@ Phases (each prints one JSON line of its results):
    replica arm and K11's admissions are timed twice: ``ms``, the card's
    own time, the calls queued behind ``torch.cuda._sleep``
    (``probes/timing.py`` ``time_rounds``/``time_call``), and
-   ``paced_ms``, CUDA events around the host's calls as before.  Every
-   K2 and K3 row (here, in phases 8, 15, 17 and 18) records the CUDA
-   kernels one wrapper call launches (``cuda_launches_per_call``, by
-   ``torch.profiler`` over the K2/K3 probe's states, ``probes/
-   k1_rounds.py`` ``k23_call``, at 5,000 flows after phase 19, so that
-   no timing follows a profiler session).  K1's row plan (``lmm_plan``, built at
+   ``paced_ms``, CUDA events around the host's calls as before.  K1's
+   row plan (``lmm_plan``, built at
    system build and after every repack) is held against its plain
    version by bits on this system (main path 1's shape) and timed; the
    plan each K1 row ran on (here, phases 5 and 16: the alltoall's index
@@ -31,7 +27,16 @@ Phases (each prints one JSON line of its results):
    classes (rows a block, a warp and a thread walk).  Main paths 1, 10
    and 11 must launch the plan;
 3. main path: the full config-#4 drain, superstep=16, float64, through
-   the kernels, with every kernel's launch count from that run;
+   the kernels, with every kernel's launch count from that run: each
+   superstep is one launch of K16's graph (``kernels/superstep_loop.py``:
+   conditional WHILE nodes over the advance slots and K1's rounds), and
+   the card's time of each is read from CUDA events around the launch.
+   K16's row: the first superstep of 4 advances from the drain's start
+   as one graph launch on the card against the plain loops on the host
+   CPU (by bits: the packed result, events, clock, rounds), its card
+   time, the plain loops' time on the card, and as its bound the sum of
+   its bodies' bounds (K1's over its rounds, K2's and K3's over its
+   advances);
 4. reduced drain: 10,000 flows of the same generator through the
    kernels on the card and through the plain path on the host CPU;
    events and clock must be equal.
@@ -102,9 +107,9 @@ Then the ELL layout, the JAX package's default solve on an accelerator
 11. main path 6, ``bench.py``'s headline solve (16,384 constraints,
    100,000 flows of degree 4, seed 42, eps 1e-9, local rounds;
    ``workloads/bench_solve.py``): (a) the card's default path, the
-   compaction chain (K8 rounds in guarded stages, K9's partitions and
-   fetches), a first solve and the median of 3, held against the plain
-   chain on the CPU with the same rounds and stages; (b) the chain off:
+   compaction chain (K8 rounds in K16's stage and finisher graphs,
+   none from the host; K9's partitions and fetches), a first solve
+   and the median of 3, held against the plain chain on the CPU with the same rounds and stages; (b) the chain off:
    K7's init and K8's rounds, held against the plain dense path; (c) a
    stage cap of 1: the chain overflows and the dense path re-solves,
    equal to (b); then K7's init, K8 and K9 held against their plain
@@ -166,9 +171,8 @@ state on the card:
    fault events and clock; (d) so does the admitted replica; (b) a
    reduced fleet (``REDUCED_FLOWS``, two sweep and two faulted
    replicas) on the card equals the plain fleet on the host CPU;
-   (c) the launches of each of the first 4 supersteps, with the queued
-   rounds per slot held equal, are the same at B = 1 and B = ``FLEET_B``
-   (the first pass of each superstep; STARVED resumes come on top);
+   (c) the host's launches of each of the first 4 supersteps are the
+   same at B = 1 and B = ``FLEET_B``, one of them K16's graph;
 17. ``bench.py``'s sweep and fault stages (``workloads/fleet_run.py``)
    on the card, whose counts must be those the JAX package gives on the
    CPU (``fleet_run.JAX_COUNTS``); then K11 (birth and admission) and
@@ -195,9 +199,9 @@ the shared schedule with its own DAG state:
    replica fires before its last completion; (b) fleets of
    ``COLL_B_SMALL`` over the 64-rank ring and the 256-rank recursive
    doubling (the same mix), and the 64-rank fleet at ``COLL_B_CPU`` on
-   the card against the plain fleet on the host CPU; (c) the launches of
-   each of the first 3 supersteps at B = 1 (the plain replica) and
-   B = ``COLL_B``, with the queued rounds per slot held equal; (d) K2's
+   the card against the plain fleet on the host CPU; (c) the host's
+   launches of each of the first 3 supersteps at B = 1 (the plain
+   replica) and B = ``COLL_B``, equal, one of them K16's graph; (d) K2's
    event arm and K3's collective arm on the fleet's dates, K10's replica arm and K11's
    collective admission at (a)'s shapes, each against its plain version
    (K10 beside ``index_add_`` on int32, K11 beside ``index_put_`` of a
@@ -212,12 +216,21 @@ the shared schedule with its own DAG state:
    and ``probe_double`` must launch); then every arm on the card
    against its plain version on the host CPU at P1's, P2's, P3's and
    P6's shapes (by bits: the gathers, the in-order segment sum, the
-   sequential scan, the minima and the three loop arms; the atomic
+   sequential scan, the minima and the four loop arms; the atomic
    segment sums and the block scan within the reordered-sum bound
-   ``2 m u |want|``), and the kernel rows K12-K15.
+   ``2 m u |want|``), and the kernel rows K12-K15, K15's cond arm (a
+   CUDA-graph conditional WHILE node, K16's mechanism) in a row of its
+   own; the phase's line records the CUDA runtime, driver and nvcc
+   versions.
 
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
+A kernel that K16's graphs run counts once for every iteration of the
+loop body that holds it (the card's tally words, read after the path;
+``kernels.path_counts``), beside its wrapper's launches from the host.
+Every superstep path (main paths 1, 8, 9, 10 and 11) and the headline
+chain must show K16's graph launches, one a superstep, its device
+rounds above zero, and no call of a round wrapper from the host.
 Then the card line again, one JSON line with a record per kernel, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without CUDA it exits non-zero before printing any result.
@@ -237,6 +250,8 @@ HBM_BYTES_PER_S = 3.35e12
 FLOWS = 100_000
 REDUCED_FLOWS = 10_000
 K = 16
+#: launches of the first superstep timed for K16's row (their median)
+K16_REPS = 5
 RANKS = 320
 REDUCED_RANKS = 48
 #: ranks of the alltoall engine plan run to its end on card and CPU
@@ -352,6 +367,156 @@ def ids_bytes(*masks) -> int:
     return 4 * int(hit.sum())
 
 
+class timed_graphs:
+    """Within the block, CUDA events around every launch of a K16 graph
+    of ``kind`` (recorded after its build), appended to ``spans`` as
+    (start, end) pairs: the card's time of each launch, read after a
+    sync."""
+
+    def __init__(self, kind: str, spans: list):
+        self.kind, self.spans = kind, spans
+
+    def __enter__(self):
+        import torch
+        from simgrid_tpu_torch.kernels import superstep_loop as k16
+        self.cls, self.orig = k16.DeviceLoop, k16.DeviceLoop.run
+        orig, kind, spans = self.orig, self.kind, self.spans
+
+        def run(loop):
+            if loop.kind != kind or loop.device.type != "cuda":
+                return orig(loop)
+            if not loop._exec.value:
+                loop._build()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            orig(loop)
+            b.record()
+            spans.append((a, b))
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.cls.run = self.orig
+        torch.cuda.synchronize()
+        return False
+
+
+def _tensors(obj, seen=None) -> list:
+    """Every tensor reachable from ``obj`` through tuples, lists and
+    objects' attributes (the buffers a loop's ``refs`` keep alive)."""
+    import torch
+    seen = {} if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        seen.setdefault((obj.data_ptr(), obj.numel()), obj)
+    elif isinstance(obj, (tuple, list)):
+        for x in obj:
+            _tensors(x, seen)
+    elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+        for x in vars(obj).values():
+            if isinstance(x, (torch.Tensor, tuple, list)):
+                _tensors(x, seen)
+    return list(seen.values())
+
+
+class replayed_graph:
+    """Within the block, the first launch of a K16 graph of ``kind`` is
+    timed in steady state: its buffers (the loop's ``refs``, the state
+    the superstep starts from) are saved, the graph is launched once to
+    warm it up (a graph's first launch uploads it), then ``reps`` times
+    from the saved state restored, with CUDA events around each launch
+    alone, appended to ``spans``.  The last replay leaves the state one
+    launch leaves."""
+
+    def __init__(self, kind: str, reps: int, spans: list):
+        self.kind, self.reps, self.spans = kind, reps, spans
+
+    def __enter__(self):
+        import torch
+        from simgrid_tpu_torch.kernels import superstep_loop as k16
+        self.cls, self.orig = k16.DeviceLoop, k16.DeviceLoop.run
+        orig, kind, spans, reps = self.orig, self.kind, self.spans, self.reps
+
+        def run(loop):
+            if loop.kind != kind or loop.device.type != "cuda" or spans:
+                return orig(loop)
+            if not loop._exec.value:
+                loop._build()
+            bufs = _tensors(loop.refs)
+            saved = [t.clone() for t in bufs]
+            orig(loop)
+            for _ in range(reps):
+                for t, c in zip(bufs, saved):
+                    t.copy_(c)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                orig(loop)
+                b.record()
+                spans.append((a, b))
+        self.cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        self.cls.run = self.orig
+        torch.cuda.synchronize()
+        return False
+
+
+class plain_on_card:
+    """Within the block, the solo drain's kernels (K1-K3) run their plain
+    versions on the card's tensors and K16's loops run as Python loops:
+    the plain superstep, timed on the card."""
+
+    def __enter__(self):
+        from simgrid_tpu_torch.kernels import drain_advance as k2
+        from simgrid_tpu_torch.kernels import lmm_round as k1
+        from simgrid_tpu_torch.kernels import superstep_commit as k3
+        from simgrid_tpu_torch.kernels import superstep_loop as k16
+        self.mods = [(m, m.on_cpu) for m in (k1, k2, k3)]
+        for m, _ in self.mods:
+            m.on_cpu = lambda *t: True
+        self.cls, self.run = k16.DeviceLoop, k16.DeviceLoop.run
+        self.cls.run = lambda loop: loop._run_plain(loop.steps)
+        return self
+
+    def __exit__(self, *exc):
+        for m, f in self.mods:
+            m.on_cpu = f
+        self.cls.run = self.run
+        return False
+
+
+def need_loop(row: dict, where: str, kind: str, tally: str,
+              supersteps: int = 0) -> dict:
+    """What K16 did on a path (its row's ``loop``): the graph launches
+    of ``kind``, the device iterations of the tally ``tally`` (rounds)
+    and the round wrappers' calls from the host.  Fails unless the
+    graphs ran and ran rounds, no round wrapper was called from the
+    host, and, on a superstep path (``supersteps``), there was one graph
+    launch a superstep."""
+    loop = row["loop"]
+    g = loop["graph_launches"].get(kind, 0)
+    r = loop["device_tally"].get(tally, 0)
+    host = sum(loop["host_round_calls"].values())
+    if g <= 0 or r <= 0:
+        raise AssertionError(f"K16 never ran {tally} on {where} ({g} "
+                             f"graph launches, {r} device rounds)")
+    if host:
+        raise AssertionError(f"{where}: {host} round wrapper calls from "
+                             f"the host (the loops run them on the card)")
+    if supersteps and g != supersteps:
+        raise AssertionError(f"{where}: {g} graph launches for "
+                             f"{supersteps} supersteps")
+    return {"graph_launches": g, "device_rounds": r,
+            "device_slots": loop["device_tally"].get("slots", 0),
+            "host_round_calls": host,
+            "graph_launches_per_superstep": (g / supersteps
+                                             if supersteps else None)}
+
+
 def fleet_phases(ctx: dict) -> None:
     """Phases 16-17 (module docstring): the config-#4 fleet, the stage
     counts, and K11 and the replica arms of K1-K3 against their plain
@@ -359,7 +524,7 @@ def fleet_phases(ctx: dict) -> None:
     import numpy as np
     import torch
     from simgrid_tpu_torch.kernels import fleet_materialize as k11
-    from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from simgrid_tpu_torch.kernels import path_counts, reset_launch_counts
     from simgrid_tpu_torch.kernels.common import (ADV_GO, FFIRE, IT, LIGHT,
                                                   SS_ACTIVE, TPOS)
     from simgrid_tpu_torch.kernels.common import LmmSystem, Work
@@ -374,7 +539,6 @@ def fleet_phases(ctx: dict) -> None:
                                                  _pack_overrides,
                                                  _pow2_bucket,
                                                  solve_arrays_batch)
-    from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
     from simgrid_tpu_torch.probes.timing import time_call, time_rounds
     from simgrid_tpu_torch.workloads import dragonfly, fleet_run
@@ -413,10 +577,12 @@ def fleet_phases(ctx: dict) -> None:
                  "fleet_admit_ew", "fleet_admit_tape", "lmm_plan",
                  "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_tape_fleet",
-                 "superstep_reset_fleet", "superstep_begin_fleet",
-                 "superstep_finish_fleet"):
+                 "superstep_reset_fleet", "superstep_finish_fleet",
+                 "superstep_loop_superstep_fleet"):
         if c16.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on main path 10")
+    row16["k16"] = need_loop(row16, "main path 10", "superstep_fleet",
+                             "lmm_round_fleet", row16["supersteps"])
     plan_row = next(k for k in kernels if k["name"] == "lmm_plan")
     plan_row["launches_main_path_10"] = c16["lmm_plan"]
     t0 = time.perf_counter()
@@ -434,12 +600,15 @@ def fleet_phases(ctx: dict) -> None:
         rsys, specs16b, dev, FLEET_K, names16b, EPS)) for k, dev in devs}
     held_b = all(same(a, b) for a, b in zip(red["cuda"][0].replicas,
                                             red["cpu"][0].replicas))
-    # (c) launches per superstep at B = 1 and B = FLEET_B
+    # (c) launches per superstep at B = 1 and B = FLEET_B: the same
+    # host launches, one of them the graph's
     per = {}
     for width, sp in ((1, specs16[:1]), (FLEET_B, specs16)):
-        per[width] = fleet_run.launches_per_superstep(
-            plan16.executor(sp), 4, slot_rounds=SLOT_ROUNDS)
-    held_c = all(a["first_pass"] == b["first_pass"]
+        per[width] = fleet_run.launches_per_superstep(plan16.executor(sp),
+                                                      4)
+    held_c = all((a["launches"], a["graph_launches"])
+                 == (b["launches"], b["graph_launches"]) == (
+                     a["launches"], 1)
                  for a, b in zip(per[1], per[FLEET_B]))
     fires16 = sum(row16["fires"])
     rec = {"phase": "main_path_fleet", **row16,
@@ -677,7 +846,7 @@ def fleet_phases(ctx: dict) -> None:
         reset_launch_counts()
         got = solve_arrays_batch(*args17, device=cuda, **kw)
         torch.cuda.synchronize()
-        n_l = launch_counts().get(label, 0)
+        n_l = path_counts().get(label, 0)
         want = solve_arrays_batch(*args17, device=cpu, **kw)
         err = max(diff(torch.from_numpy(np.asarray(a)),
                        torch.from_numpy(np.asarray(b)))
@@ -855,7 +1024,6 @@ def collective_fleet_phase(ctx: dict) -> None:
     from simgrid_tpu_torch.kernels.superstep_commit import (
         packed_size, superstep_commit, superstep_commit_plain)
     from simgrid_tpu_torch.ops.lmm_arrays import to2d
-    from simgrid_tpu_torch.ops.lmm_drain import SLOT_ROUNDS
     from simgrid_tpu_torch.ops.lmm_torch import to_device_system
     from simgrid_tpu_torch.probes.timing import time_call
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
@@ -895,10 +1063,12 @@ def collective_fleet_phase(ctx: dict) -> None:
                  "lmm_plan", "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_coll_fleet",
                  "dag_walk_fleet",
-                 "superstep_reset_fleet", "superstep_begin_fleet",
-                 "superstep_finish_fleet"):
+                 "superstep_reset_fleet", "superstep_finish_fleet",
+                 "superstep_loop_superstep_fleet"):
         if c18.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on main path 11")
+    row["k16"] = need_loop(row, "main path 11", "superstep_fleet",
+                           "lmm_round_fleet", row["supersteps"])
     plan_row = next(k for k in kernels if k["name"] == "lmm_plan")
     plan_row["launches_main_path_11"] = c18["lmm_plan"]
     faulted = range(COLL_B - COLL_B // 4, COLL_B)
@@ -978,10 +1148,11 @@ def collective_fleet_phase(ctx: dict) -> None:
 
     # (c) launches of each of the first 3 supersteps at B = 1 (the plain
     # lane) and COLL_B
-    per = {w_: fleet_run.launches_per_superstep(plan.executor(sp), 3,
-                                                slot_rounds=SLOT_ROUNDS)
+    per = {w_: fleet_run.launches_per_superstep(plan.executor(sp), 3)
            for w_, sp in ((1, specs[:1]), (COLL_B, specs))}
-    held_c = all(a["first_pass"] == b["first_pass"]
+    held_c = all((a["launches"], a["graph_launches"])
+                 == (b["launches"], b["graph_launches"]) == (
+                     a["launches"], 1)
                  for a, b in zip(per[1], per[COLL_B]))
     rec = {"phase": "collective_fleet_launches", "c_launches_b1": per[1],
            f"c_launches_b{COLL_B}": per[COLL_B], "c_equal": held_c}
@@ -1257,8 +1428,10 @@ def probe_phase(ctx: dict) -> None:
     import torch
     from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
     from simgrid_tpu_torch.kernels import probe_gather as k12
+    from simgrid_tpu_torch.kernels import build
     from simgrid_tpu_torch.kernels import probe_loop as k15
     from simgrid_tpu_torch.kernels import probe_scan as k14
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
     from simgrid_tpu_torch.kernels import probe_segsum as k13
     from simgrid_tpu_torch.probes import data
     from simgrid_tpu_torch.probes.common import reorder_tol, torch_dtype
@@ -1273,7 +1446,7 @@ def probe_phase(ctx: dict) -> None:
     reset_launch_counts()
     runs = [run_opcost(cuda), run_scaling(cuda)]
     counts = {k: v for k, v in launch_counts().items()
-              if k.startswith("probe_")}
+              if k.startswith("probe_") or k == "superstep_loop_probe"}
     rows = [r for run in runs for r in run["rows"]]
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1281,8 +1454,9 @@ def probe_phase(ctx: dict) -> None:
                              f"their check: {bad[:3]}")
     arms = {"probe_gather": k12.ARMS, "probe_segsum": k13.ARMS,
             "probe_scan": k14.ARMS, "probe_loop": k15.ARMS}
-    names = [f"{k}_{a}" for k, al in arms.items() for a in al] + \
-        ["probe_double"]
+    # the cond arm's graph launches count under K16's probe kind
+    names = [k15.COUNTS[a].name if k == "probe_loop" else f"{k}_{a}"
+             for k, al in arms.items() for a in al] + ["probe_double"]
     idle = [n for n in names if counts.get(n, 0) == 0]
     if idle:
         raise AssertionError(f"phase 19: {idle} never launched")
@@ -1412,7 +1586,33 @@ def probe_phase(ctx: dict) -> None:
         kernels.append(row)
         log({"phase": "kernel", **{k: v for k, v in row.items()
                                    if k != "arms"}})
+    # K15's cond arm: the same rounds as one graph of a conditional WHILE
+    # node (the mechanism K16 runs the port's loops on), beside the graph
+    # arm's replayed launches
+    cond = [r for r in pick("pallas_probe", "P3_loop16")
+            if r["arm"] == "cond"][0]
+    graph = [r for r in pick("pallas_probe", "P3_loop16")
+             if r["arm"] == "graph"][0]
+    kernels.append(dict(
+        name="probe_loop_cond", route="cuda",
+        source="simgrid_tpu_torch/csrc/probe_loop.cu",
+        replaces="tools/tpu_pallas_probe.py:105",
+        launches=counts.get("superstep_loop_probe", 0),
+        max_abs_err=errs["probe_loop"], ms=cond["ms"],
+        paced_ms=cond["paced_ms"], plain_ms=plain_ms["probe_loop"],
+        bound_ms=cond["bound_ms"], bound_by="bytes",
+        library_ms=cond["library_ms"], yardstick_ms=graph["ms"],
+        yardstick="the graph arm (16 captured launches, replayed)",
+        main_row="pallas_probe P3_loop16 cond float32",
+        launches_from="phase 19 (the op-cost probe; on no main path): "
+                      "graph launches, 16 rounds each"))
+    log({"phase": "kernel", **kernels[-1]})
+    rt, drv = k16.versions()
+    nvcc = subprocess.run([build.nvcc_path(), "--version"],
+                          capture_output=True, text=True).stdout
     rec = {"phase": "opcost_probe", "rows": len(rows), "a_s": a_s,
+           "cuda_runtime": rt, "cuda_driver": drv,
+           "nvcc": nvcc.strip().splitlines()[-2:],
            "sync_ms": runs[0]["sync_ms"], "launches": counts,
            "held": all(held.values()), "n_held": len(held),
            "wall_s": time.perf_counter() - t0,
@@ -1425,38 +1625,6 @@ def probe_phase(ctx: dict) -> None:
     report["opcost_probe"] = {**rec, "rows": rows, "held": held}
 
 
-#: the probe's K2 and K3 cases (``probes/k1_rounds.py`` ``K23_CASES``)
-#: by the kernel row they stand for
-K23_ROWS = {
-    "k2": "drain_advance", "k2_event": "drain_advance_event",
-    "k2_fleet": "drain_advance_event_fleet",
-    "k2_fleet_ready": "drain_advance_event_fleet_coll",
-    "k2_forced": "drain_forced_advance", "k3": "superstep_commit",
-    "k3_tape": "superstep_commit_tape", "k3_coll": "superstep_commit_coll",
-    "k3_fleet": "superstep_commit_tape_fleet",
-    "k3_coll_fleet": "superstep_commit_coll_fleet"}
-
-
-def k23_launch_phase(ctx: dict) -> None:
-    """The CUDA kernels one call of each K2 and K3 wrapper launches
-    (``torch.profiler``, ``probes/timing.py`` ``kernel_counts``), into
-    the kernel rows as ``cuda_launches_per_call``.  A wrapper launches
-    the same kernels at any shape, so the probe's states
-    (``probes/k1_rounds.py`` ``k23_call``) serve at 5,000 flows; it runs
-    after every timing of the script, so that none follows a profiler
-    session, and the phases have freed their own states by then."""
-    from simgrid_tpu_torch.probes.k1_rounds import k23_call
-    from simgrid_tpu_torch.probes.timing import kernel_counts
-    out = {}
-    for case, row in K23_ROWS.items():
-        _, fn, on, _ = k23_call(case, shape=(5000, 64))
-        out[row] = sum(kernel_counts(fn, on).values())
-    for k in ctx["kernels"]:
-        if k["name"] in out:
-            k["cuda_launches_per_call"] = out[k["name"]]
-    log({"phase": "k2_k3_cuda_launches", **out})
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1464,7 +1632,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import numpy as np
-    from simgrid_tpu_torch.kernels import (build, launch_counts,
+    from simgrid_tpu_torch.kernels import (build, path_counts,
                                            reset_launch_counts)
     from simgrid_tpu_torch.kernels.common import (IT, LIGHT, LIVE_ACC,
                                                   LmmSystem, Work)
@@ -1484,7 +1652,7 @@ def main() -> int:
         lmm_init, lmm_init_plain, lmm_plan, lmm_plan_plain, lmm_round,
         lmm_round_plain)
     from simgrid_tpu_torch.kernels.superstep_commit import (
-        packed_size, superstep_begin, superstep_commit,
+        packed_size, superstep_commit,
         superstep_commit_plain, superstep_finish, superstep_reset)
     from simgrid_tpu_torch.kernels.transition_scatter import (
         ELL_POSITIVE, delta_scatter, ell_delta_scatter, transition_scatter,
@@ -1498,7 +1666,8 @@ def main() -> int:
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
     from simgrid_tpu_torch.workloads import (bench_solve, churn,
                                              collective_run, dragonfly,
-                                             fault_drain, lazy_alltoall)
+                                             drain_run, fault_drain,
+                                             lazy_alltoall)
     from simgrid_tpu_torch.kernels.common import (ADV_GO, ADV_OK, DT, FFIRE,
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   TPOS)
@@ -1700,7 +1869,7 @@ def main() -> int:
     pk_c = pk_g.cpu()
     pen_s, rem_s = pen_g.clone(), rem0.to(cuda, copy=True)
     superstep_reset(pen_s, wg, 1, K * 512, 0)
-    superstep_begin(wg)
+    wg.ctrl[SS_ACTIVE] = 1        # the slot runs (K16's condition)
     lmm_init(sg, wg, pen_s, EPS, gated=True)
     for _ in range(rounds_g):
         lmm_round(sg, wg, pen_s, EPS)
@@ -1711,7 +1880,7 @@ def main() -> int:
     torch.cuda.synchronize()
     pen_p, rem_p = pen_c.clone(), rem0.clone()
     superstep_reset(pen_p, wc, 1, K * 512, 0)
-    superstep_begin(wc)
+    wc.ctrl[SS_ACTIVE] = 1
     lmm_init(sc, wc, pen_p, EPS, gated=True)
     while lmm_round(sc, wc, pen_p, EPS):
         pass
@@ -1787,18 +1956,78 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 3. the main path: the config-#4 drain ---------------------------
-    sim, row = run_drain(dsys, device=cuda, superstep=K)
+    spans = []
+    with timed_graphs("superstep", spans):
+        sim, row = run_drain(dsys, device=cuda, superstep=K)
     counts = row["launches"]
+    loop1 = need_loop(row, "main path 1", "superstep", "lmm_round",
+                      row["supersteps"])
     for name in ("lmm_plan", "lmm_round", "drain_advance",
                  "superstep_commit", "livefirst_repack"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    rec = {"phase": "main_path", **row}
+    ss_ms = [a.elapsed_time(b) for a, b in spans]
+    rec = {"phase": "main_path", **row, "k16": loop1,
+           "superstep_card_ms": ss_ms}
     log(rec)
     report["main_path"] = rec
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_from"] = "main path 1 (the config-#4 random drain)"
+    kernels[0].update(host_calls=loop1["host_round_calls"],
+                      device_rounds=loop1["device_rounds"])
+
+    # K16: the first superstep of 4 advances from the drain's start, one
+    # graph launch on the card against the plain loops on the host CPU
+    # (by bits: the packed result, events, clock, rounds), its card time
+    # (CUDA events around the launch) and the plain loops' on the card
+    k16_sims, sp_ = {}, []
+    for name_, dev in (("cuda", cuda), ("cpu", cpu)):
+        s_ = drain_run.make_sim(dsys, device=dev, superstep=K)
+        with replayed_graph("superstep", K16_REPS, sp_):
+            s_.superstep_batch(k=4)
+        k16_sims[name_] = s_
+    k16_ms = sorted(a.elapsed_time(b) for a, b in sp_)
+    g16, c16 = k16_sims["cuda"], k16_sims["cpu"]
+    err16 = diff(g16._packed, c16._packed)
+    if err16 != 0.0 or (g16.events, g16.t, g16.rounds, g16.advances) != (
+            c16.events, c16.t, c16.rounds, c16.advances):
+        raise AssertionError(f"K16's superstep differs from the plain "
+                             f"loops ({err16})")
+    s_ = drain_run.make_sim(dsys, device=cuda, superstep=K)
+    torch.cuda.synchronize()
+    with plain_on_card():
+        plain16 = events_ms(lambda: s_.superstep_batch(k=4), 1)
+    del s_
+    by = {k_["name"]: k_["bound_ms"] for k_ in kernels}
+    slot_bound = by["drain_advance"] + by["superstep_commit"]
+    slots16 = g16.advances      # every slot of this superstep committed
+    kernels.append(dict(
+        name="superstep_loop", route="cuda",
+        source="simgrid_tpu_torch/csrc/superstep_loop.cu",
+        replaces="simgrid_tpu/ops/lmm_drain.py:506",
+        launches=loop1["graph_launches"], max_abs_err=err16,
+        ms=k16_ms[len(k16_ms) // 2], ms_spread=[k16_ms[0], k16_ms[-1]],
+        plain_ms=plain16,
+        bound_ms=g16.rounds * by["lmm_round"] + slots16 * slot_bound,
+        bound_by="bytes", library_ms=None,
+        timed_on=f"the first superstep, k=4: {g16.advances} advances, "
+                 f"{g16.rounds} rounds; the median of {K16_REPS} "
+                 f"launches from the restored start, after one warm-up "
+                 f"launch",
+        bound_note="the sum of its bodies' bounds over the rounds and "
+                   "advances it ran (K1's, K2's and K3's bound rows)",
+        path_ms_per_superstep=sum(ss_ms) / max(len(ss_ms), 1),
+        path_bound_ms_per_superstep=(
+            loop1["device_rounds"] * by["lmm_round"]
+            + loop1["device_slots"] * slot_bound) / row["supersteps"],
+        graph_launches_per_superstep=loop1["graph_launches_per_superstep"],
+        device_rounds=loop1["device_rounds"],
+        device_slots=loop1["device_slots"], loop_builds=row["loop_builds"],
+        launches_from="main path 1 (the config-#4 random drain): one "
+                      "graph launch a superstep"))
+    log({"phase": "kernel", **kernels[-1]})
+    del g16, c16, k16_sims
     # held against phase 13(a): the same drain under a tape that never
     # fires
     drain3 = (sim.events, sim.t)
@@ -2574,9 +2803,10 @@ def main() -> int:
                              f"(chain {held_a}, dense {held_b}, "
                              f"overflow {held_c})")
     for name in ("vc_round", "ell_chain_arm", "ell_chain_stage",
-                 "ell_chain_fetch"):
+                 "ell_chain_fetch", "superstep_loop_chain"):
         if la.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the headline")
+    need_loop(row_a, "the headline", "chain", "vc_round")
     for name in ("ell_init", "vc_round"):
         if row_b["launches"].get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the dense path")
@@ -2619,6 +2849,9 @@ def main() -> int:
         return (events_ms(solve, n) - events_ms(init_fn, n)) / rounds
     k8_ms = round_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h),
                      lambda: vc_round(sys_h, wh, pen_h, HL_EPS), r_h, 3)
+    # the card's own time a round: the rounds queued behind a sleep
+    k8_t = time_rounds(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h),
+                       lambda: vc_round(sys_h, wh, pen_h, HL_EPS), r_h)
     k8_plain = round_ms(lambda: ell_init_plain(sys_h, wh, pen_h, HL_EPS),
                         lambda: vc_round_plain(sys_h, wh, pen_h, HL_EPS),
                         r_h, 1)
@@ -2634,7 +2867,7 @@ def main() -> int:
     k8_bytes = (vc_b + nbytes(sys_h.c_bound, pen_h) + 2 * state_b)
 
     # K9: one stage at the headline's first shapes (131,072 -> 65,536
-    # rows) from the state its guarded rounds leave
+    # rows) from the state its rounds leave
     chain_sys, chain_pen = lmm_ell.device_args(
         "vc_chain", [hl_ell.vc_cnst, hl_ell.vc_w, hl_ell.vc_valid,
                      hl_ell.v_penalty, hl_ell.c_bound, hl_ell.c_fatpipe],
@@ -2717,7 +2950,7 @@ def main() -> int:
         reset_launch_counts()
         g = solve_arrays(small, HL_EPS, device=cuda, parallel_rounds=local,
                          layout="ell", chain="off")
-        launches = launch_counts()
+        launches = path_counts()
         t0_ = time.perf_counter()
         c = solve_arrays(small, HL_EPS, device=cpu, parallel_rounds=local,
                          layout="ell", chain="off")
@@ -2797,10 +3030,15 @@ def main() -> int:
         name="vc_round", route="cuda",
         source="simgrid_tpu_torch/csrc/vc_round.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:629",
-        launches=la["vc_round"], max_abs_err=err_k8, ms=k8_ms,
+        launches=la["vc_round"], max_abs_err=err_k8, ms=k8_t["ms"],
+        paced_ms=k8_ms, queued=k8_t["queued"],
         plain_ms=k8_plain, bound_ms=bound_ms(k8_bytes), bound_by="bytes",
         library_ms=None, timed_on=f"headline dense, {r_h} rounds",
-        launches_from="main path 6, the headline chain (1 + 3 solves)"))
+        host_calls=row_a["loop"]["host_round_calls"].get("vc_round", 0),
+        device_rounds=row_a["loop"]["device_tally"].get("vc_round", 0),
+        launches_from="main path 6, the headline chain (1 + 3 solves; "
+                      "every round inside K16's stage and finisher "
+                      "graphs)"))
     kernels.append(dict(
         name="ell_chain_stage", route="cuda",
         source="simgrid_tpu_torch/csrc/ell_chain.cu",
@@ -3016,6 +3254,8 @@ def main() -> int:
                  "superstep_commit_tape", "livefirst_repack"):
         if c13.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on main path 8")
+    row13["k16"] = need_loop(row13, "main path 8", "superstep", "lmm_round",
+                             row13["supersteps"])
     if row13["fires"] <= MIN_FIRES:
         raise AssertionError(f"faulted drain: {row13['fires']} fires, "
                              f"expected more than {MIN_FIRES}")
@@ -3075,6 +3315,9 @@ def main() -> int:
                 c14[(leg, name)] = c14.get((leg, name), 0) + n
         rec = {"phase": "collective", "case": label,
                **{k: v for k, v in row.items() if k != "bench"},
+               "k16": need_loop(legs["tape"], f"main path 9 ({label})",
+                                "superstep", "lmm_round",
+                                legs["tape"]["supersteps"]),
                "tape_launches": {n: v for n, v in
                                  legs["tape"]["launches"].items() if v},
                "maestro_launches": {n: v for n, v in
@@ -3424,7 +3667,6 @@ def main() -> int:
                       EPS=EPS, **helpers))
     collective_fleet_phase(dict(tape14=tape14, **helpers))
     probe_phase(helpers)
-    k23_launch_phase(helpers)
 
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
@@ -3434,7 +3676,8 @@ def main() -> int:
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "launches_from")}, **{k: kr[k] for k in (
-            "arms", "cuda_launches_per_call") if k in kr}}
+            "arms", "host_calls", "device_rounds",
+            "graph_launches_per_superstep") if k in kr}}
         for kr in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

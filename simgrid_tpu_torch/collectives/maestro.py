@@ -51,13 +51,13 @@ from .tape import DeviceCollective
 
 def _maestro_solve(sim: DrainSim) -> None:
     """One solve to convergence of the drain's current flow state: K1's
-    init and rounds, checked once per ``solve_chunk`` queued rounds
-    (rounds queued past convergence are no-ops).  The rates are left
-    in ``sim.w.v_value``."""
+    init and rounds, checked once per chunk of at most ``solve_chunk``
+    rounds (one K16 launch).  The rates are left in ``sim.w.v_value``."""
     w = sim.w
+    loop = sim._chunk_loop()
     lmm_init(sim.sys, w, sim._pen, sim.eps)
     while True:
-        sim._queue_rounds(sim.solve_chunk)
+        loop.run()
         rounds, n_light = (int(x) for x in w.ctrl[IT:LIGHT + 1].tolist())
         if n_light == 0:
             return

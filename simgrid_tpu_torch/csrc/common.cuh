@@ -25,7 +25,7 @@
 #define C_SS_K 11
 #define C_SS_BUDGET 12
 #define C_SS_STOP 13
-#define C_SS_STARVED 14
+// slot 14 is free
 #define C_LIVE_ACC 15
 #define C_ADV_GO 16
 #define C_ADV_CONV 17

@@ -17,9 +17,8 @@
 // What the design does about it: two launches a call, and no launch of
 // one thread.  `adv_min` (the min pass) derives the gate and the
 // convergence from the control words in every block (read only; thread
-// 0 of block 0 writes them back, with the STARVED hand-back and the
-// cleared words), folds the min with a per-block reduction and one
-// unsigned atomicMin per block on the bits of the non-negative quotient
+// 0 of block 0 writes them back, with the cleared words), folds the
+// min with a per-block reduction and one unsigned atomicMin per block on the bits of the non-negative quotient
 // (exact: IEEE order of non-negative floats is the integer order of
 // their bits), and its last block (`last_block`: a fence and a
 // per-replica ticket) reads the final bits, does the event peek and
@@ -55,40 +54,27 @@
 // `a_any = fire && next_at <= next_ft` go to control words for K3, and
 // the event date to `evf[EV_NEXT_T]`.
 //
-// In a superstep (gated=1) the step runs only in an active advance
-// slot; when the fixpoint it follows has neither converged nor spent
-// its JAX round limit, the queued rounds ran out first: the step marks
-// the superstep STARVED and does nothing, and the host resumes the same
-// advance with more rounds.  The flow state is updated only when the
-// fixpoint converged and dt is finite (the JAX `ok` select).
+// In a superstep (gated) the step runs only in an active advance slot,
+// after K16's round loop ran the fixpoint to convergence or to its JAX
+// round limit.  The flow state is updated only when the fixpoint
+// converged and dt is finite (the JAX `ok` select).
 
 // The replica axis (simgrid_tpu/ops/lmm_batch.py, the fleet superstep
 // and the fused rescue, `_batch_fused_fresh`/`_cont` `:564/:584`):
 // blockIdx.y picks the replica; its flow state, rates, completion mask,
 // control words, dt/min-date bit slots, event clock and tape row move
 // to its row, so each replica's minima are its own (one shared
-// atomicMin slot would mix replicas).  Gated mode 2 is the fused
-// rescue's guard: the step runs in the replicas whose SS_ACTIVE is set,
-// with no STARVED hand-back (the host checks convergence per chunk).
+// atomicMin slot would mix replicas).  The fused rescue gates it the
+// same way: the step runs in the replicas whose SS_ACTIVE is set.
 
 #include "common.cuh"
 
 namespace {
 
-// The gate of an advance, from control words no block of the call
-// writes before reading them (C_SS_STARVED is written, by one thread,
-// only to say what every block derives anyway).
-__device__ __forceinline__ int adv_gate(const int* ctrl, int gated,
-                                        bool* starve) {
-  *starve = false;
-  if (gated == 2) return ctrl[C_SS_ACTIVE];
-  if (!gated) return 1;
-  int go = ctrl[C_SS_ACTIVE] && !ctrl[C_SS_STARVED];
-  if (go && ctrl[C_LIGHT] > 0 && ctrl[C_IT] < ctrl[C_LIMIT]) {
-    *starve = true;
-    go = 0;
-  }
-  return go;
+// The gate of an advance, from a control word no block of the call
+// writes.
+__device__ __forceinline__ int adv_gate(const int* ctrl, int gated) {
+  return gated ? ctrl[C_SS_ACTIVE] : 1;
 }
 
 // The min pass, the event peek and the dt (see the header).
@@ -105,11 +91,9 @@ __global__ void adv_min(int V, const T* __restrict__ pen,
   pdl_trigger();
   long long b = blockIdx.y;
   ctrl += b * N_CTRL;
-  bool starve;
-  int go = adv_gate(ctrl, gated, &starve);
+  int go = adv_gate(ctrl, gated);
   bool conv = ctrl[C_LIGHT] == 0;
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    if (starve) ctrl[C_SS_STARVED] = 1;
     ctrl[C_ADV_GO] = go;
     ctrl[C_ADV_CONV] = conv;
     ctrl[C_LIVE_ACC] = 0;

@@ -4,12 +4,12 @@
 // apart from its rounds (K8's), with `_stable_livefirst_perm`
 // (:716-731), and `_chain_fetch` (:803-815).
 //
-// * chain_arm: the guard of a stage's queued K8 rounds: VLIVE = the live
-//   variable rows now (enabled and not fixed), LIMIT = rounds so far +
-//   the stage's cap (MAX_ROUNDS for the finisher), HALF = the rows the
-//   stage keeps (-1 for the finisher); the first arm also starts the
-//   fixpoint from the carried init (round 0, the light count, overflow
-//   cleared).
+// * chain_arm: the guard of a stage's K8 rounds (K16's loop): VLIVE =
+//   the live variable rows now (enabled and not fixed), LIMIT = rounds
+//   so far + the stage's cap (MAX_ROUNDS for the finisher), HALF = the
+//   rows the stage keeps (-1 for the finisher); the first arm also
+//   starts the fixpoint from the carried init (round 0, the light
+//   count, overflow cleared).
 // * chain_stage: v_final[orig[i]] = v_value[i]; the stable live-first
 //   partition of the rows (the scan of scan.cuh, the one K4 runs);
 //   overflow when more than HALF rows stay live while constraints are

@@ -35,8 +35,8 @@
 //   order's two grid-wide minima are one unsigned atomicMin per block on
 //   the bits of a non-negative float;
 // * the state and round counter stay on the device and every launch
-//   first reads the control words, so the host queues rounds without
-//   waiting.
+//   first reads the control words, so K16's loop runs rounds with no
+//   host in between.
 
 #include "common.cuh"
 

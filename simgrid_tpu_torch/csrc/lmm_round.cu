@@ -82,8 +82,9 @@
 // test |bp - mb| < eps is absolute, as in JAX.  The fixpoint state and
 // the round counter stay on the device, and every launch first reads
 // the control words and returns at once when the fixpoint has
-// converged or its round limit is spent, so the host queues rounds
-// without waiting on the device.  A replica reads only its own control
+// converged or its round limit is spent, so K16's loop runs rounds with
+// no host in between, and a replica that is done waits while the others
+// run.  A replica reads only its own control
 // words and state, and equals its solo run by bits.
 
 #include "common.cuh"

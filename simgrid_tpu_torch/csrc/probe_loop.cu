@@ -31,6 +31,11 @@
 //     without a race; round 0 reads zeros.
 //   graph: the same K launches captured once in a CUDA graph (by the
 //     wrapper, through torch.cuda.CUDAGraph) and replayed.
+//   cond: one round's launch captured once into the body of a CUDA-graph
+//     conditional WHILE node (K16, csrc/superstep_loop.cu), whose
+//     condition node counts the rounds (`loop_round_at` reads the
+//     count); one graph launch runs all K rounds, each a round kernel
+//     and a one-block condition kernel.
 // `probe_double` is one elementwise launch: chained, its time per launch
 // is the card's launch floor, which every other probe is read against.
 
@@ -81,6 +86,29 @@ __global__ void loop_round(int first, long long n, int deg,
     if (i < 8LL * deg && i % deg == 0) {
       int r = (int)(i / deg);
       acc_out[r] = add_rn(first ? T(0) : acc_in[r], v);
+    }
+  }
+}
+
+// The cond arm's round: round k = *cnt (the WHILE loop's count word,
+// which the loop's condition node bumps after each round) reads
+// accs[k % 2] (zeros when k == 0) and writes accs[(k + 1) % 2].
+template <typename T>
+__global__ void loop_round_at(const int* __restrict__ cnt, long long n,
+                              int deg, const T* __restrict__ tab,
+                              const int* __restrict__ idx, T* g, T* accs) {
+  int k = *cnt;
+  const T* acc_in = accs + 8 * (k & 1);
+  T* acc_out = accs + 8 * ((k + 1) & 1);
+  T a0 = k == 0 ? T(0) : acc_in[0];
+  T sh = mul_rn(a0, tiny<T>());
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    T v = add_rn(__ldg(tab + idx[i]), sh);
+    g[i] = v;
+    if (i < 8LL * deg && i % deg == 0) {
+      int r = (int)(i / deg);
+      acc_out[r] = add_rn(k == 0 ? T(0) : acc_in[r], v);
     }
   }
 }
@@ -164,6 +192,26 @@ extern "C" int probe_loop_round(int dbl, int first, long long n, int deg,
     loop_round<float><<<gr, TB, 0, s>>>(
         first, n, deg, (const float*)tab, (const int*)idx, (float*)g,
         (const float*)acc_in, (float*)acc_out);
+  return (int)cudaGetLastError();
+}
+
+// The cond arm's round (captured into the body of K16's WHILE node,
+// kernels/probe_loop.py `CondLoop`): reads the round number from cnt.
+extern "C" int probe_loop_round_at(int dbl, long long n, int deg,
+                                   const void* tab, const void* idx, void* g,
+                                   void* accs, const void* cnt,
+                                   void* stream) {
+  if (n < 8LL * deg || deg < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int gr = grid_for(n, TB);
+  if (dbl)
+    loop_round_at<double><<<gr, TB, 0, s>>>(
+        (const int*)cnt, n, deg, (const double*)tab, (const int*)idx,
+        (double*)g, (double*)accs);
+  else
+    loop_round_at<float><<<gr, TB, 0, s>>>(
+        (const int*)cnt, n, deg, (const float*)tab, (const int*)idx,
+        (float*)g, (float*)accs);
   return (int)cudaGetLastError();
 }
 

@@ -5,19 +5,20 @@
 // `_fused_step_program` (:203-234).  Its tape arm replaces :423-437,
 // its collective arm :332-342, :439-456 and :486-521 (K10 `dag_walk`
 // takes :457-463).
-// The JAX program is one lax.while_loop; here the host queues K advance
-// slots back to back (begin -> K1 init -> K1 rounds -> K2 -> commit)
-// and the device decides, slot by slot, whether each one runs:
+// The JAX program is one lax.while_loop; here K16's graph runs it on
+// the card (csrc/superstep_loop.cu: its condition node evaluates the
+// JAX cond, `flag == OK && adv < k && rounds < budget && (n_live >
+// stop_live || pending > 0)`, into each replica's SS_ACTIVE) around K1's
+// init and rounds, K2 and the commit below, each of which gates on the
+// slot's SS_ACTIVE:
 //
 // * superstep_reset: the loop carry (advance/round counters, flag,
 //   ring length, Kahan pair) and the live count of the input; with a
 //   tape, the cursor and the f64 base clock t0 the event peek adds
-//   t_sum to (set once, so a STARVED resume peeks from the same t0);
+//   t_sum to;
 //   with a collective, the Kahan pair from `coll_clk` (carried across
 //   supersteps, so event dates do not depend on how advances are
 //   grouped) and the count of pending activation dates;
-// * superstep_begin: the while_loop cond, `flag == OK && adv < k &&
-//   rounds < budget && (n_live > stop_live || pending > 0)`;
 // * superstep_commit: the loop body after the solve and the advance:
 //   the Kahan clock update `y = dt - c; t' = t + y; c' = (t' - t) - y`
 //   (explicit round-to-nearest intrinsics, so nothing reassociates or
@@ -67,11 +68,8 @@
 // bounds move to its row (the ids are shared).  `ss_reset` takes a
 // per-replica k (`k_l = where(alive, k, 0)`, :510), base clock t0 and
 // tape cursor, so a dead replica's guards are false from entry and its
-// state comes back unchanged; `ss_resume` resumes exactly the replicas
-// that came back STARVED and turns every other replica's slot off, so
-// one queued resume serves the fleet and the grouping of advances into
-// supersteps stays JAX's; `superstep_finish` packs [B, packed_size] for
-// one fetch per fleet superstep.
+// state comes back unchanged; `superstep_finish` packs [B, packed_size]
+// for one fetch per fleet superstep.
 
 #include "common.cuh"
 
@@ -111,7 +109,6 @@ __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
     ctrl[C_SS_K] = k;
     ctrl[C_SS_BUDGET] = budget;
     ctrl[C_SS_STOP] = stop;
-    ctrl[C_SS_STARVED] = 0;
     ctrl[C_TPOS] = tpos;
     ctrl[C_PENDING] = ptot;
     ctrl[C_ADV_OK] = 0;
@@ -119,27 +116,6 @@ __global__ void ss_reset(int V, const T* __restrict__ pen, int* ctrl,
     fctrl[F_TCOMP] = clk ? T(clk[1]) : T(0);
     evf[EV_T0] = t0;
     evf[EV_NEXT_T] = inf_v<double>();
-  }
-}
-
-__global__ void ss_begin(int* ctrl) {
-  ctrl += (long long)blockIdx.y * N_CTRL;
-  ctrl[C_SS_ACTIVE] = !ctrl[C_SS_STARVED] && ctrl[C_SS_FLAG] == FLAG_OK &&
-                      ctrl[C_SS_ADV] < ctrl[C_SS_K] &&
-                      ctrl[C_SS_ROUNDS] < ctrl[C_SS_BUDGET] &&
-                      (ctrl[C_SS_NLIVE] > ctrl[C_SS_STOP] ||
-                       ctrl[C_PENDING] > 0);
-}
-
-__global__ void ss_resume(int* ctrl) {
-  ctrl += (long long)blockIdx.y * N_CTRL;
-  if (ctrl[C_SS_STARVED]) {
-    ctrl[C_SS_STARVED] = 0;
-    ctrl[C_SS_ACTIVE] = 1;
-    ctrl[C_ARMED] = 1;
-  } else {
-    // a replica that did not starve has ended its superstep
-    ctrl[C_SS_ACTIVE] = 0;
   }
 }
 
@@ -467,7 +443,7 @@ __global__ void ss_stats(T* packed, const int* ctrl, const T* fctrl,
   packed[2] = T(ctrl[C_SS_NEV]);
   packed[3] = fctrl[F_TSUM];
   packed[4] = T(ctrl[C_SS_NLIVE]);
-  packed[5] = ctrl[C_SS_STARVED] ? T(-1) : T(ctrl[C_SS_FLAG]);
+  packed[5] = T(ctrl[C_SS_FLAG]);
   packed[6] = T(ctrl[C_LE_ACC]);
 }
 
@@ -538,16 +514,6 @@ int superstep_reset(int dbl, int B, int V, const void* pen, void* ctrl,
              : reset_t<float>(B, V, pen, ctrl, fctrl, k, budget, stop, evf,
                               t0, tpos, ready, clk, k_arr, t0_arr, tpos_arr,
                               s);
-}
-
-int superstep_begin(int B, void* ctrl, void* stream) {
-  ss_begin<<<grid_r(B), 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
-  return (int)cudaGetLastError();
-}
-
-int superstep_resume(int B, void* ctrl, void* stream) {
-  ss_resume<<<grid_r(B), 1, 0, (cudaStream_t)stream>>>((int*)ctrl);
-  return (int)cudaGetLastError();
 }
 
 // tape_slot/tape_val/c_bound are NULL without a tape, ready/pen without

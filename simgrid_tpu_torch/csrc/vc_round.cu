@@ -18,8 +18,9 @@
 //
 // The round also counts the variables still live after it (enabled and
 // not fixed) into VLIVE, and its guard requires VLIVE > HALF: a chain
-// stage (K9 arms HALF and LIMIT) queues its rounds without a host sync
-// and they stop once the live set fits the next stage.
+// stage (K9 arms HALF and LIMIT, K16 loops while the guard holds) runs
+// its rounds without a host sync and they stop once the live set fits
+// the next stage.
 //
 // What bounds it on this card: memory, then launches.  A round reads
 // the vc table twice through the rows (nmin, levels) and twice through

@@ -32,7 +32,7 @@ SOURCES = ("lmm_round", "drain_advance", "superstep_commit",
            "livefirst_repack", "transition_scatter", "warm_init",
            "ell_round", "vc_round", "ell_chain", "dag_walk",
            "fleet_materialize", "probe_gather", "probe_segsum",
-           "probe_scan", "probe_loop")
+           "probe_scan", "probe_loop", "superstep_loop")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-prec-div=true", "-shared", "-Xcompiler",
          "-fPIC"]

@@ -5,9 +5,10 @@ package does, so that the host can queue many kernel launches and wait
 for the device once per superstep.  Control words that the JAX programs
 keep in ``lax.while_loop`` carries (round counter, light-constraint
 count, superstep advance and round counters, flags) live here in one
-small int32 tensor ``ctrl`` and one dtype tensor ``fctrl``.  Every
-kernel reads them first and returns at once when it has nothing to do,
-so queued launches past convergence cost a launch and nothing else.
+small int32 tensor ``ctrl`` and one dtype tensor ``fctrl``.  The loops
+themselves run on the card (K16, ``superstep_loop.py``): their
+conditions read these words, and every kernel reads them first too and
+returns at once when its replica has nothing to do.
 The slot numbers below are mirrored in ``csrc/common.cuh``.
 
 A fleet of B replicas (``Work(..., B=B)``) gives every per-replica
@@ -42,7 +43,7 @@ SS_NLIVE = 10     # live flows after the last advance
 SS_K = 11         # advances asked of this superstep
 SS_BUDGET = 12    # round budget of this superstep
 SS_STOP = 13      # stop once live flows <= this
-SS_STARVED = 14   # queued rounds ran out before the JAX budget did
+#: slot 14 is free
 LIVE_ACC = 15     # live flows counted by the last advance
 ADV_GO = 16       # the last advance ran
 ADV_CONV = 17     # the fixpoint it read had converged
@@ -94,8 +95,6 @@ def inf_key(dtype: torch.dtype) -> int:
 FLAG_OK = 0
 FLAG_STALLED = 1
 FLAG_BUDGET = 2
-#: stats slot 5 of a superstep whose queued rounds ran out (host resumes)
-FLAG_STARVED = -1
 
 
 class LmmSystem(NamedTuple):

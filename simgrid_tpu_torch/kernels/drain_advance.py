@@ -10,8 +10,9 @@ The step reads the rates the fixpoint left in ``w.v_value`` and updates
 ``pen``/``rem`` in place, writes the completion mask into ``w.done``, dt
 into ``w.fctrl[DT]`` and the live count into ``w.ctrl[LIVE_ACC]``.  It
 changes the flow state only when the fixpoint converged and dt is
-finite.  ``gated`` runs it inside a superstep advance slot (see the
-CUDA source for the STARVED hand-back).
+finite.  ``gated`` runs it only where the replica's superstep advance
+slot is active (``SS_ACTIVE``): in a superstep, after K16's round loop,
+and in the fleet's fused rescue.
 
 The event arm (``tape_t``, the fault tape's f64 dates, and/or
 ``ready``, a collective's f64 activation dates) replaces the superstep
@@ -24,10 +25,9 @@ with a collective), clamps dt to land on it, and leaves ``FIRE``,
 With a fleet :class:`Work` (``B`` replicas; ``pen``, ``rem``,
 ``thresh`` ``[B, V]``, ``tape_t`` ``[B, T]``) one launch advances every
 replica, each against its own control words, minima and clock
-(``lmm_batch.py``'s vmapped superstep); ``gated=2`` is the fleet's
-fused rescue (``_batch_fused_fresh``/``_cont``): the step runs where
-``SS_ACTIVE`` is set, without the STARVED hand-back.  The plain version
-runs the solo plain step on each replica in turn.
+(``lmm_batch.py``'s vmapped superstep and fused rescue,
+``_batch_fused_fresh``/``_cont``).  The plain version runs the solo
+plain step on each replica in turn.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ import torch
 
 from . import build
 from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, DT, EV_NEXT_T, EV_T0,
-                     FFIRE, FIRE, IT, LIGHT, LIMIT, LIVE_ACC, SS_ACTIVE,
-                     SS_STARVED, T_SUM, TPOS, D, I, P, Work, check, counter,
-                     is_double, on_cpu, opt_ptr, ptr, stream)
+                     FFIRE, FIRE, LIGHT, LIVE_ACC, SS_ACTIVE, T_SUM, TPOS,
+                     D, I, P, Work, check, counter, is_double, on_cpu,
+                     opt_ptr, ptr, stream)
 
 COUNT = counter("drain_advance")
 FORCED_COUNT = counter("drain_forced_advance")
@@ -113,18 +113,11 @@ def event_peek(w: Work, dt_plan: torch.Tensor,
 
 def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
                         thresh: torch.Tensor, w: Work,
-                        gated: int = 0,
+                        gated: bool = False,
                         tape_t: Optional[torch.Tensor] = None,
                         ready: Optional[torch.Tensor] = None) -> bool:
     c = w.ctrl
-    go = True
-    if gated == 2:
-        go = bool(int(c[SS_ACTIVE]))
-    elif gated:
-        go = bool(int(c[SS_ACTIVE])) and not int(c[SS_STARVED])
-        if go and int(c[LIGHT]) > 0 and int(c[IT]) < int(c[LIMIT]):
-            c[SS_STARVED] = 1
-            go = False
+    go = bool(int(c[SS_ACTIVE])) if gated else True
     conv = int(c[LIGHT]) == 0
     c[ADV_GO] = int(go)
     c[ADV_CONV] = int(conv)
@@ -154,7 +147,7 @@ def drain_advance_plain(pen: torch.Tensor, rem: torch.Tensor,
 
 
 def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
-                  thresh: torch.Tensor, w: Work, gated: int = 0,
+                  thresh: torch.Tensor, w: Work, gated: bool = False,
                   tape_t: Optional[torch.Tensor] = None,
                   ready: Optional[torch.Tensor] = None):
     """One time advance from the rates in ``w.v_value``; with
@@ -181,7 +174,7 @@ def drain_advance(pen: torch.Tensor, rem: torch.Tensor,
     rc = lib.drain_advance(
         is_double(pen.dtype), w.nb, int(pen.shape[-1]), ptr(pen), ptr(rem),
         ptr(thresh), ptr(w.v_value), ptr(w.done), ptr(w.ctrl),
-        ptr(w.fctrl), ptr(w.dtbits), int(gated), ptr(w.evf),
+        ptr(w.fctrl), ptr(w.dtbits), int(bool(gated)), ptr(w.evf),
         ptr(w.atbits), opt_ptr(tape_t),
         0 if tape_t is None else int(tape_t.shape[-1]), opt_ptr(ready),
         stream())

@@ -3,7 +3,7 @@
 Replaces the parts of ``simgrid_tpu/ops/lmm_jax.py``
 ``_ell_chain_stage`` (``:733-784``) and ``_chain_fetch`` (``:803-815``)
 that are not K8's rounds: the per-round live count that ends a stage's
-guarded loop, the stable live-first partition of the variable rows
+loop, the stable live-first partition of the variable rows
 (``_stable_livefirst_perm``, ``:716-731``, whose plain twin is K4's
 :func:`~.livefirst_repack.stable_livefirst_perm`), the row gather of the
 five variable-row tables and the two carried vectors into the first
@@ -11,13 +11,13 @@ five variable-row tables and the two carried vectors into the first
 assembly.  The CUDA source is ``csrc/ell_chain.cu``; its partition is
 the device scan of ``csrc/scan.cuh`` that K4 runs too.
 
-The chain's rounds are K8 launches queued behind a guard: a stage arms
-the control words (:func:`chain_arm`: ``LIMIT`` = rounds so far +
-the stage's cap, ``HALF`` = the rows the stage keeps, ``VLIVE`` = the
-live rows now), and every queued round runs only while the system is
-light, the cap is not spent and more than ``HALF`` variables are live,
-as ``_ell_chain_stage``'s ``cond`` reads.  No host sync happens inside
-a stage.
+The chain's rounds are K8's, in one K16 loop a stage: a stage arms the
+control words (:func:`chain_arm`: ``LIMIT`` = rounds so far + the
+stage's cap, ``HALF`` = the rows the stage keeps, ``VLIVE`` = the live
+rows now), and the loop runs rounds while the system is light, the cap
+is not spent and more than ``HALF`` variables are live, as
+``_ell_chain_stage``'s ``cond`` reads.  No host sync happens inside a
+stage.
 
 After the partition the kernel re-derives K8's constraint index over
 the kept rows on the device: an entry survives when its row is live and

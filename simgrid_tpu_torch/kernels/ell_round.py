@@ -229,7 +229,7 @@ def ell_round_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
 
 def _ptrs(sys: EllSystem, w: EllWork, pen, vb):
     """The pointer array of one (system, work, penalties, bounds) tuple,
-    built once and kept on ``w`` (a fixpoint queues its rounds over the
+    built once and kept on ``w`` (a fixpoint calls its rounds over the
     same buffers)."""
     hit = w.ptr_cache.get("ell")
     if hit is not None and hit[0] is sys and hit[1] is pen \

@@ -354,11 +354,12 @@ def plan_of(sys: LmmSystem, w: Work) -> RowPlan:
 
 def _ptrs(sys: LmmSystem, w: Work, pen, vb, flags: int):
     """The pointer array of one (system, work, penalties, bounds, arms)
-    tuple, built once and kept on ``w``: a fixpoint queues thousands of
-    rounds over the same buffers, and building 28 checked pointers per
-    launch is host time the device waits for.  Arms without bounds key
-    on ``vb=None`` whatever the caller passed, so that the init (which
-    never reads bounds) and a bound-free round share one entry."""
+    tuple, built once and kept on ``w``: a solve's chunks and every
+    capture of K16's loops call the round over the same buffers, and
+    building 28 checked pointers per call is host time.  Arms without
+    bounds key on ``vb=None`` whatever the caller passed, so that the
+    init (which never reads bounds) and a bound-free round share one
+    entry."""
     if flags & ARM_BOUNDS and vb is None:
         raise ValueError("the bound arm needs the rate bounds vb")
     if not flags & ARM_BOUNDS:

@@ -9,7 +9,8 @@ is left out.  And P8 ``tools/tpu_opcost.py`` ``pk`` (``:166``):
 :func:`probe_double`.  The CUDA source is ``csrc/probe_loop.cu``.
 
 Arms of the loop (ROADMAP A11's question: how the solver's fixpoint
-loop goes onto the device), every one writing the whole ``g`` each
+loop goes onto the device; the ``cond`` arm is the mechanism K16 runs
+the port's loops on), every one writing the whole ``g`` each
 round and equal to the plain loop by bits:
 
 * ``coop``: all rounds in one cooperative launch, grid-wide syncs
@@ -21,7 +22,11 @@ round and equal to the plain loop by bits:
 * ``graph``: the per-round launches captured once in a
   ``torch.cuda.CUDAGraph`` (:class:`LoopGraph`) and replayed.  Captured
   launches run only when the graph replays, so capture counts nothing;
-  each replay counts once under ``probe_loop_graph``.
+  each replay counts once under ``probe_loop_graph``;
+* ``cond``: one round captured once into the body of a CUDA-graph
+  conditional WHILE node (K16, :class:`CondLoop`), whose condition node
+  counts the rounds; each launch of the graph runs every round and
+  counts once under ``superstep_loop_probe``.
 
 :func:`probe_double` counts under ``probe_double``.
 """
@@ -33,16 +38,19 @@ import ctypes
 import torch
 
 from . import build
+from . import superstep_loop as k16
 from .common import I, L, P, check, counter, is_double, on_cpu, ptr, stream
 
-ARMS = ("coop", "launch", "graph")
-COUNTS = {a: counter(f"probe_loop_{a}") for a in ARMS}
+ARMS = ("coop", "launch", "graph", "cond")
+COUNTS = {a: counter(f"probe_loop_{a}") for a in ARMS if a != "cond"}
+COUNTS["cond"] = k16.COUNTS["probe"]
 DOUBLE_COUNT = counter("probe_double")
 #: the rounds of P3's ``lk`` (``K_ROUNDS``)
 ROUNDS = 16
 
 _SIG = {"probe_loop_coop": [I, I, L, I, I, P, P, P, P, P],
         "probe_loop_round": [I, I, L, I, P, P, P, P, P, P],
+        "probe_loop_round_at": [I, L, I, P, P, P, P, P, P],
         "probe_loop_coop_grid": [I, P],
         "probe_double": [I, L, P, P, P]}
 
@@ -124,6 +132,40 @@ class LoopGraph:
         return self.accs[self.rounds % 2].view(8, 1)
 
 
+class CondLoop:
+    """The ``cond`` arm: one graph whose conditional WHILE node runs the
+    round ``rounds`` times (the count word says which round it is), built
+    at the first :meth:`replay`."""
+
+    def __init__(self, tab: torch.Tensor, idx: torch.Tensor,
+                 rounds: int = ROUNDS):
+        _check_args(tab, idx, rounds)
+        if on_cpu(tab, idx):
+            raise ValueError("a CUDA graph needs CUDA tensors")
+        self.rounds = rounds
+        dev = tab.device
+        self.g = torch.empty(idx.numel(), dtype=tab.dtype, device=dev)
+        self.accs = torch.zeros((2, 8), dtype=tab.dtype, device=dev)
+        cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+        lib = build.load("probe_loop", _SIG)
+        args = (is_double(tab.dtype), idx.numel(), int(idx.shape[1]),
+                ptr(tab), ptr(idx), ptr(self.g), ptr(self.accs), ptr(cnt))
+
+        def one_round():
+            check(lib.probe_loop_round_at(*args, stream()),
+                  "probe_loop (cond)")
+        self.loop = k16.DeviceLoop(
+            [k16.Loop(k16.PRED_COUNT, None, (one_round,), cap=rounds,
+                      cnt=cnt, tally="probe")],
+            "probe", dev, refs=(tab, idx))
+
+    def replay(self) -> torch.Tensor:
+        """Run every round; the result ([8, 1]) is a view of the graph's
+        own buffer, overwritten by the next replay."""
+        self.loop.run()
+        return self.accs[self.rounds % 2].view(8, 1)
+
+
 def probe_loop(tab: torch.Tensor, idx: torch.Tensor, rounds: int = ROUNDS,
                arm: str = "coop", grid: int = 0) -> torch.Tensor:
     """``lk``'s result ([8, 1]) after ``rounds`` rounds.  ``grid`` sets
@@ -137,6 +179,8 @@ def probe_loop(tab: torch.Tensor, idx: torch.Tensor, rounds: int = ROUNDS,
         return probe_loop_plain(tab, idx, rounds)
     if arm == "graph" and rounds:
         return LoopGraph(tab, idx, rounds).replay().clone()
+    if arm == "cond" and rounds:
+        return CondLoop(tab, idx, rounds).replay().clone()
     g = torch.empty(idx.numel(), dtype=tab.dtype, device=tab.device)
     if arm != "coop":     # the launch arm, or a graph of no round
         accs = torch.zeros((2, 8), dtype=tab.dtype, device=tab.device)

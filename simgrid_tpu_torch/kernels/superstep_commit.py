@@ -2,9 +2,9 @@
 
 Replaces ``simgrid_tpu/ops/lmm_drain.py`` ``_superstep_program``
 (``:248-531``) and the commit half of ``_fused_step_program``
-(``:203-234``).  The CUDA source is ``csrc/superstep_commit.cu``, which
-describes how the JAX while_loop maps onto queued, device-guarded
-advance slots.
+(``:203-234``).  The CUDA source is ``csrc/superstep_commit.cu``; the
+while_loop itself and its condition run on the card as K16
+(``superstep_loop.py``).
 
 The commit's two event arms follow K2's event peek: the fault-tape arm
 (``tape=(tape_slot, tape_val)`` and the drain's ``c_bound``) logs the
@@ -19,18 +19,15 @@ same names with ``_fleet`` appended.
 ``packed`` is the superstep's result vector in the JAX layout:
 ``[rounds, adv, n_ev, t_sum, n_live, flag, live_elems]``, then
 ``adv_dt[k_max]``, ``adv_nev[k_max]``, ``ring_t[ring_n]``,
-``ring_id[ring_n]``, all in the drain's dtype.  A flag of
-``FLAG_STARVED`` (-1) means the queued rounds ran out before the JAX
-round budget did and the host must resume the advance.
+``ring_id[ring_n]``, all in the drain's dtype.
 
 A fleet :class:`Work` (``B`` replicas, the replica axis of
 ``lmm_batch.py``'s ``_batch_superstep_program``) runs every replica in
 the same launches: ``superstep_reset`` takes per-replica ``k`` (0 for
 a dead replica, whose guards are then false from entry), ``t0`` and
 ``tpos`` as ``[B]`` tensors (and a collective's ``ready`` ``[B, V]``
-and Kahan pairs ``clk`` ``[B, 2]``), ``superstep_resume`` resumes the
-STARVED replicas and turns every other replica's slot off, and
-``packed`` is ``[B, packed_size]``.  The plain versions run the solo plain function
+and Kahan pairs ``clk`` ``[B, 2]``), and ``packed`` is ``[B,
+packed_size]``.  The plain versions run the solo plain function
 on each replica in turn.
 """
 
@@ -43,35 +40,28 @@ import torch
 from . import build
 from typing import Optional, Tuple
 
-from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, ARMED, DT, EV_NEXT_T,
-                     EV_T0, FFIRE, FLAG_BUDGET, FLAG_OK, FLAG_STALLED,
-                     FLAG_STARVED, IT, LE_ACC, LIVE_ACC, PENDING, SS_ACTIVE,
-                     SS_ADV, SS_BUDGET, SS_FLAG, SS_K, SS_NEV, SS_NLIVE,
-                     SS_ROUNDS, SS_STARVED, SS_STOP, T_COMP, T_SUM, TPOS, D,
-                     I, L, P, Work, check, counter, is_double, on_cpu,
-                     opt_ptr, ptr, stream)
+from .common import (AANY, ADV_CONV, ADV_GO, ADV_OK, DT, EV_NEXT_T, EV_T0,
+                     FFIRE, FLAG_BUDGET, FLAG_OK, FLAG_STALLED, IT, LE_ACC,
+                     LIVE_ACC, PENDING, SS_ACTIVE, SS_ADV, SS_BUDGET,
+                     SS_FLAG, SS_K, SS_NEV, SS_NLIVE, SS_ROUNDS, SS_STOP,
+                     T_COMP, T_SUM, TPOS, D, I, L, P, Work, check, counter,
+                     is_double, on_cpu, opt_ptr, ptr, stream)
 
 COUNT = counter("superstep_commit")
 TAPE_COUNT = counter("superstep_commit_tape")
 COLL_COUNT = counter("superstep_commit_coll")
 RESET_COUNT = counter("superstep_reset")
-BEGIN_COUNT = counter("superstep_begin")
-RESUME_COUNT = counter("superstep_resume")
 FINISH_COUNT = counter("superstep_finish")
 #: a fleet's launches (a Work with a replica axis)
 FLEET_COUNT = counter("superstep_commit_fleet")
 FLEET_TAPE_COUNT = counter("superstep_commit_tape_fleet")
 FLEET_COLL_COUNT = counter("superstep_commit_coll_fleet")
 FLEET_RESET_COUNT = counter("superstep_reset_fleet")
-FLEET_BEGIN_COUNT = counter("superstep_begin_fleet")
-FLEET_RESUME_COUNT = counter("superstep_resume_fleet")
 FLEET_FINISH_COUNT = counter("superstep_finish_fleet")
 
 _SIG = {
     "superstep_reset": [I, I, I, P, P, P, I, I, I, P, D, I, P, P, P, P, P,
                         P],
-    "superstep_begin": [I, P, P],
-    "superstep_resume": [I, P, P],
     "superstep_commit": [I, I, I, P, P, P, P, P, I, I, P, P, P, I, P, I, I,
                          P, P, P, P],
     "superstep_finish": [I, I, I, I, P, P, L, P, P, L, P, P, P, P],
@@ -105,7 +95,7 @@ def superstep_reset_plain(pen, w: Work, k: int, budget: int, stop: int,
     for slot, val in ((SS_ACTIVE, 0), (SS_ADV, 0), (SS_ROUNDS, 0),
                       (SS_FLAG, FLAG_OK), (SS_NEV, 0), (SS_K, k),
                       (SS_BUDGET, budget), (SS_STOP, stop),
-                      (SS_STARVED, 0), (TPOS, tpos), (PENDING, pending),
+                      (TPOS, tpos), (PENDING, pending),
                       (ADV_OK, 0)):
         c[slot] = val
     c[SS_NLIVE] = int((pen > 0).sum())
@@ -113,25 +103,6 @@ def superstep_reset_plain(pen, w: Work, k: int, budget: int, stop: int,
     w.fctrl[T_COMP] = 0.0 if clk is None else clk[1]
     w.evf[EV_T0] = t0
     w.evf[EV_NEXT_T] = float("inf")
-
-
-def superstep_begin_plain(w: Work) -> bool:
-    c = [int(x) for x in w.ctrl.tolist()]
-    active = (not c[SS_STARVED] and c[SS_FLAG] == FLAG_OK
-              and c[SS_ADV] < c[SS_K] and c[SS_ROUNDS] < c[SS_BUDGET]
-              and (c[SS_NLIVE] > c[SS_STOP] or c[PENDING] > 0))
-    w.ctrl[SS_ACTIVE] = int(active)
-    return active
-
-
-def superstep_resume_plain(w: Work) -> None:
-    if not int(w.ctrl[SS_STARVED]):
-        # a replica that did not starve has ended its superstep
-        w.ctrl[SS_ACTIVE] = 0
-        return
-    w.ctrl[SS_STARVED] = 0
-    w.ctrl[SS_ACTIVE] = 1
-    w.ctrl[ARMED] = 1
 
 
 def superstep_commit_plain(w: Work, ids: torch.Tensor, packed: torch.Tensor,
@@ -206,7 +177,7 @@ def superstep_finish_plain(e_var, e_w, pen, packed: torch.Tensor,
     c = w.ctrl
     live_elems = int(((e_w > 0) & (pen[e_var.long()] > 0)).sum())
     c[LE_ACC] = live_elems
-    flag = FLAG_STARVED if int(c[SS_STARVED]) else int(c[SS_FLAG])
+    flag = int(c[SS_FLAG])
     packed[:N_STATS] = torch.tensor(
         [int(c[SS_ROUNDS]), int(c[SS_ADV]), int(c[SS_NEV]), 0.0,
          int(c[SS_NLIVE]), flag, live_elems], dtype=packed.dtype)
@@ -275,35 +246,6 @@ def superstep_reset(pen, w: Work, k, budget: int, stop: int,
         stream())
     check(rc, "superstep_reset")
     (RESET_COUNT if w.B is None else FLEET_RESET_COUNT).n += 1
-
-
-def superstep_begin(w: Work):
-    """The while_loop cond for the next advance slot (the plain version
-    returns it, for a fleet whether any replica's slot runs; the kernel
-    leaves it on the device)."""
-    if on_cpu(w.ctrl):
-        if w.B is not None:
-            return any([superstep_begin_plain(w.replica(b))
-                        for b in range(w.B)])
-        return superstep_begin_plain(w)
-    check(_lib().superstep_begin(w.nb, ptr(w.ctrl), stream()),
-          "superstep_begin")
-    (BEGIN_COUNT if w.B is None else FLEET_BEGIN_COUNT).n += 1
-    return None
-
-
-def superstep_resume(w: Work) -> None:
-    """Resume the STARVED replicas' advance (every other replica's slot
-    goes off)."""
-    if on_cpu(w.ctrl):
-        if w.B is not None:
-            for b in range(w.B):
-                superstep_resume_plain(w.replica(b))
-            return None
-        return superstep_resume_plain(w)
-    check(_lib().superstep_resume(w.nb, ptr(w.ctrl), stream()),
-          "superstep_resume")
-    (RESUME_COUNT if w.B is None else FLEET_RESUME_COUNT).n += 1
 
 
 def superstep_commit(w: Work, ids: torch.Tensor, packed: torch.Tensor,

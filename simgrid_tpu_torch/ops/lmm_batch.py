@@ -8,7 +8,7 @@ per-replica state has a leading replica axis (``kernels.common.Work``
 with ``B``), K1-K3 pick their replica by ``blockIdx.y`` and guard on its
 own control words, and K11 (``kernels/fleet_materialize.py``) builds the
 per-replica state on the card from the base arrays and the payloads.  A
-fleet superstep therefore queues as many launches as a solo superstep,
+fleet superstep therefore launches as many kernels as a solo superstep,
 whatever B is: the amortisation the JAX package's ``vmap`` gives.
 
 * **one shared system**: the COO structure, the row indexes and, by
@@ -40,10 +40,12 @@ whatever B is: the amortisation the JAX package's ``vmap`` gives.
 Each replica's events, fault events and clock equal by bits the same
 scenario drained solo by :class:`~.lmm_drain.DrainSim` (``ScenarioPlan.
 solo``): the replica runs the solo kernels' arithmetic in the solo fold
-order, and the fleet never repacks.  A superstep whose queued rounds ran
-out comes back STARVED for some replicas; the host resumes all of them
-in one queued resume, so the grouping of advances into supersteps is
-JAX's.
+order, and the fleet never repacks.  A fleet superstep is one launch of
+K16's graph (``kernels/superstep_loop.py``), the solo loop nest with each
+condition taken over all B replicas (a slot runs while any replica's is
+active, a round while any replica's fixpoint runs) and every kernel
+gating on its own replica's control words, so the grouping of advances
+into supersteps is JAX's for every replica.
 
 The round budget of a superstep is the port's solo ``DrainSim``'s,
 ``superstep * 512`` on every device (the JAX fleet takes 256 off the
@@ -64,19 +66,19 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..kernels import fleet_materialize as k11
 from ..kernels.dag_walk import dag_walk
-from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, FLAG_STARVED,
-                              IT, LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem,
-                              Work)
+from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, IT, LIGHT,
+                              LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
 from ..kernels.drain_advance import drain_advance
-from ..kernels.lmm_round import lmm_init, lmm_round
+from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
 from ..kernels.superstep_commit import (N_STATS, packed_size,
-                                        superstep_begin, superstep_commit,
-                                        superstep_finish, superstep_reset,
-                                        superstep_resume)
+                                        superstep_commit, superstep_finish,
+                                        superstep_reset)
+from ..kernels.superstep_loop import (PRED_ROUND, PRED_SUPERSTEP,
+                                      DeviceLoop, Loop, cached)
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import to2d
-from .lmm_drain import SLOT_ROUNDS, _torch_dtype, collective_arrays
+from .lmm_drain import _torch_dtype, collective_arrays
 from .lmm_torch import chunk_rounds
 
 
@@ -242,9 +244,9 @@ def solve_arrays_batch(e_var, e_cnst, e_w, c_bound, c_fatpipe, v_penalty,
     ``e_w`` is ``[E]`` (shared) or ``[B, E]``; ``c_bound``,
     ``v_penalty`` and ``v_bound`` are ``[B, ·]``.  Every replica runs
     K1's rounds in the same launches and stops on its own convergence;
-    after each chunk of ``chunk`` rounds (the port's ``chunk_rounds``:
-    4096 on the CPU, 256 on the card, 32 from 2**20 elements) one
-    ``[B, 3 + V + 2C]`` fetch brings the round, light and fixed counts
+    after each chunk of at most ``chunk`` rounds (one K16 launch; the
+    port's ``chunk_rounds``: 4096 on the CPU, 256 on the card, 32 from
+    2**20 elements) one ``[B, 3 + V + 2C]`` fetch brings the round, light and fixed counts
     and the results, with the same stall and round-cap errors as the
     JAX package."""
     if mesh is not None:
@@ -283,14 +285,18 @@ def solve_arrays_batch(e_var, e_cnst, e_w, c_bound, c_fatpipe, v_penalty,
                     put(c_fatpipe))
     pen, vb = put(v_penalty), put(v_bound)
     w = Work(n_v, n_c, tdt, dev, B=B)
-    lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
     global_rounds = not parallel_rounds
+    loop = DeviceLoop(
+        [Loop(PRED_ROUND, w.ctrl, (lambda: lmm_round(
+            sys, w, pen, eps, vb if has_bounds else None, has_bounds,
+            has_fatpipe, global_rounds),), cap=chunk,
+            tally="lmm_round_fleet")],
+        "chunk_fleet", dev, refs=(sys, w, pen, vb),
+        prepare=lambda: plan_of(sys, w))
+    lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
     prev_progress = None
     while True:
-        for _ in range(chunk):
-            if lmm_round(sys, w, pen, eps, vb if has_bounds else None,
-                         has_bounds, has_fatpipe, global_rounds) is False:
-                break
+        loop.run()
         opstats.bump("dispatches")
         opstats.bump("batch_dispatches")
         head = torch.stack([w.ctrl[:, IT], w.ctrl[:, LIGHT],
@@ -406,7 +412,6 @@ class BatchDrainSim:
                              "(superstep >= 1)")
         self.superstep_rounds = (int(superstep_rounds)
                                  or self.superstep_k * 512)
-        self.slot_rounds = SLOT_ROUNDS
         dev, B = self.device, self.B
 
         self._base = [np.asarray(c_bound, np.float64),
@@ -478,7 +483,11 @@ class BatchDrainSim:
         self.pad_events = 0
         self.rescues = 0
         self.supersteps = 0
-        self.resumes = 0
+        #: K16 graphs built (first use, and after a buffer they bake in
+        #: was replaced)
+        self.loop_builds = 0
+        self._loops: dict = {}
+        self._packed: Optional[torch.Tensor] = None
         self.syncs = 0
         self.rounds = 0
         opstats.bump("batch_replicas", B)
@@ -585,11 +594,23 @@ class BatchDrainSim:
 
     # -- the fleet superstep -----------------------------------------------
 
-    def _queue_rounds(self, n: int) -> None:
-        for _ in range(n):
-            if lmm_round(self.sys, self.w, self._pen, self.eps, self._vb,
-                         self.has_bounds) is False:
-                break
+    def _round(self) -> None:
+        lmm_round(self.sys, self.w, self._pen, self.eps, self._vb,
+                  self.has_bounds)
+
+    def _loop(self, name: str, refs: tuple, steps, kind: str) -> DeviceLoop:
+        """The K16 loop nest ``name`` (``DrainSim._loop``)."""
+        def make():
+            self.loop_builds += 1
+            return DeviceLoop(steps, kind, self.device, refs,
+                              prepare=lambda: plan_of(self.sys, self.w))
+        return cached(self._loops, name, refs, make)
+
+    def _refs(self) -> tuple:
+        return (self.sys, self.w, self._pen, self._rem, self._thresh,
+                self._ids, self._vb, self.eps, self.has_bounds, self.n_c,
+                self.has_tape, self._tape, self.has_coll, self._coll,
+                getattr(self, "_coll_edges", None))
 
     def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
         """K2, K3 and with a collective K10: the solo order
@@ -607,13 +628,31 @@ class BatchDrainSim:
             dag_walk(self.w, *self._coll_edges[:2], self._coll[0], ready,
                      self._coll_edges[2])
 
-    def _queue_slots(self, n: int, packed, k_max: int, ring_n: int) -> None:
-        for _ in range(n):
-            if superstep_begin(self.w) is False:
-                break
-            lmm_init(self.sys, self.w, self._pen, self.eps, gated=True)
-            self._queue_rounds(self.slot_rounds)
-            self._queue_advance(packed, k_max, ring_n)
+    def _superstep_loop(self, packed, k_max: int,
+                        ring_n: int) -> DeviceLoop:
+        """The fleet superstep as one loop nest (``DrainSim.
+        _superstep_loop``), each condition over all B replicas."""
+        w = self.w
+        slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
+                                 gated=True),
+                Loop(PRED_ROUND, w.ctrl, (self._round,),
+                     tally="lmm_round_fleet"),
+                lambda: self._queue_advance(packed, k_max, ring_n))
+        return self._loop("superstep",
+                          self._refs() + (packed, k_max, ring_n),
+                          [Loop(PRED_SUPERSTEP, w.ctrl, slot,
+                                tally="slots")], "superstep_fleet")
+
+    def _packed_buf(self, k_max: int, ring_n: int) -> torch.Tensor:
+        """The fleet's ``[B, packed_size]`` result, zeroed; one buffer
+        while its size holds."""
+        shape = (self.B, packed_size(k_max, ring_n))
+        if self._packed is None or tuple(self._packed.shape) != shape:
+            self._packed = torch.zeros(shape, dtype=self.tdtype,
+                                       device=self.device)
+        else:
+            self._packed.zero_()
+        return self._packed
 
     def _finish(self, packed) -> np.ndarray:
         superstep_finish(self.sys.e_var, self.sys.e_w, self._pen, packed,
@@ -649,37 +688,14 @@ class BatchDrainSim:
         # completions, one tape entry per advance, one activation per flow
         ring_n = (self.n_v + (k_max if self.has_tape else 0)
                   + (self.n_v if self.has_coll else 0))
-        packed = torch.zeros((self.B, packed_size(k_max, ring_n)),
-                             dtype=self.tdtype, device=self.device)
-        k_b = np.where(alive, k, 0)
-        self._reset(k_b, budget)
-        self._queue_slots(k, packed, k_max, ring_n)
+        packed = self._packed_buf(k_max, ring_n)
+        loop = self._superstep_loop(packed, k_max, ring_n)
+        self._reset(np.where(alive, k, 0), budget)
+        loop.run()
         p = self._finish(packed)
         self.supersteps += 1
         opstats.bump("dispatches")
         opstats.bump("batch_dispatches")
-        starved = 0
-        while True:
-            hungry = [b for b in range(self.B)
-                      if alive[b] and int(p[b, 5]) == FLAG_STARVED]
-            if not hungry:
-                break
-            # these replicas' advance in slot p[b, 1] needs more rounds
-            # than were queued while the budget has room: one resume for
-            # all of them (every other replica's slot stays off), then
-            # the slots the hungriest replica has left
-            starved += 1
-            if starved > 64:
-                raise RuntimeError("fleet superstep keeps running out of "
-                                   "queued rounds")
-            self.resumes += 1
-            self.slot_rounds = min(2 * self.slot_rounds, MAX_ROUNDS)
-            superstep_resume(self.w)
-            self._queue_rounds(self.slot_rounds)
-            self._queue_advance(packed, k_max, ring_n)
-            more = max(int(k_b[b]) - int(p[b, 1]) - 1 for b in hungry)
-            self._queue_slots(more, packed, k_max, ring_n)
-            p = self._finish(packed)
         return self._collect(p, alive, k_max, ring_n, rescue)
 
     def _stall_cause(self, b: int, n_live: int) -> Tuple[str, str]:
@@ -833,12 +849,8 @@ class BatchDrainSim:
             # the guard: SS_ACTIVE is set exactly for the active replicas
             # (k 1, the whole budget), the fixpoint carry is untouched
             self._reset(active.astype(np.int32), MAX_ROUNDS)
-            superstep_begin(w)
-            if first:
-                lmm_init(self.sys, w, self._pen, self.eps, gated=True)
-                first = False
-            self._queue_rounds(chunk)
-            drain_advance(self._pen, self._rem, self._thresh, w, gated=2)
+            self._rescue_loop(first, chunk).run()
+            first = False
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
             head = torch.stack([w.ctrl[:, IT], w.ctrl[:, LIGHT]], 1)
@@ -881,6 +893,23 @@ class BatchDrainSim:
                     self._alive[b] = False
             if not active.any():
                 break
+
+    def _rescue_loop(self, first: bool, chunk: int) -> DeviceLoop:
+        """One chunk of the fused rescue: one slot (the superstep's
+        condition sets each replica's guard, and runs the slot once),
+        with the gated init (``first``), at most ``chunk`` rounds and K2
+        where the slot is active."""
+        w = self.w
+        slot = [lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
+                                 gated=True)] if first else []
+        slot += [Loop(PRED_ROUND, w.ctrl, (self._round,), cap=chunk,
+                      tally="lmm_round_fleet"),
+                 lambda: drain_advance(self._pen, self._rem, self._thresh,
+                                       self.w, gated=True)]
+        return self._loop("rescue_first" if first else "rescue",
+                          self._refs() + (chunk,),
+                          [Loop(PRED_SUPERSTEP, w.ctrl, tuple(slot), cap=1)],
+                          "rescue_fleet")
 
     def run(self, max_supersteps: int = 10_000_000, between=None) -> None:
         """Drain every replica to completion (or quarantine).

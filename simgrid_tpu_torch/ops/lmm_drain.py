@@ -8,24 +8,27 @@ fixed flow set to completion,
 
 keeping all solver and flow state on the device, in three shapes:
 
-* **unfused**: solve chunks (one fetch each), then the dt/retire step
-  (one fetch) — >= 2 host waits per advance;
+* **unfused**: solve chunks (one fetch each; a chunk is one K16 launch
+  of at most ``solve_chunk`` rounds), then the dt/retire step (one
+  fetch) — >= 2 host waits per advance;
 * **fused** (``fused=True``): each solve chunk is followed by the
   dt/retire step, which commits only once the solve converged — one
   fetch per chunk;
 * **supersteps** (``superstep=K``): up to K advances per host wait.  The
-  JAX program is one ``lax.while_loop``; here the host queues K advance
-  slots (``superstep_begin`` -> ``lmm_init`` -> ``slot_rounds`` x
-  ``lmm_round`` -> ``drain_advance`` -> ``superstep_commit``), every
-  launch reads the device-side control words and does nothing once the
-  loop condition fails, and one fetch of the packed result ends the
-  superstep.  If an advance needs more rounds than were queued while the
-  JAX round budget still has room, the superstep comes back STARVED and
-  the host queues more rounds for the same advance and the rest of the
-  slots: the grouping of advances into supersteps, and so every event
-  time, is the JAX driver's.  Completions land in the ring and the clock
+  JAX program is one ``lax.while_loop`` around a solve that is itself
+  one; here both run on the card as K16's graph (``kernels/
+  superstep_loop.py``): ``superstep_reset`` (the host's scalars), ONE
+  graph launch (a WHILE node over advance slots, each ``lmm_init``, a
+  WHILE node over ``lmm_round`` to convergence or the JAX round budget,
+  ``drain_advance`` and ``superstep_commit``, under the JAX conditions),
+  ``superstep_finish`` and one fetch of the packed result.  The grouping
+  of advances into supersteps, and so every event time, is the JAX
+  driver's by construction.  Completions land in the ring and the clock
   in a Kahan pair as in the JAX program, and when the live set halves
-  the drain repacks on the device (``livefirst_repack``).
+  the drain repacks on the device (``livefirst_repack``).  The graph is
+  kept per executor and built again when a buffer it bakes in is
+  replaced (a repack, transitions that rebuild the row index, new
+  bounds): ``loop_builds`` counts the builds.
 
 The host clock is ``t = t_base + t_sum`` once per superstep, exactly as
 the JAX collect computes it.
@@ -68,29 +71,23 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, FLAG_STARVED,
-                              IT, LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem,
-                              Work)
+from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, IT, LIGHT,
+                              LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
 from ..kernels.dag_walk import dag_walk
 from ..kernels.drain_advance import drain_advance, drain_forced_advance
 from ..kernels.livefirst_repack import livefirst_repack
-from ..kernels.lmm_round import lmm_init, lmm_round
+from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
 from ..kernels.superstep_commit import (N_STATS, packed_size,
-                                        superstep_begin, superstep_commit,
-                                        superstep_finish, superstep_reset,
-                                        superstep_resume)
+                                        superstep_commit, superstep_finish,
+                                        superstep_reset)
+from ..kernels.superstep_loop import (PRED_ROUND, PRED_SUPERSTEP,
+                                      DeviceLoop, Loop, cached)
 from ..kernels.transition_scatter import (TRANSITION_FIELDS,
                                           transition_scatter)
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import to2d
 from .lmm_torch import to_device_system
-
-#: rounds the superstep driver queues per advance slot before the host
-#: checks back; doubled whenever a superstep comes back STARVED (it
-#: changes no result, only how often the host resumes)
-SLOT_ROUNDS = 32
-
 
 def _torch_dtype(dtype) -> torch.dtype:
     if np.dtype(dtype) == np.float64:
@@ -174,7 +171,6 @@ class DrainSim:
         self.superstep_rounds = (int(superstep_rounds)
                                  or self.superstep_k * 512
                                  if self.superstep_k else 0)
-        self.slot_rounds = SLOT_ROUNDS
 
         self._host: Optional[dict] = dict(
             e_var=np.asarray(e_var, np.int32),
@@ -225,8 +221,11 @@ class DrainSim:
         self.syncs = 0
         self.repacks = 0
         self.supersteps = 0
-        #: supersteps whose queued rounds ran out and were resumed
-        self.resumes = 0
+        #: K16 graphs (loop nests) built: at first use and after a
+        #: buffer they bake in was replaced
+        self.loop_builds = 0
+        self._loops: dict = {}
+        self._packed: Optional[torch.Tensor] = None
 
     # -- event arms --------------------------------------------------------
 
@@ -404,25 +403,50 @@ class DrainSim:
 
     # -- per-advance paths -------------------------------------------------
 
-    def _queue_rounds(self, n: int) -> None:
-        for _ in range(n):
-            if lmm_round(self.sys, self.w, self._pen, self.eps, self._vb,
-                         self.has_bounds) is False:
-                break
+    def _loop(self, name: str, refs: tuple, steps, kind: str) -> DeviceLoop:
+        """The K16 loop nest ``name``, built again when any of ``refs``
+        (what its graph bakes in) was replaced."""
+        def make():
+            self.loop_builds += 1
+            return DeviceLoop(steps, kind, self.device, refs,
+                              prepare=lambda: plan_of(self.sys, self.w))
+        return cached(self._loops, name, refs, make)
+
+    def _round(self) -> None:
+        lmm_round(self.sys, self.w, self._pen, self.eps, self._vb,
+                  self.has_bounds)
+
+    def _refs(self) -> tuple:
+        return (self.sys, self.w, self._pen, self._rem, self._thresh,
+                self._ids_dev, self._vb, self.eps, self.has_bounds,
+                self.n_c)
+
+    def _chunk_loop(self, fused: bool = False) -> DeviceLoop:
+        """At most ``solve_chunk`` rounds while the fixpoint runs (then,
+        ``fused``, the dt/retire step): one K16 launch."""
+        steps = [Loop(PRED_ROUND, self.w.ctrl, (self._round,),
+                      cap=self.solve_chunk, tally="lmm_round")]
+        if fused:
+            steps.append(lambda: drain_advance(self._pen, self._rem,
+                                               self._thresh, self.w))
+        return self._loop("fused" if fused else "chunk",
+                          self._refs() + (self.solve_chunk,), steps,
+                          "chunk")
 
     def _solve_chunks(self, fused: bool) -> np.ndarray:
-        """Solve to convergence in chunks of ``solve_chunk`` rounds, one
-        fetch per chunk; with ``fused`` the dt/retire step follows every
-        chunk (it commits only after convergence) and rides the same
-        fetch.  Returns the last fetch: [rounds, n_light] (+ [dt,
-        n_live, done...] when fused)."""
+        """Solve to convergence in chunks of at most ``solve_chunk``
+        rounds (one K16 launch each), one fetch per chunk; with ``fused``
+        the dt/retire step follows every chunk in the same launch (it
+        commits only after convergence) and rides the same fetch.
+        Returns the last fetch: [rounds, n_light] (+ [dt, n_live,
+        done...] when fused)."""
         w = self.w
+        loop = self._chunk_loop(fused)
         lmm_init(self.sys, w, self._pen, self.eps)
         while True:
-            self._queue_rounds(self.solve_chunk)
+            loop.run()
             parts = [w.ctrl[IT:LIGHT + 1].to(self.tdtype)]
             if fused:
-                drain_advance(self._pen, self._rem, self._thresh, w)
                 parts += [w.fctrl[DT:DT + 1],
                           w.ctrl[LIVE_ACC:LIVE_ACC + 1].to(self.tdtype),
                           w.done.to(self.tdtype)]
@@ -550,13 +574,33 @@ class DrainSim:
 
     # -- superstep path ----------------------------------------------------
 
-    def _queue_slots(self, n: int, packed, k_max: int, ring_n: int) -> None:
-        for _ in range(n):
-            if superstep_begin(self.w) is False:
-                break
-            lmm_init(self.sys, self.w, self._pen, self.eps, gated=True)
-            self._queue_rounds(self.slot_rounds)
-            self._queue_advance(packed, k_max, ring_n)
+    def _superstep_loop(self, packed, k_max: int, ring_n: int) -> DeviceLoop:
+        """The superstep as one loop nest: while a slot is active, the
+        gated init, the rounds to convergence (or the budget), K2, K3
+        and with a collective K10."""
+        w = self.w
+        slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
+                                 gated=True),
+                Loop(PRED_ROUND, w.ctrl, (self._round,),
+                     tally="lmm_round"),
+                lambda: self._queue_advance(packed, k_max, ring_n))
+        refs = self._refs() + (packed, k_max, ring_n, self.has_tape,
+                               self._tape, self.has_coll, self._coll,
+                               self._coll_clk)
+        return self._loop("superstep", refs,
+                          [Loop(PRED_SUPERSTEP, w.ctrl, slot,
+                                tally="slots")], "superstep")
+
+    def _packed_buf(self, k_max: int, ring_n: int) -> torch.Tensor:
+        """The superstep's result vector, zeroed; one buffer while its
+        size holds (the loop's graph writes into it)."""
+        n = packed_size(k_max, ring_n)
+        if self._packed is None or self._packed.numel() != n:
+            self._packed = torch.zeros(n, dtype=self.tdtype,
+                                       device=self.device)
+        else:
+            self._packed.zero_()
+        return self._packed
 
     def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
         tape_t = self._tape[0] if self.has_tape else None
@@ -601,34 +645,17 @@ class DrainSim:
                            if self._live0 * self.repack_at
                            >= self.repack_min else 0))
         ring_n = self._ring_n(k_max)
-        packed = torch.zeros(packed_size(k_max, ring_n), dtype=self.tdtype,
-                             device=self.device)
-        # the f64 base clock of the event peek: set once, so a STARVED
-        # resume peeks from the same t0
+        packed = self._packed_buf(k_max, ring_n)
+        loop = self._superstep_loop(packed, k_max, ring_n)
+        # the f64 base clock of the event peek
         superstep_reset(self._pen, self.w, k, budget, want_stop,
                         t0=self.t, tpos=self._tpos_host,
                         ready=self._coll[1] if self.has_coll else None,
                         clk=self._coll_clk)
-        self._queue_slots(k, packed, k_max, ring_n)
+        loop.run()
         p = self._finish(packed)
         self.supersteps += 1
         opstats.bump("dispatches")
-        starved = 0
-        while int(p[5]) == FLAG_STARVED:
-            # the advance in slot p[1] needs more rounds than were queued
-            # and the JAX budget still has room: resume it, then queue
-            # the slots that are left
-            starved += 1
-            if starved > 64:
-                raise RuntimeError("superstep keeps running out of "
-                                   "queued rounds")
-            self.resumes += 1
-            self.slot_rounds = min(2 * self.slot_rounds, MAX_ROUNDS)
-            superstep_resume(self.w)
-            self._queue_rounds(self.slot_rounds)
-            self._queue_advance(packed, k_max, ring_n)
-            self._queue_slots(k - int(p[1]) - 1, packed, k_max, ring_n)
-            p = self._finish(packed)
         return self._collect(p, k_max, ring_n, want_stop)
 
     def _collect(self, p: np.ndarray, k_max: int, ring_n: int,

@@ -14,10 +14,12 @@ Counterpart of ``simgrid_tpu/ops/lmm_jax.py``'s ELL parts:
   bound-free) or K7 rounds (with bounds, or global), in chunks;
 * :func:`solve_ell_chain` (``:819-941``): the device-resident compaction
   chain: a host numpy init (as the JAX package computes it, numpy's
-  pairwise row sums included), stages of guarded K8 rounds that end once
-  at most half the variable rows are live, each followed by K9's stable
-  live-first partition into half the rows, then finisher chunks with one
-  fetch each.  Overflow or a stall returns None, and the caller re-solves
+  pairwise row sums included), stages of K8 rounds (one K16 launch a
+  stage, under ``_ell_chain_stage``'s condition) that end once at most
+  half the variable rows are live, each followed by K9's stable
+  live-first partition into half the rows, then finisher chunks (one
+  K16 launch each, under ``_vc_chunk``'s condition) with one fetch
+  each.  Overflow or a stall returns None, and the caller re-solves
   on the dense path, as the reference does.
 
 The constants are module attributes, as in the JAX package, so a test
@@ -35,6 +37,7 @@ from ..kernels.common import MAX_ROUNDS, EllSystem, EllWork, Work
 from ..kernels.ell_chain import (ChainState, chain_arm, chain_fetch,
                                  chain_stage)
 from ..kernels.ell_round import ell_init
+from ..kernels.superstep_loop import PRED_VC_ROUND, DeviceLoop, Loop
 from ..kernels.vc_round import vc_round
 from . import opstats
 from .lmm_arrays import LmmArrays, bucket
@@ -317,13 +320,21 @@ def solve_ell_chain(ell: LmmEllArrays, eps: float, device: torch.device,
     cs = ChainState(sys, pen, init[5], w)
     chain_arm(cs, -1, -1, first=True)
 
+    def rounds_loop(cap: int = 0) -> DeviceLoop:
+        # K8's rounds over this stage's tables while vc_go holds (a
+        # stage's cap is in its round limit; the finisher's is ``cap``)
+        sys_, pen_ = cs.sys, cs.pen
+        return DeviceLoop(
+            [Loop(PRED_VC_ROUND, w.ctrl, (lambda: vc_round(
+                sys_, w, pen_, eps_f, has_fatpipe),), cap=cap,
+                tally="vc_round")],
+            "chain", device, refs=(sys_, pen_, w))
+
     vs = v0
     while vs // 2 >= _CHAIN_MIN_V:
         half = vs // 2
         chain_arm(cs, _CHAIN_STAGE_CAP, half)
-        for _ in range(_CHAIN_STAGE_CAP):
-            if vc_round(cs.sys, w, cs.pen, eps_f, has_fatpipe) is False:
-                break
+        rounds_loop().run()
         chain_stage(cs, half)
         opstats.bump("ell_chain_stages")
         vs = half
@@ -331,10 +342,9 @@ def solve_ell_chain(ell: LmmEllArrays, eps: float, device: torch.device,
     out = torch.empty(4 + v0 + 2 * n_c, dtype=sys.vc_w.dtype, device=device)
     prev_progress = None
     chain_arm(cs, -1, -1)
+    finisher = rounds_loop(chunk)
     while True:
-        for _ in range(chunk):
-            if vc_round(cs.sys, w, cs.pen, eps_f, has_fatpipe) is False:
-                break
+        finisher.run()
         chain_fetch(cs, out)
         fetched = opstats.timed_fetch(out)
         rounds, n_light, n_fixed, oflow = (int(fetched[0]),

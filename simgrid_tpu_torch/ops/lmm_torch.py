@@ -37,7 +37,9 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.common import (IT, LIGHT, MAX_ROUNDS, EllSystem, LmmSystem,
                               Work)
 from ..kernels.ell_round import ell_round
-from ..kernels.lmm_round import lmm_init, lmm_round
+from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
+from ..kernels.superstep_loop import (PRED_ROUND, PRED_VC_ROUND,
+                                      DeviceLoop, Loop, cached)
 from ..kernels.vc_round import vc_round
 from . import opstats
 from .csr import build_csr
@@ -80,7 +82,7 @@ def to_device_system(e_var, e_cnst, e_w, c_bound, n_v: int,
                      None if fat is None else put(fat))
 
 
-#: rounds a chunk queues on the card (the JAX package's
+#: rounds a chunk runs at most on the card (the JAX package's
 #: ``_CHUNK_ROUNDS_ACCEL``; also the chain's finisher chunk)
 CHUNK_ROUNDS_ACCEL = 256
 
@@ -88,7 +90,8 @@ CHUNK_ROUNDS_ACCEL = 256
 def chunk_rounds(device: torch.device, n_elem: int) -> int:
     """Rounds per chunk, for the solve and the warm solver alike: the
     JAX CPU default on the host; on the card the JAX accelerator default
-    (a chunk queues this many guarded launches), and 32 from 2**20
+    (a chunk is one K16 launch of at most this many rounds), and 32 from
+    2**20
     elements, where the JAX package caps its big COO chunks
     (``lmm_jax.py:1373-1381``, ``lmm_warm.py:669-671``; ELL callers
     pass ``n_elem=0``: the cap is COO's only in ``solve_arrays``)."""
@@ -98,15 +101,38 @@ def chunk_rounds(device: torch.device, n_elem: int) -> int:
 
 
 def _round_fn(sys, has_bounds: bool, global_rounds: bool):
-    """The round a chunk queues: K1 over COO; over ELL, K8 for a local
-    bound-free system (``fixpoint_ell``'s ``body_local_vc``), else K7."""
+    """The round a chunk runs, its loop condition and its tally: K1 over
+    COO; over ELL, K8 for a local bound-free system (``fixpoint_ell``'s
+    ``body_local_vc``), else K7."""
     if not isinstance(sys, EllSystem):
-        return lambda w, pen, eps, vb, fat: lmm_round(
-            sys, w, pen, eps, vb, has_bounds, fat, global_rounds)
+        return (lambda w, pen, eps, vb, fat: lmm_round(
+            sys, w, pen, eps, vb, has_bounds, fat, global_rounds),
+            PRED_ROUND, "lmm_round")
     if not global_rounds and not has_bounds:
-        return lambda w, pen, eps, vb, fat: vc_round(sys, w, pen, eps, fat)
-    return lambda w, pen, eps, vb, fat: ell_round(sys, w, pen, eps, vb, fat,
-                                                  global_rounds)
+        return (lambda w, pen, eps, vb, fat: vc_round(sys, w, pen, eps,
+                                                      fat),
+                PRED_VC_ROUND, "vc_round")
+    return (lambda w, pen, eps, vb, fat: ell_round(sys, w, pen, eps, vb, fat,
+                                                   global_rounds),
+            PRED_VC_ROUND, "ell_round")
+
+
+def chunk_loop(sys, w: Work, pen: torch.Tensor, eps: float,
+               vb: Optional[torch.Tensor], has_bounds: bool,
+               has_fatpipe: bool, global_rounds: bool,
+               chunk: int) -> DeviceLoop:
+    """At most ``chunk`` rounds while the fixpoint runs, as one K16
+    launch (kept on ``w`` for the same buffers and arms)."""
+    one_round, pred, tally = _round_fn(sys, has_bounds, global_rounds)
+    refs = (sys, w, pen, vb, float(eps), has_bounds, has_fatpipe,
+            global_rounds, chunk)
+    steps = [Loop(pred, w.ctrl, (lambda: one_round(w, pen, eps, vb,
+                                                   has_fatpipe),),
+                  cap=chunk, tally=tally)]
+    prepare = (None if isinstance(sys, EllSystem)
+               else lambda: plan_of(sys, w))
+    return cached(w.ptr_cache, "chunk_loop", refs, lambda: DeviceLoop(
+        steps, "chunk", w.ctrl.device, refs, prepare=prepare))
 
 
 def run_chunks(sys, w: Work, pen: torch.Tensor, eps: float,
@@ -114,7 +140,8 @@ def run_chunks(sys, w: Work, pen: torch.Tensor, eps: float,
                has_fatpipe: bool, global_rounds: bool, chunk: int,
                what: str):
     """Run the rounds from the state in ``w`` (an init, cold or warm,
-    has armed it) in chunks of ``chunk`` queued rounds, with the
+    has armed it) in chunks of at most ``chunk`` rounds (one K16 launch
+    each, :func:`chunk_loop`), with the
     reference's host convergence checks between chunks; returns numpy
     ``(values, remaining, usage, rounds)`` from one fetch per chunk.
     ``sys`` is an :class:`LmmSystem` (K1's rounds) or an
@@ -123,12 +150,11 @@ def run_chunks(sys, w: Work, pen: torch.Tensor, eps: float,
     its size in the errors."""
     dtype = w.v_value.dtype
     n_v, n_c = sys.n_v, sys.n_c
-    one_round = _round_fn(sys, has_bounds, global_rounds)
+    loop = chunk_loop(sys, w, pen, eps, vb, has_bounds, has_fatpipe,
+                      global_rounds, chunk)
     prev_progress = None
     while True:
-        for _ in range(chunk):
-            if one_round(w, pen, eps, vb, has_fatpipe) is False:
-                break
+        loop.run()
         opstats.bump("dispatches")
         head = torch.stack([w.ctrl[IT], w.ctrl[LIGHT],
                             w.v_fixed.sum(dtype=torch.int32)]).to(dtype)

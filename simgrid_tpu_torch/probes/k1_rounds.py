@@ -55,7 +55,15 @@ timed on one card in one call.  The cases:
 * ``wall1``, ``wall8`` and ``wall10`` (not in the default list):
   ``chip_smoke.py``'s main paths 1 (the config-#4 random drain), 8 (the
   same under phase 13's fault tape) and 10 (the fleet of 8 over it,
-  without its admission), their walls (host clock, ending in a sync).
+  without its admission), their walls (host clock, ending in a sync),
+  with K1's rounds: the host's wrapper calls, the card's rounds inside
+  K16's graphs, the working rounds (``loop_counts``).  With
+  ``--profile`` these cases and ``coll1024`` run under
+  ``torch.profiler`` instead (``timing.busy_profile``: the card's busy
+  time, the profiled wall and their ratio);
+* ``headline`` (not in the default list): ``chip_smoke.py``'s main path
+  6, ``bench.py``'s headline solve through the chain, its first and
+  median ms and K8's rounds (host calls, rounds inside K16's graphs).
 
 The K2 and K3 cases (``K23_CASES``, not in the default list) time one
 wrapper call of ``drain_advance``, ``drain_forced_advance`` or
@@ -244,9 +252,10 @@ def main_paths():
     return mod
 
 
-def run_coll_fleet() -> dict:
+def run_coll_fleet(profile: bool = False) -> dict:
     """The 1,024-rank collective fleet of ``chip_smoke.py``'s width on
-    the card: its wall and its launches of K1 and of the row plan."""
+    the card: its wall and its launches of K1 and of the row plan (with
+    ``profile``, the fleet's run under ``torch.profiler``)."""
     from simgrid_tpu_torch.workloads import collective_fleet as cf
     from simgrid_tpu_torch.workloads import collective_run, fleet_run
     import torch
@@ -255,11 +264,13 @@ def run_coll_fleet() -> dict:
     t_end = legs["tape"]["events"][-1][0]
     camp = cf.fleet_campaign(
         cs, cf.fleet_specs(cs, t_end, main_paths().COLL_B), "cuda")
-    _, row = fleet_run.run_fleet_full(camp)
+    with _Busy(profile) as busy:
+        _, row = fleet_run.run_fleet_full(camp)
     keep = ("lmm_plan", "lmm_init_fleet", "lmm_round_fleet")
     return {"wall_s": row["wall_s"], "supersteps": row["supersteps"],
             "dispatches": row["dispatches"], "rounds": row["rounds"],
-            "launches": {k: row["launches"].get(k, 0) for k in keep}}
+            "launches": {k: row["launches"].get(k, 0) for k in keep},
+            **loop_counts(row), **busy.rec}
 
 
 #: the K2 and K3 cases: (wrapper, replicas, shape, tape, ready dates);
@@ -434,30 +445,114 @@ def k23_call(name: str, shape=None):
     return rec, fn, on, off
 
 
-def run_walls(name: str) -> dict:
-    """Main path 1, 8 or 10's wall on the card (module docstring)."""
+class _Busy:
+    """With ``on``, every executor ``run`` (solo and fleet) inside the
+    block runs under ``timing.busy_profile``; ``rec`` holds the last
+    one's busy time, profiled wall and share."""
+
+    def __init__(self, on: bool):
+        self.on = on
+        self.rec: dict = {}
+        self.saved = []
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        from simgrid_tpu_torch.ops.lmm_batch import BatchDrainSim
+        from simgrid_tpu_torch.ops.lmm_drain import DrainSim
+        busy = _timing().busy_profile
+        for cls in (DrainSim, BatchDrainSim):
+            orig = cls.run
+
+            def run(sim, *a, _orig=orig, **kw):
+                r = busy(lambda: _orig(sim, *a, **kw))
+                r.pop("result")
+                self.rec = r
+            self.saved.append((cls, orig))
+            cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        for cls, orig in self.saved:
+            cls.run = orig
+        return False
+
+
+def loop_counts(row: dict) -> dict:
+    """K1's rounds on a path: the wrapper calls the host queued, the
+    rounds the card ran inside K16's graphs (None before K16) and the
+    rounds the control words report (the working rounds), with K16's
+    graph launches."""
+    loop = row.get("loop")
+    if loop is None:      # a tree before K16: every round a host call
+        queued = sum(v for k, v in row.get("launches", {}).items()
+                     if k.startswith("lmm_round"))
+        return {"k1_host_calls": queued, "k1_device_rounds": None,
+                "graph_launches": 0, "working_rounds": row["rounds"]}
+    tally = loop["device_tally"]
+    return {"k1_host_calls": sum(loop["host_round_calls"].values()),
+            "k1_device_rounds": tally.get("lmm_round", 0)
+            + tally.get("lmm_round_fleet", 0),
+            "device_slots": tally.get("slots", 0),
+            "graph_launches": sum(loop["graph_launches"].values()),
+            "working_rounds": row["rounds"]}
+
+
+def run_walls(name: str, profile: bool = False) -> dict:
+    """Main path 1, 8 or 10's wall on the card (module docstring); with
+    ``profile`` its run under ``torch.profiler`` (the card's busy
+    share) in place of the plain wall."""
     import torch
     from simgrid_tpu_torch.workloads import dragonfly, fault_drain, fleet_run
     from simgrid_tpu_torch.workloads.drain_run import EPS, run_drain
     smoke = main_paths()
     dsys = dragonfly.build_system(smoke.FLOWS)
     cuda = torch.device("cuda")
-    if name == "wall1":
-        _, row = run_drain(dsys, device=cuda, superstep=smoke.K)
-    elif name == "wall8":
-        tape = fault_drain.tape_for(dsys.e_cnst, dsys.e_w, dsys.c_bound,
-                                    link_names=dragonfly.link_names(dsys),
-                                    **smoke.FAULT)
-        _, row = fault_drain.run_fault_drain(dsys, tape, device=cuda,
-                                             superstep=smoke.K)
-    else:
-        specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
-                                      smoke.FAULT)
-        camp = fleet_run.fleet_campaign(dsys, specs, cuda, smoke.FLEET_K,
-                                        dragonfly.link_names(dsys), EPS)
-        _, row = fleet_run.run_fleet_full(camp)
-    keep = ("wall_s", "advances", "supersteps", "rounds", "fires")
-    return {k: row[k] for k in keep if k in row}
+    with _Busy(profile) as busy:
+        if name == "wall1":
+            _, row = run_drain(dsys, device=cuda, superstep=smoke.K)
+        elif name == "wall8":
+            tape = fault_drain.tape_for(
+                dsys.e_cnst, dsys.e_w, dsys.c_bound,
+                link_names=dragonfly.link_names(dsys), **smoke.FAULT)
+            _, row = fault_drain.run_fault_drain(dsys, tape, device=cuda,
+                                                 superstep=smoke.K)
+        else:
+            specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
+                                          smoke.FAULT)
+            camp = fleet_run.fleet_campaign(dsys, specs, cuda,
+                                            smoke.FLEET_K,
+                                            dragonfly.link_names(dsys), EPS)
+            _, row = fleet_run.run_fleet_full(camp)
+    keep = ("wall_s", "executor_s", "advances", "supersteps", "rounds",
+            "fires")
+    return {**{k: row[k] for k in keep if k in row}, **loop_counts(row),
+            **busy.rec}
+
+
+def run_headline() -> dict:
+    """``bench.py``'s headline solve (``chip_smoke.py``'s ``HEADLINE``,
+    main path 6) on the card through its default path, the chain: the
+    first solve's ms and the median of 9 more (host clock, each ending
+    in its fetch), with K8's rounds as ``loop_counts`` reads them."""
+    import torch
+    from simgrid_tpu_torch.workloads import bench_solve
+    smoke = main_paths()
+    _, row = bench_solve.run_bench_solve(device=torch.device("cuda"),
+                                         reps=9, eps=smoke.HL_EPS,
+                                         **smoke.HEADLINE)
+    loop = row.get("loop")
+    launches = row["launches"]
+    return {"path": row["path"], "rounds": row["rounds"],
+            "first_ms": row["first_ms"], "ms": row["ms"],
+            "reps_ms": row["reps_ms"],
+            "k8_host_calls": (launches.get("vc_round", 0) if loop is None
+                              else loop["host_round_calls"].get("vc_round",
+                                                                0)),
+            "k8_device_rounds": (None if loop is None else
+                                 loop["device_tally"].get("vc_round", 0)),
+            "graph_launches": (0 if loop is None else
+                               sum(loop["graph_launches"].values()))}
 
 
 def _timing():
@@ -478,11 +573,13 @@ def run_case(name: str, profile: bool = False) -> dict:
         return {"case": name, **run_sweep_walls(
             (8,) if name == "sweep8" else (1, 8, 64))}
     if name == "coll1024":
-        return {"case": name, **run_coll_fleet()}
+        return {"case": name, **run_coll_fleet(profile)}
     if name in K23_CASES:
         return run_k23(name)
     if name in ("wall1", "wall8", "wall10"):
-        return {"case": name, **run_walls(name)}
+        return {"case": name, **run_walls(name, profile)}
+    if name == "headline":
+        return {"case": name, **run_headline()}
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     s, w, pen, vb, arms, eps = build_case(name, dev)

@@ -5,7 +5,7 @@
 * P2 (``sk``, ``:80``): the segment sum ``zeros(C).at[idx].add(w)`` on
   K13's three arms, beside ``index_add_``; the want is the tool's
   ``np.add.at``;
-* P3 (``lk``, ``:105``): 16 dependent gather rounds on K15's three arms
+* P3 (``lk``, ``:105``): 16 dependent gather rounds on K15's four arms
   (the tool checks nothing there; the want is the same loop in numpy).
 """
 
@@ -18,7 +18,7 @@ import torch
 
 from ..kernels.probe_gather import ARMS as GATHER_ARMS
 from ..kernels.probe_gather import probe_gather
-from ..kernels.probe_loop import ROUNDS, LoopGraph, probe_loop
+from ..kernels.probe_loop import ROUNDS, CondLoop, LoopGraph, probe_loop
 from ..kernels.probe_segsum import probe_segsum, segment_csr
 from . import data
 from .common import DTYPES, Table, reorder_tol, torch_dtype
@@ -35,14 +35,16 @@ def loop_want(tab: np.ndarray, idx: np.ndarray, rounds: int) -> np.ndarray:
 
 
 def loop_arms(tab: torch.Tensor, idx: torch.Tensor, rounds: int) -> dict:
-    """K15's arms as callables (the graph arm captured once here)."""
+    """K15's arms as callables (the graph and cond arms built once
+    here)."""
     arms = {a: (lambda a=a: probe_loop(tab, idx, rounds, a))
             for a in ("coop", "launch")}
     if tab.is_cuda:
-        lg = LoopGraph(tab, idx, rounds)
-        arms["graph"] = lg.replay
+        arms["graph"] = LoopGraph(tab, idx, rounds).replay
+        arms["cond"] = CondLoop(tab, idx, rounds).replay
     else:
-        arms["graph"] = lambda: probe_loop(tab, idx, rounds, "graph")
+        for a in ("graph", "cond"):
+            arms[a] = lambda a=a: probe_loop(tab, idx, rounds, a)
     return arms
 
 

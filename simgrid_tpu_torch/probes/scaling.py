@@ -8,7 +8,8 @@
    launch dominates.
 2. Op-count scaling: K in {1, 2, 4, 8} dependent gathers of
    ``[131072, 4]`` (K15's round, from the same table), as K launches,
-   as one replayed CUDA graph and as one cooperative kernel.
+   as one replayed CUDA graph, as one graph of a conditional WHILE node
+   (K16's mechanism) and as one cooperative kernel.
 """
 
 from __future__ import annotations

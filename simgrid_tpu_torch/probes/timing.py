@@ -32,7 +32,8 @@ given (a CPU time is not a device time).
 ``time_rounds`` (a solve's rounds, queued in windows) and ``time_call``
 (one call, queued behind its own sleep) apply the same protocol to the
 kernels of the main paths, ``events_ms`` gives one call's host-paced
-time and ``kernel_counts`` the CUDA kernels one call launches:
+time, ``kernel_counts`` the CUDA kernels one call launches and
+``busy_profile`` a run's card busy share:
 ``chip_smoke.py`` times K1's rows and the calls whose enqueue outlasts
 their kernel with them, and ``probes/k1_rounds.py`` K1's rounds and
 K2's and K3's calls by case.
@@ -220,6 +221,41 @@ def kernel_counts(fn: Callable[[], object],
                 ("cuda", "aten", "at::", "Memcpy", "Memset")):
             out[name] = out.get(name, 0) + ev.count / reps
     return out
+
+
+def busy_profile(fn: Callable[[], object]) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` (device activity
+    only, so that the host's calls are not slowed by their own records)
+    and return its card busy time: the union of the device intervals of
+    every kernel, copy and fill the profiler traced (a graph's kernels
+    are traced one by one), the wall of the profiled run (host clock,
+    ending in a sync), their ratio, and the device records counted.
+    ``busy_ms`` is None when the trace holds no device record (then
+    nothing was measured)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = []
+    for ev in prof.events():
+        kind = getattr(ev, "device_type", None)
+        if kind is not None and str(kind).endswith("CUDA"):
+            r = ev.time_range
+            spans.append((r.start, r.end))
+    busy = 0.0
+    end = float("-inf")
+    for a, b in sorted(spans):
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    busy_ms = busy / 1e3 if spans else None
+    return {"result": out, "profiled_wall_s": wall, "busy_ms": busy_ms,
+            "busy_share": None if busy_ms is None
+            else busy_ms / 1e3 / wall, "device_records": len(spans)}
 
 
 def sync_ms(device: torch.device) -> Optional[float]:

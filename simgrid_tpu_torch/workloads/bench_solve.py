@@ -22,7 +22,8 @@ import time
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops import opstats
 from ..ops.lmm_arrays import LmmArrays, bucket
 from ..ops.lmm_torch import solve_arrays
@@ -91,5 +92,5 @@ def run_bench_solve(n_c: int = 16384, n_v: int = 100_000, deg: int = 4,
                ms=float(np.median(times)) if times else None,
                reps_ms=times, path=path, chain_fell_back=bool(fell_back),
                uploaded_bytes_first=int(d.get("uploaded_bytes_full", 0)),
-               launches=launch_counts())
+               launches=path_counts(), loop=k16.summary())
     return first, row

@@ -29,7 +29,8 @@ from typing import List
 import numpy as np
 
 from ..device import DeviceLike
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops import opstats
 from ..ops.lmm_host import LmmFlags, make_new_maxmin_system
 from ..ops.lmm_torch import install
@@ -160,7 +161,7 @@ def run_churn(mode: str = "warm-selective", n_v: int = 100_000,
                warm_ell_fallbacks=(s.warm_solver.warm_ell_fallbacks
                                    if s.warm_solver else 0),
                solver_fallbacks=s.fallback_count,
-               launches=launch_counts())
+               launches=path_counts(), loop=k16.summary())
     if states:
         out["states"] = kept
     return s, out

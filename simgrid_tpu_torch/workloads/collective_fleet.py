@@ -16,7 +16,7 @@ with its own DAG state).  This module builds such fleets over
   clamped to 5% of the link's bound;
 * :func:`fleet_campaign`: the fleet through the port's
   ``Campaign.for_collective``; ``fleet_run.run_fleet_full`` drains it
-  (wall, wall per replica, supersteps, dispatches, rounds, resumes,
+  (wall, wall per replica, supersteps, dispatches, rounds, loop builds,
   completions, activations, fault fires, kernel launches) and
   ``fleet_run.launches_per_superstep`` counts its launches;
 * :func:`fires_before_end` and :func:`same_lane`: what a lane is held

@@ -25,7 +25,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..collectives import CollectiveSpec, HostMaestro
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops import opstats
 
 SUPERSTEP = 8
@@ -83,7 +84,9 @@ def run_leg(dc, label: str, device: torch.device,
         "dispatches": int(st.get("dispatches", own)),
         "upload_bytes": int(st.get("uploaded_bytes_full", 0)
                             + st.get("uploaded_bytes_delta", 0)),
-        "wall_ms": wall * 1e3, "launches": launch_counts(),
+        "wall_ms": wall * 1e3, "launches": path_counts(),
+        "loop": k16.summary(),
+        "supersteps": ex.supersteps if label == "tape" else None,
         "events": ex.events, "collective_events": ex.collective_events,
         "fault_events": ex.fault_events, "clock": clock}
 

@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops.lmm_arrays import LmmArrays
 from ..ops.lmm_drain import DrainSim
 from ..ops.lmm_torch import solve_arrays
@@ -97,7 +98,8 @@ def _row(sim: DrainSim, system, wall: float) -> dict:
     return dict(flows=len(system.sizes), n_cnst=len(system.c_bound),
                 n_elem=len(system.e_var), advances=sim.advances,
                 rounds=sim.rounds, supersteps=sim.supersteps,
-                resumes=sim.resumes, syncs=sim.syncs, repacks=sim.repacks,
+                loop_builds=sim.loop_builds, syncs=sim.syncs,
+                repacks=sim.repacks,
                 wall_s=wall, t_sim=sim.t)
 
 
@@ -112,9 +114,10 @@ def run_drain(system, **kw) -> Tuple[DrainSim, dict]:
     sim.run()
     _sync(sim.device)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
+    loop = k16.summary()
     check_events(sim.events, len(system.sizes))
-    return sim, dict(_row(sim, system, wall), launches=counts)
+    return sim, dict(_row(sim, system, wall), launches=counts, loop=loop)
 
 
 def solve_inputs(system, dtype=np.float64) -> LmmArrays:
@@ -154,7 +157,7 @@ def run_solve(system, device: DeviceLike = None, dtype=np.float64,
     wall = time.perf_counter() - t0
     return values, dict(flows=arrays.n_var, n_cnst=arrays.n_cnst,
                         n_elem=arrays.n_elem, rounds=rounds, wall_s=wall,
-                        launches=launch_counts())
+                        launches=path_counts(), loop=k16.summary())
 
 
 # ---------------------------------------------------------------------------
@@ -259,12 +262,13 @@ def run_engine_plan(system, device: DeviceLike = None, seed: int = 7,
     out = engine_plan(sim, system, lat, seed, max_advances)
     _sync(sim.device)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    counts = path_counts()
+    loop = k16.summary()
     events, live = out.pop("events"), out.pop("live")
     if max_advances is None and len(live):
         raise AssertionError("the drain ended with live flows")
     check_events(events, len(system.sizes), live)
-    row = dict(_row(sim, system, wall), launches=counts,
+    row = dict(_row(sim, system, wall), launches=counts, loop=loop,
                latency_lanes=len(lat), completed=len(events),
                live_left=len(live), **out)
     return sim, row, events

@@ -24,13 +24,14 @@ Every function returns rows (dicts) and runs on the card unless given
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import launch_counts, path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops import opstats
 from ..parallel.campaign import Campaign, ScenarioSpec
 from .bench_solve import build_arrays
@@ -222,17 +223,22 @@ def run_fleet_full(camp: Campaign, between=None,
     reset_launch_counts()
     t0 = time.perf_counter()
     sim = camp.plan.executor(camp.specs)
+    # the host's time to build the fleet (its tapes, its uploads), part
+    # of the wall
+    executor_s = time.perf_counter() - t0
     sim.run(max_supersteps=max_supersteps, between=between)
     _sync(dev)
     wall = time.perf_counter() - t0
-    counts = {k: v for k, v in launch_counts().items() if v}
+    counts = {k: v for k, v in path_counts().items() if v}
     st = opstats.diff(before)
     reps = sim.replicas
     row = dict(replicas=sim.B, flows=sim.n_v, superstep=sim.superstep_k,
                wall_s=wall, wall_s_per_replica=wall / sim.B,
+               executor_s=executor_s,
                supersteps=sim.supersteps,
                dispatches=int(st.get("dispatches", 0)),
-               resumes=sim.resumes, rescues=sim.rescues, rounds=sim.rounds,
+               loop_builds=sim.loop_builds, rescues=sim.rescues,
+               rounds=sim.rounds,
                admitted=sim.admitted, advances=[r.advances for r in reps],
                completions=sum(len(r.events) for r in reps),
                activations=sum(len(r.collective_events) for r in reps),
@@ -240,7 +246,7 @@ def run_fleet_full(camp: Campaign, between=None,
                fault_tape_events=int(st.get("fault_tape_events", 0)),
                collective_tape_fires=int(st.get("collective_tape_fires", 0)),
                t_sim=[r.t for r in reps], errors=[r.error for r in reps],
-               batch_w=sim.batch_w, launches=counts)
+               batch_w=sim.batch_w, launches=counts, loop=k16.summary())
     cs = camp.plan.collective
     if cs is not None:
         row.update(case=f"{cs.algo}-r{cs.ranks}",
@@ -248,32 +254,21 @@ def run_fleet_full(camp: Campaign, between=None,
     return sim, row
 
 
-def launches_per_superstep(sim, n: int, slot_rounds: Optional[int] = None
-                           ) -> List[Dict]:
-    """Run ``n`` fleet supersteps of ``sim``, each with the queued rounds
-    per slot held at ``slot_rounds`` (which changes no result), and
-    return per superstep its launches in all, those of its first pass
-    (up to the first fetch) and its STARVED resumes."""
+def launches_per_superstep(sim, n: int) -> List[Dict]:
+    """Run ``n`` fleet supersteps of ``sim`` and return per superstep its
+    wrapper launches in all (K16's graph launch among them), its graph
+    launches, and the advance slots and K1 rounds the graph ran (K16's
+    device tally, fetched after each superstep)."""
     rows = []
-    marks: List[int] = []
-    finish = sim._finish
-
-    def marked(packed):
-        p = finish(packed)
-        marks.append(sum(launch_counts().values()))
-        return p
-    sim._finish = marked
-    try:
-        for _ in range(n):
-            if slot_rounds is not None:
-                sim.slot_rounds = slot_rounds
-            reset_launch_counts()
-            marks.clear()
-            resumes = sim.resumes
-            sim.superstep_all()
-            rows.append(dict(launches=sum(launch_counts().values()),
-                             first_pass=marks[0],
-                             resumes=sim.resumes - resumes))
-    finally:
-        del sim._finish
+    for _ in range(n):
+        reset_launch_counts()
+        k16.reset_tally()
+        sim.superstep_all()
+        counts = launch_counts()
+        tally = k16.device_tally()
+        rows.append(dict(
+            launches=sum(counts.values()),
+            graph_launches=sum(counts[f"superstep_loop_{k}"]
+                               for k in k16.KINDS),
+            slots=tally["slots"], rounds=tally["lmm_round_fleet"]))
     return rows

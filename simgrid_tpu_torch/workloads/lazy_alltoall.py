@@ -39,7 +39,8 @@ from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 import numpy as np
 
 from ..device import DeviceLike
-from ..kernels import launch_counts, reset_launch_counts
+from ..kernels import path_counts, reset_launch_counts
+from ..kernels import superstep_loop as k16
 from ..ops.lmm_host import LmmFlags, make_new_maxmin_system
 from ..ops.lmm_torch import install
 from .churn import host_state
@@ -201,7 +202,8 @@ def run_lazy(ranks: int = 320, device: DeviceLike = None, seed: int = 0,
             kept.append(host_state(s))
         if on_solve is not None:
             on_solve(label, s)
-    row["launches"] = launch_counts()
+    row["launches"] = path_counts()
+    row["loop"] = k16.summary()
     row["solver_fallbacks"] = s.fallback_count
     row["warm_ell_fallbacks"] = s.warm_solver.warm_ell_fallbacks
     if states:

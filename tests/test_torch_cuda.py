@@ -12,17 +12,21 @@ the JAX package's is on an accelerator), and the ELL cases below hold
 K7-K9 and the ELL arms of K5 and K6.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from simgrid_tpu_torch.kernels import launch_counts, reset_launch_counts
+from simgrid_tpu_torch.kernels import (launch_counts, path_counts,
+                                       reset_launch_counts)
 from simgrid_tpu_torch.kernels import ell_chain as k9
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.kernels.common import (
     AANY, ADV_CONV, ADV_GO, ADV_OK, COMMIT_TILE, DT, EV_NEXT_T, EV_T0, FFIRE,
     FIRE, IT, LIGHT, LIMIT, LIVE_ACC, PENDING, SS_ACTIVE, SS_ADV, SS_NEV,
-    SS_ROUNDS, SS_STARVED, T_COMP, T_SUM, TPOS, EllWork, Work, inf_key)
+    SS_ROUNDS, T_COMP, T_SUM, TPOS, EllWork, Work, inf_key)
+from simgrid_tpu_torch.kernels import superstep_loop as k16
 from simgrid_tpu_torch.kernels.dag_walk import dag_walk
 from simgrid_tpu_torch.kernels.drain_advance import drain_forced_advance
 from simgrid_tpu_torch.kernels.transition_scatter import (
@@ -80,8 +84,23 @@ MODES = {
     "superstep32": (np.float32, dict(superstep=16)),
     "fused64": (np.float64, dict(fused=True)),
     "unfused64": (np.float64, {}),
+    # a round budget tighter than some solves: slots end on the budget
+    # inside the graph, and the fused rescue's chunk loops finish them
     "starved64": (np.float64, dict(superstep=16, superstep_rounds=40)),
 }
+
+
+def assert_graph_drain(g, c, counts, tally):
+    """A drain on the card ran its supersteps as K16 graphs: one graph
+    launch a superstep, no K1 call from the host, the rounds the control
+    words report run inside the graphs, and the graphs rebuilt on the
+    events the plain run rebuilt its loops on (the first use, every
+    repack)."""
+    assert counts["superstep_loop_superstep"] == g.supersteps
+    assert not any(v for k, v in counts.items()
+                   if k.startswith("lmm_round"))
+    assert tally["lmm_round"] == g.rounds
+    assert g.loop_builds == c.loop_builds >= 1 + g.repacks
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -90,21 +109,23 @@ def test_drain_card_equals_plain(cuda, mode):
     dtype, kw = MODES[mode]
     sims = []
     for dev in (cuda, torch.device("cpu")):
+        reset_launch_counts()
         sim = DrainSim(s.e_var, s.e_cnst, s.e_w.astype(dtype),
                        s.c_bound.astype(dtype), s.sizes, eps=1e-5,
                        dtype=dtype, repack_min=64, device=dev, **kw)
-        if mode == "starved64":
-            sim.slot_rounds = 2     # resume starved supersteps
         sim.run()
-        sims.append(sim)
-    g, c = sims
+        sims.append((sim, launch_counts(), k16.device_tally()))
+    (g, counts, tally), (c, _, _) = sims
     assert g.events == c.events
     assert g.t == c.t
     assert (g.advances, g.supersteps, g.repacks, g.rounds) == \
         (c.advances, c.supersteps, c.repacks, c.rounds)
     assert sorted(f for _, f in g.events) == list(range(3000))
-    if mode == "starved64":
-        assert g.resumes > 0
+    if kw.get("superstep"):
+        assert_graph_drain(g, c, counts, tally)
+    else:
+        assert counts["superstep_loop_chunk"] > 0
+        assert tally["lmm_round"] == g.rounds
 
 
 def mixed_arrays(seed, n_c, n_v, p_bound, p_fat, dtype):
@@ -144,7 +165,7 @@ def test_solve_arms_card_equals_plain(cuda, dtype, eps, parallel_rounds):
                                parallel_rounds=parallel_rounds, layout="coo")
     arm = ("lmm_round" + ("" if parallel_rounds else "_global")
            + "_bounds_fatpipe")
-    assert launch_counts()[arm] > 0
+    assert path_counts()[arm] > 0
     c = lmm_torch.solve_arrays(a, eps, device="cpu",
                                parallel_rounds=parallel_rounds, layout="coo")
     assert g[3] == c[3]
@@ -268,8 +289,10 @@ def _k2_inputs(case, dtype, B, V):
                                     if c != "forced" or B is None])
 def test_k2_advance_card_equals_plain(cuda, case, B, dtype):
     """K2 (two launches a call, the forced mode one) against its plain
-    version: the STARVED hand-back, a non-finite dt, a fixpoint out of
-    budget, ``gated=2``, the event arm on a tape and on ready dates, an
+    version: a gated advance after a fixpoint that has not converged (it
+    runs and changes nothing), a non-finite dt, a fixpoint out of
+    budget, a gate that is off in some replicas, the event arm on a tape
+    and on ready dates, an
     event date that ties the planned dt, and two calls in a row with no
     reset between them (each call's last block resets the minimum slots
     and the ticket)."""
@@ -332,7 +355,10 @@ def test_k2_advance_card_equals_plain(cuda, case, B, dtype):
     if case == "tie":
         assert bool((cc[:, FIRE] == 1).all())
     if case == "starved":
-        assert bool((cc[:, SS_STARVED] == 1).any())
+        # the replicas whose fixpoint still runs advanced nothing
+        assert bool((cc[:, ADV_GO] == 1).all())
+        assert bool((cc[::2, ADV_CONV] == 0).all())
+        assert int(wc.done.reshape(nb, -1)[::2].sum()) == 0
     if case in ("budget", "nonfinite"):
         # replica 0 ran its advance and changed nothing
         assert int(cc[0, ADV_GO]) == 1
@@ -497,8 +523,6 @@ def test_bounded_drain_card_equals_plain(cuda, mode):
         sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes,
                        eps=1e-5, dtype=dtype, repack_min=64, device=dev,
                        penalty=s.v_penalty, v_bound=vb, **kw)
-        if mode == "starved64":
-            sim.slot_rounds = 2
         sim.run()
         sims.append(sim)
     g, c = sims
@@ -644,6 +668,51 @@ def test_churn_card_equals_plain(cuda, mode):
         assert g["launches"]["warm_init"] == kw["steps"]
 
 
+def _warm_two_precisions(dev, layout, eps2):
+    """A selective System of 2,000 flows over 200 shared links, solved
+    at eps 1e-5, one bound changed, then solved again at ``eps2`` on the
+    same warm state: the host state after each solve, and whether the
+    second solve ran on the first one's work buffers."""
+    s = make_new_maxmin_system(True, LmmFlags(
+        backend="torch", warm_start="on", delta_upload="on", strict=True,
+        layout=layout))
+    lmm_torch.install(s, device=dev)
+    rng = np.random.default_rng(5)
+    cs = [s.constraint_new(None, float(rng.uniform(50, 200)))
+          for _ in range(200)]
+    for _ in range(2000):
+        v = s.variable_new(None, 1.0)
+        for c in rng.choice(200, 3, replace=False):
+            s.expand(cs[int(c)], v, float(rng.choice([0.5, 1.0, 2.0])))
+    s.solve()
+    work = lambda: [(st.work, st.ell_work)  # noqa: E731
+                    for st in s.warm_solver._states.values()]
+    first = work()
+    states = [churn.host_state(s)]
+    s.update_constraint_bound(cs[7], 120.0)
+    s.flags = dataclasses.replace(s.flags, precision=eps2)
+    s.solve()
+    states.append(churn.host_state(s))
+    return states, all(a is b for x, y in zip(first, work())
+                       for a, b in zip(x, y))
+
+
+@pytest.mark.parametrize("layout", ["coo", "ell"])
+def test_warm_solves_at_two_precisions_card_equals_plain(cuda, layout):
+    """eps is baked into the chunk loop's graph: a second solve of the
+    same warm state at another precision builds its graph again, and
+    every host state equals the plain path's bit for bit."""
+    k16.reset_tally()
+    g, g_same_work = _warm_two_precisions(cuda, layout, 0.3)
+    builds = k16.summary()["graph_builds"]
+    c, c_same_work = _warm_two_precisions("cpu", layout, 0.3)
+    kept, _ = _warm_two_precisions("cpu", layout, 1e-5)
+    assert g_same_work and c_same_work
+    assert not same_states(kept[1:], c[1:])   # the new eps shows
+    assert same_states(g, c)
+    assert builds == 2
+
+
 def test_lazy_alltoall_card_equals_plain(cuda):
     """The Lazy-mode LV08 alltoall at 16 ranks, strict, card against
     plain bit for bit, with no fallback to the host."""
@@ -726,7 +795,7 @@ def test_ell_dense_card_equals_plain(cuda, arm, width):
     reset_launch_counts()
     g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, parallel_rounds=local,
                                layout="ell", chain="off")
-    counts = launch_counts()
+    counts = path_counts()
     assert counts["ell_init"] == 1 and counts[kernel] > 0
     c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=local,
                                layout="ell", chain="off")
@@ -751,7 +820,7 @@ def test_ell_chain_card_equals_plain(cuda, monkeypatch, cap):
     a = chain_arrays()
     reset_launch_counts()
     g = lmm_torch.solve_arrays(a, 1e-9, device=cuda)
-    counts = launch_counts()
+    counts = path_counts()
     assert counts["ell_chain_stage"] == 3 and counts["ell_chain_fetch"] > 0
     assert (counts["ell_init"] > 0) == (cap == 1)
     c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", layout="ell",
@@ -866,7 +935,7 @@ def test_ell_delta_scatter_card_equals_plain(cuda):
     c = [torch.from_numpy(m.copy()) for m in masters]
     reset_launch_counts()
     ell_delta_scatter(payload.to(cuda), layout, g)
-    assert launch_counts()["delta_scatter_ell"] == 1
+    assert path_counts()["delta_scatter_ell"] == 1
     ell_delta_scatter(payload, layout, c)
     for x, y in zip(g, c):
         assert torch.equal(x.cpu(), y)
@@ -881,8 +950,9 @@ FAULT_MODES = {"f64-k8": (np.float64, 8, False),
 @pytest.mark.parametrize("mode", list(FAULT_MODES))
 def test_fault_tape_drain_card_equals_plain(cuda, mode):
     """K2's event arm and K3's tape arm through a seeded campaign over a
-    3,000-flow dragonfly drain, repacks included (and, starved, resumed
-    supersteps that must peek from the same base clock)."""
+    3,000-flow dragonfly drain, repacks included (and, starved, a round
+    budget that ends slots inside the graph), one graph launch a
+    superstep."""
     from simgrid_tpu_torch.workloads import fault_drain
     s = dragonfly.build_system(3000)
     tape = fault_drain.tape_for(s.e_cnst, s.e_w, s.c_bound, seed=7,
@@ -893,6 +963,8 @@ def test_fault_tape_drain_card_equals_plain(cuda, mode):
     if bounds:
         rng = np.random.default_rng(4)
         kw["v_bound"] = rng.uniform(2e9, 2e10, 3000).astype(dtype)
+    if mode.endswith("starved"):
+        kw["superstep_rounds"] = 40
     sims = []
     for dev in (cuda, torch.device("cpu")):
         reset_launch_counts()
@@ -900,19 +972,17 @@ def test_fault_tape_drain_card_equals_plain(cuda, mode):
                        s.c_bound.astype(dtype), s.sizes, eps=1e-5,
                        dtype=dtype, repack_min=64, device=dev, superstep=k,
                        tape=tape, **kw)
-        if mode.endswith("starved"):
-            sim.slot_rounds = 2
         sim.run()
-        sims.append((sim, launch_counts()))
-    (g, lc), (c, _) = sims
+        sims.append((sim, path_counts(), launch_counts(),
+                     k16.device_tally()))
+    (g, lc, host, tally), (c, _, _, _) = sims
     assert g.events == c.events and g.t == c.t
     assert g.fault_events == c.fault_events and len(g.fault_events) > 10
     assert (g.advances, g.supersteps, g.repacks, g.rounds) == \
         (c.advances, c.supersteps, c.repacks, c.rounds)
     assert lc["drain_advance_event"] > 0 and lc["superstep_commit_tape"] > 0
     assert torch.equal(g.sys.c_bound.cpu(), c.sys.c_bound)
-    if mode.endswith("starved"):
-        assert g.resumes > 0
+    assert_graph_drain(g, c, host, tally)
 
 
 @pytest.mark.parametrize("case", [("allreduce", "rdb", 64, "nic", 1 << 20),
@@ -930,7 +1000,7 @@ def test_collective_tape_card_equals_plain_and_maestro(cuda, case):
         reset_launch_counts()
         sim = dc.make_sim(superstep=8, device=dev)
         sim.run()
-        out.append((sim, launch_counts()))
+        out.append((sim, path_counts()))
     (g, lc), (c, _) = out
     m = HostMaestro(dc, device=cuda)
     m.run()
@@ -1010,7 +1080,7 @@ def test_k11_birth_and_admission_card_equal_plain(cuda):
                                            {12: 0.25}),
                        plan.tape_for(_fleet_specs(s)[0]))
         out.append((born, _rows(sim), [t.cpu() for t in sim._tape],
-                    launch_counts()))
+                    path_counts()))
     for a, b in zip(out[0][0] + out[0][1] + out[0][2],
                     out[1][0] + out[1][1] + out[1][2]):
         assert torch.equal(a, b)
@@ -1031,7 +1101,7 @@ def test_fleet_b3_one_dead_card_equals_plain(cuda):
         born = _rows(sim)
         reset_launch_counts()
         sim.run()
-        runs.append((sim, born, _rows(sim), launch_counts()))
+        runs.append((sim, born, _rows(sim), path_counts()))
     (g, g0, g1, lc), (c, _, _, _) = runs
     for b in range(3):
         rg, rc = g.replicas[b], c.replicas[b]
@@ -1124,7 +1194,7 @@ def test_dag_walk_fleet_card_equals_plain(cuda):
                  torch.from_numpy(dst).to(dev), p, r,
                  torch.from_numpy(exec_cost).to(dev))
         out.append((p.cpu(), r.cpu(), w.ctrl[:, PENDING].cpu(),
-                    launch_counts()))
+                    path_counts()))
     assert torch.equal(out[0][0], out[1][0])
     assert torch.equal(out[0][1], out[1][1])
     assert torch.equal(out[0][2], out[1][2])
@@ -1153,7 +1223,7 @@ def test_k11_coll_card_equals_plain(cuda):
         coll[1][3].fill_(9.0)
         coll[2][3].fill_(2.0)
         k11.admit_coll(coll, 3, base)
-        out.append((born, [t.cpu() for t in coll], launch_counts()))
+        out.append((born, [t.cpu() for t in coll], path_counts()))
     for a, b in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
         assert torch.equal(a, b)
     assert torch.equal(out[0][1][0][3], torch.from_numpy(row[0]))
@@ -1237,7 +1307,7 @@ def test_probe_gather_card_equals_plain(cuda, dtype):
             got = k12.probe_gather(tab, ix, arm)
             assert got.shape == ix.shape
             assert torch.equal(got.cpu().reshape(want.shape), want)
-            assert launch_counts()[f"probe_gather_{arm}"] == 1
+            assert path_counts()[f"probe_gather_{arm}"] == 1
     big = torch.ones(30_000, dtype=torch.float64, device=cuda)
     with pytest.raises(ValueError, match="does not fit"):
         k12.probe_gather(big, idx, "smem")
@@ -1305,9 +1375,16 @@ def test_probe_loop_card_equals_plain(cuda, dtype):
     for _ in range(3):
         got = lg.replay()
     assert torch.equal(got.cpu(), k15.probe_loop_plain(tab_c, idx_c, 16))
-    counts = launch_counts()
+    cl = k15.CondLoop(tab, idx, 16)        # built at its first replay
+    for _ in range(3):
+        got = cl.replay()
+    assert torch.equal(got.cpu(), k15.probe_loop_plain(tab_c, idx_c, 16))
+    counts = path_counts()
     assert (counts["probe_loop_coop"], counts["probe_loop_launch"],
             counts["probe_loop_graph"]) == (1, 16, 3)
+    # one graph launch a replay, 16 rounds in each on the card
+    assert counts["superstep_loop_probe"] == 3
+    assert k16.device_tally()["probe"] == 48
     grid = k15.coop_grid(dtype)
     assert grid >= torch.cuda.get_device_properties(0).multi_processor_count
     with pytest.raises(RuntimeError, match="cudaError"):
@@ -1474,9 +1551,9 @@ def test_k1_classes_card_equals_plain(cuda, monkeypatch, dtype, arm, layout):
     assert rounds > 2
     name = k1.arm_name(k1.arm_flags(arms.get("has_bounds", False), fat,
                                     arms.get("global_rounds", False)))
-    assert launch_counts()[name + ("" if B is None else "_fleet")] == \
+    assert path_counts()[name + ("" if B is None else "_fleet")] == \
         rounds + 1
-    assert launch_counts()["lmm_plan"] == 1
+    assert path_counts()["lmm_plan"] == 1
 
 
 @pytest.mark.parametrize("C", [0, 1, 5000, 300_000])
@@ -1506,7 +1583,7 @@ def test_k1_forced_group_out_of_range_refused(cuda, monkeypatch, group):
         k1.lmm_init(sg, wg, pg, 1e-9)
     with pytest.raises(RuntimeError):
         k1.lmm_round(sg, wg, pg, 1e-9)
-    counts = launch_counts()
+    counts = path_counts()
     assert counts["lmm_init_fleet"] == 0 and counts["lmm_round_fleet"] == 0
 
 
@@ -1530,7 +1607,7 @@ def test_k1_plan_rebuilt_after_repack_card_equals_plain(cuda, monkeypatch):
                        device=dev, penalty=s.v_penalty, v_bound=vb,
                        superstep=16)
         sim.run()
-        sims.append((sim, launch_counts()))
+        sims.append((sim, path_counts()))
     (g, lg), (c, _) = sims
     assert g.events == c.events and g.t == c.t
     assert g.repacks >= 2 and lg["livefirst_repack_vbound"] >= 1

@@ -20,6 +20,7 @@ from simgrid_tpu import s4u
 from simgrid_tpu.ops import lmm_jax
 from simgrid_tpu.ops.lmm_drain import DrainSim as JaxDrainSim
 from simgrid_tpu_torch import convert
+from simgrid_tpu_torch.kernels.superstep_loop import device_tally, reset_tally
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
 
 K = 16
@@ -124,29 +125,35 @@ MODES = {
                     dict(superstep=K, superstep_rounds=K * 512), None),
     "superstep32": (np.float32, 1e-5,
                     dict(superstep=K, superstep_rounds=K * 512), None),
-    # a tight JAX round budget (fused rescues after budget exits) and
-    # two queued rounds per slot (the port resumes starved supersteps)
+    # a tight JAX round budget (fused rescues after budget exits): the
+    # device loop ends a slot's rounds at the budget, as JAX's does
     "superstep64_budget": (np.float64, 1e-9,
-                           dict(superstep=K, superstep_rounds=40), 2),
+                           dict(superstep=K, superstep_rounds=40), True),
 }
+
+
+def assert_loop_rounds(j, t):
+    """The rounds the loops ran (K16's tally, on the plain path the
+    Python loops') are the rounds the control words report, and JAX's."""
+    assert t.rounds == j.rounds
+    assert device_tally()["lmm_round"] == t.rounds
 
 
 @pytest.mark.parametrize("mode", list(MODES))
 def test_drain_equals_jax(fat_tree, mode):
     arrays, sizes = fat_tree
-    dtype, eps, kw, slot_rounds = MODES[mode]
+    dtype, eps, kw, tight = MODES[mode]
     j = make(JaxDrainSim, arrays, sizes, dtype, eps, **kw)
     j.run()
     t = make(DrainSim, arrays, sizes, dtype, eps, device="cpu", **kw)
-    if slot_rounds:
-        t.slot_rounds = slot_rounds
+    reset_tally()
     t.run()
     assert_same_drain(j, t)
     assert len(t.events) == len(sizes)
     if kw.get("superstep"):
         assert t.repacks > 0          # K4's plain version ran
-    if slot_rounds:
-        assert t.resumes > 0
+    if tight:
+        assert_loop_rounds(j, t)
 
 
 @pytest.mark.parametrize("variant", ["lv08", "binding"])
@@ -155,22 +162,21 @@ def test_bounded_drain_equals_jax(fat_tree, mode, variant):
     """The fixture's LV08 penalties and bounds (no bound binds), and the
     bounds redrawn to bind: every shape runs the bound arm."""
     arrays, sizes = fat_tree
-    dtype, eps, kw, slot_rounds = MODES[mode]
+    dtype, eps, kw, tight = MODES[mode]
     pen, vb = bounds(arrays, variant)
     kw = dict(kw, penalty=pen.astype(dtype), v_bound=vb.astype(dtype))
     j = make(JaxDrainSim, arrays, sizes, dtype, eps, **kw)
     j.run()
     t = make(DrainSim, arrays, sizes, dtype, eps, device="cpu", **kw)
     assert t.has_bounds and j.has_bounds
-    if slot_rounds:
-        t.slot_rounds = slot_rounds
+    reset_tally()
     t.run()
     assert_same_drain(j, t)
     assert len(t.events) == len(sizes)
     if kw.get("superstep"):
         assert t.repacks > 0          # K4 carried the bounds
-    if slot_rounds:
-        assert t.resumes > 0
+    if tight:
+        assert_loop_rounds(j, t)
 
 
 def plan(cls, arrays, sizes, shape, **kw):

@@ -21,6 +21,7 @@ from simgrid_tpu_torch.kernels import probe_loop as k15
 from simgrid_tpu_torch.kernels import probe_scan as k14
 from simgrid_tpu_torch.kernels import probe_segsum as k13
 from simgrid_tpu_torch.kernels import superstep_commit as k3
+from simgrid_tpu_torch.kernels import superstep_loop as k16
 from simgrid_tpu_torch.kernels import transition_scatter as k5
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.ops import lmm_torch
@@ -245,7 +246,7 @@ def test_wrappers_run_plain_version_on_cpu():
     packed = torch.zeros(k3.packed_size(4, 2), dtype=torch.float64)
     ids = torch.arange(2, dtype=torch.int32)
     k3.superstep_reset(pen, w, 4, 100, 0)
-    assert k3.superstep_begin(w) is True
+    assert k16.pred_plain(k16.PRED_SUPERSTEP, w.ctrl) is True
     k3.superstep_finish(sys_.e_var, sys_.e_w, pen, packed, w)
     # flow 0 retired in the advance above: one live flow, two elements
     assert int(packed[4]) == 1 and int(packed[6]) == 2
@@ -414,7 +415,7 @@ def test_event_arm_wrappers_run_plain_version_on_cpu():
     k3.superstep_reset(pen, w, 4, 100, 0, t0=0.0, tpos=0, ready=ready,
                        clk=torch.zeros(2, dtype=torch.float64))
     assert int(w.ctrl[common.PENDING]) == 1
-    assert k3.superstep_begin(w) is True
+    assert k16.pred_plain(k16.PRED_SUPERSTEP, w.ctrl) is True
     w.v_value.copy_(torch.tensor([1.0, 1.0], dtype=torch.float64))
     w.ctrl[common.LIGHT] = 0
     # the tape date and the activation date tie at 0.5 < dt_plan = 1.0

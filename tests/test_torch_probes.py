@@ -30,7 +30,8 @@ from jax.experimental import pallas as pl
 
 from simgrid_tpu_torch.kernels import launch_counts
 from simgrid_tpu_torch.kernels.probe_gather import probe_gather
-from simgrid_tpu_torch.kernels.probe_loop import (LoopGraph, probe_double,
+from simgrid_tpu_torch.kernels.probe_loop import (CondLoop, LoopGraph,
+                                                  probe_double,
                                                   probe_loop)
 from simgrid_tpu_torch.kernels.probe_scan import probe_scan
 from simgrid_tpu_torch.kernels.probe_segsum import (probe_segsum,
@@ -214,7 +215,7 @@ def test_p3_loop_equals_lk(npdt, jdt, tdt):
     tab, idx = d["tab"].astype(npdt), d["idx"]
     got = interpret(p3_lk(16, jdt), (8, 1), jdt, tab, idx)
     np.testing.assert_array_equal(got, loop_want(tab, idx, 16))
-    for arm in ("coop", "launch", "graph"):
+    for arm in ("coop", "launch", "graph", "cond"):
         port = probe_loop(t(tab), t(idx), 16, arm).numpy()
         np.testing.assert_array_equal(port, got)
     assert np.all(got > 16)   # 16 rounds of values in [1, 2)
@@ -335,6 +336,8 @@ def test_wrappers_validate_and_count_nothing_on_cpu():
         probe_loop(tab, idx, arm="persistent")
     with pytest.raises(ValueError, match="CUDA"):
         LoopGraph(tab, idx)
+    with pytest.raises(ValueError, match="CUDA"):
+        CondLoop(tab, idx)
     assert probe_loop(tab, idx, 0).eq(0).all()
     assert launch_counts() == before
 
@@ -388,6 +391,7 @@ def test_run_opcost_on_cpu_checks_every_row():
     for dt in ("float32", "float64"):
         assert ("P2_segsum", "smem_atomic", dt) in arms
         assert ("P3_loop16", "graph", dt) in arms
+        assert ("P3_loop16", "cond", dt) in arms
         assert ("cumsum_E", "block", dt) in arms
 
 
@@ -395,5 +399,5 @@ def test_run_scaling_on_cpu():
     r = run_scaling(device="cpu", scale=SMALL, dtypes=("float32",))
     assert r["ok"]
     names = [x["name"] for x in r["rows"]]
-    assert names.count("chain8_gathers") == 3
+    assert names.count("chain8_gathers") == 4      # K15's four arms
     assert len({x["n"] for x in r["rows"] if "n" in x}) == 6

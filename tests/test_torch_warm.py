@@ -452,3 +452,48 @@ def test_kernel_error_is_not_swallowed(monkeypatch):
     assert type(exc.value) is RuntimeError
     assert "solver_fallbacks" not in pstats.diff(before)
     assert s.fallback_count == 0
+
+
+def shared_links(s, n_c=200, n_v=2000, seed=5):
+    """Flows over three random links each: fair shares close enough
+    that the solve's precision shows in its result."""
+    rng = np.random.default_rng(seed)
+    cs = [s.constraint_new(None, float(rng.uniform(50, 200)))
+          for _ in range(n_c)]
+    for _ in range(n_v):
+        v = s.variable_new(None, 1.0)
+        for c in rng.choice(n_c, 3, replace=False):
+            s.expand(cs[int(c)], v, float(rng.choice([0.5, 1.0, 2.0])))
+    return cs
+
+
+@pytest.mark.parametrize("layout", ["coo", "ell"])
+def test_warm_state_solved_at_a_new_precision_equals_jax(layout):
+    """The same warm state solved again at another maxmin/precision (a
+    cold init on the same work buffers, whose chunk loop bakes eps in):
+    every state and counter equals JAX's, and the new precision shows."""
+    saved = config["maxmin/precision"]
+    config["lmm/layout"] = layout
+    try:
+        port = port_system(warm_start="on", delta_upload="on",
+                           layout=layout)
+        jax = jax_solver_system("on", "on")
+        built = [shared_links(s) for s in (port, jax)]
+        kept = port_system(warm_start="on", delta_upload="on",
+                           layout=layout)
+        kept_cs = shared_links(kept)
+        config["maxmin/precision"] = EPS
+
+        def step(i, s):
+            s.update_constraint_bound(built[i][7], 120.0)
+            if i == 0:
+                s.flags = dataclasses.replace(s.flags, precision=0.3)
+            else:
+                config["maxmin/precision"] = 0.3
+        drive_both(port, jax, step, 1)
+        kept.solve()
+        kept.update_constraint_bound(kept_cs[7], 120.0)
+        kept.solve()
+        assert host_state(kept) != host_state(port)
+    finally:
+        config["maxmin/precision"] = saved
