@@ -688,6 +688,7 @@ def fleet_phases(ctx: dict) -> None:
         raise AssertionError(f"K11 (birth) differs from its plain "
                              f"version ({err})")
     m_ms = events_ms(lambda: birth("cuda"), 20)
+    m_t = time_call(lambda: birth("cuda"))
     m_plain = events_ms(lambda: birth("cuda", plain=True), 3)
     base_b = nbytes(*g._base_dev, g._base_ew)
     m_bytes = (base_b + sum(a.nbytes for a in pay) + ei.nbytes + ewv.nbytes
@@ -697,7 +698,8 @@ def fleet_phases(ctx: dict) -> None:
         source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:390",
         launches=c16["fleet_materialize"] + c16["fleet_materialize_ew"],
-        max_abs_err=err, ms=m_ms, plain_ms=m_plain,
+        max_abs_err=err, ms=m_t["ms"], paced_ms=m_ms,
+        queued=m_t["queued"], plain_ms=m_plain,
         bound_ms=bound_ms(m_bytes), bound_by="bytes", library_ms=None,
         replicas=Bk, launches_from="main path 10 (the config-#4 fleet: "
                                    "its state and its weights at birth)"))
@@ -1639,8 +1641,9 @@ def main() -> int:
     from simgrid_tpu_torch.kernels import ell_chain as k9
     from simgrid_tpu_torch.kernels.common import OVERFLOW, EllWork
     from simgrid_tpu_torch.kernels.ell_round import (
-        ell_init, ell_init_plain, ell_round, ell_round_plain)
-    from simgrid_tpu_torch.kernels.vc_round import vc_round, vc_round_plain
+        ell_init, ell_init_plain, ell_round, ell_round_plain, round_runs)
+    from simgrid_tpu_torch.kernels.vc_round import (vc_prep, vc_prep_plain,
+                                                    vc_round, vc_round_plain)
     from simgrid_tpu_torch.kernels.warm_init import (warm_init_ell,
                                                      warm_init_ell_plain)
     from simgrid_tpu_torch.kernels.drain_advance import (
@@ -1672,8 +1675,8 @@ def main() -> int:
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   TPOS)
     from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
-    from simgrid_tpu_torch.probes.timing import (events_ms, time_call,
-                                                 time_rounds)
+    from simgrid_tpu_torch.probes.timing import (events_ms, kernel_counts,
+                                                 time_call, time_rounds)
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -1937,6 +1940,8 @@ def main() -> int:
         raise AssertionError(f"K4 differs from its plain version: {err}")
     k4_ms = events_ms(lambda: livefirst_repack(sg, *args_g, vh, eh,
                                                live_elems), 10)
+    k4_t = time_call(lambda: livefirst_repack(sg, *args_g, vh, eh,
+                                              live_elems))
     k4_plain = events_ms(lambda: livefirst_repack_plain(
         sg, *args_g, vh, eh, live_elems), 3)
     # elements and flow rows read once, the halves written once; the row
@@ -1948,7 +1953,8 @@ def main() -> int:
         name="livefirst_repack", route="cuda",
         source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:608",
-        max_abs_err=err, ms=k4_ms, plain_ms=k4_plain,
+        max_abs_err=err, ms=k4_t["ms"], paced_ms=k4_ms,
+        queued=k4_t["queued"], plain_ms=k4_plain,
         bound_ms=bound_ms(k4_bytes), bound_by="bytes", library_ms=None,
         live_flows=int(live.sum()), live_elems=live_elems))
     log({"phase": "kernel", **kernels[-1]})
@@ -2422,15 +2428,19 @@ def main() -> int:
             tg5[ti].index_put_((payload_g[o:o + n].long(),),
                                payload_g[o + n:o + 2 * n])
     k5_lib = events_ms(library_k5, 20)
+    k5_t = time_call(lambda: transition_scatter(payload_g, layout, tg5))
+    k5_lib_t = time_call(library_k5)
     n_slots = sum(n for _, _, n in layout)
     kernels.append(dict(
         name="transition_scatter", route="cuda",
         source="simgrid_tpu_torch/csrc/transition_scatter.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:560",
         launches=pcounts["transition_scatter"], max_abs_err=err,
-        ms=k5_ms, plain_ms=k5_plain,
+        ms=k5_t["ms"], paced_ms=k5_ms, queued=k5_t["queued"],
+        plain_ms=k5_plain,
         bound_ms=bound_ms(16 * n_slots + 8 * n_slots), bound_by="bytes",
-        library_ms=k5_lib, library="index_put_, one call per run",
+        library_ms=k5_lib_t["ms"], library_paced_ms=k5_lib,
+        library="index_put_, one call per run",
         slots=n_slots, launches_from="main path 3 (the 320-rank alltoall plan)"))
     log({"phase": "kernel", **kernels[-1]})
     del tg5, tc5
@@ -2459,6 +2469,8 @@ def main() -> int:
                              f"version: {err}")
     k4v_ms = events_ms(lambda: livefirst_repack(
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 10)
+    k4v_t = time_call(lambda: livefirst_repack(
+        sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]))
     k4v_plain = events_ms(lambda: livefirst_repack_plain(
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 3)
     kernels.append(dict(
@@ -2466,7 +2478,8 @@ def main() -> int:
         source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:648",
         launches=lcounts["livefirst_repack_vbound"], max_abs_err=err,
-        ms=k4v_ms, plain_ms=k4v_plain,
+        ms=k4v_t["ms"], paced_ms=k4v_ms, queued=k4v_t["queued"],
+        plain_ms=k4v_plain,
         bound_ms=bound_ms(nbytes(sgr.e_var, sgr.e_cnst, sgr.e_w, *args_g4)
                           + nbytes(*rg4.sys[:3], *rg4[1:])),
         bound_by="bytes", library_ms=None,
@@ -2612,6 +2625,8 @@ def main() -> int:
             tg9[ti].index_put_((pay_g[o:o + n].long(),),
                                pay_g[o + n:o + 2 * n].to(tg9[ti].dtype))
     kd_lib = events_ms(library_kd, 20)
+    kd_t = time_call(lambda: delta_scatter(pay_g, layout9, tg9))
+    kd_lib_t = time_call(library_kd)
     slots9 = sum(n for _, _, n in layout9)
     kd_bytes = 16 * slots9 + sum(n * tg9[ti].element_size()
                                  for ti, _, n in layout9)
@@ -2619,9 +2634,11 @@ def main() -> int:
         name="delta_scatter", route="cuda",
         source="simgrid_tpu_torch/csrc/transition_scatter.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:119",
-        launches=wl["delta_scatter"], max_abs_err=err, ms=kd_ms,
+        launches=wl["delta_scatter"], max_abs_err=err, ms=kd_t["ms"],
+        paced_ms=kd_ms, queued=kd_t["queued"],
         plain_ms=kd_plain, bound_ms=bound_ms(kd_bytes), bound_by="bytes",
-        library_ms=kd_lib, library="index_put_, one call per run",
+        library_ms=kd_lib_t["ms"], library_paced_ms=kd_lib,
+        library="index_put_, one call per run",
         slots=slots9,
         launches_from="main path 4 (the 100k churn, warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
@@ -2658,6 +2675,8 @@ def main() -> int:
         raise AssertionError("K6 differs from its plain version")
     k6_ms = events_ms(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS), 20,
                       k6_setup)
+    k6_t = time_call(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS),
+                     k6_setup)
     k6_plain = events_ms(lambda: warm_init_plain(st9.sys, w6g, pen9, mc_g,
                                                  EPS), 5, k6_setup)
     # each input read once (elements, bounds, FATPIPE flags, penalties,
@@ -2671,8 +2690,8 @@ def main() -> int:
         name="warm_init", route="cuda",
         source="simgrid_tpu_torch/csrc/warm_init.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:201",
-        launches=wl["warm_init"], max_abs_err=err, ms=k6_ms,
-        plain_ms=k6_plain, bound_ms=bound_ms(k6_bytes), bound_by="bytes",
+        launches=wl["warm_init"], max_abs_err=err, ms=k6_t["ms"],
+        paced_ms=k6_ms, queued=k6_t["queued"], plain_ms=k6_plain, bound_ms=bound_ms(k6_bytes), bound_by="bytes",
         library_ms=None, modified_constraints=len(mc9),
         launches_from="main path 4 (the 100k churn, warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
@@ -2781,6 +2800,44 @@ def main() -> int:
         lmm_ell._CHAIN_STAGE_CAP = cap
     held_c = (same_result(res_c, res_b) and row_c["path"] == "dense"
               and row_c["chain_fell_back"])
+    # (d) bench.py's stage_device padding (exact row widths, V0 102,400:
+    # three stages) and (e) a seeded 10% of the constraints FATPIPE, each
+    # through the chain on the card against the plain chain on the CPU
+    fat_hl = hl.c_fatpipe.copy()
+    fat_hl[:hl.n_cnst] = np.random.default_rng(12).random(hl.n_cnst) < 0.10
+    variants = {}
+    for key, arr_v, pad_v in (
+            ("tight", bench_solve.build_arrays(
+                np.random.default_rng(HEADLINE["seed"]), HEADLINE["n_c"],
+                HEADLINE["n_v"], HEADLINE["deg"], np.float64, "tight"),
+             "tight"),
+            ("fatpipe", hl._replace(c_fatpipe=fat_hl), "pow2")):
+        (res_v, row_v), st_v = stages_of(
+            lambda: bench_solve.run_bench_solve(
+                device=cuda, reps=3, arrays=arr_v, eps=HL_EPS, pad=pad_v,
+                **HEADLINE))
+        t0 = time.perf_counter()
+        cpu_v, st_cv = stages_of(lambda: solve_arrays(
+            arr_v, HL_EPS, device=cpu, layout="ell", chain="on",
+            pad=pad_v))
+        e_v = lmm_ell.ell_cached(arr_v, pad_v)
+        variants[key] = dict(
+            v0=int(len(arr_v.v_penalty)),
+            widths=[int(e_v.cv_var.shape[1]), int(e_v.vc_cnst.shape[1])],
+            **{k: row_v[k] for k in ("rounds", "first_ms", "ms", "reps_ms",
+                                     "path", "after_first")},
+            stages_per_solve=st_v // 4, cpu_stages=st_cv,
+            cpu_wall_s=time.perf_counter() - t0,
+            held=same_result(res_v, cpu_v) and st_v == 4 * st_cv)
+    # the CUDA kernels of one repeated solve (the chain's graph replayed):
+    # K8's four a round, K16's loop_cond only before each loop
+    per_solve = {}
+    for name, n in kernel_counts(lambda: solve_arrays(
+            hl, HL_EPS, cuda, parallel_rounds=True), reps=2).items():
+        base = name.split("<")[0]
+        per_solve[base] = per_solve.get(base, 0) + n
+    k8_nodes = sum(per_solve.get(n, 0) for n in (
+        "v_nmin", "c_proc", "v_fix", "c_apply", "loop_cond"))
     rec = {"phase": "main_path_headline", **{k: row_a[k] for k in (
         "n_c", "n_v", "deg", "seed", "rounds", "first_ms", "ms", "reps_ms",
         "path", "chain_fell_back", "uploaded_bytes_first", "launches")},
@@ -2793,7 +2850,11 @@ def main() -> int:
                                               "chain_fell_back",
                                               "launches")},
            "held_overflow_equals_dense": held_c,
-           "chain_equals_dense_rounds": res_a[3] == res_b[3]}
+           "chain_equals_dense_rounds": res_a[3] == res_b[3],
+           "after_first": row_a["after_first"],
+           "cuda_kernels_per_solve": per_solve,
+           "k8_nodes_per_round": k8_nodes / max(row_a["rounds"], 1),
+           "variants": variants}
     log(rec)
     report["main_path_headline"] = rec
     if row_a["path"] != "chain" or row_a["chain_fell_back"]:
@@ -2802,7 +2863,18 @@ def main() -> int:
         raise AssertionError(f"headline: card differs from plain "
                              f"(chain {held_a}, dense {held_b}, "
                              f"overflow {held_c})")
-    for name in ("vc_round", "ell_chain_arm", "ell_chain_stage",
+    for key, v in variants.items():
+        if not v["held"] or v["path"] != "chain":
+            raise AssertionError(f"headline ({key}): the chain on the card "
+                                 f"differs from the plain chain: {v}")
+    after = row_a["after_first"]
+    if after["graph_builds"] or any(after["host_calls"].values()):
+        raise AssertionError(f"headline: a solve after the first built a "
+                             f"graph or called K8/K9 from the host: {after}")
+    if not k8_nodes / max(row_a["rounds"], 1) < 6:
+        raise AssertionError(f"headline: K8 takes {per_solve} kernel nodes "
+                             f"for {row_a['rounds']} rounds")
+    for name in ("vc_round", "vc_prep", "ell_chain_arm", "ell_chain_stage",
                  "ell_chain_fetch", "superstep_loop_chain"):
         if la.get(name, 0) <= 0:
             raise AssertionError(f"{name} never launched on the headline")
@@ -2823,23 +2895,42 @@ def main() -> int:
     ell_state = ("v_value", "v_fixed", "remaining", "usage", "light",
                  "cv_live")
 
-    def ell_held(wg_, wc_):
+    def ell_held(wg_, wc_, extra=()):
         return all(same_bits(getattr(wg_, n).cpu().numpy(),
-                             getattr(wc_, n).numpy()) for n in ell_state) \
+                             getattr(wc_, n).numpy())
+                   for n in ell_state + tuple(extra)) \
             and same_bits(wg_.ctrl.cpu().numpy()[:2], wc_.ctrl.numpy()[:2])
     err_k7i = 0.0 if ell_held(wh, whc) else float("inf")
-    # the first 8 K8 rounds from it, card against plain
+    # K8's prep from it: each constraint's rou and each entry's w /
+    # penalty, card against plain
+    vc_prep(sys_h, wh, pen_h)
+    vc_prep_plain(sys_hc, whc, pen_h.cpu())
+    n_h = int(sys_h.vcx_ptr[-1])
+    err_prep = 0.0 if (same_bits(wh.rou.cpu().numpy(), whc.rou.numpy())
+                       and same_bits(sys_h.vcx_upen[:n_h].cpu().numpy(),
+                                     sys_hc.vcx_upen[:n_h].numpy())) \
+        else float("inf")
+    # the first 8 K8 rounds from it, card against plain (rou included)
     for _ in range(8):
         vc_round(sys_h, wh, pen_h, HL_EPS)
         vc_round_plain(sys_hc, whc, pen_h.cpu(), HL_EPS)
-    err_k8 = 0.0 if ell_held(wh, whc) else float("inf")
-    if err_k7i or err_k8:
-        raise AssertionError(f"headline: K7 init / K8 differ from plain "
-                             f"({err_k7i}, {err_k8})")
+    err_k8 = 0.0 if ell_held(wh, whc, ("rou",)) else float("inf")
+    if err_k7i or err_k8 or err_prep:
+        raise AssertionError(f"headline: K7 init / K8 / K8's prep differ "
+                             f"from plain ({err_k7i}, {err_k8}, "
+                             f"{err_prep})")
     r_h = res_b[3]
     k7i_ms = events_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h), 10)
+    k7i_t = time_call(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h))
     k7i_plain = events_ms(lambda: ell_init_plain(sys_h, wh, pen_h, HL_EPS),
                           2)
+    prep_t = time_call(lambda: vc_prep(sys_h, wh, pen_h))
+    prep_ms = events_ms(lambda: vc_prep(sys_h, wh, pen_h), 10)
+    prep_plain = events_ms(lambda: vc_prep_plain(sys_h, wh, pen_h), 3)
+    # rou written, remaining/usage/light read, per entry its row, weight
+    # and penalty read and its w / penalty written
+    prep_bytes = (nbytes(wh.remaining, wh.usage, wh.light, wh.rou)
+                  + n_h * (4 + 8 + 8 + 8))
 
     def round_ms(init_fn, rnd_fn, rounds, n):
         def solve():
@@ -2847,16 +2938,25 @@ def main() -> int:
             for _ in range(rounds):
                 rnd_fn()
         return (events_ms(solve, n) - events_ms(init_fn, n)) / rounds
-    k8_ms = round_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h),
-                     lambda: vc_round(sys_h, wh, pen_h, HL_EPS), r_h, 3)
+
+    def k8_init():
+        ell_init(sys_h, wh, pen_h, HL_EPS, vb_h)
+        vc_prep(sys_h, wh, pen_h)
+
+    def k8_round():
+        vc_round(sys_h, wh, pen_h, HL_EPS)
+    k8_ms = round_ms(k8_init, k8_round, r_h, 3)
     # the card's own time a round: the rounds queued behind a sleep
-    k8_t = time_rounds(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h),
-                       lambda: vc_round(sys_h, wh, pen_h, HL_EPS), r_h)
+    k8_t = time_rounds(k8_init, k8_round, r_h)
     k8_plain = round_ms(lambda: ell_init_plain(sys_h, wh, pen_h, HL_EPS),
                         lambda: vc_round_plain(sys_h, wh, pen_h, HL_EPS),
                         r_h, 1)
+    # the CUDA kernels a round launches (its nodes inside K16's loop: the
+    # last one ends the loop's iteration, so there is no loop_cond node)
+    k8_init()
+    k8_kernels = kernel_counts(k8_round)
     # bytes: the tables read once, penalties and bounds, the state read
-    # and written once (K8: the vc tables and K8's index are the design's
+    # and written once (K8: the vc tables and K8's layout are the design's
     # pick; the function reads each element once, here its vc entry)
     cv_b = nbytes(sys_h.cv_var, sys_h.cv_w, sys_h.cv_valid)
     vc_b = nbytes(sys_h.vc_cnst, sys_h.vc_w, sys_h.vc_valid)
@@ -2866,67 +2966,99 @@ def main() -> int:
                  + state_b + nbytes(wh.cv_live))
     k8_bytes = (vc_b + nbytes(sys_h.c_bound, pen_h) + 2 * state_b)
 
-    # K9: one stage at the headline's first shapes (131,072 -> 65,536
-    # rows) from the state its rounds leave
+    # K8 at every chain stage's shape (131,072, 65,536, 32,768, 16,384
+    # and 8,192 rows) and K9's stages, card against plain in lockstep from
+    # the headline's init: each stage's rounds under its guard, every
+    # state by bits; then the stage, every array it writes by bits
     chain_sys, chain_pen = lmm_ell.device_args(
         "vc_chain", [hl_ell.vc_cnst, hl_ell.vc_w, hl_ell.vc_valid,
                      hl_ell.v_penalty, hl_ell.c_bound, hl_ell.c_fatpipe],
         cuda, make=lmm_ell._chain_tables)
     init_h = lmm_ell.device_args(
         "vc_chain_init", lmm_ell.chain_init(hl_ell, HL_EPS, False), cuda)
-    v0h, half_h = chain_sys.n_v, chain_sys.n_v // 2
-    w9 = Work(v0h, chain_sys.n_c, f64, cuda)
-    for t, src in zip((w9.v_value, w9.v_fixed, w9.remaining, w9.usage,
-                       w9.light), init_h[:5]):
-        t.copy_(src)
-    cs9 = k9.ChainState(chain_sys, chain_pen, init_h[5], w9)
-    k9.chain_arm(cs9, -1, -1, first=True)
-    k9.chain_arm(cs9, lmm_ell._CHAIN_STAGE_CAP, half_h)
-    for _ in range(lmm_ell._CHAIN_STAGE_CAP):
-        vc_round(cs9.sys, w9, cs9.pen, HL_EPS)
-    snap9 = {n: getattr(w9, n).clone() for n in ("v_value", "v_fixed",
-                                                  "remaining", "usage",
-                                                  "light", "ctrl")}
-    st9k = {}
+    halves_h = lmm_ell.chain_halves(chain_sys.n_v)
+    arms_h = [(lmm_ell._CHAIN_STAGE_CAP, h) for h in halves_h] + [(-1, -1)]
 
-    def k9_setup(dev=cuda):
-        w_ = Work(v0h, chain_sys.n_c, f64, dev)
-        for n, t in snap9.items():
-            getattr(w_, n).copy_(t)
-        sys_ = (chain_sys if dev == cuda else chain_sys._replace(
+    def chain_start(dev):
+        sys_ = chain_sys if dev == cuda else chain_sys._replace(
             **{f: (None if getattr(chain_sys, f) is None
                    else getattr(chain_sys, f).cpu())
-               for f in chain_sys._fields}))
-        st9k["cs"] = k9.ChainState(sys_, chain_pen.to(dev),
-                                   init_h[5].to(dev), w_)
-    k9_setup()
-    k9.chain_stage(st9k["cs"], half_h)
-    cg = st9k["cs"]
-    k9_setup(cpu)
-    k9.chain_stage_plain(st9k["cs"], half_h)
-    cc = st9k["cs"]
-    nnz_g = int(cg.sys.vcx_ptr[-1])
-    k9_out = lambda cs_, nz: [
-        cs_.sys.vc_cnst, cs_.sys.vc_w, cs_.sys.vc_valid, cs_.pen, cs_.orig,
-        cs_.w.v_value[:half_h], cs_.w.v_fixed[:half_h], cs_.v_final,
-        cs_.w.ctrl[OVERFLOW:OVERFLOW + 1], cs_.sys.vcx_ptr,
-        cs_.sys.vcx_idx[:nz]]
-    err_k9 = 0.0 if all(
-        same_bits(x.cpu().numpy(), y.numpy())
-        for x, y in zip(k9_out(cg, nnz_g), k9_out(cc, nnz_g))) \
-        else float("inf")
-    if err_k9:
-        raise AssertionError("K9's stage differs from its plain version")
-    k9_ms = events_ms(lambda: k9.chain_stage(st9k["cs"], half_h), 10,
-                      k9_setup)
-    k9_plain = events_ms(lambda: k9.chain_stage_plain(st9k["cs"], half_h),
+               for f in chain_sys._fields})
+        w_ = Work(chain_sys.n_v, chain_sys.n_c, f64, dev)
+        for t, src in zip((w_.v_value, w_.v_fixed, w_.remaining, w_.usage,
+                           w_.light), init_h[:5]):
+            t.copy_(src)
+        cs_ = k9.ChainState(sys_, chain_pen.to(dev), init_h[5].to(dev), w_)
+        vc_prep(cs_.sys, w_, cs_.pen)
+        k9.chain_arm(cs_, *arms_h[0], True)
+        return cs_
+
+    def chain_state(cs_):
+        n = cs_.sys.n_v
+        return [cs_.w.v_value[:n], cs_.w.v_fixed[:n], cs_.w.remaining,
+                cs_.w.usage, cs_.w.light, cs_.w.ctrl, cs_.w.rou]
+
+    def stage_out(cs_):
+        n = int(cs_.sys.vcx_ptr[-1])
+        return [cs_.sys.vc_cnst, cs_.sys.vc_w, cs_.sys.vc_valid, cs_.pen,
+                cs_.orig, cs_.v_final, cs_.sys.vcx_ptr] + chain_state(cs_) \
+            + [getattr(cs_.sys, k)[:n] for k in (
+                "vcx_idx", "vcx_row", "vcx_w", "vcx_upen")]
+
+    def held_all(xs, ys):
+        return all(same_bits(x.cpu().numpy(), y.numpy())
+                   for x, y in zip(xs, ys))
+    csg, csc = chain_start(cuda), chain_start(cpu)
+    stages11, snap9 = [], None
+    for k in range(len(halves_h) + 1):
+        rows_k, it0 = csg.sys.n_v, int(csg.w.ctrl[IT])
+        while round_runs(csg.w.ctrl.cpu()):
+            for _ in range(16):
+                vc_round(csg.sys, csg.w, csg.pen, HL_EPS)
+        while vc_round_plain(csc.sys, csc.w, csc.pen, HL_EPS):
+            pass
+        st = {"rows": rows_k, "rounds": int(csg.w.ctrl[IT]) - it0,
+              "entries": int(csg.sys.vcx_ptr[-1]),
+              "k8_held": held_all(chain_state(csg), chain_state(csc))}
+        if k < len(halves_h):
+            if k == 0:
+                snap9 = {n: getattr(csg.w, n).clone() for n in (
+                    "v_value", "v_fixed", "remaining", "usage", "light",
+                    "ctrl", "rou")}
+            k9.chain_stage(csg, halves_h[k], arms_h[k + 1])
+            k9.chain_stage_plain(csc, halves_h[k], arms_h[k + 1])
+            st["k9_held"] = held_all(stage_out(csg), stage_out(csc))
+            st["kept_entries"] = int(csg.sys.vcx_ptr[-1])
+        stages11.append(st)
+        log({"phase": "chain_stage_held", **st})
+    if not all(st["k8_held"] and st.get("k9_held", True)
+               for st in stages11):
+        raise AssertionError(f"headline chain: K8 or K9 differs from its "
+                             f"plain version at a stage: {stages11}")
+    err_k9 = 0.0
+    v0h, half_h = chain_sys.n_v, halves_h[0]
+
+    def k9_setup():
+        csg.reset(chain_sys, chain_pen, init_h[5])
+        for n, t in snap9.items():
+            getattr(csg.w, n).copy_(t)
+    k9_fn = lambda: k9.chain_stage(csg, half_h, arms_h[1])
+    k9_t = time_call(k9_fn, k9_setup)
+    k9_ms = events_ms(k9_fn, 10, k9_setup)
+    k9_kernels = kernel_counts(k9_fn, k9_setup)
+    k9_plain = events_ms(lambda: k9.chain_stage_plain(csg, half_h,
+                                                      arms_h[1]),
                          2, k9_setup)
+    # what JAX's stage moves: rows in and out (the tables, penalty,
+    # original slot, value, fixed) and v_final written; of the entries,
+    # only the index the in-order folds need (the pointers and a 4-byte
+    # position an entry, in and out): the entries' rows, weights and w /
+    # penalty are K8's layout, the design's pick, as in K8's bound
     row_b9 = chain_sys.vc_cnst.shape[1] * (4 + 8 + 1) + 8 + 4 + 8 + 1
-    k9_bytes = (v0h * row_b9 + 4 * (int(chain_sys.vcx_idx.shape[0])
-                                    + chain_sys.n_c + 1)
-                + half_h * row_b9 + 8 * v0h
-                + 4 * (nnz_g + chain_sys.n_c + 1))
-    del cg, cc, st9k, cs9, w9
+    ent_in, ent_out = stages11[0]["entries"], stages11[0]["kept_entries"]
+    k9_bytes = (v0h * row_b9 + half_h * row_b9 + 8 * v0h
+                + 4 * (ent_in + ent_out) + 8 * (chain_sys.n_c + 1))
+    del csg, csc, snap9
 
     # K7's round arms, held whole at the same widths, timed at full width
     rates_h = res_b[0]
@@ -2974,8 +3106,12 @@ def main() -> int:
                               parallel_rounds=local, layout="ell",
                               chain="off")[3]
         r_t = min(full_r, 64)
-        ms = round_ms(lambda: ell_init(s_, w_, p_, HL_EPS, vb_), rnd(k),
-                      r_t, 2)
+        def init_():
+            ell_init(s_, w_, p_, HL_EPS, vb_)
+            if kernel == "vc_round":
+                vc_prep(s_, w_, p_)
+        ms = round_ms(init_, rnd(k), r_t, 2)
+        card = time_rounds(init_, rnd(k), r_t)
         plain = round_ms(lambda: ell_init_plain(s_, w_, p_, HL_EPS),
                          rnd(pl), min(r_t, 8), 1)
         b = (nbytes(s_.cv_var, s_.cv_w, s_.cv_valid, s_.vc_cnst, s_.vc_valid,
@@ -2987,7 +3123,8 @@ def main() -> int:
                 "widths": [int(lmm_ell.ell_from_arrays(small).cv_var
                                .shape[1]), int(e.vc_cnst.shape[1])],
                 "full_rounds": full_r, "timed_rounds": r_t,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "max_abs_err": err, "ms": card["ms"], "paced_ms": ms,
+                "queued": card["queued"], "plain_ms": plain,
                 "bound_ms": bound_ms(b), "cpu_s": cpu_s,
                 "launches": launches}
         log(rec_)
@@ -3022,7 +3159,8 @@ def main() -> int:
         source="simgrid_tpu_torch/csrc/ell_round.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:219",
         launches=row_b["launches"]["ell_init"], max_abs_err=err_k7i,
-        ms=k7i_ms, plain_ms=k7i_plain, bound_ms=bound_ms(k7i_bytes),
+        ms=k7i_t["ms"], paced_ms=k7i_ms, queued=k7i_t["queued"],
+        plain_ms=k7i_plain, bound_ms=bound_ms(k7i_bytes),
         bound_by="bytes", library_ms=None,
         launches_from="phase 11(b), the headline with the chain off "
                       "(1 + 3 solves)"))
@@ -3034,22 +3172,35 @@ def main() -> int:
         paced_ms=k8_ms, queued=k8_t["queued"],
         plain_ms=k8_plain, bound_ms=bound_ms(k8_bytes), bound_by="bytes",
         library_ms=None, timed_on=f"headline dense, {r_h} rounds",
+        cuda_kernels_per_round=k8_kernels,
+        held_at_stages=[(st["rows"], st["rounds"]) for st in stages11],
         host_calls=row_a["loop"]["host_round_calls"].get("vc_round", 0),
         device_rounds=row_a["loop"]["device_tally"].get("vc_round", 0),
         launches_from="main path 6, the headline chain (1 + 3 solves; "
-                      "every round inside K16's stage and finisher "
-                      "graphs)"))
+                      "every round inside the chain's K16 graph)"))
+    kernels.append(dict(
+        name="vc_prep", route="cuda",
+        source="simgrid_tpu_torch/csrc/vc_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:649",
+        note="K8's rou and w / penalty (JAX's vc_upen_v, :649-651), "
+             "written once a chain or chunk",
+        launches=la["vc_prep"], max_abs_err=err_prep, ms=prep_t["ms"],
+        paced_ms=prep_ms, queued=prep_t["queued"], plain_ms=prep_plain,
+        bound_ms=bound_ms(prep_bytes), bound_by="bytes", library_ms=None,
+        launches_from="main path 6, the headline chain (once a solve, "
+                      "inside its graph)"))
     kernels.append(dict(
         name="ell_chain_stage", route="cuda",
         source="simgrid_tpu_torch/csrc/ell_chain.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:736",
-        launches=la["ell_chain_stage"], max_abs_err=err_k9, ms=k9_ms,
-        plain_ms=k9_plain, bound_ms=bound_ms(k9_bytes), bound_by="bytes",
+        launches=la["ell_chain_stage"], max_abs_err=err_k9, ms=k9_t["ms"],
+        paced_ms=k9_ms, queued=k9_t["queued"], plain_ms=k9_plain,
+        bound_ms=bound_ms(k9_bytes), bound_by="bytes",
         library_ms=None, launches_arm=la["ell_chain_arm"],
-        launches_fetch=la["ell_chain_fetch"],
+        launches_fetch=la["ell_chain_fetch"], cuda_kernels=k9_kernels,
         timed_on=f"first stage, {v0h} -> {half_h} rows",
-        launches_from="main path 6, the headline chain (1 + 3 solves; "
-                      "arm and fetch launches beside)"))
+        launches_from="main path 6, the headline chain (1 + 3 solves, "
+                      "inside its graph; one arm and one fetch a solve)"))
     for key, name, ln in (("bounds", "ell_round", ":325"),
                           ("fatpipe_bounds", "ell_round_fatpipe", ":287"),
                           ("global", "ell_round_global", ":301")):
@@ -3061,6 +3212,7 @@ def main() -> int:
             launches=r_["launches"].get(
                 "ell_round_global" if key == "global" else "ell_round", 0),
             max_abs_err=r_["max_abs_err"], ms=r_["ms"],
+            paced_ms=r_["paced_ms"], queued=r_["queued"],
             plain_ms=r_["plain_ms"], bound_ms=r_["bound_ms"],
             bound_by="bytes", library_ms=None,
             launches_from=f"phase 11(d) {r_['case']} (not on a main path: "
@@ -3147,6 +3299,8 @@ def main() -> int:
         raise AssertionError("K6 (ELL) differs from its plain version")
     k6e_ms = events_ms(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
                        20, k6e_setup)
+    k6e_t = time_call(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
+                      k6e_setup)
     k6e_plain = events_ms(lambda: warm_init_ell_plain(e12, w12g, pen12,
                                                       mc12_g, EPS), 5,
                           k6e_setup)
@@ -3158,8 +3312,8 @@ def main() -> int:
         name="warm_init_ell", route="cuda",
         source="simgrid_tpu_torch/csrc/warm_init.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:158",
-        launches=wl12["warm_init_ell"], max_abs_err=err, ms=k6e_ms,
-        plain_ms=k6e_plain, bound_ms=bound_ms(k6e_bytes), bound_by="bytes",
+        launches=wl12["warm_init_ell"], max_abs_err=err, ms=k6e_t["ms"],
+        paced_ms=k6e_ms, queued=k6e_t["queued"], plain_ms=k6e_plain, bound_ms=bound_ms(k6e_bytes), bound_by="bytes",
         library_ms=None, modified_constraints=len(mc12),
         launches_from="main path 7 (the 100k churn in ELL, "
                       "warm-selective)"))
@@ -3208,14 +3362,18 @@ def main() -> int:
                 (pay12_g[o:o + n].long(),),
                 v > 0 if ti in ELL_POSITIVE else v.to(tg12[ti].dtype))
     k5e_lib = events_ms(library_k5e, 20)
+    k5e_t = time_call(lambda: ell_delta_scatter(pay12_g, lay12, tg12))
+    k5e_lib_t = time_call(library_k5e)
     k5e_bytes = 16 * 6 * n12 + sum(n12 * t.element_size() for t in tg12)
     kernels.append(dict(
         name="delta_scatter_ell", route="cuda",
         source="simgrid_tpu_torch/csrc/transition_scatter.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:141",
-        launches=wl12["delta_scatter_ell"], max_abs_err=err, ms=k5e_ms,
+        launches=wl12["delta_scatter_ell"], max_abs_err=err,
+        ms=k5e_t["ms"], paced_ms=k5e_ms, queued=k5e_t["queued"],
         plain_ms=k5e_plain, bound_ms=bound_ms(k5e_bytes), bound_by="bytes",
-        library_ms=k5e_lib, library="index_put_, one call per run",
+        library_ms=k5e_lib_t["ms"], library_paced_ms=k5e_lib,
+        library="index_put_, one call per run",
         slots=6 * n12,
         launches_from="main path 7 (the 100k churn in ELL, "
                       "warm-selective)"))
@@ -3639,6 +3797,10 @@ def main() -> int:
         st10["cuda"]["pred"].index_add_(
             0, dst14, -done14_g[src14].to(torch.int32))
     k10_lib = events_ms(library_k10, 20, lambda: k10_setup(w14g, "cuda"))
+    k10_t = time_call(lambda: dag_walk(
+        w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
+        ex14_g), lambda: k10_setup(w14g, "cuda"))
+    k10_lib_t = time_call(library_k10, lambda: k10_setup(w14g, "cuda"))
     n_dec = int(done14[es14[ed14 < V14].long()].sum())
     # the edge list and the done flag of every edge source read once; per
     # decrement a count read and written; per freed flow a cost read and a
@@ -3649,9 +3811,10 @@ def main() -> int:
         name="dag_walk", route="cuda",
         source="simgrid_tpu_torch/csrc/dag_walk.cu",
         replaces="simgrid_tpu/ops/lmm_drain.py:457",
-        launches=c14[("tape", "dag_walk")], max_abs_err=err, ms=k10_ms,
+        launches=c14[("tape", "dag_walk")], max_abs_err=err,
+        ms=k10_t["ms"], paced_ms=k10_ms, queued=k10_t["queued"],
         plain_ms=k10_plain, bound_ms=bound_ms(k10_bytes), bound_by="bytes",
-        library_ms=k10_lib,
+        library_ms=k10_lib_t["ms"], library_paced_ms=k10_lib,
         library="index_add_ of the decrements on int32 (one call)",
         edges=dc14.n_edges, decrements=n_dec, freed=freed14,
         launches_from="main path 9 (the three collective tapes); "

@@ -258,14 +258,23 @@ __device__ __forceinline__ T warp_fold_into(T acc, T x) {
 }
 
 // XLA:CPU's order for the sum of one row of a [R, W] table along W
-// (`x.sum(axis=1)` in the JAX package): each block of 32 consecutive
-// lanes is folded left to right from 0.0, then the block partials are
-// folded left to right; a row of at most 32 lanes is one block.  The
-// caller holds the row's values 32 lanes at a time and adds each
-// block's `warp_block_sum` into its total with add_rn.
+// (`x.sum(axis=1)` in the JAX package): a row of at most 32 lanes is
+// folded left to right from 0.0; a wider one is padded with zeros to a
+// multiple of 32, `row_low(W)` of them on the left, each window of 32
+// lanes is folded left to right from 0.0, then the window partials are
+// folded left to right (XLA's tree reduction; at most 16 windows under
+// the ELL width cap of 512, so one level).  The caller holds the row's
+// values 32 lanes at a time from lane -row_low(W) and adds each
+// window's `warp_block_sum` into its total with add_rn.
 template <typename T>
 __device__ __forceinline__ T warp_block_sum(T x) {
   return warp_fold_into(T(0), x);
+}
+
+// The zeros XLA pads a row of W lanes with on the left before its
+// windows of 32 (kernels/ell_round.py `fold_rows`).
+__host__ __device__ __forceinline__ int row_low(int W) {
+  return W <= 32 ? 0 : ((W + 31) / 32 * 32 - W) / 2;
 }
 
 static inline int sm_count() {

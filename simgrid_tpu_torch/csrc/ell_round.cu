@@ -184,10 +184,10 @@ __global__ void ei_cnst(ESys<T> s) {
   int cnt = 0;
   FOR_CNST_WARPS(c) {
     T usum = T(0), umax = T(0);
-    for (int base = 0; base < s.Wc; base += 32) {
+    for (int base = -row_low(s.Wc); base < s.Wc; base += 32) {
       int j = base + lane;
       T x = T(0);
-      if (j < s.Wc) {
+      if (j >= 0 && j < s.Wc) {
         int idx = c * s.Wc + j;
         bool ev;
         x = upen_of(s, idx, s.cv_var[idx], &ev);
@@ -430,11 +430,11 @@ __global__ void a_apply(ESys<T> s) {
   FOR_CNST_WARPS(c) {
     T d_rem = T(0), d_use = T(0), umax = T(0);
     bool touched = false, has_live = false;
-    for (int base = 0; base < s.Wc; base += 32) {
+    for (int base = -row_low(s.Wc); base < s.Wc; base += 32) {
       int j = base + lane;
       T xr = T(0), xu = T(0), xl = T(0);
       bool fx = false, lv = false;
-      if (j < s.Wc) {
+      if (j >= 0 && j < s.Wc) {
         int idx = c * s.Wc + j;
         int v = s.cv_var[idx];
         bool ev;

@@ -1,6 +1,5 @@
-// The stable three-pass device scan shared by K4 (the drain's
-// live-first repack) and K9 (the ELL compaction chain's stage
-// partition): per-tile counts, one block scanning the tile counts,
+// The stable three-pass device scan of K4 (the drain's live-first
+// repack): per-tile counts, one block scanning the tile counts,
 // per-tile scan and apply, over byte flags, with no atomics, so the
 // positions it gives are stable by construction.  K14's block arm runs
 // the same passes over the rows of a float table (`lane_scan`).

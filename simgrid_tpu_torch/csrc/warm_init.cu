@@ -303,10 +303,10 @@ __global__ void we_cnst(EArgs<T> a) {
       continue;
     }
     T usum = T(0), umax = T(0);
-    for (int base = 0; base < a.Wc; base += 32) {
+    for (int base = -row_low(a.Wc); base < a.Wc; base += 32) {
       int j = base + lane;
       T x = T(0);
-      if (j < a.Wc) {
+      if (j >= 0 && j < a.Wc) {
         long long idx = (long long)c * a.Wc + j;
         int v = a.cv_var[idx];
         T p = a.pen[v];

@@ -140,6 +140,9 @@ class Work:
     between calls: each call's last block resets them.  ``commit_scan``
     is K3's scratch (the bases of a commit's ring entries and its tiles'
     counts), written and read within one commit.
+    ``vc_code`` is K8's byte a variable (1 fixed this round, 2 live
+    after it, 0 otherwise), written and read within one round; K8 keeps
+    its constraints' levels in ``rou`` from round to round.
     ``touch`` marks the constraints a round's fixed variables lie on
     (K1 sets and clears it within one round), ``k1_plan`` holds K1's row
     plan of the last row index it ran on (``kernels/lmm_round.py``
@@ -161,6 +164,7 @@ class Work:
         self.v_fixed = vec(n_v, torch.bool)
         self.nmin_v = vec(n_v, dtype)
         self.fix_now = vec(n_v, torch.bool)
+        self.vc_code = vec(n_v, torch.uint8)
         self.done = vec(n_v, torch.bool)
         self.remaining = vec(n_c, dtype)
         self.usage = vec(n_c, dtype)
@@ -215,10 +219,15 @@ class EllSystem(NamedTuple):
     """The device copy of an ELL system (``ops/lmm_ell.LmmEllArrays``):
     the constraint-row tables ``cv_*`` [C, Wc] and the variable-row
     tables ``vc_*`` [V, Wv], the constraint bounds and FATPIPE flags, and
-    the constraint index over the flat variable-row positions
-    (``vcx_ptr`` [C+1], ``vcx_idx``: for each constraint, the positions
-    ``v * Wv + lane`` of its valid entries in increasing order), which
-    K8 folds its per-constraint sums along."""
+    K8's constraint-ordered entry layout over the variable rows
+    (``ops/lmm_ell.py`` ``build_vc_index``): ``vcx_ptr`` [C+1] and, for
+    each constraint's valid entries in increasing flat position
+    ``v * Wv + lane``, that position (``vcx_idx``), the entry's row
+    (``vcx_row``), its weight (``vcx_w``) and its weight over its row's
+    penalty (``vcx_upen``, 0 for a disabled row; written by K8's
+    ``vc_prep``), which K8 folds its per-constraint sums along.  The
+    entry arrays may be longer than ``vcx_ptr[C]`` (the chain's fixed
+    buffers)."""
     cv_var: torch.Tensor    # [C, Wc] int32
     cv_w: torch.Tensor      # [C, Wc] dtype
     cv_valid: torch.Tensor  # [C, Wc] bool
@@ -229,6 +238,9 @@ class EllSystem(NamedTuple):
     c_fatpipe: torch.Tensor  # [C] bool
     vcx_ptr: torch.Tensor   # [C+1] int32
     vcx_idx: torch.Tensor   # [nnz] int32
+    vcx_row: Optional[torch.Tensor] = None   # [nnz] int32
+    vcx_w: Optional[torch.Tensor] = None     # [nnz] dtype
+    vcx_upen: Optional[torch.Tensor] = None  # [nnz] dtype
 
     @property
     def n_c(self) -> int:

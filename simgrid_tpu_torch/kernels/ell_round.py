@@ -12,9 +12,10 @@ bound-free local round of a system with ``vc_w`` is K8
 The CUDA source is ``csrc/ell_round.cu``.
 
 Every row sum of the cv tables (``usage0``, ``d_rem``, ``d_use``)
-folds as XLA:CPU folds ``x.sum(axis=1)``: blocks of 32 consecutive
-lanes left to right from 0.0, then the block partials left to right
-(:func:`fold_rows`); minima, maxima and ORs are order-free.
+folds as XLA:CPU folds ``x.sum(axis=1)``: windows of 32 consecutive
+lanes (the row padded with zeros to a multiple of 32, half of them on
+the left) left to right from 0.0, then the window partials left to
+right (:func:`fold_rows`); minima, maxima and ORs are order-free.
 
 On CPU tensors the wrappers run the plain PyTorch version (a
 transcription of the JAX program) and return whether it ran; on CUDA
@@ -52,21 +53,27 @@ INF = float("inf")
 
 def fold_rows(x: torch.Tensor) -> torch.Tensor:
     """Row sums of a [R, W] table in XLA:CPU's order for ``sum(axis=1)``
-    (W a power of two): each block of 32 lanes left to right from 0.0,
-    then the block partials left to right; a row of at most 32 lanes is
-    one block.  (Within some fused programs LLVM reassociates a 32-lane
-    row into 4-lane vectors; that width is not held by bits.)"""
+    at any width W: a row of at most 32 lanes is folded left to right
+    from 0.0; a wider row is padded with zeros to a multiple of 32,
+    ``pad // 2`` of them on the left, each window of 32 lanes is folded
+    left to right from 0.0 and the window partials are summed the same
+    way, recursively (XLA's tree reduction: a reduce-window of 32, then
+    the reduce).  (Within some fused programs LLVM reassociates a
+    32-lane window into 4-lane vectors; those widths are not held by
+    bits, ROADMAP C2.)"""
     r, wdt = x.shape
-    blk = min(wdt, 32)
-    if wdt % blk:
-        raise ValueError(f"row width {wdt} is not a power of two")
-    total = torch.zeros(r, dtype=x.dtype, device=x.device)
-    for b in range(0, wdt, blk):
-        part = torch.zeros(r, dtype=x.dtype, device=x.device)
-        for j in range(b, b + blk):
-            part = part + x[:, j]
-        total = total + part
-    return total
+    if wdt <= 32:
+        total = torch.zeros(r, dtype=x.dtype, device=x.device)
+        for j in range(wdt):
+            total = total + x[:, j]
+        return total
+    padded = -(-wdt // 32) * 32
+    low = (padded - wdt) // 2
+    xp = torch.zeros((r, padded), dtype=x.dtype, device=x.device)
+    xp[:, low:low + wdt] = x
+    parts = torch.stack([fold_rows(xp[:, b:b + 32])
+                         for b in range(0, padded, 32)], 1)
+    return fold_rows(parts)
 
 
 def row_max0(x: torch.Tensor) -> torch.Tensor:

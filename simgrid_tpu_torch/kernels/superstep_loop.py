@@ -107,13 +107,42 @@ class Loop(NamedTuple):
     N_CTRL]``; None with ``PRED_COUNT``), ``body`` a tuple of steps,
     ``cap`` 0 for no cap, ``cnt`` the loop's count word (an int32 tensor
     of one element; the :class:`DeviceLoop` makes one when a capped loop
-    has none), ``tally`` a name of :data:`TALLIES` or None."""
+    has none), ``tally`` a name of :data:`TALLIES` or None.  ``ends``:
+    the body is one wrapper call whose last kernel evaluates the
+    condition itself, counts the iteration and sets the WHILE node's
+    handle (it takes them from :func:`loop_end_args` while it is
+    captured; K8's round), so the body has no ``loop_cond`` node."""
     pred: int
     ctrl: Optional[torch.Tensor]
     body: tuple
     cap: int = 0
     cnt: Optional[torch.Tensor] = None
     tally: Optional[str] = None
+    ends: bool = False
+
+
+class LoopEnd(NamedTuple):
+    """What a kernel that ends a loop's body needs (``Loop.ends``): the
+    loop's count word and cap (None and 0: no cap), its tally word and
+    the WHILE node's conditional handle."""
+    cnt: Optional[int]
+    cap: int
+    tally: int
+    handle: int
+
+
+#: the loop body being captured whose last kernel sets the condition,
+#: and whether a wrapper took it
+_ENDING: list = [None, False]
+
+
+def loop_end_args() -> Optional[LoopEnd]:
+    """The :class:`LoopEnd` of the loop whose body is being captured, if
+    its last kernel is to end it (``Loop.ends``); None anywhere else.  A
+    wrapper that passes it to its kernel calls this once per capture."""
+    if _ENDING[0] is not None:
+        _ENDING[1] = True
+    return _ENDING[0]
 
 
 def pred_plain(pred: int, ctrl: Optional[torch.Tensor]) -> bool:
@@ -279,6 +308,9 @@ class DeviceLoop:
                 if st.tally is not None and st.tally not in TALLIES:
                     raise ValueError(f"tally {st.tally!r} not in {TALLIES}")
                 self._n_loops += 1
+                if st.ends and (len(st.body) != 1
+                                or isinstance(st.body[0], Loop)):
+                    raise ValueError("a loop its body ends is one call")
                 cnt = st.cnt
                 if st.cap and cnt is None:
                     cnt = torch.zeros(1, dtype=torch.int32,
@@ -344,12 +376,22 @@ class DeviceLoop:
             check(lib.loop_while(graph, ctypes.byref(prev), *args,
                                  ctypes.byref(body), ctypes.byref(handle)),
                   "loop_while")
-            last, inner = self._emit(lib, body, st.body, side)
-            word = ctypes.c_void_p(self._words.data_ptr()
-                                   + 4 * len(self._per))
-            self._per.append((st.tally, inner))
-            check(lib.loop_end(body, last, *args, word, handle),
-                  "loop_end")
+            at = len(self._per)
+            self._per.append(None)
+            word = ctypes.c_void_p(self._words.data_ptr() + 4 * at)
+            if st.ends:
+                _ENDING[:] = [LoopEnd(cnt.value if cnt else None,
+                                      int(st.cap), word.value,
+                                      handle.value), False]
+            try:
+                last, inner = self._emit(lib, body, st.body, side)
+                ended = _ENDING[1]
+            finally:
+                _ENDING[:] = [None, False]
+            self._per[at] = (st.tally, inner)
+            if not ended:
+                check(lib.loop_end(body, last, *args, word, handle),
+                      "loop_end")
         flush()
         return prev, launches
 

@@ -14,13 +14,15 @@ Counterpart of ``simgrid_tpu/ops/lmm_jax.py``'s ELL parts:
   bound-free) or K7 rounds (with bounds, or global), in chunks;
 * :func:`solve_ell_chain` (``:819-941``): the device-resident compaction
   chain: a host numpy init (as the JAX package computes it, numpy's
-  pairwise row sums included), stages of K8 rounds (one K16 launch a
-  stage, under ``_ell_chain_stage``'s condition) that end once at most
-  half the variable rows are live, each followed by K9's stable
-  live-first partition into half the rows, then finisher chunks (one
-  K16 launch each, under ``_vc_chunk``'s condition) with one fetch
-  each.  Overflow or a stall returns None, and the caller re-solves
-  on the dense path, as the reference does.
+  pairwise row sums included), stages of K8 rounds (a K16 loop a stage,
+  under ``_ell_chain_stage``'s condition) that end once at most half
+  the variable rows are live, each followed by K9's stable live-first
+  partition into half the rows, then finisher chunks (under
+  ``_vc_chunk``'s condition) with one fetch each.  On the card the
+  stages and the first chunk are one graph launch, over buffers kept
+  per chain shape (:func:`chain_state`), and each further chunk one
+  more.  Overflow or a stall returns None, and the caller re-solves on
+  the dense path, as the reference does.
 
 The constants are module attributes, as in the JAX package, so a test
 can shrink the chain's stage cap.
@@ -37,8 +39,8 @@ from ..kernels.common import MAX_ROUNDS, EllSystem, EllWork, Work
 from ..kernels.ell_chain import (ChainState, chain_arm, chain_fetch,
                                  chain_stage)
 from ..kernels.ell_round import ell_init
-from ..kernels.superstep_loop import PRED_VC_ROUND, DeviceLoop, Loop
-from ..kernels.vc_round import vc_round
+from ..kernels.superstep_loop import PRED_VC_ROUND, DeviceLoop, Loop, cached
+from ..kernels.vc_round import vc_prep, vc_round
 from . import opstats
 from .lmm_arrays import LmmArrays, bucket
 from .lmm_torch import SolveError, run_chunks
@@ -75,10 +77,12 @@ _CHAIN_STAGE_CAP = 64
 
 
 def ell_widths(e_var: np.ndarray, e_cnst: np.ndarray, n_c: int,
-               n_v: int) -> Optional[tuple]:
+               n_v: int, pad: str = "pow2") -> Optional[tuple]:
     """(c_deg, v_deg, Wc, Wv) of the live elements, or None when the
     caps refuse the system (a row wider than ``_ELL_MAX_WIDTH``, or more
-    than ``_ELL_MAX_FILL`` times the element count in slots)."""
+    than ``_ELL_MAX_FILL`` times the element count in slots).  ``pad``
+    is the JAX package's ``lmm/pad``: power-of-two widths from 4, or the
+    exact widths (``"tight"``)."""
     n_e = len(e_var)
     c_deg = np.bincount(e_cnst, minlength=n_c)
     v_deg = np.bincount(e_var, minlength=n_v)
@@ -86,7 +90,8 @@ def ell_widths(e_var: np.ndarray, e_cnst: np.ndarray, n_c: int,
     wv = int(v_deg.max()) if n_e else 1
     if wc > _ELL_MAX_WIDTH or wv > _ELL_MAX_WIDTH:
         return None
-    wc_b, wv_b = bucket(max(wc, 1), floor=4), bucket(max(wv, 1), floor=4)
+    wc_b = bucket(max(wc, 1), floor=4, pad=pad)
+    wv_b = bucket(max(wv, 1), floor=4, pad=pad)
     if n_e and (n_c * wc_b + n_v * wv_b) > _ELL_MAX_FILL * 2 * n_e:
         return None
     return c_deg, v_deg, wc_b, wv_b
@@ -132,14 +137,16 @@ def ell_tables(e_var: np.ndarray, e_cnst: np.ndarray, e_w: np.ndarray,
             cv_lanes, vc_lanes)
 
 
-def ell_from_arrays(arrays: LmmArrays) -> Optional[LmmEllArrays]:
-    """Host repack of the COO arrays into ELL rows (numpy), or None when
-    the caps refuse it."""
+def ell_from_arrays(arrays: LmmArrays,
+                    pad: str = "pow2") -> Optional[LmmEllArrays]:
+    """Host repack of the COO arrays into ELL rows (numpy) at the row
+    widths ``pad`` gives (:func:`ell_widths`), or None when the caps
+    refuse it."""
     n_e, n_c, n_v = arrays.n_elem, len(arrays.c_bound), \
         len(arrays.v_penalty)
     e_var = arrays.e_var[:n_e]
     e_cnst = arrays.e_cnst[:n_e]
-    widths = ell_widths(e_var, e_cnst, n_c, n_v)
+    widths = ell_widths(e_var, e_cnst, n_c, n_v, pad)
     if widths is None:
         return None
     (cv_var, cv_w, cv_valid, vc_cnst, vc_valid, vc_w), _, _ = ell_tables(
@@ -156,14 +163,15 @@ def ell_from_arrays(arrays: LmmArrays) -> Optional[LmmEllArrays]:
 _ELL_CACHE: dict = {}
 
 
-def ell_cached(arrays: LmmArrays) -> Optional[LmmEllArrays]:
-    key = (id(arrays.e_var), id(arrays.e_cnst))
+def ell_cached(arrays: LmmArrays,
+               pad: str = "pow2") -> Optional[LmmEllArrays]:
+    key = (id(arrays.e_var), id(arrays.e_cnst), pad)
     hit = _ELL_CACHE.get(key)
     if hit is not None:
         src, ell = hit
         if all(a is b for a, b in zip(src, arrays)):
             return ell
-    ell = ell_from_arrays(arrays)
+    ell = ell_from_arrays(arrays, pad)
     if len(_ELL_CACHE) >= 8:
         _ELL_CACHE.clear()
     _ELL_CACHE[key] = (arrays, ell)
@@ -202,28 +210,37 @@ def device_args(kind: str, host_args, device: torch.device, make=None):
 
 
 def build_vc_index(vc_cnst: torch.Tensor, vc_valid: torch.Tensor,
-                   n_c: int):
-    """K8's constraint index over the variable-row tables: for each
-    constraint, the flat positions ``v * Wv + lane`` of its valid entries
-    in increasing order (a stable sort keeps them so), as (ptr [C+1],
-    idx) int32 on the tables' device.  Built where the tables are
+                   vc_w: torch.Tensor, n_c: int) -> dict:
+    """K8's constraint-ordered entry layout over the variable-row tables
+    (:class:`~..kernels.common.EllSystem`'s ``vcx_*`` fields): for each
+    constraint, its valid entries in increasing flat position ``v * Wv
+    + lane`` (a stable sort keeps them so), with the row pointers
+    (``vcx_ptr`` [C+1]), the positions, the entries' rows and weights,
+    and a buffer for their ``w / penalty`` (zeros; K8's ``vc_prep``
+    fills it), on the tables' device.  Built where the tables are
     (glue, counted in ``row_index_builds``)."""
+    wv = int(vc_cnst.shape[1])
     pos = torch.nonzero(vc_valid.reshape(-1)).reshape(-1)
     keys = vc_cnst.reshape(-1).to(torch.int64)[pos]
     order = torch.argsort(keys, stable=True)
     counts = torch.bincount(keys, minlength=n_c)
     ptr = torch.zeros(n_c + 1, dtype=torch.int64, device=vc_cnst.device)
     ptr[1:] = torch.cumsum(counts, 0)
+    idx = pos[order]
     opstats.bump("row_index_builds")
-    return ptr.to(torch.int32), pos[order].to(torch.int32)
+    return dict(vcx_ptr=ptr.to(torch.int32), vcx_idx=idx.to(torch.int32),
+                vcx_row=(idx // wv).to(torch.int32),
+                vcx_w=vc_w.reshape(-1)[idx],
+                vcx_upen=torch.zeros(len(idx), dtype=vc_w.dtype,
+                                     device=vc_w.device))
 
 
 def ell_system(cv_var, cv_w, cv_valid, vc_cnst, vc_valid, vc_w, c_bound,
                c_fatpipe) -> EllSystem:
-    """An :class:`EllSystem` over device tables, with K8's index."""
-    vptr, vidx = build_vc_index(vc_cnst, vc_valid, int(c_bound.shape[0]))
+    """An :class:`EllSystem` over device tables, with K8's layout."""
     return EllSystem(cv_var, cv_w, cv_valid, vc_cnst, vc_valid, vc_w,
-                     c_bound, c_fatpipe, vptr, vidx)
+                     c_bound, c_fatpipe, **build_vc_index(
+                         vc_cnst, vc_valid, vc_w, int(c_bound.shape[0])))
 
 
 def _dense_args(t):
@@ -263,9 +280,9 @@ _CHAIN_INIT_CACHE: dict = {}
 
 def _chain_tables(t):
     vc_cnst, vc_w, vc_valid, pen, c_bound, c_fat = t
-    vptr, vidx = build_vc_index(vc_cnst, vc_valid, int(c_bound.shape[0]))
     return EllSystem(None, None, None, vc_cnst, vc_valid, vc_w, c_bound,
-                     c_fat, vptr, vidx), pen
+                     c_fat, **build_vc_index(vc_cnst, vc_valid, vc_w,
+                                             int(c_bound.shape[0]))), pen
 
 
 def chain_init(ell: LmmEllArrays, eps_f: float, has_fatpipe: bool):
@@ -298,11 +315,87 @@ def chain_init(ell: LmmEllArrays, eps_f: float, has_fatpipe: bool):
     return init_np
 
 
+#: the chains' states by shape (V0, C, layout capacity, Wv, dtype,
+#: device): their buffers, and the graphs built over them
+_CHAIN_STATES: dict = {}
+
+
+def chain_state(sys: EllSystem, pen: torch.Tensor, orig: torch.Tensor,
+                device: torch.device) -> ChainState:
+    """The :class:`ChainState` of the chain's shape, made at its first
+    solve and kept (an LRU of four shapes), reset to the first stage
+    over ``sys``, ``pen`` and ``orig``."""
+    key = (sys.n_v, sys.n_c, int(sys.vcx_row.shape[0]), sys.wv,
+           sys.vc_w.dtype, str(device))
+    cs = _CHAIN_STATES.pop(key, None)
+    if cs is None:
+        if len(_CHAIN_STATES) >= 4:
+            _CHAIN_STATES.pop(next(iter(_CHAIN_STATES)))
+        cs = ChainState(sys, pen, orig,
+                        Work(sys.n_v, sys.n_c, sys.vc_w.dtype, device))
+        cs.loops = {}
+        cs.out = torch.empty(4 + sys.n_v + 2 * sys.n_c,
+                             dtype=sys.vc_w.dtype, device=device)
+    _CHAIN_STATES[key] = cs
+    cs.reset(sys, pen, orig)
+    return cs
+
+
+def chain_halves(v0: int) -> tuple:
+    """The rows each stage keeps: halving from ``v0`` while the half is
+    at least ``_CHAIN_MIN_V``."""
+    out, vs = [], v0
+    while vs // 2 >= _CHAIN_MIN_V:
+        vs //= 2
+        out.append(vs)
+    return tuple(out)
+
+
+def _chain_loops(cs: ChainState, eps_f: float, has_fatpipe: bool,
+                 chunk: int):
+    """The chain as two K16 loops over ``cs``'s fixed buffers: the whole
+    chain (K8's prep and the first arm, each stage's rounds and its K9
+    stage, which arms the next loop, then the finisher's first chunk of
+    rounds and its fetch), and a finisher chunk alone.  Built once per
+    shape, stage-0 buffers and scalars (``superstep_loop.cached``)."""
+    w = cs.w
+    halves = chain_halves(cs.v0)
+    arms = [(_CHAIN_STAGE_CAP, h) for h in halves] + [(-1, -1)]
+
+    def rounds(cap: int = 0) -> Loop:
+        # K8's rounds over the stage's tables while vc_go holds (a
+        # stage's cap is in its round limit; the finisher's is ``cap``)
+        return Loop(PRED_VC_ROUND, w.ctrl, (lambda: vc_round(
+            cs.sys, w, cs.pen, eps_f, has_fatpipe),),
+            cap=cap, tally="vc_round", ends=True)
+
+    def stage(k: int):
+        return lambda: chain_stage(cs, halves[k], arms[k + 1])
+
+    steps = [lambda: vc_prep(cs.sys, w, cs.pen),
+             lambda: chain_arm(cs, *arms[0], True)]
+    for k in range(len(halves)):
+        steps += [rounds(), stage(k)]
+    tail = [rounds(chunk), lambda: chain_fetch(cs, cs.out)]
+    refs = cs.first + (eps_f, has_fatpipe, chunk, _CHAIN_MIN_V,
+                       _CHAIN_STAGE_CAP)
+    dev = cs.out.device
+    # the finisher's graph is captured at its first run, after the
+    # chain's run has left ``cs`` at the last stage's buffers
+    main = cached(cs.loops, "main", refs,
+                  lambda: DeviceLoop(steps + tail, "chain", dev, refs))
+    fin = cached(cs.loops, "finisher", refs,
+                 lambda: DeviceLoop(tail, "chain", dev, refs))
+    return main, fin, halves
+
+
 def solve_ell_chain(ell: LmmEllArrays, eps: float, device: torch.device,
                     has_fatpipe: bool, chunk: int):
     """The compaction chain (``_solve_ell_chain``); returns numpy
     ``(values, remaining, usage, rounds)``, or None on a stage overflow
-    or a stall (the caller re-solves on the dense path)."""
+    or a stall (the caller re-solves on the dense path).  On the card
+    the stages and the first finisher chunk are one graph launch, and
+    each further chunk one more, with one fetch each."""
     eps_f = float(eps)
     opstats.bump("ell_chain_solves")
     sys, pen = device_args(
@@ -312,41 +405,19 @@ def solve_ell_chain(ell: LmmEllArrays, eps: float, device: torch.device,
     init = device_args("vc_chain_init", chain_init(ell, eps_f, has_fatpipe),
                        device)
     v0, n_c = sys.n_v, sys.n_c
+    cs = chain_state(sys, pen, init[5], device)
+    w = cs.w
     # the carry starts as a copy: the cached init stays as uploaded
-    w = Work(v0, n_c, sys.vc_w.dtype, device)
     for t, src in zip((w.v_value, w.v_fixed, w.remaining, w.usage,
                        w.light), init[:5]):
         t.copy_(src)
-    cs = ChainState(sys, pen, init[5], w)
-    chain_arm(cs, -1, -1, first=True)
-
-    def rounds_loop(cap: int = 0) -> DeviceLoop:
-        # K8's rounds over this stage's tables while vc_go holds (a
-        # stage's cap is in its round limit; the finisher's is ``cap``)
-        sys_, pen_ = cs.sys, cs.pen
-        return DeviceLoop(
-            [Loop(PRED_VC_ROUND, w.ctrl, (lambda: vc_round(
-                sys_, w, pen_, eps_f, has_fatpipe),), cap=cap,
-                tally="vc_round")],
-            "chain", device, refs=(sys_, pen_, w))
-
-    vs = v0
-    while vs // 2 >= _CHAIN_MIN_V:
-        half = vs // 2
-        chain_arm(cs, _CHAIN_STAGE_CAP, half)
-        rounds_loop().run()
-        chain_stage(cs, half)
-        opstats.bump("ell_chain_stages")
-        vs = half
-
-    out = torch.empty(4 + v0 + 2 * n_c, dtype=sys.vc_w.dtype, device=device)
+    main, finisher, halves = _chain_loops(cs, eps_f, has_fatpipe, chunk)
+    main.run()
+    cs.goto(halves)
+    opstats.bump("ell_chain_stages", len(halves))
     prev_progress = None
-    chain_arm(cs, -1, -1)
-    finisher = rounds_loop(chunk)
     while True:
-        finisher.run()
-        chain_fetch(cs, out)
-        fetched = opstats.timed_fetch(out)
+        fetched = opstats.timed_fetch(cs.out)
         rounds, n_light, n_fixed, oflow = (int(fetched[0]),
                                            int(fetched[1]),
                                            int(fetched[2]),
@@ -367,6 +438,6 @@ def solve_ell_chain(ell: LmmEllArrays, eps: float, device: torch.device,
             opstats.bump("ell_chain_fallbacks")
             return None
         prev_progress = progress
+        finisher.run()
     return (fetched[4:4 + v0], fetched[4 + v0:4 + v0 + n_c],
             fetched[4 + v0 + n_c:4 + v0 + 2 * n_c], rounds)
-

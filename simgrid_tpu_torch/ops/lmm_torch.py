@@ -40,7 +40,7 @@ from ..kernels.ell_round import ell_round
 from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
 from ..kernels.superstep_loop import (PRED_ROUND, PRED_VC_ROUND,
                                       DeviceLoop, Loop, cached)
-from ..kernels.vc_round import vc_round
+from ..kernels.vc_round import vc_prep, vc_round
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import LmmArrays, bucket
@@ -109,8 +109,7 @@ def _round_fn(sys, has_bounds: bool, global_rounds: bool):
             sys, w, pen, eps, vb, has_bounds, fat, global_rounds),
             PRED_ROUND, "lmm_round")
     if not global_rounds and not has_bounds:
-        return (lambda w, pen, eps, vb, fat: vc_round(sys, w, pen, eps,
-                                                      fat),
+        return (lambda w, pen, eps, vb, fat: vc_round(sys, w, pen, eps, fat),
                 PRED_VC_ROUND, "vc_round")
     return (lambda w, pen, eps, vb, fat: ell_round(sys, w, pen, eps, vb, fat,
                                                    global_rounds),
@@ -122,13 +121,17 @@ def chunk_loop(sys, w: Work, pen: torch.Tensor, eps: float,
                has_fatpipe: bool, global_rounds: bool,
                chunk: int) -> DeviceLoop:
     """At most ``chunk`` rounds while the fixpoint runs, as one K16
-    launch (kept on ``w`` for the same buffers and arms)."""
+    launch (kept on ``w`` for the same buffers and arms).  K8's rounds
+    start with its ``vc_prep`` and end their loop's body themselves."""
     one_round, pred, tally = _round_fn(sys, has_bounds, global_rounds)
     refs = (sys, w, pen, vb, float(eps), has_bounds, has_fatpipe,
             global_rounds, chunk)
+    k8 = tally == "vc_round"
     steps = [Loop(pred, w.ctrl, (lambda: one_round(w, pen, eps, vb,
                                                    has_fatpipe),),
-                  cap=chunk, tally=tally)]
+                  cap=chunk, tally=tally, ends=k8)]
+    if k8:
+        steps.insert(0, lambda: vc_prep(sys, w, pen))
     prepare = (None if isinstance(sys, EllSystem)
                else lambda: plan_of(sys, w))
     return cached(w.ptr_cache, "chunk_loop", refs, lambda: DeviceLoop(
@@ -220,7 +223,7 @@ def solve_arrays(arrays: LmmArrays, eps: float,
                  device: DeviceLike = None,
                  parallel_rounds: Optional[bool] = None,
                  chunk: Optional[int] = None, layout: str = "auto",
-                 chain: str = "auto"):
+                 chain: str = "auto", pad: str = "pow2"):
     """Run the fixpoint in bounded-round chunks with host-side
     convergence checks between them; returns numpy
     ``(values, remaining, usage, rounds)``.  ``parallel_rounds`` None or
@@ -233,7 +236,9 @@ def solve_arrays(arrays: LmmArrays, eps: float,
     :func:`~.lmm_ell.ell_from_arrays` accepts the system; the chain runs
     (``on``, or ``auto`` on the card) for an ELL, local, bound-free
     system of at least ``2 * _CHAIN_MIN_V`` variable slots, and a chain
-    that overflows or stalls falls back to the dense ELL path.  Uploads
+    that overflows or stalls falls back to the dense ELL path.  ``pad``
+    is ``lmm/pad``, the ELL row widths (``pow2`` or the exact widths,
+    ``tight``; the arrays carry their own lengths).  Uploads
     go through the identity-keyed LRU ``lmm_ell.device_args``, so a
     repeated solve of the same arrays uploads nothing, as in JAX."""
     from . import lmm_ell
@@ -246,7 +251,8 @@ def solve_arrays(arrays: LmmArrays, eps: float,
     has_bounds = bool(np.any((arrays.v_bound[:arrays.n_var] > 0)
                              & (arrays.v_penalty[:arrays.n_var] > 0)))
     has_fatpipe = bool(np.any(arrays.c_fatpipe[:arrays.n_cnst]))
-    ell = lmm_ell.ell_cached(arrays) if uses_ell(layout, dev) else None
+    ell = (lmm_ell.ell_cached(arrays, pad) if uses_ell(layout, dev)
+           else None)
     if chunk is None:
         chunk = chunk_rounds(dev, 0 if ell is not None
                              else len(arrays.e_var))

@@ -257,9 +257,9 @@ class WarmSolver:
         cv_lane[:n_e], vc_lane[:n_e] = cv_l, vc_l
         nbytes = sum(a.nbytes for a in arrays)
         t = [torch.from_numpy(a).to(self.device) for a in arrays]
-        vptr, vidx = build_vc_index(t[3], t[4], n_c)
         st.ell = EllSystem(t[0], t[1], t[2], t[3], t[4], t[5],
-                           st.masters[3], st.masters[4], vptr, vidx)
+                           st.masters[3], st.masters[4],
+                           **build_vc_index(t[3], t[4], t[5], n_c))
         shape = (n_c, wc, n_v, wv)
         if st.ell_work is None or st.ell_shape != shape:
             st.ell_work = EllWork(n_v, n_c, wc, t[1].dtype, self.device)
@@ -332,8 +332,8 @@ class WarmSolver:
         ell_delta_scatter(torch.from_numpy(payload).to(self.device), layout,
                           [e.cv_var, e.cv_w, e.cv_valid, e.vc_cnst,
                            e.vc_valid, e.vc_w])
-        vptr, vidx = build_vc_index(e.vc_cnst, e.vc_valid, n_c)
-        st.ell = e._replace(vcx_ptr=vptr, vcx_idx=vidx)
+        st.ell = e._replace(**build_vc_index(e.vc_cnst, e.vc_valid,
+                                             e.vc_w, n_c))
         nbytes = sum(a.nbytes for a in pads)
         opstats.bump("uploaded_bytes_delta", nbytes)
         self.last_upload_bytes += nbytes

@@ -19,6 +19,8 @@ import torch
 
 from simgrid_tpu.ops.lmm_drain import DrainSim as JaxDrainSim
 from simgrid_tpu_torch.kernels import common as kc
+from simgrid_tpu_torch.kernels import ell_chain as k9
+from simgrid_tpu_torch.kernels import vc_round as k8
 from simgrid_tpu_torch.kernels.common import (COMMIT_HEAD, COMMIT_TILE,
                                               Work, commit_tiles, inf_key)
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
@@ -179,12 +181,26 @@ LAYOUT = {k: v for k, v in csrc_defines("common.cuh").items()
           if k != "FULL_MASK"}
 LAYOUT.update({k: v for k, v in csrc_defines("superstep_commit.cu").items()
                if k in ("COMMIT_TILE", "COMMIT_HEAD")})
+#: sizes a kernel's source and its wrapper both declare, as
+#: ``source:NAME``: K8's and K9's pointer counts and K9's scan tiles
+WRAPPER = {"vc_round.cu": k8, "ell_chain.cu": k9}
+for _src, _names in (("vc_round.cu", ("N_PTRS",)),
+                     ("ell_chain.cu", ("N_STAGE_PTRS", "ROW_TILE",
+                                       "ENT_TILE"))):
+    _defs = csrc_defines(_src)
+    LAYOUT.update({f"{_src}:{n}": _defs[n] for n in _names})
 
 
 @pytest.mark.parametrize("c_name", sorted(LAYOUT))
 def test_csrc_layout_matches_python(c_name):
     """Every ctrl/fctrl/evf slot, flag and K3 scratch size of the CUDA
-    sources equals its twin in ``kernels/common.py``."""
+    sources equals its twin in ``kernels/common.py``, and K8's and K9's
+    pointer counts and tile sizes their wrappers' (``kernels/vc_round.py``,
+    ``kernels/ell_chain.py``)."""
+    if ":" in c_name:
+        src, name = c_name.split(":")
+        assert getattr(WRAPPER[src], name) == LAYOUT[c_name]
+        return
     py = PY_NAME.get(c_name, c_name[2:] if c_name.startswith("C_")
                      else c_name)
     assert getattr(kc, py) == LAYOUT[c_name]

@@ -24,7 +24,8 @@ from simgrid_tpu_torch.kernels import ell_chain as k9
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.kernels.common import (
     AANY, ADV_CONV, ADV_GO, ADV_OK, COMMIT_TILE, DT, EV_NEXT_T, EV_T0, FFIRE,
-    FIRE, IT, LIGHT, LIMIT, LIVE_ACC, PENDING, SS_ACTIVE, SS_ADV, SS_NEV,
+    FIRE, IT, LIGHT, LIMIT, LIVE_ACC, OVERFLOW, PENDING, SS_ACTIVE, SS_ADV,
+    SS_NEV,
     SS_ROUNDS, T_COMP, T_SUM, TPOS, EllWork, Work, inf_key)
 from simgrid_tpu_torch.kernels import superstep_loop as k16
 from simgrid_tpu_torch.kernels.dag_walk import dag_walk
@@ -804,6 +805,24 @@ def test_ell_dense_card_equals_plain(cuda, arm, width):
         np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
 
 
+@pytest.mark.parametrize("width", [36, 48])
+@pytest.mark.parametrize("arm", list(ELL_ARMS))
+def test_ell_dense_tight_card_equals_plain(cuda, arm, width):
+    """The same at exact row widths that are not multiples of 32
+    (``pad="tight"``): the card's row sums start their first window of
+    32 lanes where XLA pads the row (``fold_rows``)."""
+    kw, local, kernel = ELL_ARMS[arm]
+    a = width_arrays(3, 96 if local else 48, width, 4, **kw)
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, parallel_rounds=local,
+                               layout="ell", chain="off", pad="tight")
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=local,
+                               layout="ell", chain="off", pad="tight")
+    assert lmm_ell.ell_cached(a, "tight").cv_var.shape[1] == width
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+
+
 def chain_arrays(seed=13):
     from simgrid_tpu_torch.workloads.bench_solve import build_arrays
     return build_arrays(np.random.default_rng(seed), 4096, 33000, 3,
@@ -830,36 +849,104 @@ def test_ell_chain_card_equals_plain(cuda, monkeypatch, cap):
         np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
 
 
-def test_ell_chain_stage_card_equals_plain(cuda):
-    """One chain stage from the same mid-stage state: the kept rows, the
-    re-derived constraint index, v_final and the overflow flag."""
-    a = chain_arrays(5)
+def _chain_start(a, dev, fat=False):
+    """The chain's first-stage state of ``a`` on ``dev``, armed."""
     ell = lmm_ell.ell_from_arrays(a)
-    init = lmm_ell.chain_init(ell, 1e-9, False)
+    init = lmm_ell.chain_init(ell, 1e-9, fat)
+    sys, pen = lmm_ell._chain_tables([torch.from_numpy(np.array(x)).to(
+        dev) for x in (ell.vc_cnst, ell.vc_w, ell.vc_valid, ell.v_penalty,
+                       ell.c_bound, ell.c_fatpipe)])
+    w = Work(sys.n_v, sys.n_c, torch.float64, dev)
+    for t, src in zip((w.v_value, w.v_fixed, w.remaining, w.usage,
+                       w.light), init[:5]):
+        t.copy_(torch.from_numpy(np.array(src)))
+    cs = k9.ChainState(sys, pen, torch.from_numpy(init[5]).to(dev), w)
+    from simgrid_tpu_torch.kernels.vc_round import vc_prep
+    vc_prep(cs.sys, w, cs.pen)
+    k9.chain_arm(cs, 64, sys.n_v // 2, first=True)
+    return cs
+
+
+def _stage_arrays(cs):
+    n = int(cs.sys.vcx_ptr[-1])
+    return [t.cpu().clone() for t in (
+        cs.sys.vc_cnst, cs.sys.vc_w, cs.sys.vc_valid, cs.pen, cs.orig,
+        cs.w.v_value[:cs.sys.n_v], cs.w.v_fixed[:cs.sys.n_v], cs.v_final,
+        cs.w.ctrl, cs.w.rou, cs.sys.vcx_ptr)] + [
+        getattr(cs.sys, k)[:n].cpu().clone()
+        for k in ("vcx_idx", "vcx_row", "vcx_w", "vcx_upen")]
+
+
+@pytest.mark.parametrize("short", [False, True], ids=["guard", "short"])
+@pytest.mark.parametrize("fat", [False, True], ids=["shared", "fatpipe"])
+def test_ell_chain_stage_card_equals_plain(cuda, fat, short):
+    """Chain stages from the same state, each after K8's rounds ran until
+    the stage's guard stopped them: the kept rows, K8's re-derived entry
+    layout (pointers, positions, rows, weights, w / penalty), v_final,
+    the control words and rou, by bits.  ``guard``: two stages of half
+    the rows; ``short``: one stage that keeps a quarter, fewer than are
+    live, so live rows are dropped and the stage raises OVERFLOW."""
+    a = chain_arrays(5)
+    if fat:
+        f = a.c_fatpipe.copy()
+        f[:a.n_cnst] = np.random.default_rng(12).random(a.n_cnst) < 0.10
+        a = a._replace(c_fatpipe=f)
+    from simgrid_tpu_torch.kernels.vc_round import vc_round
     states = []
     for dev in (cuda, torch.device("cpu")):
-        sys, pen = lmm_ell._chain_tables([torch.from_numpy(np.array(x)).to(
-            dev) for x in (ell.vc_cnst, ell.vc_w, ell.vc_valid,
-                           ell.v_penalty, ell.c_bound, ell.c_fatpipe)])
-        w = Work(sys.n_v, sys.n_c, torch.float64, dev)
-        for t, src in zip((w.v_value, w.v_fixed, w.remaining, w.usage,
-                           w.light), init[:5]):
-            t.copy_(torch.from_numpy(np.array(src)))
-        cs = k9.ChainState(sys, pen, torch.from_numpy(init[5]).to(dev), w)
-        k9.chain_arm(cs, -1, -1, first=True)
-        half = sys.n_v // 2
-        k9.chain_arm(cs, 64, half)
-        from simgrid_tpu_torch.kernels.vc_round import vc_round
-        for _ in range(12):           # stop short of half: rows stay live
-            vc_round(cs.sys, w, cs.pen, 1e-9)
-        k9.chain_stage(cs, half)
-        states.append([t.cpu() for t in (
-            cs.sys.vc_cnst, cs.sys.vc_w, cs.sys.vc_valid, cs.pen, cs.orig,
-            w.v_value[:half], w.v_fixed[:half], cs.v_final, w.ctrl,
-            cs.sys.vcx_ptr)] + [cs.sys.vcx_idx[:int(cs.sys.vcx_ptr[-1])]
-                                 .cpu()])
+        cs = _chain_start(a, dev, fat)
+        seen = []
+        for k in range(1 if short else 2):
+            for _ in range(64):
+                vc_round(cs.sys, cs.w, cs.pen, 1e-9, fat)
+            half = cs.sys.n_v // (4 if short else 2)
+            k9.chain_stage(cs, half, (64, half // 2))
+            seen += _stage_arrays(cs)
+        assert int(cs.w.ctrl[OVERFLOW]) == int(short)
+        states.append(seen)
     for x, y in zip(*states):
         assert torch.equal(x, y)
+
+
+def test_ell_chain_graph_built_once(cuda, monkeypatch):
+    """A second solve of the same arrays replays the chain's graph: no
+    graph is built and no K8 or K9 wrapper is called from the host."""
+    a = chain_arrays()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda)
+    reset_launch_counts()
+    g2 = lmm_torch.solve_arrays(a, 1e-9, device=cuda)
+    host = launch_counts()
+    assert k16.BUILDS["graphs"] == 0
+    assert not any(host.get(n, 0) for n in (
+        "vc_round", "vc_prep", "ell_chain_arm", "ell_chain_stage",
+        "ell_chain_fetch"))
+    assert path_counts()["ell_chain_stage"] == 3
+    for x, y in zip(g[:3], g2[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+    assert g[3] == g2[3]
+
+
+@pytest.mark.parametrize("case", ["tight", "fatpipe"])
+def test_ell_chain_variants_card_equal_plain(cuda, case):
+    """The chain at tight padding (exact row widths, V a multiple of
+    4,096) and with 10% of its constraints FATPIPE, card against the
+    plain chain on the CPU."""
+    from simgrid_tpu_torch.workloads.bench_solve import build_arrays
+    pad = "tight" if case == "tight" else "pow2"
+    a = build_arrays(np.random.default_rng(13), 4096, 33000, 3,
+                     np.float64, pad)
+    if case == "fatpipe":
+        f = a.c_fatpipe.copy()
+        f[:a.n_cnst] = np.random.default_rng(12).random(a.n_cnst) < 0.10
+        a = a._replace(c_fatpipe=f)
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, pad=pad)
+    assert path_counts()["ell_chain_stage"] >= 1
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", layout="ell",
+                               chain="on", pad=pad)
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
 
 
 @pytest.mark.parametrize("mode", list(churn.MODES))
