@@ -36,7 +36,10 @@ Phases (each prints one JSON line of its results):
    CPU (by bits: the packed result, events, clock, rounds), its card
    time, the plain loops' time on the card, and as its bound the sum of
    its bodies' bounds (K1's over its rounds, K2's and K3's over its
-   advances);
+   advances).  At the end of the run the same row gets K1's kernel
+   nodes a round by arm over every round loop K16 built
+   (``k1_round_bodies``): a round's last kernel ends its loop's
+   iteration, so no round body may hold a ``loop_cond`` node;
 4. reduced drain: 10,000 flows of the same generator through the
    kernels on the card and through the plain path on the host CPU;
    events and clock must be equal.
@@ -515,6 +518,38 @@ def need_loop(row: dict, where: str, kind: str, tally: str,
             "host_round_calls": host,
             "graph_launches_per_superstep": (g / supersteps
                                              if supersteps else None)}
+
+
+def k1_round_bodies() -> dict:
+    """K1's round loops over the whole run (every graph K16 built): the
+    kernel nodes of one round by arm (the round's launch counter) and
+    the loop_cond nodes inside those bodies.  Fails unless every K1 round
+    body ends its own iteration (no loop_cond node), a round takes at
+    most 4 kernel nodes (8 with bounds, 5 in global order with bounds),
+    and the solo local and bound-first arms both ran in a loop."""
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    nodes, conds, graphs = {}, 0, 0
+    for b in k16.bodies(since_reset=False):
+        if b["tally"] not in ("lmm_round", "lmm_round_fleet"):
+            continue
+        arm = b["arms"]
+        nodes.setdefault(arm, set()).add(b["kernel_nodes"])
+        conds += b["cond_nodes"] * b["graphs"]
+        graphs += b["graphs"]
+        if not b["ends"] or b["cond_nodes"]:
+            raise AssertionError(f"a K1 round body keeps its loop_cond "
+                                 f"node: {b}")
+        glob, bnd = "_global" in arm, "_bounds" in arm
+        most = 5 if glob and bnd else 4 if glob else 8 if bnd else 4
+        if b["kernel_nodes"] > most:
+            raise AssertionError(f"K1 takes {b['kernel_nodes']} kernel "
+                                 f"nodes a round ({arm}; at most {most})")
+    for arm in ("lmm_round", "lmm_round_bounds"):
+        if arm not in nodes:
+            raise AssertionError(f"{arm} never ran inside a K16 loop")
+    return {"k1_nodes_per_round": {a: sorted(v) for a, v in
+                                   sorted(nodes.items())},
+            "round_body_loop_conds": conds, "round_body_graphs": graphs}
 
 
 def fleet_phases(ctx: dict) -> None:
@@ -1019,7 +1054,8 @@ def collective_fleet_phase(ctx: dict) -> None:
     from simgrid_tpu_torch.kernels.common import (AANY, ADV_OK, LIGHT,
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   Work)
-    from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from simgrid_tpu_torch.kernels.dag_walk import (dag_csr, dag_walk,
+                                                    dag_walk_plain)
     from simgrid_tpu_torch.kernels.drain_advance import (
         drain_advance, drain_advance_plain)
     from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
@@ -1307,6 +1343,9 @@ def collective_fleet_phase(ctx: dict) -> None:
     es, ed, ex = (torch.from_numpy(a.copy()) for a in (
         dc.edge_src, dc.edge_dst, dc.exec_cost))
     edges_g = [t.to(cuda) for t in (es, ed, ex)]
+    # the out-edge CSR, built once per schedule as the drains build it
+    edges_g.append(dag_csr(*edges_g[:2], V))
+    csr_c = dag_csr(es, ed, V)
     roots = torch.from_numpy(dc.penalty0 > 0)
     pred0 = torch.from_numpy(dc.pred0.copy())
     walk = {}
@@ -1324,8 +1363,9 @@ def collective_fleet_phase(ctx: dict) -> None:
     for k in ("cuda", "cpu"):
         k10_setup(k)
     dag_walk(wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
-             edges_g[2])
-    dag_walk(wc, es, ed, walk["cpu"]["pred"], walk["cpu"]["ready"], ex)
+             *edges_g[2:])
+    dag_walk(wc, es, ed, walk["cpu"]["pred"], walk["cpu"]["ready"], ex,
+             csr_c)
     torch.cuda.synchronize()
     err10 = max(diff(walk["cuda"]["pred"], walk["cpu"]["pred"]),
                 diff(walk["cuda"]["ready"], walk["cpu"]["ready"]),
@@ -1336,12 +1376,12 @@ def collective_fleet_phase(ctx: dict) -> None:
                              f"version ({err10}) or freed nothing")
     k10_ms = events_ms(lambda: dag_walk(
         wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
-        edges_g[2]), 20, lambda: k10_setup("cuda"))
+        *edges_g[2:]), 20, lambda: k10_setup("cuda"))
     k10_t = time_call(lambda: dag_walk(
         wg, *edges_g[:2], walk["cuda"]["pred"], walk["cuda"]["ready"],
-        edges_g[2]), lambda: k10_setup("cuda"))
+        *edges_g[2:]), lambda: k10_setup("cuda"))
     k10_plain = events_ms(lambda: [dag_walk_plain(
-        wg.replica(b), *edges_g[:2], walk["cuda"]["pred"][b],
+        wg.replica(b), edges_g[3], walk["cuda"]["pred"][b],
         walk["cuda"]["ready"][b], edges_g[2]) for b in range(Bk)], 2,
         lambda: k10_setup("cuda"))
     keep = edges_g[1] < V
@@ -1674,7 +1714,8 @@ def main() -> int:
     from simgrid_tpu_torch.kernels.common import (ADV_GO, ADV_OK, DT, FFIRE,
                                                   PENDING, SS_ACTIVE, T_SUM,
                                                   TPOS)
-    from simgrid_tpu_torch.kernels.dag_walk import dag_walk, dag_walk_plain
+    from simgrid_tpu_torch.kernels.dag_walk import (dag_csr, dag_walk,
+                                                    dag_walk_plain)
     from simgrid_tpu_torch.probes.timing import (events_ms, kernel_counts,
                                                  time_call, time_rounds)
     from simgrid_tpu_torch.workloads.drain_run import (
@@ -3758,6 +3799,9 @@ def main() -> int:
         dc14.edge_src, dc14.edge_dst, dc14.exec_cost))
     args14_g = [t.to(cuda) for t in (es14, ed14)]
     ex14_g = ex14.to(cuda)
+    # the out-edge CSR, built once per schedule as the drains build it
+    csr14_g = dag_csr(*args14_g, V14)
+    csr14 = dag_csr(es14, ed14, V14)
     done14 = torch.from_numpy(dc14.penalty0 > 0)
     st10 = {}
 
@@ -3772,9 +3816,9 @@ def main() -> int:
     k10_setup(w14g, "cuda")
     k10_setup(w14c, "cpu")
     dag_walk(w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
-             ex14_g)
-    dag_walk_plain(w14c, es14, ed14, st10["cpu"]["pred"],
-                   st10["cpu"]["ready"], ex14)
+             ex14_g, csr14_g)
+    dag_walk_plain(w14c, csr14, st10["cpu"]["pred"], st10["cpu"]["ready"],
+                   ex14)
     torch.cuda.synchronize()
     err = max(diff(st10["cuda"]["pred"], st10["cpu"]["pred"]),
               diff(st10["cuda"]["ready"], st10["cpu"]["ready"]),
@@ -3785,9 +3829,9 @@ def main() -> int:
                              "or freed nothing")
     k10_ms = events_ms(lambda: dag_walk(
         w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
-        ex14_g), 20, lambda: k10_setup(w14g, "cuda"))
+        ex14_g, csr14_g), 20, lambda: k10_setup(w14g, "cuda"))
     k10_plain = events_ms(lambda: dag_walk_plain(
-        w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
+        w14g, csr14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
         ex14_g), 5, lambda: k10_setup(w14g, "cuda"))
     keep14 = args14_g[1] < V14
     src14, dst14 = args14_g[0][keep14].long(), args14_g[1][keep14].long()
@@ -3799,7 +3843,7 @@ def main() -> int:
     k10_lib = events_ms(library_k10, 20, lambda: k10_setup(w14g, "cuda"))
     k10_t = time_call(lambda: dag_walk(
         w14g, *args14_g, st10["cuda"]["pred"], st10["cuda"]["ready"],
-        ex14_g), lambda: k10_setup(w14g, "cuda"))
+        ex14_g, csr14_g), lambda: k10_setup(w14g, "cuda"))
     k10_lib_t = time_call(library_k10, lambda: k10_setup(w14g, "cuda"))
     n_dec = int(done14[es14[ed14 < V14].long()].sum())
     # the edge list and the done flag of every edge source read once; per
@@ -3831,6 +3875,9 @@ def main() -> int:
     collective_fleet_phase(dict(tape14=tape14, **helpers))
     probe_phase(helpers)
 
+    # K1's round bodies over every path of the run, on K16's row
+    next(k for k in kernels if k["name"] == "superstep_loop").update(
+        k1_round_bodies())
     report["kernels"] = kernels
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
@@ -3840,7 +3887,8 @@ def main() -> int:
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
         "launches_from")}, **{k: kr[k] for k in (
             "arms", "host_calls", "device_rounds",
-            "graph_launches_per_superstep") if k in kr}}
+            "graph_launches_per_superstep", "k1_nodes_per_round",
+            "round_body_loop_conds") if k in kr}}
         for kr in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@
 #define C_SS_K 11
 #define C_SS_BUDGET 12
 #define C_SS_STOP 13
-// slot 14 is free
+// slot 14 of replica 0's row: a 32-bit ticket over the replica groups
+// of one launch (K1's round end, lmm_round.cu), 0 between launches
+#define C_GTICKET 14
 #define C_LIVE_ACC 15
 #define C_ADV_GO 16
 #define C_ADV_CONV 17
@@ -337,6 +339,30 @@ __device__ __forceinline__ bool last_block(unsigned long long* ticket,
 
 __device__ __forceinline__ unsigned long long* ticket_of(int* ctrl) {
   return reinterpret_cast<unsigned long long*>(ctrl + C_TICKET);
+}
+
+// Where a kernel ends a K16 loop body (superstep_loop.cu, `Loop(...,
+// ends=True)`): the loop's count word (NULL: no cap), its tally word,
+// its cap and the WHILE node's handle (0: not in such a loop).
+struct LoopEnd {
+  int* cnt;
+  int* tally;
+  int cap;
+  cudaGraphConditionalHandle h;
+};
+
+// What loop_cond does as the body's last node, from one thread of the
+// kernel that ends the body: count the iteration into the tally and the
+// cap's word, and let the WHILE node run again when `go` holds and the
+// cap is not reached.
+__device__ __forceinline__ void end_iteration(const LoopEnd& le, bool go) {
+  if (le.tally) *le.tally += 1;
+  if (le.cnt) {
+    int n = *le.cnt + 1;
+    *le.cnt = n;
+    go = go && n < le.cap;
+  }
+  cudaGraphSetConditional(le.h, go ? 1u : 0u);
 }
 
 // Programmatic dependent launch (Hopper): a kernel launched by

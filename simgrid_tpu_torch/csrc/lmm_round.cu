@@ -16,16 +16,17 @@
 //
 // What bounds it on this card: latency, not bytes.  A round is a chain
 // of grid-wide dependencies (neighbourhood min -> processable -> [low
-// bounds -> mb_c -> mb_v -> blocked] -> levels -> sums), so it is five
-// launches (nine with bounds, six in global order).  Each pass walks
-// row indexes and gathers through them: c_ptr -> c_idx -> e_var ->
-// penalty / state, a chain of three or four dependent loads.  The
-// bytes a local round must move (elements, bounds, penalties, state
-// once) are about 27 MB at config #4, 8 us at 3.35 TB/s, and the 50 MB
-// L2 holds the whole system; a pass cannot take less than one launch
-// (about 2.5 us queued on this card, PERF.md §6) plus one such chain
-// (about 1 us from L2), so a solo local round is bound below by about
-// 5 x 3.5 = 18 us whatever its bytes.  A first design gave every
+// bounds -> mb_c -> mb_v -> blocked] -> levels -> sums), so it is four
+// launches (eight with bounds, four or five in global order).  Each
+// pass walks row indexes and gathers through them: c_ptr -> c_idx ->
+// e_var -> penalty / state, a chain of three or four dependent loads.
+// The bytes a local round must move (elements, bounds, penalties,
+// state once) are about 27 MB at config #4, 8 us at 3.35 TB/s, and the
+// 50 MB L2 holds the whole system; a pass cannot take less than one
+// launch (about 2.5 us queued on this card, 1.4 us as a programmatic
+// dependent, PERF.md §6) plus one such chain (about 1 us from L2), so a
+// solo local round is bound below by about 4 x 2.5 = 10 us whatever
+// its bytes.  A first design gave every
 // constraint pass one warp a row, whatever its length, and each
 // element's loads waited on the last: that cost 21-35x the bytes bound.
 //
@@ -59,6 +60,24 @@
 //   A light row that is not touched has no fixed element either, so
 //   round_d reads from it only whether it still has a live element and
 //   stops at the first one;
+// * one launch chain: a round's first kernel (round_a, or glob_reset
+//   in global order) is a plain launch and every later pass a
+//   programmatic dependent (`launch_dependent`; it waits in `pdl_wait`
+//   for the pass before it), as is the init's constraint pass after
+//   init_var.  No pass triggers its dependent early: on this card an
+//   explicit `pdl_trigger`, at a pass's start or at its end, made the
+//   round slower than the implicit trigger at its exit (PERF.md §6).
+//   The round's bookkeeping (the light count into LIGHT, IT + 1,
+//   for every replica whose round ran), which a one-thread launch did
+//   before, is done in the last pass, RoundD, by a two-level ticket
+//   (`round_end`): the light counts travel in the ticket words, so no
+//   block fences.  Captured as the body of a K16 loop built with
+//   `Loop(..., ends=True)`, its last block also does what the loop's
+//   `loop_cond` node did after it: PRED_ROUND over every replica, the
+//   tally and the cap's count, and the WHILE node's handle
+//   (`end_iteration`, common.cuh), so a solo local round is four kernel
+//   nodes in the loop where it was six (eight with bounds where it was
+//   ten);
 // * one index walk for a group of replicas: a thread, warp or block
 //   that owns a row (or a variable) reads the shared index once and
 //   keeps one fold per replica of a group of G (G of 1 or 2, chosen per
@@ -562,16 +581,75 @@ __device__ __forceinline__ void block_row(const Sys<T>& s, unsigned go,
   __syncthreads();  // the next row reuses the shared arrays
 }
 
+// The round's bookkeeping in its last pass (RoundD), by a two-level
+// ticket and no fence.  Level 1, per replica group: each block adds one
+// 64-bit word to the ticket of the group's first replica (C_TICKET):
+// 1 << 48 (a block in) plus its light rows of replica r << 24 r (a
+// count below 2^24 a replica, so no field carries into the next); the
+// block that takes the last ticket holds the group's light counts and,
+// for each replica whose round ran, sets LIGHT and IT + 1.  Level 2,
+// only inside a K16 loop whose body this round ends (`le.h`) and only
+// with more than one group: each group's last block adds (its
+// replicas still go) << 16 plus 1 to the launch-wide ticket C_GTICKET;
+// the last one has PRED_ROUND over every replica, counts the iteration
+// and sets the WHILE node's handle (`end_iteration`).  A replica whose
+// round did not run keeps its words, so its condition stays false.
+// Every block calls it with all its threads; `cnt` holds each thread's
+// light rows by replica of the group.
+template <typename T, int G>
+__device__ __forceinline__ void round_end(const Sys<T>& s,
+                                          const int (&cnt)[G],
+                                          const LoopEnd& le) {
+  __shared__ bool last;
+  __shared__ unsigned long long got;
+  unsigned long long add = 1ULL << 48;
+  FOR_ALL_REPS(r) {
+    int tot = block_sum(cnt[r]);  // valid in thread 0
+    add += (unsigned long long)tot << (24 * r);
+  }
+  int b0 = blockIdx.y * G;
+  if (threadIdx.x == 0) {
+    unsigned long long* ticket = ticket_of(CTRL(b0));
+    unsigned long long old = atomicAdd(ticket, add);
+    last = (unsigned)(old >> 48) == gridDim.x - 1;
+    if (last) {
+      *ticket = 0ULL;
+      got = old + add;
+    }
+  }
+  __syncthreads();
+  if (!last || threadIdx.x != 0) return;
+  bool go = false;
+  FOR_ALL_REPS(r) {
+    int b = b0 + r;
+    if (b >= s.B) break;
+    int* ctrl = CTRL(b);
+    int it = ctrl[C_IT], lt = ctrl[C_LIGHT], lim = ctrl[C_LIMIT];
+    if (!(ctrl[C_ARMED] != 0 && lt > 0 && it < lim)) continue;  // round_go
+    lt = (int)((got >> (24 * r)) & 0xffffff);
+    ctrl[C_LIGHT] = lt;
+    ctrl[C_IT] = it + 1;
+    go |= lt > 0 && it + 1 < lim;
+  }
+  if (!le.h) return;
+  if (gridDim.y > 1) {
+    unsigned* gticket = reinterpret_cast<unsigned*>(s.ctrl + C_GTICKET);
+    unsigned old = atomicAdd(gticket, (go ? 1u << 16 : 0u) | 1u);
+    if ((old & 0xffffu) != gridDim.y - 1) return;
+    *gticket = 0u;
+    go = go || (old >> 16) != 0;
+  }
+  end_iteration(le, go);
+}
+
 // One constraint pass of policy P over every row of the plan.  Units:
 // the long rows (one block each), then the medium rows (NW per block),
 // then the short rows (TB per block); the blocks take units in turn.
-// P::COUNT >= 0: the light rows are counted into that control slot.
+// P::COUNT >= 0: the light rows are counted into that control slot;
+// every pass leaves each thread's count of them in `cnt`.
 template <typename T, int G, class P>
-__global__ void __launch_bounds__(TB, 3) cnst_pass(Sys<T> s) {
-  unsigned go = go_mask<T, G>(s, P::ARMED);
-  if (!go) return;
-  int cnt[G];
-  FOR_ALL_REPS(r) cnt[r] = 0;
+__device__ __forceinline__ void cnst_rows(const Sys<T>& s, unsigned go,
+                                          int (&cnt)[G]) {
   int nL = s.ncls[0], nM = s.ncls[1], nS = s.ncls[2];
   int uM = (nM + NW - 1) / NW, uS = (nS + TB - 1) / TB;
   int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -595,6 +673,18 @@ __global__ void __launch_bounds__(TB, 3) cnst_pass(Sys<T> s) {
   }
 }
 
+// The pass as a kernel; P::END: the round's last pass, which counts
+// its light rows by replica and ends the round (round_end).
+template <typename T, int G, class P>
+__global__ void __launch_bounds__(TB, 3) cnst_pass(Sys<T> s, LoopEnd le) {
+  pdl_wait();
+  unsigned go = go_mask<T, G>(s, P::ARMED);
+  int cnt[G];
+  FOR_ALL_REPS(r) cnt[r] = 0;
+  if (go) cnst_rows<T, G, P>(s, go, cnt);
+  if (P::END) round_end<T, G>(s, cnt, le);
+}
+
 // usage0: in-order sum of w/penalty for SHARED rows, max for FATPIPE
 // rows; remaining, light, and the touch marks cleared.
 template <typename T, bool FAT>
@@ -603,6 +693,7 @@ struct InitC {
   static constexpr bool MAX = true;
   static constexpr bool ARMED = true;
   static constexpr int COUNT = C_LIGHT;
+  static constexpr bool END = false;
   static constexpr unsigned PROBE_F = 0;
   struct Ld {
     T w, p;
@@ -647,6 +738,7 @@ struct RoundB {
   static constexpr bool MAX = false;
   static constexpr bool ARMED = false;
   static constexpr int COUNT = -1;
+  static constexpr bool END = false;
   static constexpr unsigned PROBE_F = 0;
   struct Ld {
     T w, p, nm;
@@ -685,6 +777,7 @@ struct BndMbc {
   static constexpr bool MAX = false;
   static constexpr bool ARMED = false;
   static constexpr int COUNT = -1;
+  static constexpr bool END = false;
   static constexpr unsigned PROBE_F = 0;
   struct Ld {
     T w, p, vb;
@@ -724,6 +817,7 @@ struct BndBlk {
   static constexpr bool MAX = false;
   static constexpr bool ARMED = false;
   static constexpr int COUNT = -1;
+  static constexpr bool END = false;
   static constexpr unsigned PROBE_F = 0;
   struct Ld {
     T w, p, mbv;
@@ -765,7 +859,8 @@ struct RoundD {
   static constexpr int NS = 2;
   static constexpr bool MAX = true;
   static constexpr bool ARMED = false;
-  static constexpr int COUNT = C_LIGHT_ACC;
+  static constexpr int COUNT = -1;
+  static constexpr bool END = true;
   // An untouched light row has no fixed element: no sum, no FATPIPE max
   // and no change is read from its walk, only whether it still has a
   // live element (bit 1), so the walk stops at the first one.
@@ -890,6 +985,7 @@ __device__ __forceinline__ void touch_rows(const Sys<T>& s, int v, int q,
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) init_var(Sys<T> s, int gated,
                                                int limit) {
+  pdl_wait();
   unsigned go = 0;
   FOR_ALL_REPS(r) {
     int b = blockIdx.y * G + r;
@@ -928,6 +1024,7 @@ __global__ void __launch_bounds__(TB) init_var(Sys<T> s, int gated,
 // Pass A: nmin_v = min rou over the variable's live elements.
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) round_a(Sys<T> s) {
+  pdl_wait();
   constexpr int U = 4 / G;
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
@@ -970,6 +1067,7 @@ __global__ void __launch_bounds__(TB) round_a(Sys<T> s) {
 // bounded, and bound * penalty below its level nmin_v.
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) bnd_low(Sys<T> s) {
+  pdl_wait();
   constexpr int U = 4 / G;
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
@@ -1017,6 +1115,7 @@ __global__ void __launch_bounds__(TB) bnd_low(Sys<T> s) {
 // constraints.
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) bnd_mbv(Sys<T> s) {
+  pdl_wait();
   constexpr int U = 4 / G;
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
@@ -1060,6 +1159,7 @@ __global__ void __launch_bounds__(TB) bnd_mbv(Sys<T> s) {
 // bound first.  A fixed variable marks its rows touched.
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) round_c(Sys<T> s) {
+  pdl_wait();
   constexpr int U = 4 / G;
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
@@ -1130,6 +1230,7 @@ __global__ void __launch_bounds__(TB) round_c(Sys<T> s) {
 // one thread per replica (blockIdx.y)
 template <typename T>
 __global__ void glob_reset(Sys<T> s) {
+  pdl_wait();
   int b = blockIdx.y;
   if (!round_go(CTRL(b))) return;
   s.min_usage[b] = key_of(inf_v<T>());
@@ -1140,6 +1241,7 @@ __global__ void glob_reset(Sys<T> s) {
 // replica per blockIdx.y: the pass reads no row index)
 template <typename T>
 __global__ void __launch_bounds__(TB) glob_rou(Sys<T> s) {
+  pdl_wait();
   int b = blockIdx.y;
   if (!round_go(CTRL(b))) return;
   T m = inf_v<T>();
@@ -1159,6 +1261,7 @@ __global__ void __launch_bounds__(TB) glob_rou(Sys<T> s) {
 // below the min.
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) glob_sat(Sys<T> s) {
+  pdl_wait();
   constexpr int U = 4 / G;
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
@@ -1229,6 +1332,7 @@ __global__ void __launch_bounds__(TB) glob_sat(Sys<T> s) {
 // every saturated variable at min/penalty
 template <typename T, int G>
 __global__ void __launch_bounds__(TB) glob_fix(Sys<T> s) {
+  pdl_wait();
   unsigned go = go_mask<T, G>(s, false);
   if (!go) return;
   T mu[G], mb[G];
@@ -1263,14 +1367,6 @@ __global__ void __launch_bounds__(TB) glob_fix(Sys<T> s) {
     }
     if (fixed) touch_rows<T, G>(s, v, q, fixed);
   }
-}
-
-__global__ void round_e(int* ctrl) {
-  ctrl += (long long)blockIdx.y * N_CTRL;
-  if (!round_go(ctrl)) return;
-  ctrl[C_LIGHT] = ctrl[C_LIGHT_ACC];
-  ctrl[C_LIGHT_ACC] = 0;
-  ctrl[C_IT] += 1;
 }
 
 // ------------------------------------------------------------ launches
@@ -1309,53 +1405,63 @@ static dim3 grid_v(int V, int ng) {
   return dim3(b, ng);
 }
 
-// One constraint pass: at most one block per row and the card's
-// resident blocks shared among the groups.
+// One constraint pass, a programmatic dependent of the kernel before
+// it: at most one block per row and the card's resident blocks shared
+// among the groups.
 template <typename T, int G, class P>
-static void launch_cnst(const Sys<T>& s, int ng, cudaStream_t st) {
+static cudaError_t launch_cnst(const Sys<T>& s, int ng, LoopEnd le,
+                               cudaStream_t st) {
   static int res = resident(cnst_pass<T, G, P>);
   int b = res / ng;
   if (b > s.C) b = s.C;
   if (b < 1) b = 1;
-  cnst_pass<T, G, P><<<dim3(b, ng), TB, 0, st>>>(s);
+  return launch_dependent(cnst_pass<T, G, P>, dim3(b, ng), TB, st, s, le);
 }
 
 template <typename T, int G>
 int launch_init_g(Sys<T> s, int gated, int limit, cudaStream_t st) {
   int ng = (s.B + G - 1) / G;
   init_var<T, G><<<grid_v(s.V, ng), TB, 0, st>>>(s, gated, limit);
-  if (s.flags & ARM_FATPIPE)
-    launch_cnst<T, G, InitC<T, true>>(s, ng, st);
-  else
-    launch_cnst<T, G, InitC<T, false>>(s, ng, st);
+  LoopEnd none{nullptr, nullptr, 0, 0};
+  cudaError_t e =
+      s.flags & ARM_FATPIPE
+          ? launch_cnst<T, G, InitC<T, true>>(s, ng, none, st)
+          : launch_cnst<T, G, InitC<T, false>>(s, ng, none, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// A round: its first kernel a plain launch, the rest programmatic
+// dependents; the last (RoundD) ends the loop body `le` when le.h is set.
 template <typename T, int G>
-int launch_round_g(Sys<T> s, cudaStream_t st) {
+int launch_round_g(Sys<T> s, LoopEnd le, cudaStream_t st) {
   int ng = (s.B + G - 1) / G;
   dim3 gv = grid_v(s.V, ng);
+  LoopEnd none{nullptr, nullptr, 0, 0};
+  cudaError_t e = cudaSuccess;
   if (s.flags & ARM_GLOBAL) {
     glob_reset<T><<<grid_r(s.B), 1, 0, st>>>(s);
-    glob_rou<T><<<grid_b(s.C, TB, s.B), TB, 0, st>>>(s);
-    glob_sat<T, G><<<gv, TB, 0, st>>>(s);
-    if (s.flags & ARM_BOUNDS) glob_fix<T, G><<<gv, TB, 0, st>>>(s);
+    e = launch_dependent(glob_rou<T>, grid_b(s.C, TB, s.B), TB, st, s);
+    if (e == cudaSuccess)
+      e = launch_dependent(glob_sat<T, G>, gv, TB, st, s);
+    if (e == cudaSuccess && (s.flags & ARM_BOUNDS))
+      e = launch_dependent(glob_fix<T, G>, gv, TB, st, s);
   } else {
     round_a<T, G><<<gv, TB, 0, st>>>(s);
-    launch_cnst<T, G, RoundB<T>>(s, ng, st);
-    if (s.flags & ARM_BOUNDS) {
-      bnd_low<T, G><<<gv, TB, 0, st>>>(s);
-      launch_cnst<T, G, BndMbc<T>>(s, ng, st);
-      bnd_mbv<T, G><<<gv, TB, 0, st>>>(s);
-      launch_cnst<T, G, BndBlk<T>>(s, ng, st);
+    e = launch_cnst<T, G, RoundB<T>>(s, ng, none, st);
+    if (e == cudaSuccess && (s.flags & ARM_BOUNDS)) {
+      e = launch_dependent(bnd_low<T, G>, gv, TB, st, s);
+      if (e == cudaSuccess) e = launch_cnst<T, G, BndMbc<T>>(s, ng, none, st);
+      if (e == cudaSuccess) e = launch_dependent(bnd_mbv<T, G>, gv, TB, st, s);
+      if (e == cudaSuccess) e = launch_cnst<T, G, BndBlk<T>>(s, ng, none, st);
     }
-    round_c<T, G><<<gv, TB, 0, st>>>(s);
+    if (e == cudaSuccess) e = launch_dependent(round_c<T, G>, gv, TB, st, s);
   }
-  if (s.flags & ARM_FATPIPE)
-    launch_cnst<T, G, RoundD<T, true>>(s, ng, st);
-  else
-    launch_cnst<T, G, RoundD<T, false>>(s, ng, st);
-  round_e<<<grid_r(s.B), 1, 0, st>>>(s.ctrl);
+  if (e == cudaSuccess)
+    e = s.flags & ARM_FATPIPE
+            ? launch_cnst<T, G, RoundD<T, true>>(s, ng, le, st)
+            : launch_cnst<T, G, RoundD<T, false>>(s, ng, le, st);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1369,10 +1475,10 @@ int launch_init(Sys<T> s, int forced, int gated, int limit,
 }
 
 template <typename T>
-int launch_round(Sys<T> s, int forced, cudaStream_t st) {
+int launch_round(Sys<T> s, int forced, LoopEnd le, cudaStream_t st) {
   switch (pick_group(s, forced)) {
-    case 2: return launch_round_g<T, 2>(s, st);
-    default: return launch_round_g<T, 1>(s, st);
+    case 2: return launch_round_g<T, 2>(s, le, st);
+    default: return launch_round_g<T, 1>(s, le, st);
   }
 }
 
@@ -1437,20 +1543,27 @@ int lmm_init(int dbl, int B, int V, int C, int flags, void** ptrs,
       gated, limit, st);
 }
 
+// One round; cnt, tally, cap and handle: the K16 loop whose body this
+// round ends (handle 0: none; the loop's condition is then read over
+// the same B replicas' control words).
 int lmm_round(int dbl, int B, int V, int C, int flags, void** ptrs,
               int n_ptrs, double eps, long long s_ew, int s_cb, int s_vb,
+              void* cnt, void* tally, int cap, unsigned long long handle,
               void* stream) {
   int arms = flags & 0xff, forced = flags >> 8;
-  if (n_ptrs != N_PTRS || B < 1 || B > 65535 || forced < 0 || forced > 2)
+  if (n_ptrs != N_PTRS || B < 1 || B > 65535 || forced < 0 || forced > 2 ||
+      C >= (1 << 24) || (cnt && cap < 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  LoopEnd le{(int*)cnt, (int*)tally, cap,
+             (cudaGraphConditionalHandle)handle};
   if (dbl)
     return launch_round(
         make_sys<double>(B, V, C, arms, eps, ptrs, s_ew, s_cb, s_vb),
-        forced, st);
+        forced, le, st);
   return launch_round(
       make_sys<float>(B, V, C, arms, eps, ptrs, s_ew, s_cb, s_vb), forced,
-      st);
+      le, st);
 }
 
 // The row plan of a constraint index: `order` [C] and `ncls` [3] (see

@@ -25,7 +25,9 @@
 // wrappers' launches on a side stream, captured into the graph itself
 // or into a body graph, kernel arguments baked in) and WHILE nodes;
 // before each WHILE node, and as the last
-// node of its body, sits one `loop_cond` kernel node, which evaluates
+// node of its body (unless the body's last kernel ends the iteration
+// itself: K1's and K8's rounds, `Loop(..., ends=True)`, common.cuh
+// `end_iteration`), sits one `loop_cond` kernel node, which evaluates
 // the loop's condition on the control words of every replica, reduces
 // it over the fleet in one block and sets the node's handle from one
 // thread (`cudaGraphSetConditional`): each condition has exactly one
@@ -62,6 +64,8 @@
 // The graph-building entries below take and return opaque CUDA handles
 // (graphs, nodes, executable graphs) as pointers; the Python side keeps
 // them and destroys them with the loop.
+
+#include <vector>
 
 #include "common.cuh"
 
@@ -260,6 +264,35 @@ int loop_end(void* body, void* prev, int pred, int B, void* ctrl, void* cnt,
                        Cond{pred, B, (int*)ctrl, (int*)cnt, cap, 0,
                             (int*)tally,
                             (cudaGraphConditionalHandle)handle});
+}
+
+// What a round loop's body holds once built: its nodes, its kernel
+// nodes and its loop_cond nodes (0 in a body its last kernel ends).
+int loop_body_nodes(void* body, int* nodes, int* kernels, int* conds) {
+  cudaGraph_t g = (cudaGraph_t)body;
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return (int)e;
+  std::vector<cudaGraphNode_t> all(n);
+  if (n) e = cudaGraphGetNodes(g, all.data(), &n);
+  if (e != cudaSuccess) return (int)e;
+  int k = 0, c = 0;
+  for (size_t i = 0; i < n; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(all[i], &t);
+    if (e != cudaSuccess) return (int)e;
+    if (t != cudaGraphNodeTypeKernel) continue;
+    ++k;
+    cudaKernelNodeParams p = {};
+    if (cudaGraphKernelNodeGetParams(all[i], &p) == cudaSuccess &&
+        p.func == (void*)loop_cond)
+      ++c;
+  }
+  cudaGetLastError();  // a captured node's parameters may not be readable
+  *nodes = (int)n;
+  *kernels = k;
+  *conds = c;
+  return 0;
 }
 
 int loop_instantiate(void* graph, void** exec) {

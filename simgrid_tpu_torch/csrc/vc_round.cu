@@ -77,16 +77,6 @@ struct VSys {
   int* ctrl;
 };
 
-// Where the round ends a K16 loop body: the loop's count word (NULL: no
-// cap), its tally word, its cap and the WHILE node's handle (0: not in
-// such a loop).
-struct LoopEnd {
-  int* cnt;
-  int* tally;
-  int cap;
-  cudaGraphConditionalHandle h;
-};
-
 template <typename T>
 VSys<T> make_sys(int V, int C, int Wv, int fat, double eps, void** p) {
   VSys<T> s;
@@ -345,16 +335,7 @@ __global__ void c_apply(VSys<T> s, LoopEnd le) {
     ctrl[C_LIGHT] = (int)tot;
     ctrl[C_VLIVE] = atomicExch(ctrl + C_VLIVE_ACC, 0);
     ctrl[C_IT] += 1;
-    if (le.h) {
-      bool go = vc_go(ctrl);
-      if (le.tally) *le.tally += 1;
-      if (le.cnt) {
-        int n = *le.cnt + 1;
-        *le.cnt = n;
-        go = go && n < le.cap;
-      }
-      cudaGraphSetConditional(le.h, go ? 1u : 0u);
-    }
+    if (le.h) end_iteration(le, vc_go(ctrl));
   }
 }
 

@@ -21,7 +21,8 @@ their plain PyTorch versions.
 * K9 :mod:`.ell_chain`        — the compaction chain's live count, stage
   partition, row gather and fetch
 * K10 :mod:`.dag_walk`        — a collective schedule's DAG walk: the
-  completions' successor decrements and the activation dates they free
+  completions' successor decrements and the activation dates they free,
+  over the schedule's out-edge CSR
 * K11 :mod:`.fleet_materialize` — a fleet's per-replica state from the
   base arrays and compact payloads, at birth and at the admission of
   one replica

@@ -43,7 +43,10 @@ SS_NLIVE = 10     # live flows after the last advance
 SS_K = 11         # advances asked of this superstep
 SS_BUDGET = 12    # round budget of this superstep
 SS_STOP = 13      # stop once live flows <= this
-#: slot 14 is free
+#: slot 14 of the first replica's row: a 32-bit ticket over the replica
+#: groups of one launch (K1's round end inside a K16 loop); 0 between
+#: launches
+GTICKET = 14
 LIVE_ACC = 15     # live flows counted by the last advance
 ADV_GO = 16       # the last advance ran
 ADV_CONV = 17     # the fixpoint it read had converged

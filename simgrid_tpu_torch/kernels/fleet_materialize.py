@@ -48,6 +48,9 @@ _SIG = {
     "fleet_coll": [I, I, I, P, P, P, P, P, P],
 }
 
+#: pointers in the state entry's array (keep in sync with the source)
+N_STATE_PTRS = 19
+
 #: the base arrays (f64): c_bound [C], sizes, remains, penalties [V]
 Base = Sequence[torch.Tensor]
 #: one payload row per replica: bw, fs [nb] f64; li [nb, sl] int32,
@@ -144,7 +147,7 @@ def _state(base: Base, payload: Payload, out: Sequence[torch.Tensor],
                for n in (C, V, V, V)]
     arr = ptr_array([*base, *payload, *scratch, *out])
     rc = _lib().fleet_state(
-        is_double(out[0].dtype), nb, int(b0), C, V, arr, 19,
+        is_double(out[0].dtype), nb, int(b0), C, V, arr, N_STATE_PTRS,
         int(payload[2].shape[1]), int(payload[4].shape[1]),
         int(payload[6].shape[1]), float(done_eps), int(done_rel), stream())
     check(rc, "fleet_state")

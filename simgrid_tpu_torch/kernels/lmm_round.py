@@ -29,6 +29,15 @@ build, every K4 repack) and kept on the :class:`Work`.  The plan decides
 only which threads walk a row, never an order of addition, so the plain
 round has no use for it; ``lmm_plan_plain`` is its plain twin.
 
+A round is four kernels (eight with bounds, four or five in global
+order), every one after the first a programmatic dependent of the one
+before; its last kernel's last block counts the round (``LIGHT``,
+``IT``).  Captured as the body of a K16 ``Loop(..., ends=True)`` over
+the same control words, that block also evaluates the loop's condition
+over every replica, counts the iteration and sets the WHILE node's
+handle (``superstep_loop.loop_end_args``), so the body holds no
+``loop_cond`` node.
+
 Both wrappers take the system, the fixpoint :class:`Work` and the
 penalties.  On CPU tensors they run the plain PyTorch version below (a
 line-by-line transcription of the JAX round over the COO elements) and
@@ -38,6 +47,7 @@ return None (the device decides whether it runs).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,6 +57,7 @@ from .common import (ARMED, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS,
                      SS_ACTIVE, SS_BUDGET, SS_ROUNDS, D, I, L, LmmSystem, P,
                      Work, check, counter, is_double, on_cpu, ptr,
                      ptr_array, stream)
+from .superstep_loop import loop_end_args
 
 INIT_COUNT = counter("lmm_init")
 PLAN_COUNT = counter("lmm_plan")
@@ -87,7 +98,8 @@ GROUP = 0
 
 _SIG = {
     "lmm_init": [I, I, I, I, I, P, I, D, I, I, L, I, I, P],
-    "lmm_round": [I, I, I, I, I, P, I, D, L, I, I, P],
+    "lmm_round": [I, I, I, I, I, P, I, D, L, I, I, P, P, I,
+                  ctypes.c_ulonglong, P],
     "lmm_plan": [I, I, I, P, P, P, P, P],
 }
 
@@ -433,7 +445,9 @@ def lmm_round(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
               global_rounds: bool = False) -> Optional[bool]:
     """One saturation round (local unless ``global_rounds``), skipped
     when the fixpoint has converged or spent its round limit; a fleet's
-    plain version returns whether any replica ran."""
+    plain version returns whether any replica ran.  Captured as the
+    body of a ``Loop(..., ends=True)``, whose condition must read
+    ``w.ctrl``, the round's last kernel ends the loop's iteration."""
     if on_cpu(pen, sys.e_w, w.ctrl):
         if w.B is not None:
             return any([lmm_round_plain(
@@ -447,10 +461,19 @@ def lmm_round(sys: LmmSystem, w: Work, pen: torch.Tensor, eps: float,
     flags = arm_flags(has_bounds, has_fatpipe, global_rounds)
     s_ew, s_cb, s_vb = _strides(sys, w, pen,
                                 vb if flags & ARM_BOUNDS else None)
+    end = loop_end_args()
+    if end is not None and not (
+            end.ctrl is not None and end.ctrl.data_ptr() == w.ctrl.data_ptr()
+            and end.ctrl.numel() == w.ctrl.numel()):
+        raise ValueError("K1 ends a loop only over its own control words")
     rc = lib.lmm_round(is_double(pen.dtype), w.nb, sys.n_v, sys.n_c,
                        flags | GROUP << 8,
                        _ptrs(sys, w, pen, vb, flags), N_PTRS, float(eps),
-                       s_ew, s_cb, s_vb, stream())
+                       s_ew, s_cb, s_vb,
+                       None if end is None else end.cnt,
+                       None if end is None else end.tally,
+                       0 if end is None else end.cap,
+                       0 if end is None else end.handle, stream())
     check(rc, "lmm_round")
     (ARM_COUNTS if w.B is None else FLEET_ARM_COUNTS)[flags].n += 1
     return None

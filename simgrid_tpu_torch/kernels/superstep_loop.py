@@ -74,6 +74,7 @@ _SIG = {
     "loop_capture_end": [P, P, P],
     "loop_while": [P, P, I, I, P, P, I, P, P],
     "loop_end": [P, P, I, I, P, P, I, P, ctypes.c_ulonglong],
+    "loop_body_nodes": [P, P, P, P],
     "loop_instantiate": [P, P],
     "loop_launch": [P, P],
     "loop_destroy": [P, P],
@@ -95,6 +96,11 @@ _FOLDED: Dict[str, Dict[str, int]] = {"tally": {}, "launches": {}}
 _DROPPED = [0]
 #: wrapper launches of the graphs' top levels (once per graph launch)
 _TOP: Dict[str, int] = {}
+#: the round loops' bodies of the graphs built (:func:`bodies`): the
+#: graphs that built each distinct body, since the process started and
+#: since the last reset
+_BODIES: Dict[tuple, int] = {}
+_BODIES_RESET: Dict[tuple, int] = {}
 
 
 def _lib():
@@ -123,12 +129,14 @@ class Loop(NamedTuple):
 
 class LoopEnd(NamedTuple):
     """What a kernel that ends a loop's body needs (``Loop.ends``): the
-    loop's count word and cap (None and 0: no cap), its tally word and
-    the WHILE node's conditional handle."""
+    loop's count word and cap (None and 0: no cap), its tally word, the
+    WHILE node's conditional handle, and the control words the loop's
+    condition reads (the kernel evaluates it over them)."""
     cnt: Optional[int]
     cap: int
     tally: int
     handle: int
+    ctrl: Optional[torch.Tensor] = None
 
 
 #: the loop body being captured whose last kernel sets the condition,
@@ -236,18 +244,31 @@ def graph_launches() -> Dict[str, int]:
     return out
 
 
+def bodies(since_reset: bool = True) -> list:
+    """The round loops' bodies (``PRED_ROUND``, ``PRED_VC_ROUND``) of
+    the graphs built on the card since the last reset (or since the
+    process started), one entry per distinct body:
+    the nest's kind, the loop's condition and tally, the wrapper
+    launches its body captured per iteration (``arms``: for a round
+    loop, the round's arm counter), its nodes, kernel nodes and
+    ``loop_cond`` nodes as the graph holds them, whether its last kernel
+    ends it, and how many graphs built it."""
+    return [dict(key, graphs=n) for key, n in
+            (_BODIES_RESET if since_reset else _BODIES).items()]
+
+
 def summary() -> dict:
     """What a path's loops did since the last reset: graph launches by
-    kind, graphs built, device iterations by tally, and the round
-    wrappers' own calls from the host (K1, K7, K8: none where the loops
-    run them)."""
+    kind, graphs built, device iterations by tally, the round wrappers'
+    own calls from the host (K1, K7, K8: none where the loops run them)
+    and the bodies of the graphs built (:func:`bodies`)."""
     host = {name: c.n for name, c in COUNTERS.items()
             if name.startswith(("lmm_round", "ell_round", "vc_round"))
             and c.n}
     return dict(graph_launches={k: c.n for k, c in COUNTS.items() if c.n},
                 graph_builds=BUILDS["graphs"],
                 device_tally={k: v for k, v in device_tally().items() if v},
-                host_round_calls=host)
+                host_round_calls=host, bodies=bodies())
 
 
 def reset_tally() -> None:
@@ -260,6 +281,7 @@ def reset_tally() -> None:
     for name in _PLAIN_TALLY:
         _PLAIN_TALLY[name] = 0
     _TOP.clear()
+    _BODIES_RESET.clear()
     BUILDS["graphs"] = 0
 
 
@@ -382,7 +404,7 @@ class DeviceLoop:
             if st.ends:
                 _ENDING[:] = [LoopEnd(cnt.value if cnt else None,
                                       int(st.cap), word.value,
-                                      handle.value), False]
+                                      handle.value, st.ctrl), False]
             try:
                 last, inner = self._emit(lib, body, st.body, side)
                 ended = _ENDING[1]
@@ -392,8 +414,25 @@ class DeviceLoop:
             if not ended:
                 check(lib.loop_end(body, last, *args, word, handle),
                       "loop_end")
+            if st.pred in (PRED_ROUND, PRED_VC_ROUND):
+                self._record_body(lib, body, st, inner, ended)
         flush()
         return prev, launches
+
+    def _record_body(self, lib, body, st: Loop, inner: Dict[str, int],
+                     ended: bool) -> None:
+        """Count the nodes of a finished round loop's body into
+        :func:`bodies` (a body of kernel nodes only: the runtime does
+        not read every node of a body that holds a conditional node)."""
+        n, k, c = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        check(lib.loop_body_nodes(body, ctypes.byref(n), ctypes.byref(k),
+                                  ctypes.byref(c)), "loop_body_nodes")
+        key = (("kind", self.kind), ("pred", st.pred), ("tally", st.tally),
+               ("arms", ",".join(sorted(inner))), ("nodes", n.value),
+               ("kernel_nodes", k.value), ("cond_nodes", c.value),
+               ("ends", ended))
+        for d in (_BODIES, _BODIES_RESET):
+            d[key] = d.get(key, 0) + 1
 
     def _build(self) -> None:
         lib = _lib()

@@ -65,7 +65,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels import fleet_materialize as k11
-from ..kernels.dag_walk import dag_walk
+from ..kernels.dag_walk import dag_csr, dag_walk
 from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, IT, LIGHT,
                               LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
 from ..kernels.drain_advance import drain_advance
@@ -290,7 +290,7 @@ def solve_arrays_batch(e_var, e_cnst, e_w, c_bound, c_fatpipe, v_penalty,
         [Loop(PRED_ROUND, w.ctrl, (lambda: lmm_round(
             sys, w, pen, eps, vb if has_bounds else None, has_bounds,
             has_fatpipe, global_rounds),), cap=chunk,
-            tally="lmm_round_fleet")],
+            tally="lmm_round_fleet", ends=True)],
         "chunk_fleet", dev, refs=(sys, w, pen, vb),
         prepare=lambda: plan_of(sys, w))
     lmm_init(sys, w, pen, eps, has_fatpipe=has_fatpipe)
@@ -574,9 +574,11 @@ class BatchDrainSim:
         put = lambda a: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a)).to(self.device)
         #: the schedule's birth rows (pred0, ready0) and the shared
-        #: structure (edge_src, edge_dst, exec_cost)
+        #: structure (edge_src, edge_dst, exec_cost, and the edges as K10
+        #: walks them)
         self._coll_base = (put(cp), put(cr))
-        self._coll_edges = tuple(put(a) for a in (ces, ced, cec))
+        es, ed, ec = (put(a) for a in (ces, ced, cec))
+        self._coll_edges = (es, ed, ec, dag_csr(es, ed, self.n_v))
         B, V = self.B, self.n_v
         self._coll = (
             torch.empty((B, V), dtype=torch.int32, device=self.device),
@@ -626,7 +628,7 @@ class BatchDrainSim:
                          ready=ready, pen=self._pen)
         if self.has_coll:
             dag_walk(self.w, *self._coll_edges[:2], self._coll[0], ready,
-                     self._coll_edges[2])
+                     *self._coll_edges[2:])
 
     def _superstep_loop(self, packed, k_max: int,
                         ring_n: int) -> DeviceLoop:
@@ -636,7 +638,7 @@ class BatchDrainSim:
         slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
                                  gated=True),
                 Loop(PRED_ROUND, w.ctrl, (self._round,),
-                     tally="lmm_round_fleet"),
+                     tally="lmm_round_fleet", ends=True),
                 lambda: self._queue_advance(packed, k_max, ring_n))
         return self._loop("superstep",
                           self._refs() + (packed, k_max, ring_n),
@@ -903,7 +905,7 @@ class BatchDrainSim:
         slot = [lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
                                  gated=True)] if first else []
         slot += [Loop(PRED_ROUND, w.ctrl, (self._round,), cap=chunk,
-                      tally="lmm_round_fleet"),
+                      tally="lmm_round_fleet", ends=True),
                  lambda: drain_advance(self._pen, self._rem, self._thresh,
                                        self.w, gated=True)]
         return self._loop("rescue_first" if first else "rescue",

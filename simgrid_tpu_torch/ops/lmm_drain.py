@@ -73,7 +73,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, IT, LIGHT,
                               LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
-from ..kernels.dag_walk import dag_walk
+from ..kernels.dag_walk import dag_csr, dag_walk
 from ..kernels.drain_advance import drain_advance, drain_forced_advance
 from ..kernels.livefirst_repack import livefirst_repack
 from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
@@ -272,6 +272,7 @@ class DrainSim:
         self.collective_events: List[Tuple[float, int]] = []
         self._coll_total = 0
         self._coll: Optional[List[torch.Tensor]] = None
+        self._coll_csr = None
         self._coll_clk: Optional[torch.Tensor] = None
         if collective is None:
             return
@@ -288,6 +289,8 @@ class DrainSim:
         self.repack_min = 1 << 62
         #: pred counts, ready dates, edge_src, edge_dst, exec costs
         self._coll = self._upload_delta(cp, cr, ces, ced, cec)
+        #: the edges as K10 walks them (built once per schedule)
+        self._coll_csr = dag_csr(self._coll[2], self._coll[3], self.n_v)
         #: the carried Kahan clock pair (t, compensation), f64
         self._coll_clk = torch.zeros(2, dtype=torch.float64,
                                      device=self.device)
@@ -425,7 +428,7 @@ class DrainSim:
         """At most ``solve_chunk`` rounds while the fixpoint runs (then,
         ``fused``, the dt/retire step): one K16 launch."""
         steps = [Loop(PRED_ROUND, self.w.ctrl, (self._round,),
-                      cap=self.solve_chunk, tally="lmm_round")]
+                      cap=self.solve_chunk, tally="lmm_round", ends=True)]
         if fused:
             steps.append(lambda: drain_advance(self._pen, self._rem,
                                                self._thresh, self.w))
@@ -582,10 +585,11 @@ class DrainSim:
         slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
                                  gated=True),
                 Loop(PRED_ROUND, w.ctrl, (self._round,),
-                     tally="lmm_round"),
+                     tally="lmm_round", ends=True),
                 lambda: self._queue_advance(packed, k_max, ring_n))
         refs = self._refs() + (packed, k_max, ring_n, self.has_tape,
                                self._tape, self.has_coll, self._coll,
+                               self._coll_csr,
                                self._coll_clk)
         return self._loop("superstep", refs,
                           [Loop(PRED_SUPERSTEP, w.ctrl, slot,
@@ -613,7 +617,7 @@ class DrainSim:
                          ready=ready, pen=self._pen)
         if self.has_coll:
             cp, _, ces, ced, cec = self._coll
-            dag_walk(self.w, ces, ced, cp, ready, cec)
+            dag_walk(self.w, ces, ced, cp, ready, cec, self._coll_csr)
 
     def _ring_n(self, k_max: int) -> int:
         """Completions, plus one tape entry per advance, plus one

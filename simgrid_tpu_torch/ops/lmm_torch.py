@@ -122,14 +122,15 @@ def chunk_loop(sys, w: Work, pen: torch.Tensor, eps: float,
                chunk: int) -> DeviceLoop:
     """At most ``chunk`` rounds while the fixpoint runs, as one K16
     launch (kept on ``w`` for the same buffers and arms).  K8's rounds
-    start with its ``vc_prep`` and end their loop's body themselves."""
+    start with its ``vc_prep``; K1's and K8's rounds end their loop's
+    body themselves."""
     one_round, pred, tally = _round_fn(sys, has_bounds, global_rounds)
     refs = (sys, w, pen, vb, float(eps), has_bounds, has_fatpipe,
             global_rounds, chunk)
     k8 = tally == "vc_round"
     steps = [Loop(pred, w.ctrl, (lambda: one_round(w, pen, eps, vb,
                                                    has_fatpipe),),
-                  cap=chunk, tally=tally, ends=k8)]
+                  cap=chunk, tally=tally, ends=tally != "ell_round")]
     if k8:
         steps.insert(0, lambda: vc_prep(sys, w, pen))
     prepare = (None if isinstance(sys, EllSystem)

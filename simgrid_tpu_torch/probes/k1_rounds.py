@@ -52,10 +52,35 @@ timed on one card in one call.  The cases:
   11 without its admission, the 1,024-rank recursive-doubling allreduce
   as a collective fleet of 32 (``workloads/collective_fleet.py``), its
   wall and K1's launches;
-* ``wall1``, ``wall8`` and ``wall10`` (not in the default list):
-  ``chip_smoke.py``'s main paths 1 (the config-#4 random drain), 8 (the
-  same under phase 13's fault tape) and 10 (the fleet of 8 over it,
-  without its admission), their walls (host clock, ending in a sync),
+* ``loop_<case>`` (not in the default list; ``loop_solo``,
+  ``loop_a2a_bounds``, ...): K1 inside K16's loop, the way the drains
+  run it.  The case's rounds from its init as the body of one capped
+  ``Loop(PRED_ROUND, ...)`` (cap: the solve's rounds) in a
+  ``DeviceLoop``, one graph launch; ``ms`` is the card's time of that
+  launch (CUDA events around it, the init queued before the first)
+  over its rounds, the median of ``LOOP_REPS`` launches after one that
+  builds the graph, with the body's nodes (``superstep_loop.bodies``,
+  where the checkout has it).  The loop is built with ``ends=True``
+  where the checkout's ``Loop`` has the field: a round that does not
+  end its loop's iteration itself gets its ``loop_cond`` node all the
+  same;
+* ``k10`` and ``k10_fleet`` (not in the default list): K10's walk of
+  the 1,024-rank recursive-doubling allreduce when its roots complete
+  (``chip_smoke.py``'s K10 rows: one advance, at clock 1e-3; the fleet
+  ``COLL_B`` replicas at clocks 1e-3 apart), one wrapper call from the
+  same restored state (``time_call``), over the out-edge CSR where the
+  checkout builds one, with the flows it freed;
+* ``k16_first`` (not in the default list): ``chip_smoke.py``'s K16 row,
+  the config-#4 drain's first superstep of ``k=4`` advances as one
+  graph launch, timed from its saved start after a warm-up launch
+  (``chip_smoke.replayed_graph``, ``K16_REPS`` launches): the median,
+  the spread and the rounds and advances it ran;
+* ``wall1``, ``wall3``, ``wall8`` and ``wall10`` (not in the default
+  list): ``chip_smoke.py``'s main paths 1 (the config-#4 random drain),
+  3 (the engine-plan drain of the 320-rank LV08 alltoall, cut after
+  ``PLAN_ADVANCES`` advances), 8 (the config-#4 drain under phase 13's
+  fault tape) and 10 (the fleet of 8 over it, without its admission),
+  their walls (host clock, ending in a sync),
   with K1's rounds: the host's wrapper calls, the card's rounds inside
   K16's graphs, the working rounds (``loop_counts``).  With
   ``--profile`` these cases and ``coll1024`` run under
@@ -101,6 +126,8 @@ CASES = ("solo", "fleet8", "a2a_bounds", "a2a_5b", "a2a_fat", "glob48",
          "arms128", "arms128_global", "stage8")
 #: row-length thresholds the class counts are reported at
 LENGTHS = (0, 1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
+#: timed graph launches of a ``loop_<case>``
+LOOP_REPS = 5
 
 
 def kernel_profile(fn) -> dict:
@@ -499,15 +526,25 @@ def loop_counts(row: dict) -> dict:
 
 
 def run_walls(name: str, profile: bool = False) -> dict:
-    """Main path 1, 8 or 10's wall on the card (module docstring); with
-    ``profile`` its run under ``torch.profiler`` (the card's busy
+    """Main path 1, 3, 8 or 10's wall on the card (module docstring);
+    with ``profile`` its run under ``torch.profiler`` (the card's busy
     share) in place of the plain wall."""
     import torch
     from simgrid_tpu_torch.workloads import dragonfly, fault_drain, fleet_run
     from simgrid_tpu_torch.workloads.drain_run import EPS, run_drain
     smoke = main_paths()
-    dsys = dragonfly.build_system(smoke.FLOWS)
     cuda = torch.device("cuda")
+    if name == "wall3":
+        from simgrid_tpu_torch.workloads.drain_run import run_engine_plan
+        a2a = dragonfly.build_alltoall(smoke.RANKS)
+        with _Busy(profile) as busy:
+            _, row, _ = run_engine_plan(a2a, device=cuda,
+                                        max_advances=smoke.PLAN_ADVANCES)
+        keep = ("wall_s", "advances", "supersteps", "rounds", "completed")
+        return {**{k: row[k] for k in keep if k in row},
+                "ranks": smoke.RANKS, "max_advances": smoke.PLAN_ADVANCES,
+                **loop_counts(row), **busy.rec}
+    dsys = dragonfly.build_system(smoke.FLOWS)
     with _Busy(profile) as busy:
         if name == "wall1":
             _, row = run_drain(dsys, device=cuda, superstep=smoke.K)
@@ -555,6 +592,112 @@ def run_headline() -> dict:
                                sum(loop["graph_launches"].values()))}
 
 
+def run_loop_case(name: str) -> dict:
+    """K1 inside K16's loop (``loop_<case>``, module docstring)."""
+    import torch
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.kernels.lmm_round import (lmm_init, lmm_round,
+                                                     plan_of)
+    case = name[len("loop_"):]
+    dev = torch.device("cuda")
+    s, w, pen, vb, arms, eps = build_case(case, dev)
+    rounds = _solve(s, w, pen, vb, arms, eps)
+    fat = arms.get("has_fatpipe", False)
+    tally = "lmm_round" if w.B is None else "lmm_round_fleet"
+    ends = {"ends": True} if "ends" in k16.Loop._fields else {}
+    if hasattr(k16, "reset_tally"):
+        k16.reset_tally()
+    loop = k16.DeviceLoop(
+        [k16.Loop(k16.PRED_ROUND, w.ctrl, (lambda: lmm_round(
+            s, w, pen, eps, vb, **arms),), cap=rounds, tally=tally,
+            **ends)], "chunk" if w.B is None else "chunk_fleet", dev,
+        prepare=lambda: plan_of(s, w))
+    ms = []
+    for rep in range(LOOP_REPS + 1):
+        lmm_init(s, w, pen, eps, has_fatpipe=fat)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loop.run()
+        b.record()
+        torch.cuda.synchronize()
+        if rep:                      # the first launch builds the graph
+            ms.append(a.elapsed_time(b))
+    ctrl = w.ctrl.reshape(-1, w.ctrl.shape[-1]).cpu()
+    from simgrid_tpu_torch.kernels.common import IT, LIGHT
+    if int(ctrl[:, LIGHT].max()) or int(ctrl[:, IT].max()) != rounds:
+        raise AssertionError(f"{name}: the loop did not run the solve's "
+                             f"{rounds} rounds")
+    ms.sort()
+    bodies = k16.bodies() if hasattr(k16, "bodies") else None
+    return {"case": name, "V": s.n_v, "C": s.n_c, "B": w.nb,
+            "rounds": rounds, "launch_ms": ms,
+            "ms": ms[len(ms) // 2] / rounds,
+            "ms_spread": [ms[0] / rounds, ms[-1] / rounds],
+            "bodies": bodies}
+
+
+def run_k10(fleet: bool) -> dict:
+    """K10's walk when the 1,024-rank schedule's roots complete
+    (``k10``, ``k10_fleet``)."""
+    import torch
+    from simgrid_tpu_torch.kernels import dag_walk as k10
+    from simgrid_tpu_torch.kernels.common import ADV_OK, PENDING, T_SUM, Work
+    from simgrid_tpu_torch.workloads import collective_run
+    t = _timing()
+    dev, f64 = torch.device("cuda"), torch.float64
+    dc = collective_run.CASES[2].build()
+    V = dc.n_v
+    B = main_paths().COLL_B if fleet else None
+    lead = () if B is None else (B,)
+    es, ed, cost = (torch.from_numpy(a.copy()).to(dev) for a in (
+        dc.edge_src, dc.edge_dst, dc.exec_cost))
+    kw = ({"csr": k10.dag_csr(es, ed, V)} if hasattr(k10, "dag_csr")
+          else {})
+    pred0 = torch.from_numpy(dc.pred0.copy()).to(dev)
+    roots = torch.from_numpy(dc.penalty0 > 0).to(dev)
+    w = Work(V, dc.n_c, f64, dev, B=B)
+    pred = torch.empty(lead + (V,), dtype=torch.int32, device=dev)
+    ready = torch.empty(lead + (V,), dtype=f64, device=dev)
+    clock = torch.arange(1, (B or 1) + 1, dtype=f64, device=dev) * 1e-3
+
+    def setup():
+        c = w.ctrl.reshape(-1, w.ctrl.shape[-1])
+        c[:, ADV_OK] = 1
+        c[:, PENDING] = 0
+        w.fctrl.reshape(-1, w.fctrl.shape[-1])[:, T_SUM] = clock
+        w.done.copy_(roots.expand(lead + (V,)))
+        pred.copy_(pred0.expand(lead + (V,)))
+        ready.fill_(float("inf"))
+
+    def fn():
+        k10.dag_walk(w, es, ed, pred, ready, cost, **kw)
+    q = t.time_call(fn, setup)
+    setup()
+    fn()
+    freed = int(w.ctrl.reshape(-1, w.ctrl.shape[-1])[:, PENDING].sum())
+    return {"B": w.nb, "V": V, "edges": dc.n_edges, "ms": q["ms"],
+            "queued": q["queued"], "paced_ms": t.events_ms(fn, 20, setup),
+            "freed": freed, "csr": bool(kw),
+            "cuda_launches": t.kernel_counts(fn, setup)}
+
+
+def run_k16_first() -> dict:
+    """K16's first superstep on the card (``k16_first``)."""
+    import torch
+    from simgrid_tpu_torch.workloads import dragonfly, drain_run
+    smoke = main_paths()
+    dsys = dragonfly.build_system(smoke.FLOWS)
+    sim = drain_run.make_sim(dsys, device=torch.device("cuda"),
+                             superstep=smoke.K)
+    spans = []
+    with smoke.replayed_graph("superstep", smoke.K16_REPS, spans):
+        sim.superstep_batch(k=4)
+    ms = sorted(a.elapsed_time(b) for a, b in spans)
+    return {"ms": ms[len(ms) // 2], "ms_spread": [ms[0], ms[-1]],
+            "rounds": sim.rounds, "advances": sim.advances}
+
+
 def _timing():
     """This checkout's ``probes/timing.py``, loaded from its file: the
     package that ``--root`` imports may predate ``time_rounds``."""
@@ -576,7 +719,13 @@ def run_case(name: str, profile: bool = False) -> dict:
         return {"case": name, **run_coll_fleet(profile)}
     if name in K23_CASES:
         return run_k23(name)
-    if name in ("wall1", "wall8", "wall10"):
+    if name in ("k10", "k10_fleet"):
+        return {"case": name, **run_k10(name == "k10_fleet")}
+    if name == "k16_first":
+        return {"case": name, **run_k16_first()}
+    if name.startswith("loop_"):
+        return run_loop_case(name)
+    if name in ("wall1", "wall3", "wall8", "wall10"):
         return {"case": name, **run_walls(name, profile)}
     if name == "headline":
         return {"case": name, **run_headline()}

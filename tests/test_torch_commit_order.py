@@ -10,6 +10,7 @@ the advance's event date.  Every date is exact in binary, so the
 expected events are written out as well as held against JAX's.
 """
 
+import importlib
 import re
 from pathlib import Path
 
@@ -19,8 +20,6 @@ import torch
 
 from simgrid_tpu.ops.lmm_drain import DrainSim as JaxDrainSim
 from simgrid_tpu_torch.kernels import common as kc
-from simgrid_tpu_torch.kernels import ell_chain as k9
-from simgrid_tpu_torch.kernels import vc_round as k8
 from simgrid_tpu_torch.kernels.common import (COMMIT_HEAD, COMMIT_TILE,
                                               Work, commit_tiles, inf_key)
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
@@ -181,26 +180,59 @@ LAYOUT = {k: v for k, v in csrc_defines("common.cuh").items()
           if k != "FULL_MASK"}
 LAYOUT.update({k: v for k, v in csrc_defines("superstep_commit.cu").items()
                if k in ("COMMIT_TILE", "COMMIT_HEAD")})
-#: sizes a kernel's source and its wrapper both declare, as
-#: ``source:NAME``: K8's and K9's pointer counts and K9's scan tiles
-WRAPPER = {"vc_round.cu": k8, "ell_chain.cu": k9}
-for _src, _names in (("vc_round.cu", ("N_PTRS",)),
-                     ("ell_chain.cu", ("N_STAGE_PTRS", "ROW_TILE",
-                                       "ENT_TILE"))):
-    _defs = csrc_defines(_src)
-    LAYOUT.update({f"{_src}:{n}": _defs[n] for n in _names})
+#: every other value a ``.cu`` source defines, as ``source:NAME``, held
+#: to its twin in the source's wrapper (``kernels/<source>.py``)
+SOURCES = sorted(p.name for p in CSRC.glob("*.cu"))
+#: twins under another name than the C one
+TWIN = {
+    "transition_scatter.cu:KIND_I32": lambda m: m._KIND[torch.int32],
+    "transition_scatter.cu:KIND_F32": lambda m: m._KIND[torch.float32],
+    "transition_scatter.cu:KIND_F64": lambda m: m._KIND[torch.float64],
+    "transition_scatter.cu:KIND_BOOL": lambda m: m._KIND[torch.bool],
+    "transition_scatter.cu:KIND_POS": lambda m: m._KIND_POSITIVE,
+}
+#: values only the kernel reads (its threads a block, loads a thread,
+#: the slots of its own scratch): no Python side to match
+INTERNAL = {"ell_chain.cu:ST_TB", "ell_chain.cu:ROW_IPT",
+            "ell_chain.cu:ENT_IPT", "lmm_round.cu:LPV",
+            "probe_scan.cu:SEQ_BATCH", "superstep_commit.cu:COMMIT_TB",
+            *(f"superstep_commit.cu:{n}" for n in (
+                "CS_NEV", "CS_FLAGS", "CS_TN", "CS_OK", "CS_FFIRE",
+                "CS_AANY"))}
+DEFINES = {f"{src}:{n}": v for src in SOURCES
+           for n, v in csrc_defines(src).items()}
+LAYOUT.update({k: v for k, v in DEFINES.items() if k not in INTERNAL
+               and k.split(":")[1] not in LAYOUT})
+
+
+def _twin(src: str, name: str):
+    mod = importlib.import_module("simgrid_tpu_torch.kernels."
+                                  + src[:-len(".cu")])
+    key = f"{src}:{name}"
+    return TWIN[key](mod) if key in TWIN else getattr(mod, name)
 
 
 @pytest.mark.parametrize("c_name", sorted(LAYOUT))
 def test_csrc_layout_matches_python(c_name):
-    """Every ctrl/fctrl/evf slot, flag and K3 scratch size of the CUDA
-    sources equals its twin in ``kernels/common.py``, and K8's and K9's
-    pointer counts and tile sizes their wrappers' (``kernels/vc_round.py``,
-    ``kernels/ell_chain.py``)."""
+    """Every ctrl/fctrl/evf slot (K1's launch-wide ticket among them),
+    flag and K3 scratch size of the CUDA sources equals its twin in
+    ``kernels/common.py``, and every other value a ``.cu`` source
+    defines (pointer counts, arm flags, loop conditions, tile sizes,
+    payload kinds) its twin in the source's wrapper."""
     if ":" in c_name:
         src, name = c_name.split(":")
-        assert getattr(WRAPPER[src], name) == LAYOUT[c_name]
+        assert _twin(src, name) == LAYOUT[c_name]
         return
     py = PY_NAME.get(c_name, c_name[2:] if c_name.startswith("C_")
                      else c_name)
     assert getattr(kc, py) == LAYOUT[c_name]
+
+
+def test_kernel_internal_defines_are_listed():
+    """The values no Python code mirrors are each defined by their
+    source, and every define of every ``.cu`` source is held above or
+    listed as internal."""
+    assert INTERNAL <= set(DEFINES)
+    held = {k for k in LAYOUT if ":" in k} | {
+        f"superstep_commit.cu:{n}" for n in ("COMMIT_TILE", "COMMIT_HEAD")}
+    assert set(DEFINES) == held | INTERNAL

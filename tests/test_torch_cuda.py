@@ -1705,3 +1705,161 @@ def test_k1_plan_rebuilt_after_repack_card_equals_plain(cuda, monkeypatch):
     assert torch.equal(plan.order.cpu(), want.order)
     assert torch.equal(plan.ncls.cpu(), want.ncls)
     assert min(int(x) for x in want.ncls) >= 1
+
+
+# ---------------------------------------------------------------------------
+# K1 ending its own K16 loop iteration, and K10 over the out-edge CSR
+
+#: K1's kernel nodes a round inside a loop it ends, by arm (the first a
+#: plain node, the rest programmatic dependents; no loop_cond node)
+K1_LOOP_NODES = {"local": 4, "bounds": 8, "fatpipe": 4, "bounds_fatpipe": 8,
+                 "global": 4, "global_bounds": 5, "global_fatpipe": 4}
+K1_LOOP_LAYOUTS = ("solo", "b8_shared_g2", "b8_per_w_g1", "b5_per_w_g2")
+
+
+def _k1_loop(s, w, pen, vb, eps, arms, cap, ends):
+    tally = "lmm_round" if w.B is None else "lmm_round_fleet"
+    return k16.DeviceLoop(
+        [k16.Loop(k16.PRED_ROUND, w.ctrl, (lambda: k1.lmm_round(
+            s, w, pen, eps, vb, **arms),), cap=cap, tally=tally,
+            ends=ends)], "chunk" if w.B is None else "chunk_fleet",
+        w.ctrl.device, prepare=lambda: k1.plan_of(s, w)), tally
+
+
+@pytest.mark.parametrize("cap", [0, 5], ids=["uncapped", "cap5"])
+@pytest.mark.parametrize("layout", K1_LOOP_LAYOUTS)
+@pytest.mark.parametrize("arm", list(K1_ARMS))
+def test_k1_loop_ends_card_equals_plain(cuda, monkeypatch, arm, layout,
+                                        cap):
+    """K1 as the body of ``Loop(PRED_ROUND, ..., ends=True)`` in a
+    ``DeviceLoop``, run launch by launch (a capped loop stops exactly at
+    its cap) to convergence: after every launch the state and control
+    words equal the plain loop's on the CPU by bits, and the loop's
+    tally equals the plain loop's and the tally of the same loop built
+    with a ``loop_cond`` node (``ends=False``) on the card.  The body
+    holds the arm's kernel nodes and no ``loop_cond`` node."""
+    B, per_w, group, short_max, long_min = K1_LAYOUTS[layout]
+    monkeypatch.setattr(k1, "GROUP", group)
+    arms = K1_ARMS[arm]
+    fat = arms.get("has_fatpipe", False)
+    eps = 1e-9
+    runs = {}
+    for key, dev, ends in (("ends", cuda, True), ("cond", cuda, False),
+                           ("plain", torch.device("cpu"), True)):
+        s, w, pen, vb = _k1_fleet(dev, np.float64, B, per_w,
+                                  (short_max, long_min))
+        k1.lmm_init(s, w, pen, eps, has_fatpipe=fat)
+        k16.reset_tally()
+        loop, tally = _k1_loop(s, w, pen, vb, eps, arms, cap, ends)
+        states, launches = [], 0
+        while k16.pred_plain(k16.PRED_ROUND, w.ctrl.cpu()):
+            loop.run()
+            launches += 1
+            states.append([getattr(w, n).cpu().clone() for n in K1_STATE]
+                          + [w.ctrl.cpu().clone()])
+            assert launches < 5_000
+        runs[key] = (states, k16.device_tally()[tally], k16.bodies())
+    want, n_plain, _ = runs["plain"]
+    assert n_plain > 2
+    if cap:
+        assert len(want) == -(-n_plain // cap)
+    for key in ("ends", "cond"):
+        got, n, bodies = runs[key]
+        assert n == n_plain, key
+        assert len(got) == len(want), key
+        for i, (g, c) in enumerate(zip(got, want)):
+            for x, y in zip(g, c):
+                assert torch.equal(x, y), (key, i)
+        (body,) = bodies
+        assert body["ends"] == (key == "ends")
+        assert body["cond_nodes"] == (0 if key == "ends" else 1)
+        assert body["kernel_nodes"] == K1_LOOP_NODES[arm] + (key == "cond")
+    assert int(runs["ends"][0][-1][-1].view(-1, 32)[0, 14]) == 0
+
+
+def test_k1_round_outside_a_loop_counts_itself(cuda):
+    """Called from the host, K1's round still moves IT and LIGHT (its
+    last block does what the one-thread launch did), solo and as a
+    fleet, and leaves the launch-wide ticket at 0."""
+    from simgrid_tpu_torch.kernels.common import GTICKET, LIGHT_ACC
+    for B in (None, 5):
+        (sg, wg, pg, vg), (sc, wc, pc_, vc) = (
+            _k1_fleet(dev, np.float64, B, False,
+                      (k1.SHORT_ROW, k1.LONG_ROW))
+            for dev in (cuda, torch.device("cpu")))
+        k1.lmm_init(sg, wg, pg, 1e-9)
+        k1.lmm_init(sc, wc, pc_, 1e-9)
+        for _ in range(3):
+            k1.lmm_round(sg, wg, pg, 1e-9)
+            _k1_plain_round(sc, wc, pc_, vc, 1e-9, {})
+        ctrl = wg.ctrl.cpu().view(-1, 32)
+        assert ctrl[:, IT].tolist() == [3] * ctrl.shape[0]
+        assert torch.equal(ctrl[:, LIGHT], wc.ctrl.view(-1, 32)[:, LIGHT])
+        assert ctrl[:, LIGHT_ACC].tolist() == [0] * ctrl.shape[0]
+        assert int(ctrl[0, GTICKET]) == 0
+
+
+def test_k1_ends_only_its_own_loop(cuda):
+    """A loop over other control words than the round's cannot be ended
+    by K1: building it raises."""
+    s, w, pen, vb = _k1_fleet(cuda, np.float64, None, False,
+                              (k1.SHORT_ROW, k1.LONG_ROW))
+    other = torch.zeros_like(w.ctrl)
+    k1.lmm_init(s, w, pen, 1e-9)
+    loop = k16.DeviceLoop(
+        [k16.Loop(k16.PRED_ROUND, other, (lambda: k1.lmm_round(
+            s, w, pen, 1e-9),), ends=True)], "chunk", cuda,
+        prepare=lambda: k1.plan_of(s, w))
+    with pytest.raises(ValueError):
+        loop.run()
+
+
+@pytest.mark.parametrize("B,V", [(None, 10_240), (None, 1_001), (4, 1_001),
+                                 (32, 10_240)])
+def test_dag_walk_csr_card_equals_plain(cuda, B, V):
+    """K10 over a CSR built once, with seeded completion masks: solo
+    and fleets whose rows start off the 16-byte grid (V = 1,001), one
+    replica whose advance did not commit, several completions a
+    successor; the counts, the dates and the pending counts equal the
+    plain walk's by bits, in two walks in a row."""
+    from simgrid_tpu_torch.kernels.dag_walk import dag_csr
+    rng = np.random.default_rng(V)
+    E = 4 * V
+    src = rng.integers(0, V, E).astype(np.int32)
+    dst = rng.integers(0, V, E).astype(np.int32)
+    dst[::53] = V
+    pred = np.bincount(dst[dst < V], minlength=V).astype(np.int32)
+    lead = () if B is None else (B,)
+    done = rng.random(lead + (V,)) < 0.2
+    cost = rng.uniform(0, 1e-3, V)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        es, ed = t(src), t(dst)
+        csr = dag_csr(es, ed, V)
+        w = Work(V, 4, torch.float64, dev, B=B)
+        if B is not None:
+            w.ctrl[:, ADV_OK] = 1
+            w.ctrl[1, ADV_OK] = 0
+            w.fctrl[:, T_SUM] = torch.arange(1, B + 1,
+                                             dtype=torch.float64) / 8
+        else:
+            w.ctrl[ADV_OK] = 1
+            w.fctrl[T_SUM] = 0.125
+        p = t(np.broadcast_to(pred, lead + (V,)).copy())
+        r = torch.full(lead + (V,), float("inf"), dtype=torch.float64,
+                       device=dev)
+        snaps = []
+        for k in range(2):
+            w.done.copy_(t(np.roll(done, k, axis=-1)))
+            reset_launch_counts()
+            dag_walk(w, es, ed, p, r, t(cost), csr)
+            snaps.append((p.cpu().clone(), r.cpu().clone(),
+                          w.ctrl.cpu().view(-1, 32)[:, PENDING].clone()))
+        out.append((snaps, path_counts()))
+    for (pg, rg, ng), (pc_, rc, nc) in zip(out[0][0], out[1][0]):
+        assert torch.equal(pg, pc_) and torch.equal(rg, rc)
+        assert torch.equal(ng, nc) and int(nc.sum()) > 0
+    if B is not None:
+        assert int(out[1][0][-1][2][1]) == 0
+    assert out[0][1]["dag_walk" if B is None else "dag_walk_fleet"] == 1

@@ -353,3 +353,140 @@ def test_cached_loops_rebuild_on_a_baked_scalar(stage):
     p.eps = 1e-7
     p.superstep_batch()
     assert p.loop_builds == 2
+
+
+# ---------------------------------------------------------------------------
+# K1's rounds end their own loop iteration (``Loop(..., ends=True)``)
+# ---------------------------------------------------------------------------
+
+
+def _round_loop_sites():
+    """Every ``Loop(PRED_ROUND, ...)`` call in the port's modules (not
+    a mention in a docstring's literal), as (``file:line``, the call's
+    text)."""
+    out = []
+    for p in sorted((ROOT / "simgrid_tpu_torch").rglob("*.py")):
+        src = p.read_text()
+        for m in re.finditer(r"(?<!`)\bLoop\(PRED_ROUND\b", src):
+            depth, i = 0, m.end() - len("PRED_ROUND") - 1
+            while True:
+                depth += {"(": 1, ")": -1}.get(src[i], 0)
+                i += 1
+                if depth == 0:
+                    break
+            line = src.count("\n", 0, m.start()) + 1
+            out.append((f"{p.relative_to(ROOT)}:{line}", src[m.start():i]))
+    return out
+
+
+ROUND_LOOP_SITES = _round_loop_sites()
+
+
+@pytest.mark.parametrize("site,call", ROUND_LOOP_SITES,
+                         ids=[s for s, _ in ROUND_LOOP_SITES])
+def test_round_loops_are_built_ending(site, call):
+    """Every K1 round loop of the port (the drain's chunk and superstep
+    loops, the fleet's solve, superstep and rescue loops) is one round
+    call whose last kernel ends the iteration: no ``loop_cond`` node in
+    its body on the card."""
+    assert re.search(r"\blmm_round\b|\b_round\b", call), site
+    assert re.search(r"\bends=True\b", call), site
+
+
+def test_every_round_loop_site_is_found():
+    assert len(ROUND_LOOP_SITES) == 5
+    assert {s.split(":")[0] for s, _ in ROUND_LOOP_SITES} == {
+        "simgrid_tpu_torch/ops/lmm_drain.py",
+        "simgrid_tpu_torch/ops/lmm_batch.py"}
+
+
+def test_round_loops_built_on_every_path_end_themselves(stage, monkeypatch):
+    """The loops the executors and solvers build, recorded as they are
+    built on the CPU: every ``PRED_ROUND`` loop has one wrapper call as
+    its body and ``ends=True`` (K1 and K8 alike in ``chunk_loop``; K7's
+    rounds keep their ``loop_cond`` node)."""
+    built = []
+    init = k16.DeviceLoop.__init__
+
+    def record(self, steps, *a, **kw):
+        built.append(tuple(steps))
+        init(self, steps, *a, **kw)
+    monkeypatch.setattr(k16.DeviceLoop, "__init__", record)
+
+    def round_loops(steps):
+        for st in steps:
+            if isinstance(st, k16.Loop):
+                if st.pred in (k16.PRED_ROUND, k16.PRED_VC_ROUND):
+                    yield st
+                yield from round_loops(st.body)
+    e_var, e_cnst, e_w, c_bound, sizes = stage
+    p = DrainSim(e_var, e_cnst, e_w, c_bound, sizes, eps=1e-9,
+                 dtype=np.float64, superstep=K, device="cpu")
+    p.superstep_batch()
+    p._chunk_loop()
+    p._chunk_loop(fused=True)
+    specs = [pc.ScenarioSpec(seed=s) for s in range(3)]
+    ex = pc.ScenarioPlan(*stage, device="cpu", eps=1e-9, dtype=np.float64,
+                         superstep=K, fault_mode="off").executor(specs)
+    ex.superstep_all()
+    ex._rescue_loop(True, 8)
+    ex._rescue_loop(False, 8)
+    from simgrid_tpu_torch.ops import lmm_batch as pb
+    from tests.test_torch_fleet import _solve_case
+    args, kw = _solve_case("shared")
+    pb.solve_arrays_batch(*args, device="cpu", chunk=4, **kw)
+    for arms in ((False, False, False), (True, True, False),
+                 (False, False, True)):
+        lmm_torch.chunk_loop(p.sys, p.w, p._pen, 1e-9, p._vb, *arms, 8)
+    loops = [st for steps in built for st in round_loops(steps)]
+    assert len(loops) >= 9
+    for st in loops:
+        assert len(st.body) == 1 and st.ends, st
+
+
+def _exact_cap_chunks(n):
+    """Chunk sizes whose last chunk stops exactly at its cap when the
+    solve takes ``n`` rounds: 1, the smallest divisor above 1, and n."""
+    d = next(k for k in range(2, n + 1) if n % k == 0)
+    return sorted({1, d, n})
+
+
+@pytest.mark.parametrize("parallel", [True, False])
+def test_chunks_stopping_at_their_cap_equal_jax(parallel):
+    """``solve_arrays`` in chunks that end exactly where the fixpoint
+    does (the last chunk's loop stops at its cap and at convergence on
+    the same round), one round a chunk, and one round short of one
+    chunk: JAX's rounds and values, and the loop's iterations are those
+    rounds."""
+    a = bench_solve.build_arrays(np.random.default_rng(5), 48, 200, 3,
+                                 np.float64)
+    n = lmm_jax.solve_arrays(lmm_jax.LmmArrays(*a), 1e-9,
+                             parallel_rounds=parallel)[3]
+    assert n > 3
+    for chunk in _exact_cap_chunks(n) + [n - 1]:
+        k16.reset_tally()
+        p = lmm_torch.solve_arrays(a, 1e-9, device="cpu", layout="coo",
+                                   parallel_rounds=parallel, chunk=chunk)
+        j = lmm_jax.solve_arrays(lmm_jax.LmmArrays(*a), 1e-9,
+                                 parallel_rounds=parallel, chunk=chunk)
+        assert p[3] == j[3] == n, chunk
+        for x, y in zip(p[:3], j[:3]):
+            assert np.array_equal(np.asarray(x), np.asarray(y)), chunk
+        assert k16.device_tally()["lmm_round"] == n
+
+
+def test_fleet_chunks_stopping_at_their_cap_equal_jax():
+    """The fleet solve in chunks that end exactly at the slowest
+    replica's convergence and at one round: each replica's values and
+    rounds are the JAX fleet's."""
+    from simgrid_tpu.ops import lmm_batch as jb
+    from simgrid_tpu_torch.ops import lmm_batch as pb
+    from tests.test_torch_fleet import _solve_case
+    args, kw = _solve_case("bounds_fatpipe")
+    n = int(np.max(np.asarray(jb.solve_arrays_batch(*args, **kw)[3])))
+    for chunk in _exact_cap_chunks(n):
+        want = jb.solve_arrays_batch(*args, chunk=chunk, **kw)
+        got = pb.solve_arrays_batch(*args, device="cpu", chunk=chunk, **kw)
+        for g, w in zip(got, want):
+            assert np.array_equal(np.asarray(g), np.asarray(w)), chunk
+        assert int(np.max(np.asarray(got[3]))) == n
