@@ -115,11 +115,14 @@ Then the ELL layout, the JAX package's default solve on an accelerator
    and the median of 3, held against the plain chain on the CPU with the same rounds and stages; (b) the chain off:
    K7's init and K8's rounds, held against the plain dense path; (c) a
    stage cap of 1: the chain overflows and the dense path re-solves,
-   equal to (b); then K7's init, K8 and K9 held against their plain
-   versions at the headline's shapes with their ms, and K7's round arms
-   (the bound-first rule, FATPIPE, the global order) held whole at the
-   same widths (2,048 x 12,500, Wc 64, Wv 4; the global order on
-   bench.py's 2,000 x 2,000 class), timed at full width;
+   equal to (b); then K7's init and prep, K8 and K9 held against their
+   plain versions at the headline's shapes with their ms, and K7's round
+   arms (the bound-first rule, FATPIPE, the global order) held whole at
+   the same widths (2,048 x 12,500, Wc 64, Wv 4; the global order on
+   bench.py's 2,000 x 2,000 class), timed at full width as host-queued
+   rounds and inside K16's loop, with the kernel nodes of each round
+   body read from the solve's graph (none may be a ``loop_cond``
+   node);
 12. main path 7, the 100k churn of phase 9 under the default layout
    (ELL): all four modes, every step of warm-selective and of
    legacy-subset held against the plain path on the CPU (``layout``
@@ -274,6 +277,13 @@ PLAN_ADVANCES = 128
 #: precision its stage_device uses off the TPU (f64)
 HEADLINE = dict(n_c=16384, n_v=100_000, deg=4, seed=42)
 HL_EPS = 1e-9
+#: CUDA kernels a call (the kernel nodes of one captured call,
+#: ``superstep_loop.kernel_nodes``): at most this many for K4 (22 before
+#: its redesign), exactly these for K8's round (its four passes) and
+#: K9's stage (rows, then entries)
+K4_MAX_LAUNCHES = 5
+K8_ROUND_LAUNCHES = 4
+K9_STAGE_LAUNCHES = 2
 #: the reduced class K7's round arms are held whole at (same widths)
 ARMS_CLASS = dict(n_c=2048, n_v=12_500, deg=4)
 #: the fault campaign of phase 13: every used link of the config-#4
@@ -526,10 +536,18 @@ def k1_round_bodies() -> dict:
     the loop_cond nodes inside those bodies.  Fails unless every K1 round
     body ends its own iteration (no loop_cond node), a round takes at
     most 4 kernel nodes (8 with bounds, 5 in global order with bounds),
-    and the solo local and bound-first arms both ran in a loop."""
+    and the solo local and bound-first arms both ran in a loop.  K7's
+    round loops (phase 11(d)) are read the same way: their kernel nodes
+    a round by arm, and no K7 body may hold a loop_cond node either."""
     from simgrid_tpu_torch.kernels import superstep_loop as k16
-    nodes, conds, graphs = {}, 0, 0
+    nodes, conds, graphs, k7 = {}, 0, 0, {}
     for b in k16.bodies(since_reset=False):
+        if b["tally"] == "ell_round":
+            if not b["ends"] or b["cond_nodes"]:
+                raise AssertionError(f"a K7 round body keeps its loop_cond "
+                                     f"node: {b}")
+            k7.setdefault(b["arms"], set()).add(b["kernel_nodes"])
+            continue
         if b["tally"] not in ("lmm_round", "lmm_round_fleet"):
             continue
         arm = b["arms"]
@@ -547,8 +565,12 @@ def k1_round_bodies() -> dict:
     for arm in ("lmm_round", "lmm_round_bounds"):
         if arm not in nodes:
             raise AssertionError(f"{arm} never ran inside a K16 loop")
+    if not k7:
+        raise AssertionError("K7 never ran inside a K16 loop")
     return {"k1_nodes_per_round": {a: sorted(v) for a, v in
                                    sorted(nodes.items())},
+            "k7_nodes_per_round": {a: sorted(v) for a, v in
+                                   sorted(k7.items())},
             "round_body_loop_conds": conds, "round_body_graphs": graphs}
 
 
@@ -1681,7 +1703,9 @@ def main() -> int:
     from simgrid_tpu_torch.kernels import ell_chain as k9
     from simgrid_tpu_torch.kernels.common import OVERFLOW, EllWork
     from simgrid_tpu_torch.kernels.ell_round import (
-        ell_init, ell_init_plain, ell_round, ell_round_plain, round_runs)
+        ell_init, ell_init_plain, ell_prep, ell_prep_plain, ell_round,
+        ell_round_plain, round_runs)
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
     from simgrid_tpu_torch.kernels.vc_round import (vc_prep, vc_prep_plain,
                                                     vc_round, vc_round_plain)
     from simgrid_tpu_torch.kernels.warm_init import (warm_init_ell,
@@ -1703,7 +1727,7 @@ def main() -> int:
     from simgrid_tpu_torch.kernels.warm_init import (warm_init,
                                                      warm_init_plain)
     from simgrid_tpu_torch.ops import lmm_drain as lmm_drain_mod
-    from simgrid_tpu_torch.ops import lmm_ell, opstats
+    from simgrid_tpu_torch.ops import lmm_ell, lmm_torch, opstats
     from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket, to2d
     from simgrid_tpu_torch.ops.lmm_host import LmmFlags
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
@@ -1716,8 +1740,8 @@ def main() -> int:
                                                   TPOS)
     from simgrid_tpu_torch.kernels.dag_walk import (dag_csr, dag_walk,
                                                     dag_walk_plain)
-    from simgrid_tpu_torch.probes.timing import (events_ms, kernel_counts,
-                                                 time_call, time_rounds)
+    from simgrid_tpu_torch.probes.timing import (events_ms, time_call,
+                                                 time_rounds)
     from simgrid_tpu_torch.workloads.drain_run import (
         ENGINE_DONE_EPS, EPS, held_step, run_drain, run_engine_plan,
         run_engine_plan_held, run_solve, solve_inputs)
@@ -1985,6 +2009,13 @@ def main() -> int:
                                               live_elems))
     k4_plain = events_ms(lambda: livefirst_repack_plain(
         sg, *args_g, vh, eh, live_elems), 3)
+    # its CUDA launches a call (the kernel nodes of one captured call):
+    # at most K4_MAX_LAUNCHES
+    k4_launches = k16.kernel_nodes(lambda: livefirst_repack(
+        sg, *args_g, vh, eh, live_elems))
+    if not 0 < k4_launches <= K4_MAX_LAUNCHES:
+        raise AssertionError(f"K4 launches {k4_launches} CUDA kernels a "
+                             f"call, not 1 to {K4_MAX_LAUNCHES}")
     # elements and flow rows read once, the halves written once; the row
     # indexes are this design's (the JAX repack has none), left out as
     # in K1's bound
@@ -1997,6 +2028,7 @@ def main() -> int:
         max_abs_err=err, ms=k4_t["ms"], paced_ms=k4_ms,
         queued=k4_t["queued"], plain_ms=k4_plain,
         bound_ms=bound_ms(k4_bytes), bound_by="bytes", library_ms=None,
+        cuda_launches_per_call=k4_launches,
         live_flows=int(live.sum()), live_elems=live_elems))
     log({"phase": "kernel", **kernels[-1]})
     del wg, wc, sg, sc, rg, rp
@@ -2514,6 +2546,11 @@ def main() -> int:
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]))
     k4v_plain = events_ms(lambda: livefirst_repack_plain(
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 3)
+    k4v_launches = k16.kernel_nodes(lambda: livefirst_repack(
+        sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]))
+    if not 0 < k4v_launches <= K4_MAX_LAUNCHES:
+        raise AssertionError(f"K4+ launches {k4v_launches} CUDA kernels a "
+                             f"call, not 1 to {K4_MAX_LAUNCHES}")
     kernels.append(dict(
         name="livefirst_repack_vbound", route="cuda",
         source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
@@ -2524,6 +2561,7 @@ def main() -> int:
         bound_ms=bound_ms(nbytes(sgr.e_var, sgr.e_cnst, sgr.e_w, *args_g4)
                           + nbytes(*rg4.sys[:3], *rg4[1:])),
         bound_by="bytes", library_ms=None,
+        cuda_launches_per_call=k4v_launches,
         launches_from=(
             "main path 3 at full width to its end (100,000 random flows, "
             "LV08 values); it does not run on the 320-rank alltoall within "
@@ -2870,15 +2908,11 @@ def main() -> int:
             stages_per_solve=st_v // 4, cpu_stages=st_cv,
             cpu_wall_s=time.perf_counter() - t0,
             held=same_result(res_v, cpu_v) and st_v == 4 * st_cv)
-    # the CUDA kernels of one repeated solve (the chain's graph replayed):
-    # K8's four a round, K16's loop_cond only before each loop
-    per_solve = {}
-    for name, n in kernel_counts(lambda: solve_arrays(
-            hl, HL_EPS, cuda, parallel_rounds=True), reps=2).items():
-        base = name.split("<")[0]
-        per_solve[base] = per_solve.get(base, 0) + n
-    k8_nodes = sum(per_solve.get(n, 0) for n in (
-        "v_nmin", "c_proc", "v_fix", "c_apply", "loop_cond"))
+    # K8's round loops as the chain's graph holds them: the kernel nodes
+    # of each body, none of them a loop_cond node
+    k8_bodies = [b for b in k16.bodies(since_reset=False)
+                 if b["tally"] == "vc_round"]
+    k8_nodes = sorted({b["kernel_nodes"] for b in k8_bodies})
     rec = {"phase": "main_path_headline", **{k: row_a[k] for k in (
         "n_c", "n_v", "deg", "seed", "rounds", "first_ms", "ms", "reps_ms",
         "path", "chain_fell_back", "uploaded_bytes_first", "launches")},
@@ -2893,8 +2927,7 @@ def main() -> int:
            "held_overflow_equals_dense": held_c,
            "chain_equals_dense_rounds": res_a[3] == res_b[3],
            "after_first": row_a["after_first"],
-           "cuda_kernels_per_solve": per_solve,
-           "k8_nodes_per_round": k8_nodes / max(row_a["rounds"], 1),
+           "k8_nodes_per_round": k8_nodes,
            "variants": variants}
     log(rec)
     report["main_path_headline"] = rec
@@ -2912,9 +2945,11 @@ def main() -> int:
     if after["graph_builds"] or any(after["host_calls"].values()):
         raise AssertionError(f"headline: a solve after the first built a "
                              f"graph or called K8/K9 from the host: {after}")
-    if not k8_nodes / max(row_a["rounds"], 1) < 6:
-        raise AssertionError(f"headline: K8 takes {per_solve} kernel nodes "
-                             f"for {row_a['rounds']} rounds")
+    if k8_nodes != [K8_ROUND_LAUNCHES] or any(
+            b["cond_nodes"] or not b["ends"] for b in k8_bodies):
+        raise AssertionError(f"headline: K8's round bodies are not "
+                             f"{K8_ROUND_LAUNCHES} kernel nodes that end "
+                             f"their iteration: {k8_bodies}")
     for name in ("vc_round", "vc_prep", "ell_chain_arm", "ell_chain_stage",
                  "ell_chain_fetch", "superstep_loop_chain"):
         if la.get(name, 0) <= 0:
@@ -2941,7 +2976,15 @@ def main() -> int:
                              getattr(wc_, n).numpy())
                    for n in ell_state + tuple(extra)) \
             and same_bits(wg_.ctrl.cpu().numpy()[:2], wc_.ctrl.numpy()[:2])
-    err_k7i = 0.0 if ell_held(wh, whc) else float("inf")
+    err_k7i = 0.0 if ell_held(wh, whc, ("rou",)) else float("inf")
+    # K7's prep from it: rou and each cv entry's w / penalty and enabled
+    # flag, card against plain, before K8's prep
+    ell_prep(sys_h, wh, pen_h, vb_h)
+    ell_prep_plain(sys_hc, whc, pen_h.cpu())
+    err_prep7 = 0.0 if all(same_bits(getattr(wh, n).cpu().numpy(),
+                                     getattr(whc, n).numpy())
+                           for n in ("rou", "cv_upen", "cv_ev")) \
+        else float("inf")
     # K8's prep from it: each constraint's rou and each entry's w /
     # penalty, card against plain
     vc_prep(sys_h, wh, pen_h)
@@ -2956,10 +2999,10 @@ def main() -> int:
         vc_round(sys_h, wh, pen_h, HL_EPS)
         vc_round_plain(sys_hc, whc, pen_h.cpu(), HL_EPS)
     err_k8 = 0.0 if ell_held(wh, whc, ("rou",)) else float("inf")
-    if err_k7i or err_k8 or err_prep:
-        raise AssertionError(f"headline: K7 init / K8 / K8's prep differ "
-                             f"from plain ({err_k7i}, {err_k8}, "
-                             f"{err_prep})")
+    if err_k7i or err_k8 or err_prep or err_prep7:
+        raise AssertionError(f"headline: K7 init / K8 / K8's prep / K7's "
+                             f"prep differ from plain ({err_k7i}, {err_k8}, "
+                             f"{err_prep}, {err_prep7})")
     r_h = res_b[3]
     k7i_ms = events_ms(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h), 10)
     k7i_t = time_call(lambda: ell_init(sys_h, wh, pen_h, HL_EPS, vb_h))
@@ -2968,6 +3011,13 @@ def main() -> int:
     prep_t = time_call(lambda: vc_prep(sys_h, wh, pen_h))
     prep_ms = events_ms(lambda: vc_prep(sys_h, wh, pen_h), 10)
     prep_plain = events_ms(lambda: vc_prep_plain(sys_h, wh, pen_h), 3)
+    prep7_t = time_call(lambda: ell_prep(sys_h, wh, pen_h, vb_h))
+    prep7_ms = events_ms(lambda: ell_prep(sys_h, wh, pen_h, vb_h), 10)
+    prep7_plain = events_ms(lambda: ell_prep_plain(sys_h, wh, pen_h), 3)
+    # per cv entry its variable, weight, validity and penalty read and
+    # its w / penalty and flag written; rou from remaining, usage, light
+    prep7_bytes = (sys_h.n_c * sys_h.wc * (4 + 8 + 1 + 8 + 8 + 1)
+                   + nbytes(wh.remaining, wh.usage, wh.light, wh.rou))
     # rou written, remaining/usage/light read, per entry its row, weight
     # and penalty read and its w / penalty written
     prep_bytes = (nbytes(wh.remaining, wh.usage, wh.light, wh.rou)
@@ -2995,7 +3045,10 @@ def main() -> int:
     # the CUDA kernels a round launches (its nodes inside K16's loop: the
     # last one ends the loop's iteration, so there is no loop_cond node)
     k8_init()
-    k8_kernels = kernel_counts(k8_round)
+    k8_launches = k16.kernel_nodes(k8_round)
+    if k8_launches != K8_ROUND_LAUNCHES:
+        raise AssertionError(f"K8's round launches {k8_launches}, not "
+                             f"{K8_ROUND_LAUNCHES} CUDA kernels")
     # bytes: the tables read once, penalties and bounds, the state read
     # and written once (K8: the vc tables and K8's layout are the design's
     # pick; the function reads each element once, here its vc entry)
@@ -3086,7 +3139,11 @@ def main() -> int:
     k9_fn = lambda: k9.chain_stage(csg, half_h, arms_h[1])
     k9_t = time_call(k9_fn, k9_setup)
     k9_ms = events_ms(k9_fn, 10, k9_setup)
-    k9_kernels = kernel_counts(k9_fn, k9_setup)
+    k9_setup()
+    k9_launches = k16.kernel_nodes(k9_fn)
+    if k9_launches != K9_STAGE_LAUNCHES:
+        raise AssertionError(f"K9's stage launches {k9_launches}, not "
+                             f"{K9_STAGE_LAUNCHES} CUDA kernels")
     k9_plain = events_ms(lambda: k9.chain_stage_plain(csg, half_h,
                                                       arms_h[1]),
                          2, k9_setup)
@@ -3132,6 +3189,16 @@ def main() -> int:
         if err or launches.get(kernel, 0) <= 0:
             raise AssertionError(f"K7 {label}: card differs from plain or "
                                  f"{kernel} did not launch")
+        # the round loop's body as the solve's graph holds it
+        tally = "vc_round" if kernel == "vc_round" else "ell_round"
+        bodies = [b for b in k16.bodies() if b["tally"] == tally]
+        if not bodies or any(b["cond_nodes"] or not b["ends"]
+                             for b in bodies):
+            raise AssertionError(f"K7 {label}: a round body holds a "
+                                 f"loop_cond node or does not end itself: "
+                                 f"{bodies}")
+        if kernel != "vc_round" and launches.get("ell_prep", 0) <= 0:
+            raise AssertionError(f"K7 {label}: ell_prep did not launch")
         e = lmm_ell.ell_from_arrays(full)
         s_, p_, vb_ = lmm_ell.dense_system(e, cuda)
         w_ = EllWork(s_.n_v, s_.n_c, s_.wc, f64, cuda)
@@ -3151,8 +3218,29 @@ def main() -> int:
             ell_init(s_, w_, p_, HL_EPS, vb_)
             if kernel == "vc_round":
                 vc_prep(s_, w_, p_)
+            else:
+                ell_prep(s_, w_, p_, vb_)
         ms = round_ms(init_, rnd(k), r_t, 2)
         card = time_rounds(init_, rnd(k), r_t)
+        # the same rounds inside K16's loop: the solve's chunk loop capped
+        # at them, one graph launch after the init (median of 3)
+        loop = lmm_torch.chunk_loop(s_, w_, p_, HL_EPS, vb_,
+                                    kernel != "vc_round", fat, not local,
+                                    r_t)
+        loop_ms = []
+        for rep_ in range(4):
+            ell_init(s_, w_, p_, HL_EPS, vb_)
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            loop.run()
+            e1.record()
+            torch.cuda.synchronize()
+            if rep_:
+                loop_ms.append(e0.elapsed_time(e1) / r_t)
+        if int(w_.ctrl[IT]) != r_t:
+            raise AssertionError(f"K7 {label}: the loop ran "
+                                 f"{int(w_.ctrl[IT])} rounds, not {r_t}")
         plain = round_ms(lambda: ell_init_plain(s_, w_, p_, HL_EPS),
                          rnd(pl), min(r_t, 8), 1)
         b = (nbytes(s_.cv_var, s_.cv_w, s_.cv_valid, s_.vc_cnst, s_.vc_valid,
@@ -3165,9 +3253,12 @@ def main() -> int:
                                .shape[1]), int(e.vc_cnst.shape[1])],
                 "full_rounds": full_r, "timed_rounds": r_t,
                 "max_abs_err": err, "ms": card["ms"], "paced_ms": ms,
-                "queued": card["queued"], "plain_ms": plain,
-                "bound_ms": bound_ms(b), "cpu_s": cpu_s,
-                "launches": launches}
+                "queued": card["queued"], "loop_ms": sorted(loop_ms)[1],
+                "loop_ms_spread": [min(loop_ms), max(loop_ms)],
+                "plain_ms": plain, "bound_ms": bound_ms(b),
+                "cpu_s": cpu_s, "launches": launches,
+                "nodes_per_round": bodies[0]["kernel_nodes"],
+                "bodies": bodies}
         log(rec_)
         return rec_
 
@@ -3213,7 +3304,7 @@ def main() -> int:
         paced_ms=k8_ms, queued=k8_t["queued"],
         plain_ms=k8_plain, bound_ms=bound_ms(k8_bytes), bound_by="bytes",
         library_ms=None, timed_on=f"headline dense, {r_h} rounds",
-        cuda_kernels_per_round=k8_kernels,
+        cuda_launches_per_round=k8_launches,
         held_at_stages=[(st["rows"], st["rounds"]) for st in stages11],
         host_calls=row_a["loop"]["host_round_calls"].get("vc_round", 0),
         device_rounds=row_a["loop"]["device_tally"].get("vc_round", 0),
@@ -3231,6 +3322,19 @@ def main() -> int:
         launches_from="main path 6, the headline chain (once a solve, "
                       "inside its graph)"))
     kernels.append(dict(
+        name="ell_prep", route="cuda",
+        source="simgrid_tpu_torch/csrc/ell_round.cu",
+        replaces="simgrid_tpu/ops/lmm_jax.py:219",
+        note="K7's rou and w / penalty (JAX's cv_upen, :219-222), "
+             "written once a chunk",
+        launches=sum(arms11[k_]["launches"].get("ell_prep", 0)
+                     for k_ in ("bounds", "fatpipe_bounds", "global")),
+        max_abs_err=err_prep7, ms=prep7_t["ms"], paced_ms=prep7_ms,
+        queued=prep7_t["queued"], plain_ms=prep7_plain,
+        bound_ms=bound_ms(prep7_bytes), bound_by="bytes", library_ms=None,
+        launches_from="phase 11(d), K7's arms (once a chunk, inside the "
+                      "chunk's graph; not on a main path)"))
+    kernels.append(dict(
         name="ell_chain_stage", route="cuda",
         source="simgrid_tpu_torch/csrc/ell_chain.cu",
         replaces="simgrid_tpu/ops/lmm_jax.py:736",
@@ -3238,7 +3342,7 @@ def main() -> int:
         paced_ms=k9_ms, queued=k9_t["queued"], plain_ms=k9_plain,
         bound_ms=bound_ms(k9_bytes), bound_by="bytes",
         library_ms=None, launches_arm=la["ell_chain_arm"],
-        launches_fetch=la["ell_chain_fetch"], cuda_kernels=k9_kernels,
+        launches_fetch=la["ell_chain_fetch"], cuda_launches=k9_launches,
         timed_on=f"first stage, {v0h} -> {half_h} rows",
         launches_from="main path 6, the headline chain (1 + 3 solves, "
                       "inside its graph; one arm and one fetch a solve)"))
@@ -3254,6 +3358,7 @@ def main() -> int:
                 "ell_round_global" if key == "global" else "ell_round", 0),
             max_abs_err=r_["max_abs_err"], ms=r_["ms"],
             paced_ms=r_["paced_ms"], queued=r_["queued"],
+            loop_ms=r_["loop_ms"], nodes_per_round=r_["nodes_per_round"],
             plain_ms=r_["plain_ms"], bound_ms=r_["bound_ms"],
             bound_by="bytes", library_ms=None,
             launches_from=f"phase 11(d) {r_['case']} (not on a main path: "

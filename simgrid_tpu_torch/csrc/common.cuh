@@ -45,8 +45,11 @@
 #define C_ADV_OK 29
 // slots 30-31: one 64-bit ticket (last_block below), 0 between launches
 #define C_TICKET 30
+// low_v rows of K7's running round (ell_round.cu), 0 between rounds
+#define C_NLOW 32
 
-#define N_CTRL 32
+// an even count, so that every replica's ticket is 8-byte aligned
+#define N_CTRL 34
 
 // ---- fctrl (dtype) slots ----
 #define N_FCTRL 4

@@ -46,6 +46,7 @@
 // runs four times a solve.
 
 #include "common.cuh"
+#include "scan.cuh"
 
 #define N_STAGE_PTRS 29
 #define ST_TB 256
@@ -172,41 +173,6 @@ Stage<T> make_stage(int V, int Wv, int C, int half, int nnz, int arm,
   return s;
 }
 
-// Decoupled look-back, by warp 0 of the tile's block: publish the
-// tile's count, then read the status words of the 32 tiles before it at
-// once (each lane spins until its word is written), add the counts down
-// to the nearest tile that holds its inclusive prefix (and that prefix),
-// and go on 32 tiles further down if none does; publish this tile's
-// prefix.  Returns the exclusive prefix (in every lane).  A status word
-// is (flag << 62) | count, flag 1 a tile's own count and 2 its inclusive
-// prefix; 0 not yet written.
-__device__ int look_back(unsigned long long* st, int tile, int agg,
-                         int lane) {
-  const unsigned long long AGG = 1ULL << 62, PRE = 2ULL << 62;
-  if (tile == 0) {
-    if (lane == 0) atomicExch(st, PRE | (unsigned)agg);
-    return 0;
-  }
-  if (lane == 0) atomicExch(st + tile, AGG | (unsigned)agg);
-  int ex = 0;
-  for (int top = tile - 1;; top -= 32) {
-    int t = top - lane;
-    unsigned long long w = PRE;  // before the first tile: a prefix of 0
-    if (t >= 0) {
-      volatile unsigned long long* p = st + t;
-      do {
-        w = *p;
-      } while (w == 0);
-    }
-    unsigned pre = __ballot_sync(FULL_MASK, (w >> 62) == 2);
-    int stop = pre ? __ffs(pre) - 1 : 31;
-    ex += warp_sum(lane <= stop ? (int)(unsigned)w : 0);
-    if (pre) break;
-  }
-  if (lane == 0) atomicExch(st + tile, PRE | (unsigned)(ex + agg));
-  return ex;
-}
-
 // The first index of the sorted a[0, n) whose value is >= x, by one
 // warp: 32 probes a step (every lane returns it).
 __device__ int warp_lower_bound(const int* a, int n, int x, int lane) {
@@ -226,15 +192,6 @@ __device__ int warp_lower_bound(const int* a, int n, int x, int lane) {
   return lo + __popc(__ballot_sync(FULL_MASK, less));
 }
 
-// The tile number in the order the blocks start (counter after the
-// status words), broadcast to the block.
-__device__ __forceinline__ int start_order(unsigned long long* counter) {
-  __shared__ int tile;
-  if (threadIdx.x == 0) tile = (int)atomicAdd(counter, 1ULL);
-  __syncthreads();
-  return tile;
-}
-
 template <typename T>
 __device__ __forceinline__ void gather_row(const Stage<T>& s, int i, int p) {
   for (int l = 0; l < s.Wv; ++l) {
@@ -247,45 +204,6 @@ __device__ __forceinline__ void gather_row(const Stage<T>& s, int i, int p) {
   s.orig2[p] = s.orig[i];
   s.v_value2[p] = s.v_value[i];
   s.v_fixed2[p] = s.v_fixed[i];
-}
-
-// The ranks of a tile's flags: element (k, t) of the tile is its
-// k * blockDim.x + t-th (thread t holds IPT elements a blockDim apart, so
-// the block reads consecutive addresses); ex[k] receives the number of
-// set flags before element (k, t) in the tile, *total the tile's count.
-// Ballots count within warps; one warp scans the (k, warp) counts.
-template <int IPT>
-__device__ __forceinline__ void tile_ranks(const bool (&f)[IPT],
-                                           int (&ex)[IPT], int* total) {
-  __shared__ int wc[IPT * 32];
-  __shared__ int tot;
-  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  int nw = blockDim.x >> 5;
-  unsigned lt = (1u << lane) - 1u;
-  unsigned b[IPT];
-  for (int k = 0; k < IPT; ++k) {
-    b[k] = __ballot_sync(FULL_MASK, f[k]);
-    if (lane == 0) wc[k * nw + wid] = __popc(b[k]);
-  }
-  __syncthreads();
-  if (wid == 0) {
-    int n = IPT * nw, carry = 0;
-    for (int base = 0; base < n; base += 32) {
-      int i = base + lane;
-      int v = i < n ? wc[i] : 0;
-      int incl = v;
-      for (int o = 1; o < 32; o <<= 1) {
-        int y = __shfl_up_sync(FULL_MASK, incl, o);
-        if (lane >= o) incl += y;
-      }
-      if (i < n) wc[i] = carry + incl - v;
-      carry += __shfl_sync(FULL_MASK, incl, 31);
-    }
-    if (lane == 0) tot = carry;
-  }
-  __syncthreads();
-  for (int k = 0; k < IPT; ++k) ex[k] = wc[k * nw + wid] + __popc(b[k] & lt);
-  *total = tot;
 }
 
 // v_final; each row's place (rpos: the live rank of a live row, or

@@ -14,18 +14,43 @@
 // flat, row-major.  The carry's extra leg cv_live [C, Wc] is the
 // constraint-row liveness mask apply_fixes leaves for the next round.
 //
-// What bounds it on this card: memory.  A local round walks the cv
-// table four times and the vc table four times (nmin, low bounds, mb_v,
-// levels); at the headline's shapes (C 16,384 x Wc 64, V 131,072 x Wv 4)
-// that is some 60 MB of table and gathered state a round, about 18 us at
-// 3.35 TB/s.  A round is a chain of grid-wide dependencies, so it is ten
-// launches (six in global order); at small live sets the launches, not
-// the bytes, set its time.
+// What bounds it on this card: latency, then memory.  A local round
+// walks the cv table four times and the vc table four times (nmin, low
+// bounds, mb_v, levels); at the headline's shapes (C 16,384 x Wc 64, V
+// 131,072 x Wv 4) that is some 60 MB of table and gathered state a
+// round, about 18 us at 3.35 TB/s.  A round is a chain of grid-wide
+// dependencies, eight passes in local order and four in global order;
+// at small live sets the launches, not the bytes, set its time.
 //
 // What the design does about it:
 // * one thread per variable row (Wv is route-length short) and one warp
 //   per constraint row (Wc runs to 512), lanes across the row, so the
 //   cv table is read coalesced;
+// * what a solve keeps fixed is computed once a chunk, not once a
+//   round: `ell_prep` (a K16 step at the head of the chunk's graph,
+//   outside its round loop) writes each cv entry's w / penalty into
+//   `cv_upen` (0 where the entry is not enabled) and whether it is
+//   enabled into `cv_ev` (the penalties do not change within a solve),
+//   and each constraint's level rou = remaining
+//   / usage (inf when not light) into `rou`; the init writes all three
+//   too (from the values it computes anyway), and a_apply's row leader rewrites it whenever it updates a row
+//   (the same division, so the same bits), so the variable passes read
+//   one stored level an entry where they divided before;
+// * every pass after a round's first is a programmatic dependent launch
+//   (`launch_dependent`; it waits for the pass before it in
+//   `pdl_wait`, with no explicit trigger);
+// * the bound passes skip when no bound binds: l_low counts the round's
+//   low_v rows into NLOW, and with none l_mbc, l_mbv and l_blk return at
+//   once and l_fix takes mb_v as inf and blocked_c as false without
+//   reading them (exactly what the JAX round computes when no low_v row
+//   exists: lmm_jax.py:341-352);
+// * a_apply ends the round itself: its blocks' light counts travel in
+//   one 64-bit ticket word (no fence), and the block that takes the last
+//   ticket sets LIGHT, bumps IT, clears NLOW and the global order's two
+//   minima for the next round and, captured as the body of a K16 loop
+//   built with `Loop(..., ends=True)`, counts the iteration and sets the
+//   WHILE node's condition (`end_iteration`), so the body has no
+//   one-thread commit and no `loop_cond` node;
 // * every row sum the JAX program takes along axis 1 (usage0, d_rem,
 //   d_use) folds in XLA:CPU's order: each 32-lane block left to right
 //   from 0.0 (the warp loads the block and adds lane by lane), then the
@@ -42,7 +67,7 @@
 
 #define ARM_FATPIPE 2
 #define ARM_GLOBAL 4
-#define N_PTRS 26
+#define N_PTRS 28
 
 namespace {
 
@@ -76,6 +101,8 @@ struct ESys {
   unsigned long long* min_usage;
   unsigned long long* min_bound;
   int* ctrl;
+  T* cv_upen;
+  bool* cv_ev;
 };
 
 template <typename T>
@@ -112,6 +139,8 @@ ESys<T> make_sys(int V, int C, int Wc, int Wv, double eps, void** p) {
   s.min_usage = (unsigned long long*)p[23];
   s.min_bound = (unsigned long long*)p[24];
   s.ctrl = (int*)p[25];
+  s.cv_upen = (T*)p[26];
+  s.cv_ev = (bool*)p[27];
   return s;
 }
 
@@ -129,17 +158,27 @@ __device__ __forceinline__ bool var_live(const ESys<T>& s, int v) {
 
 // rou of a constraint: remaining / usage while light, else inf
 template <typename T>
-__device__ __forceinline__ T rou_of(const ESys<T>& s, int c) {
-  return s.light[c] ? div_rn(s.remaining[c], s.usage[c]) : inf_v<T>();
+__device__ __forceinline__ T rou_new(bool lt, T rem, T use) {
+  return lt ? div_rn(rem, use) : inf_v<T>();
 }
 
-// w / penalty of an enabled element of a cv row (0 otherwise)
+// w / penalty of an enabled element of a cv row (0 otherwise), from the
+// penalties (ell_prep, the init)
 template <typename T>
-__device__ __forceinline__ T upen_of(const ESys<T>& s, int idx, int v,
-                                     bool* evalid) {
-  T p = s.pen[v];
+__device__ __forceinline__ T upen_from_pen(const ESys<T>& s, int idx,
+                                           bool* evalid) {
+  T p = s.pen[s.cv_var[idx]];
   *evalid = s.cv_valid[idx] && p > T(0);
   return *evalid ? div_rn(s.cv_w[idx], p) : T(0);
+}
+
+// the round's reset of what it accumulates: the low-bound count and the
+// global order's two minima
+template <typename T>
+__device__ __forceinline__ void reset_round(const ESys<T>& s) {
+  s.ctrl[C_NLOW] = 0;
+  *s.min_usage = key_of(inf_v<T>());
+  *s.min_bound = key_of(inf_v<T>());
 }
 
 #define FOR_VARS(v) \
@@ -168,6 +207,7 @@ __global__ void ei_var(ESys<T> s, int limit) {
     c[C_VLIVE_ACC] = 0;
     c[C_OVERFLOW] = 0;
     c[C_NFIXED_ACC] = 0;
+    reset_round(s);
   }
   FOR_VARS(v) {
     T p = s.pen[v];
@@ -177,8 +217,9 @@ __global__ void ei_var(ESys<T> s, int limit) {
 }
 
 // usage0 (the 32-block fold of w/penalty, or the max on a FATPIPE row),
-// remaining0, light0 and cv_live0 (an enabled element whose variable is
-// not fixed at init, i.e. penalty > 0)
+// remaining0, light0, rou0, cv_live0 (an enabled element whose variable
+// is not fixed at init, i.e. penalty > 0) and the w / penalty and
+// enabled tables, so that a round may follow the init at once
 template <typename T>
 __global__ void ei_cnst(ESys<T> s) {
   int cnt = 0;
@@ -190,8 +231,10 @@ __global__ void ei_cnst(ESys<T> s) {
       if (j >= 0 && j < s.Wc) {
         int idx = c * s.Wc + j;
         bool ev;
-        x = upen_of(s, idx, s.cv_var[idx], &ev);
+        x = upen_from_pen(s, idx, &ev);
         s.cv_live[idx] = ev;
+        s.cv_upen[idx] = x;
+        s.cv_ev[idx] = ev;
       }
       usum = add_rn(usum, warp_block_sum(x));
       umax = max_v(umax, warp_max(x));
@@ -203,6 +246,7 @@ __global__ void ei_cnst(ESys<T> s) {
       s.usage[c] = use;
       bool lt = (cb > mul_rn(cb, s.eps)) && (use > T(0));
       s.light[c] = lt;
+      s.rou[c] = rou_new(lt, cb, use);
       cnt += lt;
     }
   }
@@ -210,42 +254,68 @@ __global__ void ei_cnst(ESys<T> s) {
   if (threadIdx.x == 0 && tot) atomicAdd(s.ctrl + C_LIGHT, tot);
 }
 
+// the chunk's prep: rou from the state, the w / penalty and enabled
+// tables, and the round's accumulators cleared
+template <typename T>
+__global__ void ep_prep(ESys<T> s) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) reset_round(s);
+  long long n = (long long)s.C * s.Wc;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n || i < s.C; i += (long long)gridDim.x * blockDim.x) {
+    if (i < s.C)
+      s.rou[i] = rou_new(s.light[i], s.remaining[i], s.usage[i]);
+    if (i < n) {
+      bool ev;
+      s.cv_upen[i] = upen_from_pen(s, (int)i, &ev);
+      s.cv_ev[i] = ev;
+    }
+  }
+}
+
 // ---------------------------------------------------------- local order
 
 // L1: nmin_v = min rou over the variable's live row entries
 template <typename T>
 __global__ void l_nmin(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
   FOR_VARS(v) {
     T m = inf_v<T>();
     if (var_live(s, v))
       for (int l = 0; l < s.Wv; ++l) {
         int idx = v * s.Wv + l;
-        if (s.vc_valid[idx]) m = min_v(m, rou_of(s, s.vc_cnst[idx]));
+        if (s.vc_valid[idx]) m = min_v(m, s.rou[s.vc_cnst[idx]]);
       }
     s.nmin_v[v] = m;
   }
 }
 
-// L2: nmin_c over the row's cv_live entries; processable
+// L2: nmin_c over the row's cv_live entries; processable (no walk for
+// a row that is not light)
 template <typename T>
 __global__ void l_proc(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
+    bool lt = s.light[c];
     T m = inf_v<T>();
-    for (int j = lane; j < s.Wc; j += 32) {
-      int idx = c * s.Wc + j;
-      if (s.cv_live[idx]) m = min_v(m, s.nmin_v[s.cv_var[idx]]);
-    }
+    if (lt)
+      for (int j = lane; j < s.Wc; j += 32) {
+        int idx = c * s.Wc + j;
+        if (s.cv_live[idx]) m = min_v(m, s.nmin_v[s.cv_var[idx]]);
+      }
     m = warp_min(m);
-    if (lane == 0) s.proc[c] = s.light[c] && rou_of(s, c) <= m;
+    if (lane == 0) s.proc[c] = lt && s.rou[c] <= m;
   }
 }
 
-// L3: low_v = saturated, bounded, bound * penalty below nmin_v
+// L3: low_v = saturated, bounded, bound * penalty below nmin_v; the
+// round's low_v rows counted into NLOW
 template <typename T>
 __global__ void l_low(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
+  int cnt = 0;
   FOR_VARS(v) {
     bool sat = false;
     if (var_live(s, v))
@@ -253,31 +323,45 @@ __global__ void l_low(ESys<T> s) {
         int idx = v * s.Wv + l;
         sat = s.vc_valid[idx] && s.proc[s.vc_cnst[idx]];
       }
-    s.low_v[v] = sat && s.vb[v] > T(0) &&
-                 mul_rn(s.vb[v], s.pen[v]) < s.nmin_v[v];
+    bool low = sat && s.vb[v] > T(0) &&
+               mul_rn(s.vb[v], s.pen[v]) < s.nmin_v[v];
+    s.low_v[v] = low;
+    cnt += low;
   }
+  int tot = block_sum(cnt);
+  if (threadIdx.x == 0 && tot) atomicAdd(s.ctrl + C_NLOW, tot);
+}
+
+// the bound passes run only in a round with a low_v row
+__device__ __forceinline__ bool bounds_go(const int* ctrl) {
+  return ell_go(ctrl) && ctrl[C_NLOW] > 0;
 }
 
 // L4: mb_c = min bound * penalty over the row's live low-bound entries
+// (no walk for a row that is not processable)
 template <typename T>
 __global__ void l_mbc(ESys<T> s) {
-  if (!ell_go(s.ctrl)) return;
+  pdl_wait();
+  if (!bounds_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
     T m = inf_v<T>();
-    for (int j = lane; j < s.Wc; j += 32) {
-      int idx = c * s.Wc + j;
-      int v = s.cv_var[idx];
-      if (s.cv_live[idx] && s.low_v[v]) m = min_v(m, mul_rn(s.vb[v], s.pen[v]));
-    }
+    if (s.proc[c])
+      for (int j = lane; j < s.Wc; j += 32) {
+        int idx = c * s.Wc + j;
+        int v = s.cv_var[idx];
+        if (s.cv_live[idx] && s.low_v[v])
+          m = min_v(m, mul_rn(s.vb[v], s.pen[v]));
+      }
     m = warp_min(m);
-    if (lane == 0) s.mb_c[c] = s.proc[c] ? m : inf_v<T>();
+    if (lane == 0) s.mb_c[c] = m;
   }
 }
 
 // L5: mb_v = min mb_c over the variable's processable live entries
 template <typename T>
 __global__ void l_mbv(ESys<T> s) {
-  if (!ell_go(s.ctrl)) return;
+  pdl_wait();
+  if (!bounds_go(s.ctrl)) return;
   FOR_VARS(v) {
     T m = inf_v<T>();
     if (var_live(s, v))
@@ -295,7 +379,8 @@ __global__ void l_mbv(ESys<T> s) {
 // L6: a processable row is blocked when a live entry has a finite mb_v
 template <typename T>
 __global__ void l_blk(ESys<T> s) {
-  if (!ell_go(s.ctrl)) return;
+  pdl_wait();
+  if (!bounds_go(s.ctrl)) return;
   FOR_CNST_WARPS(c) {
     bool b = false;
     if (s.proc[c])
@@ -308,10 +393,13 @@ __global__ void l_blk(ESys<T> s) {
   }
 }
 
-// L7: levels over processable unblocked rows; bound fixes first
+// L7: levels over processable unblocked rows; bound fixes first (with
+// no low_v row this round: no row blocked, no bound fix)
 template <typename T>
 __global__ void l_fix(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
+  bool bounds = s.ctrl[C_NLOW] > 0;
   FOR_VARS(v) {
     T p = s.pen[v];
     T m = inf_v<T>();
@@ -321,11 +409,12 @@ __global__ void l_fix(ESys<T> s) {
         int idx = v * s.Wv + l;
         if (s.vc_valid[idx]) {
           int c = s.vc_cnst[idx];
-          if (s.proc[c] && !s.blocked_c[c]) m = min_v(m, rou_of(s, c));
+          if (s.proc[c] && !(bounds && s.blocked_c[c]))
+            m = min_v(m, s.rou[c]);
         }
       }
     bool fix_bound = false;
-    if (s.low_v[v]) {
+    if (bounds && s.low_v[v]) {
       T d = sub_rn(mul_rn(s.vb[v], p), s.mb_v[v]);
       fix_bound = fabs(d) < s.eps;
     }
@@ -344,23 +433,16 @@ __global__ void l_fix(ESys<T> s) {
 
 // --------------------------------------------------------- global order
 
-template <typename T>
-__global__ void g_reset(ESys<T> s) {
-  if (!ell_go(s.ctrl)) return;
-  *s.min_usage = key_of(inf_v<T>());
-  *s.min_bound = key_of(inf_v<T>());
-}
-
+// the min of the stored levels (the previous round's end, the prep or
+// the init cleared both minima)
 template <typename T>
 __global__ void g_rou(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
   T m = inf_v<T>();
   for (int c = blockIdx.x * blockDim.x + threadIdx.x; c < s.C;
-       c += gridDim.x * blockDim.x) {
-    T r = rou_of(s, c);
-    s.rou[c] = r;
-    m = min_v(m, r);
-  }
+       c += gridDim.x * blockDim.x)
+    m = min_v(m, s.rou[c]);
   block_min_to(m, s.min_usage);
 }
 
@@ -368,6 +450,7 @@ __global__ void g_rou(ESys<T> s) {
 // low_v; the grid-wide min of bound * penalty below the min over them
 template <typename T>
 __global__ void g_sat(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
   T mu = from_key<T>(*s.min_usage);
   T mb = inf_v<T>();
@@ -392,6 +475,7 @@ __global__ void g_sat(ESys<T> s) {
 
 template <typename T>
 __global__ void g_fix(ESys<T> s) {
+  pdl_wait();
   if (!ell_go(s.ctrl)) return;
   T mu = from_key<T>(*s.min_usage);
   T mb = from_key<T>(*s.min_bound);
@@ -421,15 +505,22 @@ __global__ void g_fix(ESys<T> s) {
 
 // Over each row: cv_fix = cv_live (at round start) & fixed now; d_rem
 // and d_use folded in XLA's row order; the new liveness mask; the
-// FATPIPE max over still-live entries; then the clamps and light-set
-// pruning, counting the light set.
+// FATPIPE max over still-live entries; then the clamps, light-set
+// pruning and the row's level, counting the light set.  The block that
+// takes the last ticket ends the round (file comment).
 template <typename T, bool FAT>
-__global__ void a_apply(ESys<T> s) {
-  if (!ell_go(s.ctrl)) return;
+__global__ void a_apply(ESys<T> s, LoopEnd le) {
+  pdl_wait();
+  if (!ell_go(s.ctrl)) {
+    if (le.h && blockIdx.x == 0 && threadIdx.x == 0)
+      cudaGraphSetConditional(le.h, 0u);
+    return;
+  }
   int cnt = 0;
   FOR_CNST_WARPS(c) {
     T d_rem = T(0), d_use = T(0), umax = T(0);
     bool touched = false, has_live = false;
+    bool frow = FAT && s.c_fat[c];  // only a FATPIPE row takes the max
     for (int base = -row_low(s.Wc); base < s.Wc; base += 32) {
       int j = base + lane;
       T xr = T(0), xu = T(0), xl = T(0);
@@ -437,23 +528,21 @@ __global__ void a_apply(ESys<T> s) {
       if (j >= 0 && j < s.Wc) {
         int idx = c * s.Wc + j;
         int v = s.cv_var[idx];
-        bool ev;
-        T up = upen_of(s, idx, v, &ev);
         bool g_fixed = s.v_fixed[v];
         fx = s.cv_live[idx] && g_fixed;
-        lv = ev && !g_fixed;
+        lv = s.cv_ev[idx] && !g_fixed;
         s.cv_live[idx] = lv;
         if (fx) {
           xr = mul_rn(s.cv_w[idx], s.v_value[v]);
-          xu = up;
+          xu = s.cv_upen[idx];
         }
-        if (lv) xl = up;
+        if (frow && lv) xl = s.cv_upen[idx];
       }
       d_rem = add_rn(d_rem, warp_block_sum(xr));
       d_use = add_rn(d_use, warp_block_sum(xu));
       if (__any_sync(FULL_MASK, fx)) touched = true;
       if (__any_sync(FULL_MASK, lv)) has_live = true;
-      if (FAT) umax = max_v(umax, warp_max(xl));
+      if (frow) umax = max_v(umax, warp_max(xl));
     }
     if (lane == 0) {
       T ce = mul_rn(s.c_bound[c], s.eps);
@@ -463,7 +552,7 @@ __global__ void a_apply(ESys<T> s) {
         if (nr < ce) nr = T(0);
         T nu = sub_rn(use, d_use);
         if (nu < s.eps) nu = T(0);
-        if (FAT && s.c_fat[c]) {
+        if (frow) {
           use = umax;   // a FATPIPE row keeps its remaining
         } else {
           rem = nr;
@@ -475,18 +564,23 @@ __global__ void a_apply(ESys<T> s) {
       bool drop = touched && (!(use > s.eps) || !(rem > ce));
       bool lt = s.light[c] && !drop && has_live;
       s.light[c] = lt;
+      s.rou[c] = rou_new(lt, rem, use);
       cnt += lt;
     }
   }
-  int tot = block_sum(cnt);
-  if (threadIdx.x == 0 && tot) atomicAdd(s.ctrl + C_LIGHT_ACC, tot);
-}
-
-__global__ void e_commit(int* ctrl) {
-  if (!ell_go(ctrl)) return;
-  ctrl[C_LIGHT] = ctrl[C_LIGHT_ACC];
-  ctrl[C_LIGHT_ACC] = 0;
+  // the round's end: one 64-bit ticket, 1 << 32 a block plus its light
+  // rows; the last block's thread 0 holds the light count
+  int tot = block_sum(cnt);  // valid in thread 0
+  if (threadIdx.x != 0) return;
+  unsigned long long* ticket = ticket_of(s.ctrl);
+  unsigned long long old = atomicAdd(ticket, (1ULL << 32) | (unsigned)tot);
+  if ((unsigned)(old >> 32) != gridDim.x - 1) return;
+  *ticket = 0ULL;
+  int* ctrl = s.ctrl;
+  ctrl[C_LIGHT] = (int)((unsigned)old + (unsigned)tot);
   ctrl[C_IT] += 1;
+  reset_round(s);
+  if (le.h) end_iteration(le, ell_go(ctrl));
 }
 
 const int TB = 256;
@@ -499,27 +593,35 @@ int launch_init(ESys<T> s, int limit, cudaStream_t st) {
 }
 
 template <typename T>
-int launch_round(ESys<T> s, int flags, cudaStream_t st) {
-  int gv = grid_for(s.V, TB), gc = grid_for((long long)s.C * 32, TB);
+int launch_prep(ESys<T> s, cudaStream_t st) {
+  long long n = (long long)s.C * s.Wc;
+  int g = grid_for(n > s.C ? n : s.C, TB);
+  ep_prep<T><<<g, TB, 0, st>>>(s);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_round(ESys<T> s, int flags, LoopEnd le, cudaStream_t st) {
+  dim3 gv(grid_for(s.V, TB)), gc(grid_for((long long)s.C * 32, TB));
+  cudaError_t e = cudaSuccess;
   if (flags & ARM_GLOBAL) {
-    g_reset<T><<<1, 1, 0, st>>>(s);
     g_rou<T><<<grid_for(s.C, TB), TB, 0, st>>>(s);
-    g_sat<T><<<gv, TB, 0, st>>>(s);
-    g_fix<T><<<gv, TB, 0, st>>>(s);
+    e = launch_dependent(g_sat<T>, gv, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(g_fix<T>, gv, TB, st, s);
   } else {
     l_nmin<T><<<gv, TB, 0, st>>>(s);
-    l_proc<T><<<gc, TB, 0, st>>>(s);
-    l_low<T><<<gv, TB, 0, st>>>(s);
-    l_mbc<T><<<gc, TB, 0, st>>>(s);
-    l_mbv<T><<<gv, TB, 0, st>>>(s);
-    l_blk<T><<<gc, TB, 0, st>>>(s);
-    l_fix<T><<<gv, TB, 0, st>>>(s);
+    e = launch_dependent(l_proc<T>, gc, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(l_low<T>, gv, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(l_mbc<T>, gc, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(l_mbv<T>, gv, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(l_blk<T>, gc, TB, st, s);
+    if (e == cudaSuccess) e = launch_dependent(l_fix<T>, gv, TB, st, s);
   }
-  if (flags & ARM_FATPIPE)
-    a_apply<T, true><<<gc, TB, 0, st>>>(s);
-  else
-    a_apply<T, false><<<gc, TB, 0, st>>>(s);
-  e_commit<<<1, 1, 0, st>>>(s.ctrl);
+  if (e == cudaSuccess)
+    e = (flags & ARM_FATPIPE)
+            ? launch_dependent(a_apply<T, true>, gc, TB, st, s, le)
+            : launch_dependent(a_apply<T, false>, gc, TB, st, s, le);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -536,13 +638,30 @@ int ell_init(int dbl, int V, int C, int Wc, int Wv, void** ptrs, int n_ptrs,
   return launch_init(make_sys<float>(V, C, Wc, Wv, eps, ptrs), limit, st);
 }
 
-int ell_round(int dbl, int V, int C, int Wc, int Wv, int flags, void** ptrs,
-              int n_ptrs, double eps, void* stream) {
+// rou from the state, the w / penalty table and the round's
+// accumulators cleared: before the first round of a chunk
+int ell_prep(int dbl, int V, int C, int Wc, int Wv, void** ptrs, int n_ptrs,
+             void* stream) {
   if (n_ptrs != N_PTRS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (dbl) return launch_prep(make_sys<double>(V, C, Wc, Wv, 0.0, ptrs), st);
+  return launch_prep(make_sys<float>(V, C, Wc, Wv, 0.0, ptrs), st);
+}
+
+// One round; cnt, tally, cap and handle: the K16 loop whose body this
+// round ends (handle 0: none).
+int ell_round(int dbl, int V, int C, int Wc, int Wv, int flags, void** ptrs,
+              int n_ptrs, double eps, void* cnt, void* tally, int cap,
+              unsigned long long handle, void* stream) {
+  if (n_ptrs != N_PTRS) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  LoopEnd le{(int*)cnt, (int*)tally, cap,
+             (cudaGraphConditionalHandle)handle};
   if (dbl)
-    return launch_round(make_sys<double>(V, C, Wc, Wv, eps, ptrs), flags, st);
-  return launch_round(make_sys<float>(V, C, Wc, Wv, eps, ptrs), flags, st);
+    return launch_round(make_sys<double>(V, C, Wc, Wv, eps, ptrs), flags,
+                        le, st);
+  return launch_round(make_sys<float>(V, C, Wc, Wv, eps, ptrs), flags, le,
+                      st);
 }
 
 }  // extern "C"

@@ -1,8 +1,17 @@
-// The stable three-pass device scan of K4 (the drain's live-first
-// repack): per-tile counts, one block scanning the tile counts,
-// per-tile scan and apply, over byte flags, with no atomics, so the
-// positions it gives are stable by construction.  K14's block arm runs
-// the same passes over the rows of a float table (`lane_scan`).
+// The device scans of the port's kernels.
+//
+// * A single-pass stable compaction over tiles (`start_order`,
+//   `tile_ranks`, `look_back`): each tile ranks its flags with ballots
+//   and takes its exclusive prefix from the tiles before it by
+//   decoupled look-back, the tiles numbered in the order their blocks
+//   start, so a tile only ever waits on tiles already running.  K9's
+//   stage (ell_chain.cu) and K4's repack (livefirst_repack.cu) build on
+//   it.
+// * The three-pass count of byte flags (`scan`: per-tile counts, one
+//   block scanning the tile counts, per-tile scan and apply), with no
+//   atomics, so the positions it gives are stable by construction; K1's
+//   row planner (lmm_round.cu) runs it.  K14's block arm runs the same
+//   passes over the rows of a float table (`lane_scan`).
 
 #pragma once
 
@@ -13,6 +22,120 @@ namespace {
 #define SCAN_TB 256
 #define SCAN_IPT 8
 #define SCAN_TILE (SCAN_TB * SCAN_IPT)
+
+// ---- the single-pass compaction ----
+
+// The tile number in the order the blocks start (counter after the
+// status words), broadcast to the block.
+__device__ __forceinline__ int start_order(unsigned long long* counter) {
+  __shared__ int tile;
+  if (threadIdx.x == 0) tile = (int)atomicAdd(counter, 1ULL);
+  __syncthreads();
+  return tile;
+}
+
+// The ranks of a tile's flags: element (k, t) of the tile is its
+// k * blockDim.x + t-th (thread t holds IPT elements a blockDim apart, so
+// the block reads consecutive addresses); ex[k] receives the number of
+// set flags before element (k, t) in the tile, *total the tile's count.
+// Ballots count within warps; one warp scans the (k, warp) counts.
+template <int IPT>
+__device__ __forceinline__ void tile_ranks(const bool (&f)[IPT],
+                                           int (&ex)[IPT], int* total) {
+  __shared__ int wc[IPT * 32];
+  __shared__ int tot;
+  int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  int nw = blockDim.x >> 5;
+  unsigned lt = (1u << lane) - 1u;
+  unsigned b[IPT];
+  for (int k = 0; k < IPT; ++k) {
+    b[k] = __ballot_sync(FULL_MASK, f[k]);
+    if (lane == 0) wc[k * nw + wid] = __popc(b[k]);
+  }
+  __syncthreads();
+  if (wid == 0) {
+    int n = IPT * nw, carry = 0;
+    for (int base = 0; base < n; base += 32) {
+      int i = base + lane;
+      int v = i < n ? wc[i] : 0;
+      int incl = v;
+      for (int o = 1; o < 32; o <<= 1) {
+        int y = __shfl_up_sync(FULL_MASK, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (i < n) wc[i] = carry + incl - v;
+      carry += __shfl_sync(FULL_MASK, incl, 31);
+    }
+    if (lane == 0) tot = carry;
+  }
+  __syncthreads();
+  for (int k = 0; k < IPT; ++k) ex[k] = wc[k * nw + wid] + __popc(b[k] & lt);
+  *total = tot;
+}
+
+// Decoupled look-back, by warp 0 of the tile's block: publish the
+// tile's count, then read the status words of the 32 tiles before it at
+// once (each lane spins until its word is written), add the counts down
+// to the nearest tile that holds its inclusive prefix (and that prefix),
+// and go on 32 tiles further down if none does; publish this tile's
+// prefix.  Returns the exclusive prefix (in every lane).  A status word
+// is (flag << 62) | count, flag 1 a tile's own count and 2 its inclusive
+// prefix; 0 not yet written.  The caller zeroes the words (and the start
+// counter after them) before their next use, in a later pass.
+__device__ int look_back(unsigned long long* st, int tile, int agg,
+                         int lane) {
+  const unsigned long long AGG = 1ULL << 62, PRE = 2ULL << 62;
+  if (tile == 0) {
+    if (lane == 0) atomicExch(st, PRE | (unsigned)agg);
+    return 0;
+  }
+  if (lane == 0) atomicExch(st + tile, AGG | (unsigned)agg);
+  int ex = 0;
+  for (int top = tile - 1;; top -= 32) {
+    int t = top - lane;
+    unsigned long long w = PRE;  // before the first tile: a prefix of 0
+    if (t >= 0) {
+      volatile unsigned long long* p = st + t;
+      do {
+        w = *p;
+      } while (w == 0);
+    }
+    unsigned pre = __ballot_sync(FULL_MASK, (w >> 62) == 2);
+    int stop = pre ? __ffs(pre) - 1 : 31;
+    ex += warp_sum(lane <= stop ? (int)(unsigned)w : 0);
+    if (pre) break;
+  }
+  if (lane == 0) atomicExch(st + tile, PRE | (unsigned)(ex + agg));
+  return ex;
+}
+
+// One tile of a single-pass stable compaction over n flags, for a block
+// of IPT * blockDim.x elements: the tile's number (in start order, from
+// the counter at st[tiles]), each element's exclusive rank in ex[k] and
+// the tile's exclusive prefix in *base (every thread), the tile's count
+// in *agg.  `flag(i)` gives element i's flag (called for i < n only).
+// The block's threads all call it.
+template <int IPT, class F>
+__device__ __forceinline__ int compact_tile(unsigned long long* st,
+                                            int tiles, int n, F flag,
+                                            bool (&f)[IPT], int (&ex)[IPT],
+                                            int* base, int* agg) {
+  __shared__ int b;
+  int tile = start_order(st + tiles);
+  int lo = tile * IPT * (int)blockDim.x + threadIdx.x;
+  for (int k = 0; k < IPT; ++k) {
+    int i = lo + k * (int)blockDim.x;
+    f[k] = i < n && flag(i);
+  }
+  tile_ranks<IPT>(f, ex, agg);
+  if (threadIdx.x < 32) {
+    int x = look_back(st, tile, *agg, threadIdx.x);
+    if (threadIdx.x == 0) b = x;
+  }
+  __syncthreads();
+  *base = b;
+  return tile;
+}
 
 __global__ void scan_count(int n, const uint8_t* __restrict__ f, int* bsum) {
   int lo = blockIdx.x * SCAN_TILE + threadIdx.x * SCAN_IPT;

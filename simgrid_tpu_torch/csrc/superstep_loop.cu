@@ -26,7 +26,7 @@
 // or into a body graph, kernel arguments baked in) and WHILE nodes;
 // before each WHILE node, and as the last
 // node of its body (unless the body's last kernel ends the iteration
-// itself: K1's and K8's rounds, `Loop(..., ends=True)`, common.cuh
+// itself: K1's, K7's and K8's rounds, `Loop(..., ends=True)`, common.cuh
 // `end_iteration`), sits one `loop_cond` kernel node, which evaluates
 // the loop's condition on the control words of every replica, reduces
 // it over the fleet in one block and sets the node's handle from one

@@ -14,8 +14,9 @@ their plain PyTorch versions.
   arrays (the drain's transitions, the warm solver's deltas)
 * K6 :mod:`.warm_init`        — the restart state of a warm solve (COO
   and ELL arms)
-* K7 :mod:`.ell_round`        — the ELL fixpoint's init and one round on
-  the constraint-row tables (local with the bound-first rule, global)
+* K7 :mod:`.ell_round`        — the ELL fixpoint's init, its prep once a
+  chunk and one round on the constraint-row tables (local with the
+  bound-first rule, global)
 * K8 :mod:`.vc_round`         — the bound-free local round on the
   variable-row tables
 * K9 :mod:`.ell_chain`        — the compaction chain's live count, stage

@@ -63,9 +63,11 @@ AANY = 27         # ... and the event is a collective activation date
 PENDING = 28      # collective flows with a pending activation date
 ADV_OK = 29       # the last advance committed (converged, finite dt)
 #: slots 30-31: one 64-bit ticket by which a launch's last block finds
-#: itself (K2, K3); 0 between launches
+#: itself (K2, K3, K7, K8); 0 between launches
 TICKET = 30
-N_CTRL = 32
+NLOW = 32         # low_v rows of K7's running round (0 between rounds)
+#: an even count, so that every replica's 64-bit ticket is aligned
+N_CTRL = 34
 
 # ---- fctrl (dtype) slots ----
 T_SUM = 0
@@ -135,9 +137,10 @@ class Work:
 
     The bound arm's scratch (``low_v``, ``mb_v``, ``level2_v`` per
     variable, ``mb_c``, ``blocked_c`` per constraint) and the global
-    arm's ``rou`` and its two grid-wide minima (``min_usage``,
-    ``min_bound``: the bits of a non-negative float, as ``dtbits``) are
-    written by the rounds that use them and read by nothing else.
+    arm's two grid-wide minima (``min_usage``, ``min_bound``: the bits
+    of a non-negative float, as ``dtbits``) are written by the rounds
+    that use them and read by nothing else; K7's and K8's rounds keep
+    each constraint's level in ``rou`` from one round to the next.
     K2's minimum slots ``dtbits`` (dt, in the drain's dtype) and
     ``atbits`` (the earliest activation date, f64) hold the bits of +inf
     between calls: each call's last block resets them.  ``commit_scan``
@@ -265,13 +268,20 @@ class EllSystem(NamedTuple):
 class EllWork(Work):
     """A :class:`Work` with the ELL fixpoint's extra carry leg
     ``cv_live`` [C, Wc] (the constraint-row liveness mask
-    ``apply_fixes`` maintains) and K6-ELL's per-variable scratch."""
+    ``apply_fixes`` maintains), K7's tables ``cv_upen`` and ``cv_ev``
+    [C, Wc] and K6-ELL's per-variable scratch."""
 
     def __init__(self, n_v: int, n_c: int, wc: int, dtype: torch.dtype,
                  device: torch.device):
         super().__init__(n_v, n_c, dtype, device)
         self.cv_live = torch.zeros((n_c, wc), dtype=torch.bool,
                                    device=device)
+        #: K7's w / penalty a cv entry (0 where it is not enabled) and
+        #: whether it is enabled, written by the init and by ``ell_prep``
+        #: once a chunk
+        self.cv_upen = torch.zeros((n_c, wc), dtype=dtype, device=device)
+        self.cv_ev = torch.zeros((n_c, wc), dtype=torch.bool,
+                                 device=device)
         self.v_mod = torch.zeros(n_v, dtype=torch.bool, device=device)
         self.v_has = torch.zeros(n_v, dtype=torch.bool, device=device)
 

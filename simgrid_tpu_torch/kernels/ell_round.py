@@ -17,12 +17,28 @@ lanes (the row padded with zeros to a multiple of 32, half of them on
 the left) left to right from 0.0, then the window partials left to
 right (:func:`fold_rows`); minima, maxima and ORs are order-free.
 
+What a solve keeps fixed is written once a chunk by :func:`ell_prep`
+(a K16 step at the head of the chunk's graph, before its round loop):
+each cv entry's ``w / penalty`` into ``EllWork.cv_upen`` (JAX's
+``cv_upen``: 0 where the entry is not enabled), whether it is enabled
+into ``EllWork.cv_ev``, and each constraint's level ``rou``; the init
+writes all three too and every round keeps ``rou`` up to date, so a
+round may follow the init at once.  State that another kernel wrote
+(K6's warm start) needs :func:`ell_prep` before the first round, which
+:func:`~..ops.lmm_torch.chunk_loop` runs at every chunk's head.  Captured as the body
+of a ``Loop(..., ends=True)``, the round's last kernel ends the loop's
+iteration (``superstep_loop.loop_end_args``).
+
 On CPU tensors the wrappers run the plain PyTorch version (a
-transcription of the JAX program) and return whether it ran; on CUDA
-tensors they launch the kernel and return None.
+transcription of the JAX program, which keeps ``rou`` and the tables
+as the kernels do) and return whether it ran; on CUDA tensors they launch
+the kernel and return None.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Optional
 
 import torch
 
@@ -31,8 +47,10 @@ from .common import (ARMED, HALF, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS,
                      NFIXED_ACC, OVERFLOW, VLIVE, VLIVE_ACC, D, EllSystem,
                      EllWork, I, P, check, counter, is_double, on_cpu,
                      ptr_array, stream)
+from .superstep_loop import loop_end_args
 
 INIT_COUNT = counter("ell_init")
+PREP_COUNT = counter("ell_prep")
 LOCAL_COUNT = counter("ell_round")
 GLOBAL_COUNT = counter("ell_round_global")
 
@@ -41,11 +59,13 @@ ARM_FATPIPE = 2
 ARM_GLOBAL = 4
 
 #: buffers handed to the C entries as one pointer array, in this order
-N_PTRS = 26
+N_PTRS = 28
 
 _SIG = {
     "ell_init": [I, I, I, I, I, P, I, D, I, P],
-    "ell_round": [I, I, I, I, I, I, P, I, D, P],
+    "ell_prep": [I, I, I, I, I, P, I, P],
+    "ell_round": [I, I, I, I, I, I, P, I, D, P, P, I, ctypes.c_ulonglong,
+                  P],
 }
 
 INF = float("inf")
@@ -104,6 +124,11 @@ def round_runs(ctrl: torch.Tensor) -> bool:
                 and int(ctrl[VLIVE]) > int(ctrl[HALF]))
 
 
+def _rou(light, remaining, usage):
+    return torch.where(light, remaining / torch.where(light, usage, 1.0),
+                       INF)
+
+
 def _cv_upen(sys: EllSystem, pen: torch.Tensor):
     cv_var = sys.cv_var.long()
     v_enabled = pen > 0
@@ -130,7 +155,18 @@ def ell_init_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
     w.usage.copy_(usage0)
     w.light.copy_((sys.c_bound > sys.c_bound * eps_t) & (usage0 > 0))
     w.cv_live.copy_(cv_evalid & ~v_fixed0[cv_var])
+    w.cv_upen.copy_(cv_upen)
+    w.cv_ev.copy_(cv_evalid)
+    w.rou.copy_(_rou(w.light, w.remaining, w.usage))
     arm_ctrl(w.ctrl, w.light, limit)
+    return True
+
+
+def ell_prep_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor) -> bool:
+    _, _, cv_evalid, cv_upen = _cv_upen(sys, pen)
+    w.cv_upen.copy_(cv_upen)
+    w.cv_ev.copy_(cv_evalid)
+    w.rou.copy_(_rou(w.light, w.remaining, w.usage))
     return True
 
 
@@ -186,8 +222,7 @@ def ell_round_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
     eps_t = torch.tensor(eps, dtype=pen.dtype, device=pen.device)
     light, remaining, usage = w.light, w.remaining, w.usage
     c_bound = sys.c_bound
-    rou = torch.where(light, remaining / torch.where(light, usage, 1.0),
-                      INF)
+    rou = _rou(light, remaining, usage)
     cv_var, v_enabled, cv_evalid, cv_upen = _cv_upen(sys, pen)
     body = _body_global if global_rounds else _body_local
     fix_now, new_value = body(sys, w, pen, vb, eps_t, rou, v_enabled)
@@ -225,6 +260,7 @@ def ell_round_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
     w.usage.copy_(usage_n)
     w.light.copy_(light_n)
     w.cv_live.copy_(cv_live2)
+    w.rou.copy_(_rou(light_n, remaining_n, usage_n))
     c[IT] = int(c[IT]) + 1
     c[LIGHT] = int(light_n.sum())
     return True
@@ -247,7 +283,7 @@ def _ptrs(sys: EllSystem, w: EllWork, pen, vb):
         sys.vc_valid, sys.c_bound, sys.c_fatpipe, w.v_value, w.v_fixed,
         w.remaining, w.usage, w.light, w.cv_live, w.nmin_v, w.proc,
         w.fix_now, w.low_v, w.mb_v, w.mb_c, w.blocked_c, w.rou,
-        w.min_usage, w.min_bound, w.ctrl])
+        w.min_usage, w.min_bound, w.ctrl, w.cv_upen, w.cv_ev])
     w.ptr_cache["ell"] = (sys, pen, vb, arr)
     return arr
 
@@ -267,22 +303,45 @@ def ell_init(sys: EllSystem, w: EllWork, pen: torch.Tensor, eps: float,
     return None
 
 
+def ell_prep(sys: EllSystem, w: EllWork, pen: torch.Tensor,
+             vb: Optional[torch.Tensor] = None):
+    """Each constraint's level ``rou`` from the state in ``w``, each cv
+    entry's ``w / penalty`` into ``w.cv_upen`` and whether it is enabled
+    into ``w.cv_ev``: what the rounds read, before the first round of a
+    solve or chunk.  ``vb`` (not read) is the rounds' own, so that they
+    share one pointer array."""
+    if on_cpu(pen, sys.cv_w, w.ctrl):
+        return ell_prep_plain(sys, w, pen)
+    lib = build.load("ell_round", _SIG)
+    rc = lib.ell_prep(is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc,
+                      sys.wv, _ptrs(sys, w, pen, vb), N_PTRS, stream())
+    check(rc, "ell_prep")
+    PREP_COUNT.n += 1
+    return None
+
+
 def ell_round(sys: EllSystem, w: EllWork, pen: torch.Tensor, eps: float,
               vb: torch.Tensor, has_fatpipe: bool = False,
               global_rounds: bool = False):
     """One ``body_local`` (with the bound-first rule) or ``body_global``
     round and its ``apply_fixes``, skipped once the fixpoint converged or
     spent its round limit.  ``vb`` are the variables' rate bounds (-1:
-    none), which both bodies read."""
+    none), which both bodies read.  Reads the ``rou``, ``cv_upen`` and
+    ``cv_ev`` that the init or :func:`ell_prep` wrote before the first
+    round (each round keeps ``rou``)."""
     if on_cpu(pen, sys.cv_w, w.ctrl):
         return ell_round_plain(sys, w, pen, eps, vb, has_fatpipe,
                                global_rounds)
     lib = build.load("ell_round", _SIG)
     flags = ((ARM_FATPIPE if has_fatpipe else 0)
              | (ARM_GLOBAL if global_rounds else 0))
+    end = loop_end_args()
     rc = lib.ell_round(is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc,
                        sys.wv, flags, _ptrs(sys, w, pen, vb), N_PTRS,
-                       float(eps), stream())
+                       float(eps), None if end is None else end.cnt,
+                       None if end is None else end.tally,
+                       0 if end is None else end.cap,
+                       0 if end is None else end.handle, stream())
     check(rc, "ell_round")
     (GLOBAL_COUNT if global_rounds else LOCAL_COUNT).n += 1
     return None

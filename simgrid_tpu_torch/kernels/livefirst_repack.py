@@ -6,26 +6,40 @@ Replaces ``simgrid_tpu/ops/lmm_jax.py`` ``_stable_livefirst_perm``
 follow the flow rows' permutation when the drain has bounds); the CUDA
 source is ``csrc/livefirst_repack.cu``.  It also re-derives both row
 indexes of the halved system.
+
+A call is three launches over single-pass stable compactions whose
+tiles publish their counts in status words.  Those words and the
+kernel's integer scratch live in buffers kept here per device, sized by
+the largest shapes seen (:func:`_scratch`): the status words are zero
+between calls (each launch zeroes the words of the one before it), so a
+call allocates only its outputs.  A call that fails to
+launch drops the scratch, and the next call starts from fresh zeros.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..ops.csr import Csr, build_csr
 from . import build
 from .common import (I, LmmSystem, P, check, counter, is_double, on_cpu,
-                     opt_ptr, ptr, stream)
+                     ptr_array, stream)
 
 COUNT = counter("livefirst_repack")
 #: launches that carried the rate bounds along
 VBOUND_COUNT = counter("livefirst_repack_vbound")
 
-_SIG = {"livefirst_repack": [I] * 8 + [P] * 26}
+#: buffers handed to the C entry as one pointer array, and the rows a
+#: tile ranks (keep in sync with csrc/livefirst_repack.cu)
+N_PTRS = 24
+RP_TILE = 1024
 
-_SCAN_TILE = 2048
+_SIG = {"livefirst_repack": [I] * 8 + [P, I, P, P, P]}
+
+#: per device: (status words int64, zero between calls; int32 work)
+_SCRATCH: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 class Repacked(NamedTuple):
@@ -96,22 +110,45 @@ def livefirst_repack(sys: LmmSystem, pen, rem, thresh, ids, vh: int,
     vb2 = None if vb is None else empty(vh, dtype)
     c_ptr2, c_idx2 = empty(C + 1, i32), empty(live_elems, i32)
     v_ptr2, v_idx2 = empty(vh + 1, i32), empty(live_elems, i32)
-    flags = (V + E + 2 * nnz + 15) & ~15
-    n_blk = -(-max(V, E, nnz) // _SCAN_TILE) + 1
-    scratch = empty(flags + 4 * (2 * V + 2 * E + 2 * nnz + n_blk + 4),
-                    torch.uint8)
+    status, work = _scratch(dev, V, E, nnz)
     csr = sys.csr
+    ptrs = ptr_array((
+        sys.e_var, sys.e_cnst, sys.e_w, pen, rem, thresh, ids, vb,
+        csr.c_ptr, csr.c_idx, csr.v_ptr, csr.v_idx,
+        ev2, ec2, ew2, pen2, rem2, thresh2, ids2, vb2,
+        c_ptr2, c_idx2, v_ptr2, v_idx2))
     rc = lib.livefirst_repack(
         is_double(dtype), V, E, C, nnz, int(vh), int(eh), int(live_elems),
-        ptr(sys.e_var), ptr(sys.e_cnst), ptr(sys.e_w), ptr(pen), ptr(rem),
-        ptr(thresh), ptr(ids), ptr(csr.c_ptr), ptr(csr.c_idx),
-        ptr(csr.v_ptr), ptr(csr.v_idx), ptr(ev2), ptr(ec2), ptr(ew2),
-        ptr(pen2), ptr(rem2), ptr(thresh2), ptr(ids2), ptr(c_ptr2),
-        ptr(c_idx2), ptr(v_ptr2), ptr(v_idx2), opt_ptr(vb), opt_ptr(vb2),
-        ptr(scratch), stream())
+        ptrs, N_PTRS, status.data_ptr(), work.data_ptr(), stream())
+    if rc != 0:
+        _SCRATCH.pop(str(dev), None)
     check(rc, "livefirst_repack")
     (COUNT if vb is None else VBOUND_COUNT).n += 1
     return Repacked(
         LmmSystem(ev2, ec2, ew2, sys.c_bound,
                   Csr(c_ptr2, c_idx2, v_ptr2, v_idx2), int(vh)),
         pen2, rem2, thresh2, ids2, vb2)
+
+
+def _tiles(n: int) -> int:
+    return max(1, -(-n // RP_TILE))
+
+
+def _scratch(dev: torch.device, V: int, E: int, nnz: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device's status words (a tile of each partition and a start
+    counter each) and int32 work (V + E + 2 nnz + 4), grown (the status
+    words zeroed) when a call at these shapes needs more."""
+    n_st = _tiles(V) + _tiles(E) + 2 * _tiles(nnz) + 4
+    n_wk = V + E + 2 * nnz + 4
+    key = str(dev)
+    have = _SCRATCH.get(key)
+    if have is None or have[0].numel() < n_st or have[1].numel() < n_wk:
+        n_st_, n_wk_ = n_st, n_wk
+        if have is not None:
+            n_st_ = max(n_st_, have[0].numel())
+            n_wk_ = max(n_wk_, have[1].numel())
+        have = (torch.zeros(n_st_, dtype=torch.int64, device=dev),
+                torch.empty(n_wk_, dtype=torch.int32, device=dev))
+        _SCRATCH[key] = have
+    return have

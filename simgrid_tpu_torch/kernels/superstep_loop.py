@@ -117,7 +117,8 @@ class Loop(NamedTuple):
     the body is one wrapper call whose last kernel evaluates the
     condition itself, counts the iteration and sets the WHILE node's
     handle (it takes them from :func:`loop_end_args` while it is
-    captured; K8's round), so the body has no ``loop_cond`` node."""
+    captured; K1's, K7's and K8's rounds), so the body has no
+    ``loop_cond`` node."""
     pred: int
     ctrl: Optional[torch.Tensor]
     body: tuple
@@ -269,6 +270,26 @@ def summary() -> dict:
                 graph_builds=BUILDS["graphs"],
                 device_tally={k: v for k, v in device_tally().items() if v},
                 host_round_calls=host, bodies=bodies())
+
+
+def kernel_nodes(fn: Callable[[], object]) -> int:
+    """The CUDA kernels one ``fn()`` launches, counted as the kernel
+    nodes of the graph that capturing the call builds
+    (``torch.cuda.graph``).  The graph is dropped unlaunched, so the
+    card runs nothing; copies and fills are nodes of other types.  The
+    wrappers' host counters do count the captured call.  Run ``fn``
+    for real at the same shapes first: a wrapper that sizes its scratch
+    on first use (K4) would otherwise capture that fill, never run it,
+    and count it."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n, k, c = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    check(_lib().loop_body_nodes(ctypes.c_void_p(g.raw_cuda_graph()),
+                                 ctypes.byref(n), ctypes.byref(k),
+                                 ctypes.byref(c)), "loop_body_nodes")
+    g.reset()
+    return k.value
 
 
 def reset_tally() -> None:

@@ -36,7 +36,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..kernels.common import (IT, LIGHT, MAX_ROUNDS, EllSystem, LmmSystem,
                               Work)
-from ..kernels.ell_round import ell_round
+from ..kernels.ell_round import ell_prep, ell_round
 from ..kernels.lmm_round import lmm_init, lmm_round, plan_of
 from ..kernels.superstep_loop import (PRED_ROUND, PRED_VC_ROUND,
                                       DeviceLoop, Loop, cached)
@@ -121,18 +121,20 @@ def chunk_loop(sys, w: Work, pen: torch.Tensor, eps: float,
                has_fatpipe: bool, global_rounds: bool,
                chunk: int) -> DeviceLoop:
     """At most ``chunk`` rounds while the fixpoint runs, as one K16
-    launch (kept on ``w`` for the same buffers and arms).  K8's rounds
-    start with its ``vc_prep``; K1's and K8's rounds end their loop's
-    body themselves."""
+    launch (kept on ``w`` for the same buffers and arms).  K8's and K7's
+    rounds start with their prep (``vc_prep``, ``ell_prep``: what the
+    rounds read that the solve keeps fixed); every round ends its loop's
+    body itself."""
     one_round, pred, tally = _round_fn(sys, has_bounds, global_rounds)
     refs = (sys, w, pen, vb, float(eps), has_bounds, has_fatpipe,
             global_rounds, chunk)
-    k8 = tally == "vc_round"
     steps = [Loop(pred, w.ctrl, (lambda: one_round(w, pen, eps, vb,
                                                    has_fatpipe),),
-                  cap=chunk, tally=tally, ends=tally != "ell_round")]
-    if k8:
+                  cap=chunk, tally=tally, ends=True)]
+    if tally == "vc_round":
         steps.insert(0, lambda: vc_prep(sys, w, pen))
+    elif tally == "ell_round":
+        steps.insert(0, lambda: ell_prep(sys, w, pen, vb))
     prepare = (None if isinstance(sys, EllSystem)
                else lambda: plan_of(sys, w))
     return cached(w.ptr_cache, "chunk_loop", refs, lambda: DeviceLoop(

@@ -90,6 +90,32 @@ timed on one card in one call.  The cases:
   6, ``bench.py``'s headline solve through the chain, its first and
   median ms and K8's rounds (host calls, rounds inside K16's graphs).
 
+* ``k4`` and ``k4_vbound`` (not in the default list): K4's repack at
+  main path 1's shape (``chip_smoke.py``'s phase-2 row: config #4's
+  100,000 flows, 45% of them live, seed 7) and with the rate bounds at
+  the 320-rank alltoall's (its phase-8 row): the card's ms of one call
+  (``time_call``), the host-paced ms (``events_ms``), the CUDA kernels
+  one call launches (``kernel_counts``) and the bytes bound; with
+  ``--profile`` also the card's ms by kernel a call and the host's us
+  a call by function (``cProfile``);
+* ``repack_cost`` (not in the default list): the whole cost of a repack
+  on main path 1 (the config-#4 drain): for each repack, K4's card ms
+  (events around its call), the host ms of the drain's device repack
+  (K4 and the halved ``Work``, ending in a sync) and the host ms of the
+  K16 graph builds that follow it before the next repack (each build
+  timed to a sync), with the drain's wall;
+* ``k7_bounds``, ``k7_fatpipe`` and ``k7_global`` (not in the default
+  list): K7's round arms at ``chip_smoke.py``'s phase-11(d) shapes (the
+  headline's full width with 30% of its flows bounded at their rates
+  times U(0.5, 1.5), the same with 10% FATPIPE constraints, and
+  ``bench.py``'s big class in global order): the first ``K7_ROUNDS``
+  rounds of the solve from its init, timed as K1's cases are
+  (``time_rounds``: ``ms``, ``paced_ms``) and inside K16's loop
+  (``loop_ms``: the solve's chunk loop capped at those rounds, one graph
+  launch after its init, the median of ``LOOP_REPS`` after one that
+  builds it), with the round body's nodes (``superstep_loop.bodies``);
+  with ``--profile`` also the card's ms a round by kernel.
+
 The K2 and K3 cases (``K23_CASES``, not in the default list) time one
 wrapper call of ``drain_advance``, ``drain_forced_advance`` or
 ``superstep_commit`` at a main path's shape, each call from the same
@@ -128,6 +154,8 @@ CASES = ("solo", "fleet8", "a2a_bounds", "a2a_5b", "a2a_fat", "glob48",
 LENGTHS = (0, 1, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 #: timed graph launches of a ``loop_<case>``
 LOOP_REPS = 5
+#: rounds of a K7 case that are timed (at most: the solve's own)
+K7_ROUNDS = 64
 
 
 def kernel_profile(fn) -> dict:
@@ -682,6 +710,265 @@ def run_k10(fleet: bool) -> dict:
             "cuda_launches": t.kernel_counts(fn, setup)}
 
 
+def host_profile(fn, n: int = 50, top: int = 12) -> dict:
+    """The host's seconds a call by function, ``cProfile`` over ``n``
+    calls of ``fn`` (then a sync): the ``top`` functions by own time."""
+    import cProfile
+    import pstats
+    import torch
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {f"{os.path.basename(k[0])}:{k[1]}({k[2]})": v[2] / n * 1e6
+            for k, v in rows}
+
+
+def run_k4(vbound: bool, profile: bool = False) -> dict:
+    """K4's repack at main path 1's shape, or with the rate bounds at the
+    alltoall's (``k4``, ``k4_vbound``); with ``profile``, the card's ms
+    per kernel a call and the host's us a call by function."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels.livefirst_repack import livefirst_repack
+    from simgrid_tpu_torch.ops.lmm_arrays import to2d
+    from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads.drain_run import (ENGINE_DONE_EPS,
+                                                       solve_inputs)
+    t = _timing()
+    smoke = main_paths()
+    dev, f64 = torch.device("cuda"), torch.float64
+    if vbound:
+        a2a = dragonfly.build_alltoall(smoke.RANKS)
+        arr = solve_inputs(a2a)
+        V = arr.n_var
+        flat = [to2d(x).reshape(-1) for x in (a2a.e_var, a2a.e_cnst,
+                                              a2a.e_w)]
+        s = to_device_system(flat[0], flat[1], flat[2], arr.c_bound, V,
+                             f64, dev)
+        live = np.random.default_rng(7).random(V) < 0.45
+        args = [torch.from_numpy(live * arr.v_penalty),
+                torch.from_numpy(a2a.sizes.copy()),
+                torch.full((V,), ENGINE_DONE_EPS, dtype=f64),
+                torch.arange(V, dtype=torch.int32),
+                torch.from_numpy(arr.v_bound.copy())]
+    else:
+        dsys = dragonfly.build_system(smoke.FLOWS)
+        V = smoke.FLOWS
+        flat = [to2d(a).reshape(-1) for a in (dsys.e_var, dsys.e_cnst,
+                                              dsys.e_w)]
+        s = to_device_system(flat[0], flat[1], flat[2], dsys.c_bound, V,
+                             f64, dev)
+        rng = np.random.default_rng(7)
+        live = rng.random(V) < 0.45
+        rem = torch.from_numpy(rng.uniform(1e4, 1e6, V))
+        args = [torch.from_numpy(live.astype(np.float64)), rem, 1e-4 * rem,
+                torch.arange(V, dtype=torch.int32)]
+    args = [a.to(dev) for a in args]
+    vb = args[4] if vbound else None
+    ev = s.e_var.long()
+    live_elems = int(((s.e_w > 0) & (args[0][ev] > 0)).sum())
+    vh, eh = V // 2, -(-(s.n_e // 2) // 8) * 8
+
+    def fn():
+        return livefirst_repack(s, *args[:4], vh, eh, live_elems, vb)
+    out = fn()
+    nb = lambda *ts: sum(x.numel() * x.element_size() for x in ts)  # noqa
+    n_bytes = (nb(s.e_var, s.e_cnst, s.e_w, *args)
+               + nb(*out.sys[:3], *[x for x in out[1:] if x is not None]))
+    q = t.time_call(fn)
+    kc = t.kernel_counts(fn)
+    rec = {"V": V, "E": s.n_e, "nnz": s.csr.nnz, "vh": vh, "eh": eh,
+           "live_flows": int(live.sum()), "live_elems": live_elems,
+           "ms": q["ms"], "queued": q["queued"],
+           "paced_ms": t.events_ms(fn, 10), "cuda_kernels": kc,
+           "cuda_launches": sum(kc.values()),
+           "bound_ms": t.bound_ms(n_bytes)}
+    if profile:
+        rec["profile_ms"] = {k: v / 10 for k, v in kernel_profile(
+            lambda: [fn() for _ in range(10)]).items()}
+        rec["host_us"] = host_profile(fn)
+    return rec
+
+
+def run_repack_cost() -> dict:
+    """The whole cost of each repack on main path 1 (``repack_cost``):
+    the drain's device repack on the host's clock, split into K4's
+    wrapper (host, and card between events around it) and the halved
+    ``Work``, and the K16 graph builds that follow it."""
+    import torch
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.ops import lmm_drain
+    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads.drain_run import run_drain
+    smoke = main_paths()
+    dsys = dragonfly.build_system(smoke.FLOWS)
+    rows: list = []
+    builds_before: list = []
+    k4_real = lmm_drain.livefirst_repack
+    repack_real = lmm_drain.DrainSim._repack_device
+    build_real = k16.DeviceLoop._build
+    work_real = lmm_drain.Work
+
+    def k4(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        out = k4_real(*a, **kw)
+        e1.record()
+        e1.synchronize()
+        rows[-1]["k4_host_ms"] = (time.perf_counter() - t0) * 1e3
+        rows[-1]["k4_card_ms"] = e0.elapsed_time(e1)
+        return out
+
+    def work(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = work_real(*a, **kw)
+        torch.cuda.synchronize()
+        if rows and "work_ms" not in rows[-1]:
+            rows[-1]["work_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def repack(sim, *a, **kw):
+        torch.cuda.synchronize()
+        rows.append({"n_v": sim.n_v, "builds_ms": []})
+        t0 = time.perf_counter()
+        ok = repack_real(sim, *a, **kw)
+        torch.cuda.synchronize()
+        rows[-1]["repack_host_ms"] = (time.perf_counter() - t0) * 1e3
+        if not ok:
+            rows.pop()
+        return ok
+
+    def build(loop):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_real(loop)
+        torch.cuda.synchronize()
+        (rows[-1]["builds_ms"] if rows else builds_before).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    lmm_drain.livefirst_repack = k4
+    lmm_drain.DrainSim._repack_device = repack
+    k16.DeviceLoop._build = build
+    lmm_drain.Work = work
+    try:
+        _, row = run_drain(dsys, device=torch.device("cuda"),
+                           superstep=smoke.K)
+    finally:
+        lmm_drain.livefirst_repack = k4_real
+        lmm_drain.DrainSim._repack_device = repack_real
+        k16.DeviceLoop._build = build_real
+        lmm_drain.Work = work_real
+    for r in rows:
+        r["total_ms"] = r["repack_host_ms"] + sum(r["builds_ms"])
+        r["rest_ms"] = (r["repack_host_ms"] - r.get("k4_host_ms", 0.0)
+                        - r.get("work_ms", 0.0))
+    return {"wall_s": row["wall_s"], "repacks": len(rows),
+            "first_builds_ms": builds_before, "per_repack": rows,
+            "repacks_total_ms": sum(r["total_ms"] for r in rows),
+            "split_total_ms": {k: sum(r.get(k, 0.0) for r in rows)
+                               for k in ("k4_host_ms", "work_ms",
+                                         "rest_ms")}
+            | {"builds_ms": sum(sum(r["builds_ms"]) for r in rows)}}
+
+
+#: K7's cases: (FATPIPE share, global order)
+K7_CASES = {"k7_bounds": (0.0, False), "k7_fatpipe": (0.10, False),
+            "k7_global": (0.0, True)}
+
+
+def run_k7(name: str, profile: bool = False) -> dict:
+    """K7's round arm ``name`` at phase 11(d)'s full shape (module
+    docstring); with ``profile``, the card's ms a round by kernel over
+    the timed rounds."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import ell_round as k7
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.kernels.common import EllWork
+    from simgrid_tpu_torch.ops import lmm_ell, lmm_torch
+    from simgrid_tpu_torch.workloads import bench_solve
+    t = _timing()
+    smoke = main_paths()
+    dev, f64 = torch.device("cuda"), torch.float64
+    eps = smoke.HL_EPS
+    fat_share, glob = K7_CASES[name]
+    if glob:
+        a = bench_solve.build_arrays(np.random.default_rng(42), 2000, 2000,
+                                     3, np.float64)
+    else:
+        hl = smoke.HEADLINE
+        a = bench_solve.build_arrays(np.random.default_rng(hl["seed"]),
+                                     hl["n_c"], hl["n_v"], hl["deg"],
+                                     np.float64)
+        rates = lmm_torch.solve_arrays(a, eps, device=dev)[0]
+        rng = np.random.default_rng(11)
+        vb = a.v_bound.copy()
+        sel = np.zeros(len(vb), bool)
+        sel[:a.n_var] = rng.random(a.n_var) < 0.3
+        vb[sel] = rates[sel] * rng.uniform(0.5, 1.5, int(sel.sum()))
+        a = a._replace(v_bound=vb)
+    if fat_share:
+        f = a.c_fatpipe.copy()
+        f[:a.n_cnst] = np.random.default_rng(12).random(a.n_cnst) \
+            < fat_share
+        a = a._replace(c_fatpipe=f)
+    full_r = lmm_torch.solve_arrays(a, eps, device=dev,
+                                    parallel_rounds=not glob, layout="ell",
+                                    chain="off")[3]
+    rounds = min(full_r, K7_ROUNDS)
+    s, pen, vb = lmm_ell.dense_system(lmm_ell.ell_from_arrays(a), dev)
+    w = EllWork(s.n_v, s.n_c, s.wc, f64, dev)
+    fat = bool(a.c_fatpipe.any())
+    prep = getattr(k7, "ell_prep", None)
+
+    def init():
+        k7.ell_init(s, w, pen, eps, vb)
+        if prep is not None:
+            prep(s, w, pen, vb)
+
+    def rnd():
+        k7.ell_round(s, w, pen, eps, vb, fat, glob)
+    rec = {"case": name, "V": s.n_v, "C": s.n_c, "Wc": s.wc, "Wv": s.wv,
+           "full_rounds": full_r, **t.time_rounds(init, rnd, rounds)}
+    # inside K16's loop: the solve's chunk loop, capped at the rounds
+    k16.reset_tally()
+    loop = lmm_torch.chunk_loop(s, w, pen, eps, vb, True, fat, glob,
+                                rounds)
+    ms = []
+    for rep in range(LOOP_REPS + 1):
+        k7.ell_init(s, w, pen, eps, vb)
+        a_ = torch.cuda.Event(enable_timing=True)
+        b_ = torch.cuda.Event(enable_timing=True)
+        a_.record()
+        loop.run()
+        b_.record()
+        torch.cuda.synchronize()
+        if rep:
+            ms.append(a_.elapsed_time(b_))
+    ms.sort()
+    rec.update(loop_launch_ms=ms, loop_ms=ms[len(ms) // 2] / rounds,
+               loop_ms_spread=[ms[0] / rounds, ms[-1] / rounds],
+               bodies=[b for b in k16.bodies()
+                       if b["tally"] == "ell_round"])
+    if profile:
+        init()
+        rec["profile_ms_per_round"] = {
+            k: v / rounds for k, v in kernel_profile(
+                lambda: [rnd() for _ in range(rounds)]).items()}
+    return rec
+
+
 def run_k16_first() -> dict:
     """K16's first superstep on the card (``k16_first``)."""
     import torch
@@ -723,6 +1010,12 @@ def run_case(name: str, profile: bool = False) -> dict:
         return {"case": name, **run_k10(name == "k10_fleet")}
     if name == "k16_first":
         return {"case": name, **run_k16_first()}
+    if name in ("k4", "k4_vbound"):
+        return {"case": name, **run_k4(name == "k4_vbound", profile)}
+    if name == "repack_cost":
+        return {"case": name, **run_repack_cost()}
+    if name in K7_CASES:
+        return run_k7(name, profile)
     if name.startswith("loop_"):
         return run_loop_case(name)
     if name in ("wall1", "wall3", "wall8", "wall10"):

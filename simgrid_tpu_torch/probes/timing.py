@@ -194,13 +194,22 @@ def events_ms(fn: Callable[[], object], n: int,
     return tot / n
 
 
+#: names of what ``kernel_counts`` leaves out: runtime calls, PyTorch's
+#: own kernels, copies and fills, and CUPTI's records of its own work
+#: (its buffers, and the modules CUDA loads at a first launch)
+_NOT_KERNELS = ("cuda", "aten", "at::", "Memcpy", "Memset",
+                "Activity Buffer", "Lazy Function", "Runtime Triggered")
+
+
 def kernel_counts(fn: Callable[[], object],
                   setup: Optional[Callable[[], object]] = None,
                   reps: int = 4) -> dict:
     """CUDA kernels one ``fn()`` launches, by name: ``torch.profiler``
     over ``reps`` calls after one ``setup()``, divided by ``reps`` (a
     wrapper launches the same kernels whatever the state; runtime calls,
-    copies, fills and PyTorch's own kernels left out)."""
+    copies, fills and PyTorch's own kernels left out).  Raises when the
+    profiler recorded no such kernel: a count of nothing is not a
+    measurement."""
     from torch.profiler import ProfilerActivity, profile
     if setup is not None:
         setup()
@@ -217,9 +226,11 @@ def kernel_counts(fn: Callable[[], object],
             t = getattr(ev, "cuda_time_total", 0)
         name = (ev.key or "").replace("void ", "").replace(
             "(anonymous namespace)::", "").split("(")[0]
-        if t and name and not name.startswith(
-                ("cuda", "aten", "at::", "Memcpy", "Memset")):
+        if t and name and not name.startswith(_NOT_KERNELS):
             out[name] = out.get(name, 0) + ev.count / reps
+    if not out:
+        raise RuntimeError("torch.profiler recorded no CUDA kernel of the "
+                           "call: its launches were not counted")
     return out
 
 

@@ -24,8 +24,8 @@ from simgrid_tpu_torch.kernels import ell_chain as k9
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.kernels.common import (
     AANY, ADV_CONV, ADV_GO, ADV_OK, COMMIT_TILE, DT, EV_NEXT_T, EV_T0, FFIRE,
-    FIRE, IT, LIGHT, LIMIT, LIVE_ACC, OVERFLOW, PENDING, SS_ACTIVE, SS_ADV,
-    SS_NEV,
+    FIRE, IT, LIGHT, LIMIT, LIVE_ACC, N_CTRL, OVERFLOW, PENDING, SS_ACTIVE,
+    SS_ADV, SS_NEV,
     SS_ROUNDS, T_COMP, T_SUM, TPOS, EllWork, Work, inf_key)
 from simgrid_tpu_torch.kernels import superstep_loop as k16
 from simgrid_tpu_torch.kernels.dag_walk import dag_walk
@@ -823,6 +823,236 @@ def test_ell_dense_tight_card_equals_plain(cuda, arm, width):
         np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
 
 
+# ---- K7's redesign: the bound regimes, the global arm across chunks,
+# the round loop's nodes
+
+#: nodes of a K7 round body in K16's loop by arm: every pass a kernel
+#: node, the round's end in a_apply, no loop_cond node
+K7_NODES = {"local": 8, "global": 4}
+
+
+def bound_regime(a, bind):
+    """``a`` with every enabled flow bounded: far above its share, so no
+    bound ever binds (``none``), or far below it, so every bound binds
+    (``all``)."""
+    vb = np.full(len(a.v_bound), -1.0)
+    vb[:a.n_var] = 1e6 if bind == "none" else 1e-3
+    return a._replace(v_bound=vb)
+
+
+def _k7_bodies():
+    return [b for b in k16.bodies() if b["tally"] == "ell_round"]
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("bind", ["none", "all"])
+def test_k7_bound_regimes_card_equal_plain(cuda, bind, local):
+    """K7's solve with every flow bounded, where no bound ever binds (the
+    bound passes skip in every round: ``mb_c`` is never written) and
+    where every bound binds (no round skips), card against the plain
+    path on the CPU by bits; the round loop's body holds the arm's
+    kernel nodes, ends itself and has no ``loop_cond`` node."""
+    a = bound_regime(width_arrays(5, 96 if local else 48, 64, 4), bind)
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, parallel_rounds=local,
+                               layout="ell", chain="off")
+    counts = path_counts()
+    assert counts["ell_round" if local else "ell_round_global"] > 0
+    assert counts["ell_prep"] >= 1
+    (body,) = _k7_bodies()
+    assert body["ends"] and body["cond_nodes"] == 0
+    assert body["kernel_nodes"] == K7_NODES["local" if local else "global"]
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=local,
+                               layout="ell", chain="off")
+    assert g[3] == c[3]
+    for x, y in zip(g[:3], c[:3]):
+        np.testing.assert_array_equal(x.view(np.int64), y.view(np.int64))
+    if not local:
+        return
+    # the skip, seen from the scratch the bound passes write
+    ell = lmm_ell.ell_from_arrays(a)
+    s_, p_, vb_ = lmm_ell.dense_system(ell, cuda)
+    w = EllWork(s_.n_v, s_.n_c, s_.wc, torch.float64, cuda)
+    w.mb_c.fill_(7.0)
+    from simgrid_tpu_torch.kernels.ell_round import ell_init
+    ell_init(s_, w, p_, 1e-9, vb_)
+    loop = lmm_torch.chunk_loop(s_, w, p_, 1e-9, vb_, True, False, False,
+                                100_000)
+    loop.run()
+    assert int(w.ctrl[LIGHT]) == 0 and int(w.ctrl[IT]) == g[3]
+    untouched = bool((w.mb_c == 7.0).all())
+    assert untouched == (bind == "none")
+
+
+def test_k7_global_two_chunks_card_equals_plain(cuda):
+    """The global arm (bounds binding) in chunks of half its rounds: the
+    minima the previous round's end cleared, and the prep at the second
+    chunk's head, give the one-chunk result by bits, card and CPU."""
+    a = width_arrays(3, 48, 64, 4, bounds=0.2)
+    whole = lmm_torch.solve_arrays(a, 1e-9, device="cpu",
+                                   parallel_rounds=False, layout="ell",
+                                   chain="off")
+    chunk = -(-whole[3] // 2)
+    assert whole[3] >= 4
+    reset_launch_counts()
+    g = lmm_torch.solve_arrays(a, 1e-9, device=cuda, parallel_rounds=False,
+                               layout="ell", chain="off", chunk=chunk)
+    assert k16.COUNTS["chunk"].n == 2 and path_counts()["ell_prep"] == 2
+    c = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=False,
+                               layout="ell", chain="off", chunk=chunk)
+    for r in (g, c):
+        assert r[3] == whole[3]
+        for x, y in zip(r[:3], whole[:3]):
+            np.testing.assert_array_equal(x.view(np.int64),
+                                          y.view(np.int64))
+
+
+@pytest.mark.parametrize("prep", [True, False], ids=["prep", "init_only"])
+def test_k7_round_outside_a_loop_counts_itself(cuda, prep):
+    """Called from the host after its init (and prep, or the init alone:
+    the init writes the tables the round reads), K7's round moves IT and
+    LIGHT (a_apply's last block commits it), keeps ``rou`` as the plain
+    round does, and leaves the ticket and NLOW at 0."""
+    from simgrid_tpu_torch.kernels.common import NLOW, TICKET
+    from simgrid_tpu_torch.kernels.ell_round import (ell_init, ell_prep,
+                                                     ell_round)
+    a = width_arrays(3, 96, 64, 4, bounds=0.3)
+    ell = lmm_ell.ell_from_arrays(a)
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        s_, p_, vb_ = lmm_ell.dense_system(ell, dev)
+        w = EllWork(s_.n_v, s_.n_c, s_.wc, torch.float64, dev)
+        ell_init(s_, w, p_, 1e-9, vb_)
+        if prep:
+            ell_prep(s_, w, p_, vb_)
+        for _ in range(3):
+            ell_round(s_, w, p_, 1e-9, vb_)
+        runs.append([t.cpu().clone() for t in (
+            w.v_value, w.v_fixed, w.remaining, w.usage, w.light, w.cv_live,
+            w.rou, w.cv_upen, w.cv_ev)] + [w.ctrl.cpu().clone()])
+    for x, y in zip(runs[0][:-1], runs[1][:-1]):
+        assert torch.equal(x, y)
+    ctrl = runs[0][-1]
+    assert int(ctrl[IT]) == 3 and int(ctrl[LIGHT]) == int(runs[1][-1][LIGHT])
+    assert int(ctrl[TICKET]) == int(ctrl[TICKET + 1]) == int(ctrl[NLOW]) == 0
+
+
+# ---- K4's redesign: single-pass compactions, scratch kept zeroed
+
+
+def k4_system(seed, V, deg, live_share, dev, all_live=False):
+    """A COO system of ``V`` flows with up to ``deg`` elements each (a
+    tenth of the weights zero), its flow state, and the shapes a drain
+    would repack it to: ``live_share`` of the flows live, or exactly
+    the first ``V // 2`` (``all_live``: every flow kept is live)."""
+    rng = np.random.default_rng(seed)
+    n_c = max(V // 8, 4)
+    E = V * deg - rng.integers(0, V)  # not a multiple of anything
+    ev = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    ec = rng.integers(0, n_c, E).astype(np.int32)
+    ew = rng.uniform(0.5, 1.5, E)
+    ew[rng.random(E) < 0.1] = 0.0
+    if all_live:
+        live = np.zeros(V, bool)
+        live[rng.permutation(V)[:V // 2]] = True
+    else:
+        live = rng.random(V) < live_share
+    pen = np.where(live, rng.uniform(0.5, 2.0, V), 0.0)
+    sys_ = lmm_torch.to_device_system(ev, ec, ew, rng.uniform(1, 9, n_c), V,
+                                      torch.float64, dev)
+    state = [torch.from_numpy(x).to(dev) for x in (
+        pen, rng.uniform(1e4, 1e6, V), rng.uniform(1, 10, V),
+        np.arange(V, dtype=np.int32) * 3, np.where(
+            rng.random(V) < 0.5, rng.uniform(1, 5, V), -1.0))]
+    return sys_, state
+
+
+def _k4_shapes(sys_, pen):
+    E = sys_.n_e
+    live_elems = int(((sys_.e_w > 0) & (pen[sys_.e_var.long()] > 0)).sum())
+    return (int(pen.shape[0]) // 2, max(-(-(E // 2) // 8) * 8, live_elems),
+            live_elems)
+
+
+def _k4_out(rp):
+    return [t.cpu() for t in (*rp.sys[:3], *rp.sys.csr, rp.pen, rp.rem,
+                              rp.thresh, rp.ids)] + (
+        [] if rp.vb is None else [rp.vb.cpu()])
+
+
+K4_CASES = {"all_live": (4096, 3, 0.0, True), "one_live": (3001, 4, 0.0,
+                                                           False),
+            "ragged": (5003, 5, 0.45, False), "big": (100_003, 4, 0.45,
+                                                      False)}
+
+
+@pytest.mark.parametrize("vb", [False, True], ids=["plain", "vbound"])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4_repack_card_equals_plain(cuda, case, vb):
+    """K4 on the card against ``livefirst_repack_plain`` on the CPU, every
+    output array by bits: every flow kept live (``all_live``), a single
+    live flow, and V, E and nnz that are no multiple of a tile, with and
+    without the rate bounds; then the halved system repacked again (the
+    status words the first call left zeroed)."""
+    from simgrid_tpu_torch.kernels.livefirst_repack import (
+        livefirst_repack, livefirst_repack_plain)
+    V, deg, share, all_live = K4_CASES[case]
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        sys_, st = k4_system(11, V, deg, share, dev, all_live)
+        if case == "one_live":
+            pen = torch.zeros_like(st[0])
+            pen[V // 3] = 1.5
+            st[0] = pen
+        fn = livefirst_repack if dev.type == "cuda" else \
+            livefirst_repack_plain
+        seen = []
+        for k in range(2):
+            if k:    # flows end, so the live ones fit the next halving
+                st[0] = torch.where(torch.arange(st[0].shape[0],
+                                                 device=dev) % 5 == 0,
+                                    st[0], 0.0)
+            vh, eh, le = _k4_shapes(sys_, st[0])
+            reset_launch_counts()
+            rp = fn(sys_, *st[:4], vh, eh, le, st[4] if vb else None)
+            if dev.type == "cuda":
+                counts = launch_counts()
+                assert counts["livefirst_repack_vbound" if vb
+                              else "livefirst_repack"] == 1
+            seen.append(_k4_out(rp))
+            sys_ = rp.sys
+            st = [rp.pen, rp.rem, rp.thresh, rp.ids,
+                  rp.vb if vb else st[4][:vh]]
+        outs.append(seen)
+    for got, want in zip(*outs):
+        assert len(got) == len(want)
+        for x, y in zip(got, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def test_k4_scratch_reused_across_shapes(cuda):
+    """Repacks of a large system, then a small one, then the large one
+    again: the scratch grows once and is reused, and every call equals
+    the plain repack by bits."""
+    from simgrid_tpu_torch.kernels import livefirst_repack as k4
+    key = str(torch.zeros(1, device=cuda).device)
+    sizes = (20_011, 3_001, 20_011)
+    for i, V in enumerate(sizes):
+        outs = []
+        for dev in (cuda, torch.device("cpu")):
+            sys_, st = k4_system(20 + i, V, 4, 0.4, dev)
+            vh, eh, le = _k4_shapes(sys_, st[0])
+            fn = k4.livefirst_repack if dev.type == "cuda" else \
+                k4.livefirst_repack_plain
+            outs.append(_k4_out(fn(sys_, *st[:4], vh, eh, le, st[4])))
+        for x, y in zip(*outs):
+            assert torch.equal(x, y), (V, i)
+        if i == 0:
+            held = k4._SCRATCH[key][0].data_ptr()
+    assert k4._SCRATCH[key][0].data_ptr() == held
+    assert int(k4._SCRATCH[key][0].count_nonzero()) == 0
+
+
 def chain_arrays(seed=13):
     from simgrid_tpu_torch.workloads.bench_solve import build_arrays
     return build_arrays(np.random.default_rng(seed), 4096, 33000, 3,
@@ -875,6 +1105,43 @@ def _stage_arrays(cs):
         cs.w.ctrl, cs.w.rou, cs.sys.vcx_ptr)] + [
         getattr(cs.sys, k)[:n].cpu().clone()
         for k in ("vcx_idx", "vcx_row", "vcx_w", "vcx_upen")]
+
+
+def test_kernel_nodes_count_launches(cuda):
+    """``superstep_loop.kernel_nodes`` counts the CUDA kernels of one
+    captured call without running it (each wrapper first runs for real
+    at the shapes, as it does before every count in ``chip_smoke.py``):
+    K4 three with and without the rate bounds, K8's round four, K9's
+    stage two; no buffer of the state changes on the card, and K4 equals
+    the plain repack by bits."""
+    from simgrid_tpu_torch.kernels.livefirst_repack import (
+        livefirst_repack, livefirst_repack_plain)
+    from simgrid_tpu_torch.kernels.vc_round import vc_round
+    sys_, st = k4_system(5, 4096, 3, 0.4, cuda)
+    sys_c, st_c = k4_system(5, 4096, 3, 0.4, torch.device("cpu"))
+    vh, eh, le = _k4_shapes(sys_, st[0])
+    for bounds in (False, True):
+        vb, vb_c = (st[4], st_c[4]) if bounds else (None, None)
+        got = _k4_out(livefirst_repack(sys_, *st[:4], vh, eh, le, vb))
+        want = _k4_out(livefirst_repack_plain(sys_c, *st_c[:4], vh, eh, le,
+                                              vb_c))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert k16.kernel_nodes(lambda: livefirst_repack(
+            sys_, *st[:4], vh, eh, le, vb)) == 3
+    cs = _chain_start(chain_arrays(5), cuda, False)
+    vc_round(cs.sys, cs.w, cs.pen, 1e-9, False)
+    # the buffers themselves: a stage's wrapper may swap which buffers
+    # the state on the host names
+    held = (cs.w.ctrl, cs.w.v_value, cs.w.rou)
+    before = [t.clone() for t in held]
+    half = cs.sys.n_v // 2
+    assert k16.kernel_nodes(lambda: vc_round(cs.sys, cs.w, cs.pen, 1e-9,
+                                             False)) == 4
+    assert k16.kernel_nodes(lambda: k9.chain_stage(cs, half,
+                                                   (64, half // 2))) == 2
+    torch.cuda.synchronize()
+    for x, y in zip(before, held):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("short", [False, True], ids=["guard", "short"])
@@ -1774,7 +2041,7 @@ def test_k1_loop_ends_card_equals_plain(cuda, monkeypatch, arm, layout,
         assert body["ends"] == (key == "ends")
         assert body["cond_nodes"] == (0 if key == "ends" else 1)
         assert body["kernel_nodes"] == K1_LOOP_NODES[arm] + (key == "cond")
-    assert int(runs["ends"][0][-1][-1].view(-1, 32)[0, 14]) == 0
+    assert int(runs["ends"][0][-1][-1].view(-1, N_CTRL)[0, 14]) == 0
 
 
 def test_k1_round_outside_a_loop_counts_itself(cuda):
@@ -1792,9 +2059,10 @@ def test_k1_round_outside_a_loop_counts_itself(cuda):
         for _ in range(3):
             k1.lmm_round(sg, wg, pg, 1e-9)
             _k1_plain_round(sc, wc, pc_, vc, 1e-9, {})
-        ctrl = wg.ctrl.cpu().view(-1, 32)
+        ctrl = wg.ctrl.cpu().view(-1, N_CTRL)
         assert ctrl[:, IT].tolist() == [3] * ctrl.shape[0]
-        assert torch.equal(ctrl[:, LIGHT], wc.ctrl.view(-1, 32)[:, LIGHT])
+        assert torch.equal(ctrl[:, LIGHT],
+                           wc.ctrl.view(-1, N_CTRL)[:, LIGHT])
         assert ctrl[:, LIGHT_ACC].tolist() == [0] * ctrl.shape[0]
         assert int(ctrl[0, GTICKET]) == 0
 
@@ -1855,7 +2123,7 @@ def test_dag_walk_csr_card_equals_plain(cuda, B, V):
             reset_launch_counts()
             dag_walk(w, es, ed, p, r, t(cost), csr)
             snaps.append((p.cpu().clone(), r.cpu().clone(),
-                          w.ctrl.cpu().view(-1, 32)[:, PENDING].clone()))
+                          w.ctrl.cpu().view(-1, N_CTRL)[:, PENDING].clone()))
         out.append((snaps, path_counts()))
     for (pg, rg, ng), (pc_, rc, nc) in zip(out[0][0], out[1][0]):
         assert torch.equal(pg, pc_) and torch.equal(rg, rc)

@@ -25,7 +25,8 @@ import torch
 from simgrid_tpu.collectives import CollectiveSpec as JaxSpec
 from simgrid_tpu.ops import lmm_drain as jax_drain
 from simgrid_tpu_torch.kernels import dag_walk as k10
-from simgrid_tpu_torch.kernels.common import ADV_OK, PENDING, T_SUM, Work
+from simgrid_tpu_torch.kernels.common import (ADV_OK, N_CTRL, PENDING,
+                                              T_SUM, Work)
 
 CASES = {"ring64": ("lr", 64, 1 << 17), "rdb256": ("rdb", 256, 1 << 20),
          "rdb1024": ("rdb", 1024, 1 << 20)}
@@ -81,14 +82,14 @@ def _port_walk(dc, csr, pred, ready, done, t_new, ok=None):
     B = None if done.ndim == 1 else done.shape[0]
     w = Work(V, 4, torch.float64, torch.device("cpu"), B=B)
     w.done.copy_(torch.from_numpy(done))
-    w.ctrl.view(-1, 32)[:, ADV_OK] = torch.from_numpy(
+    w.ctrl.view(-1, N_CTRL)[:, ADV_OK] = torch.from_numpy(
         np.ones(1 if B is None else B, np.int32) if ok is None else ok)
     w.fctrl.view(-1, 4)[:, T_SUM] = torch.from_numpy(np.atleast_1d(t_new))
     p, r = torch.from_numpy(pred.copy()), torch.from_numpy(ready.copy())
     k10.dag_walk(w, torch.from_numpy(dc.edge_src),
                  torch.from_numpy(dc.edge_dst), p, r,
                  torch.from_numpy(dc.exec_cost), csr)
-    return p.numpy(), r.numpy(), w.ctrl.view(-1, 32)[:, PENDING].numpy()
+    return p.numpy(), r.numpy(), w.ctrl.view(-1, N_CTRL)[:, PENDING].numpy()
 
 
 def _card_order_walk(csr, pred, ready, done, t_new, cost, seed):

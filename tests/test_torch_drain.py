@@ -179,6 +179,91 @@ def test_bounded_drain_equals_jax(fat_tree, mode, variant):
         assert_loop_rounds(j, t)
 
 
+def test_bounded_drain_repacks_twice_equals_jax(fat_tree):
+    """The bounded superstep drain with its bounds redrawn to bind and a
+    low repack floor, so that it halves its shapes at least twice (the
+    bound rows carried each time: ``_drain_repack`` with
+    ``_repack_vbound``), against the JAX drain."""
+    arrays, sizes = fat_tree
+    pen, vb = bounds(arrays, "binding")
+    kw = dict(superstep=K, superstep_rounds=K * 512, penalty=pen,
+              v_bound=vb, repack_min=8)
+    j = make(JaxDrainSim, arrays, sizes, np.float64, 1e-9, **kw)
+    j.run()
+    t = make(DrainSim, arrays, sizes, np.float64, 1e-9, device="cpu",
+             **kw)
+    t.run()
+    assert_same_drain(j, t)
+    assert t.repacks >= 2
+
+
+def _jax_repack(ev, ec, ew, pen, rem, thresh, ids, vb, vh, eh):
+    """``_drain_repack`` with ``_repack_vbound``, as the JAX drain calls
+    them (its element arrays in rows of 8)."""
+    from simgrid_tpu.ops.lmm_drain import _drain_repack, _repack_vbound
+    from simgrid_tpu.ops.lmm_jax import _pos_group
+    out = _drain_repack(ev.reshape(-1, 8), ec.reshape(-1, 8),
+                        ew.reshape(-1, 8), pen, rem, thresh, ids, vh=vh,
+                        eh=eh, gv=_pos_group(len(pen)),
+                        ge=_pos_group(len(ev)))
+    return [np.asarray(x).reshape(-1) for x in out] + [
+        np.asarray(_repack_vbound(vb, pen, vh=vh))]
+
+
+@pytest.mark.parametrize("V", [600, 1003])
+def test_livefirst_repack_plain_twice_equals_jax(V):
+    """K4's plain version against ``_drain_repack`` and
+    ``_repack_vbound``, twice in a row (the second from the first's
+    halves, after more flows ended), every array by bits: the element
+    arrays, the flow rows and the bound rows; the row indexes equal the
+    ones built from the JAX halves."""
+    import torch
+    from simgrid_tpu_torch.kernels.livefirst_repack import \
+        livefirst_repack_plain
+    from simgrid_tpu_torch.ops.csr import build_csr
+    from simgrid_tpu_torch.ops.lmm_torch import to_device_system
+    rng = np.random.default_rng(V)
+    E = -(-V * 3 // 8) * 8
+    n_c = 40
+    ev = np.sort(rng.integers(0, V, E)).astype(np.int32)
+    ec = rng.integers(0, n_c, E).astype(np.int32)
+    ew = np.where(rng.random(E) < 0.1, 0.0, rng.uniform(0.5, 1.5, E))
+    pen = np.where(rng.random(V) < 0.4, rng.uniform(0.5, 2.0, V), 0.0)
+    rem, thresh = rng.uniform(1e4, 1e6, V), rng.uniform(1, 10, V)
+    ids = np.arange(V, dtype=np.int32)
+    vb = np.where(rng.random(V) < 0.5, rng.uniform(1, 5, V), -1.0)
+    cpu = torch.device("cpu")
+    sys_ = to_device_system(ev, ec, ew, np.ones(n_c), V, torch.float64,
+                            cpu)
+    state = [torch.from_numpy(x) for x in (pen, rem, thresh, ids, vb)]
+    for k in range(2):
+        if k:      # flows end, so the live ones fit the next halving
+            keep = np.arange(len(pen)) % 5 == 0
+            pen = np.where(keep, pen, 0.0)
+            state[0] = torch.from_numpy(pen)
+        n_v = len(pen)
+        vh, eh = n_v // 2, -(-(len(ev) // 2) // 8) * 8
+        live_elems = int(((ew > 0) & (pen[ev] > 0)).sum())
+        assert int((pen > 0).sum()) <= vh and live_elems <= eh
+        want = _jax_repack(ev, ec, ew, pen, rem, thresh, ids, vb, vh, eh)
+        rp = livefirst_repack_plain(sys_, *state[:4], vh, eh, live_elems,
+                                    state[4])
+        got = [rp.sys.e_var, rp.sys.e_cnst, rp.sys.e_w, rp.pen, rp.rem,
+               rp.thresh, rp.ids, rp.vb]
+        for g, w in zip(got, want):
+            g = g.numpy()
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert np.array_equal(g.view(np.int64) if g.dtype == np.float64
+                                  else g, w.view(np.int64)
+                                  if w.dtype == np.float64 else w)
+        csr = build_csr(*(torch.from_numpy(np.array(x)) for x in want[:3]),
+                        n_c, vh)
+        for g, w in zip(rp.sys.csr, csr):
+            assert torch.equal(g, w)
+        ev, ec, ew, pen, rem, thresh, ids, vb = want
+        sys_, state = rp.sys, [rp.pen, rp.rem, rp.thresh, rp.ids, rp.vb]
+
+
 def plan(cls, arrays, sizes, shape, **kw):
     """An engine-plan drain over the fixture's FULL padded arrays (the
     pow2 slack holds appended flows): LV08 penalties and bounds, flows

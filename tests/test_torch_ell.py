@@ -202,6 +202,77 @@ def test_dense_ell_arms_equal_jax(arm, width, deg):
     assert same_result(p, j), (p[3], j[3])
 
 
+def bound_regime(a, bind):
+    """``a`` with every enabled flow bounded: far above its share, so no
+    bound ever binds (``none``), or far below it, so every bound binds
+    (``all``)."""
+    vb = np.full(len(a.v_bound), -1.0)
+    vb[:a.n_var] = 1e6 if bind == "none" else 1e-3
+    return a._replace(v_bound=vb)
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["local", "global"])
+@pytest.mark.parametrize("bind", ["none", "all"])
+def test_dense_ell_bound_regimes_equal_jax(bind, local):
+    """K7's plain solve with every flow bounded, where no bound ever
+    binds (on the card its bound passes skip every round) and where
+    every bound binds (no round skips), against ``fixpoint_ell`` through
+    ``_solve_ell_chunk``: values, remaining, usage and rounds by bits."""
+    a = bound_regime(width_arrays(5, 96 if local else 48, 64, 4), bind)
+    j = jax_solve(a, 1e-9, "ell", "off", local)
+    p = lmm_torch.solve_arrays(a, 1e-9, device="cpu", parallel_rounds=local,
+                               layout="ell", chain="off")
+    assert same_result(p, j), (p[3], j[3])
+    if bind == "all":
+        vb = a.v_bound[:a.n_var]
+        assert np.count_nonzero(p[0][:a.n_var] == vb) > a.n_var // 2
+
+
+@pytest.mark.parametrize("bind", ["none", "all"])
+def test_k7_plain_state_equals_jax(bind):
+    """The state K7's plain versions keep for the card: after the init,
+    and again after ``ell_prep``, each cv entry's w / penalty is
+    ``fixpoint_ell``'s ``cv_upen`` and its enabled flag its
+    ``cv_evalid``; after each of the
+    first rounds, the stored level ``rou`` is the one the JAX round
+    computes from its carry, and the carry itself equals JAX's."""
+    a = bound_regime(width_arrays(4, 96, 64, 4, fat=0.1), bind)
+    ell = lmm_jax.ell_from_arrays(lmm_jax.LmmArrays(*a))
+    args = [ell.cv_var, ell.cv_w, ell.cv_valid, ell.vc_cnst, ell.vc_valid,
+            ell.c_bound, ell.c_fatpipe, ell.v_penalty, ell.v_bound,
+            ell.vc_w]
+    sys, pen, vb = lmm_ell.dense_system(convert.ell_arrays(ell),
+                                        torch.device("cpu"))
+    w = EllWork(sys.n_v, sys.n_c, sys.wc, torch.float64, torch.device("cpu"))
+    cv_var, cv_w = np.asarray(ell.cv_var), np.asarray(ell.cv_w)
+    v_pen = np.asarray(ell.v_penalty)
+    evalid = np.asarray(ell.cv_valid) & (v_pen[cv_var] > 0)
+    upen = np.where(evalid, cv_w / np.where(v_pen > 0, v_pen, 1.0)[cv_var],
+                    0.0)
+    assert k7.ell_init(sys, w, pen, 1e-9, vb) is True
+    assert same(w.cv_upen, upen)
+    assert same(w.cv_ev, evalid)
+    w.cv_upen.zero_()
+    w.cv_ev.zero_()
+    assert k7.ell_prep(sys, w, pen, vb) is True
+    assert same(w.cv_upen, upen)
+    assert same(w.cv_ev, evalid)
+    carry = None
+    for _ in range(4):
+        carry = lmm_jax._solve_ell_chunk(*args, carry, eps=1e-9,
+                                         parallel_rounds=True, chunk=1,
+                                         has_bounds=True,
+                                         has_fatpipe=True)[4]
+        assert k7.ell_round(sys, w, pen, 1e-9, vb, True) is True
+        for name, want in zip(("v_value", "v_fixed", "remaining", "usage",
+                               "light"), carry[:5]):
+            assert same(getattr(w, name), want), name
+        assert same(w.cv_live, carry[6])
+        rem, use, light = (np.asarray(x) for x in carry[2:5])
+        rou = np.where(light, rem / np.where(light, use, 1.0), np.inf)
+        assert same(w.rou, rou)
+
+
 def test_dense_ell_width_32_within_reduction_order():
     """At a padded width of 32, XLA:CPU's vc program folds the init's row
     sums as LLVM's 4-lane vectorised loop ((x_k + x_k+16) per lane,
