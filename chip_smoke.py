@@ -280,10 +280,24 @@ HL_EPS = 1e-9
 #: CUDA kernels a call (the kernel nodes of one captured call,
 #: ``superstep_loop.kernel_nodes``): at most this many for K4 (22 before
 #: its redesign), exactly these for K8's round (its four passes) and
-#: K9's stage (rows, then entries)
+#: K9's stage (rows, then entries), exactly one for K5 in each arm (one
+#: a run before its redesign) and at most two for K6 in both arms (four
+#: and five before)
 K4_MAX_LAUNCHES = 5
+K5_LAUNCHES = 1
+K6_MAX_LAUNCHES = 2
 K8_ROUND_LAUNCHES = 4
 K9_STAGE_LAUNCHES = 2
+
+
+def launch_gate(name: str, n: int, most: int, exact: bool = False) -> int:
+    """Fail unless ``n`` CUDA launches a call is within the gate."""
+    if n <= 0 or n > most or (exact and n != most):
+        raise AssertionError(f"{name} launches {n} CUDA kernels a call, "
+                             f"not {'' if exact else '1 to '}{most}")
+    return n
+
+
 #: the reduced class K7's round arms are held whole at (same widths)
 ARMS_CLASS = dict(n_c=2048, n_v=12_500, deg=4)
 #: the fault campaign of phase 13: every used link of the config-#4
@@ -1731,6 +1745,7 @@ def main() -> int:
     from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket, to2d
     from simgrid_tpu_torch.ops.lmm_host import LmmFlags
     from simgrid_tpu_torch.ops.lmm_torch import solve_arrays, to_device_system
+    from simgrid_tpu_torch.ops.lmm_warm import modified_index
     from simgrid_tpu_torch.workloads import (bench_solve, churn,
                                              collective_run, dragonfly,
                                              drain_run, fault_drain,
@@ -2011,11 +2026,9 @@ def main() -> int:
         sg, *args_g, vh, eh, live_elems), 3)
     # its CUDA launches a call (the kernel nodes of one captured call):
     # at most K4_MAX_LAUNCHES
-    k4_launches = k16.kernel_nodes(lambda: livefirst_repack(
-        sg, *args_g, vh, eh, live_elems))
-    if not 0 < k4_launches <= K4_MAX_LAUNCHES:
-        raise AssertionError(f"K4 launches {k4_launches} CUDA kernels a "
-                             f"call, not 1 to {K4_MAX_LAUNCHES}")
+    k4_launches = launch_gate("K4", k16.kernel_nodes(
+        lambda: livefirst_repack(sg, *args_g, vh, eh, live_elems)),
+        K4_MAX_LAUNCHES)
     # elements and flow rows read once, the halves written once; the row
     # indexes are this design's (the JAX repack has none), left out as
     # in K1's bound
@@ -2491,6 +2504,9 @@ def main() -> int:
     err = max(diff(a, b) for a, b in zip(tg5, tc5))
     if err != 0.0:
         raise AssertionError(f"K5 differs from its plain version: {err}")
+    k5_launches = launch_gate("K5", k16.kernel_nodes(
+        lambda: transition_scatter(payload_g, layout, tg5)), K5_LAUNCHES,
+        exact=True)
     k5_ms = events_ms(lambda: transition_scatter(payload_g, layout, tg5),
                       20)
     k5_plain = events_ms(lambda: transition_scatter_plain(
@@ -2514,6 +2530,7 @@ def main() -> int:
         bound_ms=bound_ms(16 * n_slots + 8 * n_slots), bound_by="bytes",
         library_ms=k5_lib_t["ms"], library_paced_ms=k5_lib,
         library="index_put_, one call per run",
+        cuda_launches_per_call=k5_launches,
         slots=n_slots, launches_from="main path 3 (the 320-rank alltoall plan)"))
     log({"phase": "kernel", **kernels[-1]})
     del tg5, tc5
@@ -2546,11 +2563,9 @@ def main() -> int:
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]))
     k4v_plain = events_ms(lambda: livefirst_repack_plain(
         sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]), 3)
-    k4v_launches = k16.kernel_nodes(lambda: livefirst_repack(
-        sgr, *args_g4[:4], vh4, eh4, le4, args_g4[4]))
-    if not 0 < k4v_launches <= K4_MAX_LAUNCHES:
-        raise AssertionError(f"K4+ launches {k4v_launches} CUDA kernels a "
-                             f"call, not 1 to {K4_MAX_LAUNCHES}")
+    k4v_launches = launch_gate("K4+", k16.kernel_nodes(
+        lambda: livefirst_repack(sgr, *args_g4[:4], vh4, eh4, le4,
+                                 args_g4[4])), K4_MAX_LAUNCHES)
     kernels.append(dict(
         name="livefirst_repack_vbound", route="cuda",
         source="simgrid_tpu_torch/csrc/livefirst_repack.cu",
@@ -2695,6 +2710,8 @@ def main() -> int:
                      for a, b in zip(tg9, tc9)) else float("inf")
     if err != 0.0:
         raise AssertionError("K5 (delta) differs from its plain version")
+    kd_launches = launch_gate("K5 (delta)", k16.kernel_nodes(
+        lambda: delta_scatter(pay_g, layout9, tg9)), K5_LAUNCHES, exact=True)
     kd_ms = events_ms(lambda: delta_scatter(pay_g, layout9, tg9), 20)
     kd_plain = events_ms(lambda: transition_scatter_plain(pay_g, layout9,
                                                           tg9), 5)
@@ -2718,7 +2735,7 @@ def main() -> int:
         plain_ms=kd_plain, bound_ms=bound_ms(kd_bytes), bound_by="bytes",
         library_ms=kd_lib_t["ms"], library_paced_ms=kd_lib,
         library="index_put_, one call per run",
-        slots=slots9,
+        cuda_launches_per_call=kd_launches, slots=slots9,
         launches_from="main path 4 (the 100k churn, warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
     del tg9, tc9
@@ -2726,9 +2743,7 @@ def main() -> int:
     # K6: the restart state of a churn step's modified clusters
     clusters9 = rng9.integers(0, CHURN["clusters"], 999)
     mc9 = np.unique(CHURN["chain"] + clusters9).astype(np.int32)
-    mc_pad = np.full(bucket(len(mc9), floor=8), mc9[0], np.int32)
-    mc_pad[:len(mc9)] = mc9
-    mc_g = torch.from_numpy(mc_pad).to(cuda)
+    mc_g = torch.from_numpy(modified_index(mc9)).to(cuda)
     carry = {n: getattr(st9.work, n).clone()
              for n in ("v_value", "remaining", "usage")}
     w6g = Work(V9, C9, f64, cuda)
@@ -2744,14 +2759,15 @@ def main() -> int:
     for n, t in carry.items():
         getattr(w6c, n).copy_(t.cpu())
     warm_init_plain(sys6c, w6c, pen9.cpu(), mc_g.cpu(), EPS)
-    k6_names = ("v_value", "v_fixed", "remaining", "usage", "light")
+    k6_names = ("v_value", "v_fixed", "remaining", "usage", "light",
+                "c_mod", "ctrl")
     err = 0.0 if all(same_bits(getattr(w6g, n).cpu().numpy(),
                                getattr(w6c, n).numpy())
-                     for n in k6_names) and same_bits(
-        w6g.ctrl.cpu().numpy()[:5], w6c.ctrl.numpy()[:5]) \
-        else float("inf")
+                     for n in k6_names) else float("inf")
     if err != 0.0:
         raise AssertionError("K6 differs from its plain version")
+    k6_launches = launch_gate("K6", k16.kernel_nodes(
+        lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS)), K6_MAX_LAUNCHES)
     k6_ms = events_ms(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS), 20,
                       k6_setup)
     k6_t = time_call(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS),
@@ -2770,8 +2786,9 @@ def main() -> int:
         source="simgrid_tpu_torch/csrc/warm_init.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:201",
         launches=wl["warm_init"], max_abs_err=err, ms=k6_t["ms"],
-        paced_ms=k6_ms, queued=k6_t["queued"], plain_ms=k6_plain, bound_ms=bound_ms(k6_bytes), bound_by="bytes",
-        library_ms=None, modified_constraints=len(mc9),
+        paced_ms=k6_ms, queued=k6_t["queued"], plain_ms=k6_plain,
+        bound_ms=bound_ms(k6_bytes), bound_by="bytes", library_ms=None,
+        cuda_launches_per_call=k6_launches, modified_constraints=len(mc9),
         launches_from="main path 4 (the 100k churn, warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
     del warm9, st9, w6g, w6c, sys6c, masters_g
@@ -3045,10 +3062,8 @@ def main() -> int:
     # the CUDA kernels a round launches (its nodes inside K16's loop: the
     # last one ends the loop's iteration, so there is no loop_cond node)
     k8_init()
-    k8_launches = k16.kernel_nodes(k8_round)
-    if k8_launches != K8_ROUND_LAUNCHES:
-        raise AssertionError(f"K8's round launches {k8_launches}, not "
-                             f"{K8_ROUND_LAUNCHES} CUDA kernels")
+    k8_launches = launch_gate("K8's round", k16.kernel_nodes(k8_round),
+                              K8_ROUND_LAUNCHES, exact=True)
     # bytes: the tables read once, penalties and bounds, the state read
     # and written once (K8: the vc tables and K8's layout are the design's
     # pick; the function reads each element once, here its vc entry)
@@ -3140,10 +3155,8 @@ def main() -> int:
     k9_t = time_call(k9_fn, k9_setup)
     k9_ms = events_ms(k9_fn, 10, k9_setup)
     k9_setup()
-    k9_launches = k16.kernel_nodes(k9_fn)
-    if k9_launches != K9_STAGE_LAUNCHES:
-        raise AssertionError(f"K9's stage launches {k9_launches}, not "
-                             f"{K9_STAGE_LAUNCHES} CUDA kernels")
+    k9_launches = launch_gate("K9's stage", k16.kernel_nodes(k9_fn),
+                              K9_STAGE_LAUNCHES, exact=True)
     k9_plain = events_ms(lambda: k9.chain_stage_plain(csg, half_h,
                                                       arms_h[1]),
                          2, k9_setup)
@@ -3426,9 +3439,7 @@ def main() -> int:
     rng12 = np.random.default_rng(9)
     mc12 = np.unique(CHURN["chain"] + rng12.integers(
         0, CHURN["clusters"], 999)).astype(np.int32)
-    mc12_pad = np.full(bucket(len(mc12), floor=8), mc12[0], np.int32)
-    mc12_pad[:len(mc12)] = mc12
-    mc12_g = torch.from_numpy(mc12_pad).to(cuda)
+    mc12_g = torch.from_numpy(modified_index(mc12)).to(cuda)
     w12g = EllWork(n_v12, n_c12, wc12, f64, cuda)
     w12c = EllWork(n_v12, n_c12, wc12, f64, cpu)
 
@@ -3440,9 +3451,14 @@ def main() -> int:
     for n, t in carry12.items():
         getattr(w12c, n).copy_(t.cpu())
     warm_init_ell_plain(e12c, w12c, pen12.cpu(), mc12_g.cpu(), EPS)
-    err = 0.0 if ell_held(w12g, w12c) else float("inf")
+    # every output the plain version writes, the whole control row too
+    err = 0.0 if ell_held(w12g, w12c, ("c_mod", "v_mod", "v_has", "ctrl")) \
+        else float("inf")
     if err != 0.0:
         raise AssertionError("K6 (ELL) differs from its plain version")
+    k6e_launches = launch_gate("K6 (ELL)", k16.kernel_nodes(
+        lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS)),
+        K6_MAX_LAUNCHES)
     k6e_ms = events_ms(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
                        20, k6e_setup)
     k6e_t = time_call(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
@@ -3459,8 +3475,9 @@ def main() -> int:
         source="simgrid_tpu_torch/csrc/warm_init.cu",
         replaces="simgrid_tpu/ops/lmm_warm.py:158",
         launches=wl12["warm_init_ell"], max_abs_err=err, ms=k6e_t["ms"],
-        paced_ms=k6e_ms, queued=k6e_t["queued"], plain_ms=k6e_plain, bound_ms=bound_ms(k6e_bytes), bound_by="bytes",
-        library_ms=None, modified_constraints=len(mc12),
+        paced_ms=k6e_ms, queued=k6e_t["queued"], plain_ms=k6e_plain,
+        bound_ms=bound_ms(k6e_bytes), bound_by="bytes", library_ms=None,
+        cuda_launches_per_call=k6e_launches, modified_constraints=len(mc12),
         launches_from="main path 7 (the 100k churn in ELL, "
                       "warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})
@@ -3497,6 +3514,9 @@ def main() -> int:
                      for a, b in zip(tg12, tc12)) else float("inf")
     if err != 0.0:
         raise AssertionError("K5 (ELL) differs from its plain version")
+    k5e_launches = launch_gate("K5 (ELL)", k16.kernel_nodes(
+        lambda: ell_delta_scatter(pay12_g, lay12, tg12)), K5_LAUNCHES,
+        exact=True)
     k5e_ms = events_ms(lambda: ell_delta_scatter(pay12_g, lay12, tg12), 20)
     k5e_plain = events_ms(lambda: transition_scatter_plain(
         pay12_g, lay12, tg12, ELL_POSITIVE), 5)
@@ -3520,7 +3540,7 @@ def main() -> int:
         plain_ms=k5e_plain, bound_ms=bound_ms(k5e_bytes), bound_by="bytes",
         library_ms=k5e_lib_t["ms"], library_paced_ms=k5e_lib,
         library="index_put_, one call per run",
-        slots=6 * n12,
+        cuda_launches_per_call=k5e_launches, slots=6 * n12,
         launches_from="main path 7 (the 100k churn in ELL, "
                       "warm-selective)"))
     log({"phase": "kernel", **kernels[-1]})

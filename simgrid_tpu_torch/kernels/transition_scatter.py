@@ -19,6 +19,13 @@ are updated in place.  The drain ships exact runs; the warm solver pads
 each run as JAX does, repeating its first (index, value) pair, which
 writes the same value twice and changes nothing.
 
+One call is one CUDA launch, whatever the number of runs: one grid over
+the slots of every run (``csrc/transition_scatter.cu``).  The runs of
+one call land in no set order, so no two runs of a layout may write the
+same target; :func:`_scatter` refuses such a layout on either route,
+and one of more than :data:`MAX_RUNS` runs (every caller ships one run
+per field).
+
 The callers count their launches apart: :func:`transition_scatter`
 under ``transition_scatter``, :func:`delta_scatter` under
 ``delta_scatter``, and :func:`ell_delta_scatter` (``lmm_warm.py``
@@ -54,6 +61,8 @@ DELTA_FIELDS = ("e_var", "e_cnst", "e_w", "c_bound", "c_fatpipe",
 ELL_FIELDS = ("cv_var", "cv_w", "cv_valid", "vc_cnst", "vc_valid", "vc_w")
 #: the ELL masters whose runs write ``value > 0`` (the validity tables)
 ELL_POSITIVE = (2, 4)
+#: the most runs one call takes (the C source's run table)
+MAX_RUNS = 8
 
 _SIG = {"transition_scatter": [I, P, P, P, P, I, P]}
 
@@ -83,12 +92,19 @@ def _scatter(payload: torch.Tensor, layout: Layout,
         raise TypeError("the scatter payload is float64")
     if len(targets) != len(fields):
         raise ValueError(f"{len(fields)} targets expected")
-    used = [targets[ti] for ti, _, _ in layout]
+    tis = [ti for ti, _, _ in layout]
+    if len(set(tis)) != len(tis):
+        raise ValueError(f"two runs of one layout on one target: {tis}")
+    if len(tis) > MAX_RUNS:
+        raise ValueError(f"{len(tis)} runs, at most {MAX_RUNS}")
+    used = [targets[ti] for ti in tis]
     if on_cpu(payload, *used):
         return transition_scatter_plain(payload, layout, targets, positive)
     for t in used:
         if t.dtype not in _KIND:
             raise TypeError(f"scatter target of dtype {t.dtype}")
+    if not layout:
+        return None
     lib = build.load("transition_scatter", _SIG)
     runs = (ctypes.c_int * (3 * len(layout)))(
         *(int(x) for run in layout for x in run))

@@ -23,8 +23,18 @@ rows re-derived from the new fixed flags, untouched rows keeping the
 previous converged mask.  It is counted as ``warm_init_ell``.
 
 On CPU tensors the wrappers run the plain PyTorch version (a
-line-by-line transcription of the JAX program) and return True; on
-CUDA tensors they launch the kernel and return None.
+line-by-line transcription of the JAX program, which takes ``mc_idx``
+in any order) and return True; on CUDA tensors they launch the kernel,
+one launch a call in either arm, and return None.  The kernel decides
+"modified" by binary search, so on the card ``mc_idx`` must be sorted
+(non-decreasing, padded by repeating its last entry, as
+``ops/lmm_warm.py`` ``modified_index`` builds it; the kernel traps on a
+descending pair).  Its ELL arm reads "has a live element" and v_mod
+from the variable-row tables ``vc_*`` and writes a modified row's
+``cv_live`` as its enabled mask; both rest on invariants of the ELL
+masters (the ``cv_*`` and ``vc_*`` tables hold the same live elements
+with the same weights, and a valid entry has a positive weight) that
+the build and K5's ELL deltas keep.
 """
 
 from __future__ import annotations
@@ -47,10 +57,10 @@ ELL_COUNT = counter("warm_init_ell")
 N_PTRS = 18
 
 _SIG = {"warm_init": [I, I, I, I, P, I, D, I, P],
-        "warm_init_ell": [I, I, I, I, I, P, I, D, I, P]}
+        "warm_init_ell": [I, I, I, I, I, I, P, I, D, I, P]}
 
 #: buffers of the ELL arm's C entry, in this order
-N_PTRS_ELL = 17
+N_PTRS_ELL = 20
 
 
 def warm_init_plain(sys: LmmSystem, w: Work, pen: torch.Tensor,
@@ -92,7 +102,8 @@ def warm_init(sys: LmmSystem, w: Work, pen: torch.Tensor,
               mc_idx: torch.Tensor, eps: float,
               limit: int = MAX_ROUNDS) -> Optional[bool]:
     """Write the warm restart state of the modified constraints
-    ``mc_idx`` (int32, padded by repeating an entry) into ``w``.
+    ``mc_idx`` (int32, padded by repeating an entry; sorted on the card)
+    into ``w``.
     ``sys.c_fatpipe`` must be set: the usage of a FATPIPE row is the max
     of its elements, of a SHARED row their in-order sum."""
     if sys.c_fatpipe is None:
@@ -156,8 +167,8 @@ def warm_init_ell(sys: EllSystem, w: EllWork, pen: torch.Tensor,
                   mc_idx: torch.Tensor, eps: float,
                   limit: int = MAX_ROUNDS) -> Optional[bool]:
     """Write the warm restart state of the modified constraints
-    ``mc_idx`` (int32, padded by repeating an entry) into the ELL
-    fixpoint state ``w``, from the ELL tables of ``sys`` and the
+    ``mc_idx`` (int32, padded by repeating an entry; sorted on the card)
+    into the ELL fixpoint state ``w``, from the ELL tables of ``sys`` and the
     previous converged solve ``w`` holds (values, remaining, usage and
     the ``cv_live`` mask)."""
     if mc_idx.dtype != torch.int32:
@@ -166,11 +177,12 @@ def warm_init_ell(sys: EllSystem, w: EllWork, pen: torch.Tensor,
         return warm_init_ell_plain(sys, w, pen, mc_idx, eps, limit)
     lib = build.load("warm_init", _SIG)
     ptrs = ptr_array([
-        pen, sys.cv_var, sys.cv_w, sys.cv_valid, sys.c_bound,
-        sys.c_fatpipe, mc_idx, w.v_value, w.v_fixed, w.remaining, w.usage,
-        w.light, w.cv_live, w.c_mod, w.v_mod, w.v_has, w.ctrl])
+        pen, sys.cv_var, sys.cv_w, sys.cv_valid, sys.vc_cnst, sys.vc_valid,
+        sys.vc_w, sys.c_bound, sys.c_fatpipe, mc_idx, w.v_value, w.v_fixed,
+        w.remaining, w.usage, w.light, w.cv_live, w.c_mod, w.v_mod, w.v_has,
+        w.ctrl])
     rc = lib.warm_init_ell(is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc,
-                           int(mc_idx.shape[0]), ptrs, N_PTRS_ELL,
+                           sys.wv, int(mc_idx.shape[0]), ptrs, N_PTRS_ELL,
                            float(eps), int(limit), stream())
     check(rc, "warm_init_ell")
     ELL_COUNT.n += 1

@@ -19,7 +19,8 @@ the card:
 * **Warm restarts.**  The previous converged solve stays in the
   fixpoint :class:`~..kernels.common.Work`.  K6 (``warm_init``) resets
   only the modified component to the cold init and masks everything
-  else fixed and dark; K1's rounds then run from that state, so the
+  else fixed and dark (the modified constraints handed to it sorted,
+  :func:`modified_index`); K1's rounds then run from that state, so the
   rounds drop from the depth of the whole system to the depth of the
   delta, and the result equals a cold solve of the same arrays bit for
   bit, as every round's reductions are component-local.
@@ -73,6 +74,22 @@ from .lmm_view import ArrayView
 
 _CAST_FIELDS = ("e_w", "c_bound", "v_penalty", "v_bound")
 _ELEM_FIELDS = ("e_var", "e_cnst", "e_w")
+
+
+def modified_index(mc: np.ndarray) -> np.ndarray:
+    """The modified constraints as K6 takes them: int32, sorted
+    (non-decreasing), padded to ``bucket(len(mc), floor=8)`` entries by
+    repeating the last one.  The JAX warm solver pads its index by
+    repeating the first entry in the caller's order; both give the same
+    set and the same byte count, and K6's kernel needs the order (it
+    decides "modified" by binary search)."""
+    mc = np.sort(np.asarray(mc, np.int64))
+    if len(mc) == 0:
+        raise ValueError("no modified constraint")
+    out = np.empty(bucket(len(mc), floor=8), np.int32)
+    out[:len(mc)] = mc
+    out[len(mc):] = mc[-1]
+    return out
 
 
 class DtypeState:
@@ -452,9 +469,7 @@ class WarmSolver:
         # this solve converges
         st.drop_carry()
         if restarted:
-            mc_pad = np.empty(bucket(len(mc), floor=8), np.int32)
-            mc_pad[:len(mc)] = mc
-            mc_pad[len(mc):] = mc[0]
+            mc_pad = modified_index(mc)
             opstats.bump("uploaded_bytes_delta", mc_pad.nbytes)
             self.last_upload_bytes += mc_pad.nbytes
             mc_dev = torch.from_numpy(mc_pad).to(self.device)

@@ -116,6 +116,35 @@ timed on one card in one call.  The cases:
   builds it), with the round body's nodes (``superstep_loop.bodies``);
   with ``--profile`` also the card's ms a round by kernel.
 
+* ``k5``, ``k5_delta``, ``k5_ell``, ``k6`` and ``k6_ell`` (not in the
+  default list): K5's three arms and K6's two at ``chip_smoke.py``'s
+  phase-8, -9 and -12 shapes: the transition batch of the 320-rank
+  alltoall (1% of its flows' bounds, constraints' bounds and penalties,
+  seed 5), and, from the resident state of the warm-selective 100k churn
+  (``CHURN``; COO as main path 4, the card's default ELL as main path
+  7), the delta batch of six padded runs and the ELL element batch of
+  999 entries a table (seed 9), and K6's restart of the chain plus up
+  to 999 random clusters (the index sorted and padded with its last
+  entry, which every tree's K6 takes; ``k6_one`` and ``k6_ell_one``: a
+  single modified cluster, a fault's bound restart) the card's ms of one call
+  (``time_call``), the paced ms (``events_ms``), the plain version's
+  paced ms, the CUDA launches a call (the kernel nodes of one captured
+  call, ``superstep_loop.kernel_nodes``), the bytes bound and, for K5,
+  ``index_put_`` (one call a run) timed the same ways; with
+  ``--profile`` also the card's ms by kernel a call.  The churns run
+  once a process and are kept for the later cases;
+* ``floor`` (not in the default list): what one launch of a trivial
+  hand-written kernel reads the same ways (K15's ``probe_double`` over
+  256 float64): the floor under a one-launch call's ``ms``;
+* ``wall4``, ``wall5`` and ``wall7`` (not in the default list):
+  ``chip_smoke.py``'s main paths 4 (the warm-selective 100k churn in
+  COO), 5 (the Lazy 320-rank alltoall through the System) and 7 (the
+  churn in the card's default layout, ELL): each step's solve ms (host
+  clock, as ``run_churn`` and ``run_lazy`` time them), their sum and
+  median, the first solve and the build; with ``--profile`` instead the
+  churn's steps (mutation and solve) or the alltoall's solve sequence
+  under ``torch.profiler`` (``timing.busy_profile``).
+
 The K2 and K3 cases (``K23_CASES``, not in the default list) time one
 wrapper call of ``drain_advance``, ``drain_forced_advance`` or
 ``superstep_commit`` at a main path's shape, each call from the same
@@ -985,6 +1014,305 @@ def run_k16_first() -> dict:
             "rounds": sim.rounds, "advances": sim.advances}
 
 
+#: K5's and K6's cases (module docstring)
+K56_CASES = ("k5", "k5_delta", "k5_ell", "k6", "k6_ell", "k6_one",
+             "k6_ell_one")
+#: the warm-selective churn's System by layout, kept across cases
+_CHURN: dict = {}
+
+
+def churn_system(layout: str, profile: bool = False):
+    """Main path 4 (``layout="coo"``) or 7 (``"auto"``: ELL on the card):
+    ``chip_smoke.py``'s warm-selective churn on the card, strict.
+    Returns ``(system, row)``; with ``profile`` the row is the steps'
+    ``busy_profile``.  The System is kept for K5's and K6's cases."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
+    from simgrid_tpu_torch.ops.lmm_torch import install
+    from simgrid_tpu_torch.workloads import churn
+    cfg = main_paths().CHURN
+    cuda = torch.device("cuda")
+    if not profile:
+        s, row = churn.run_churn("warm-selective", device=cuda, strict=True,
+                                 layout=layout, **cfg)
+        _CHURN[layout] = s
+        return s, row
+    warm_start, delta_upload = churn.MODES["warm-selective"]
+    s = make_new_maxmin_system(True, LmmFlags(
+        backend="torch", warm_start=warm_start, delta_upload=delta_upload,
+        strict=True, layout=layout))
+    install(s, device=cuda)
+    rng = np.random.default_rng(cfg["seed"])
+    cs, flows = churn.build(s, rng, cfg["n_v"], cfg["clusters"],
+                            cfg["chain"])
+    s.solve()
+    n = max(1, int((cfg["n_v"] - (cfg["chain"] - 1)) * cfg["churn"]))
+
+    def steps():
+        for _ in range(cfg["steps"]):
+            churn.churn_step(s, rng, cs, flows, n)
+            s.solve()
+    row = _timing().busy_profile(steps)
+    row.pop("result")
+    _CHURN[layout] = s
+    return s, row
+
+
+def run_wall_warm(name: str, profile: bool = False) -> dict:
+    """Main path 4, 5 or 7's wall (``wall4``, ``wall5``, ``wall7``)."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
+    from simgrid_tpu_torch.ops.lmm_torch import install
+    from simgrid_tpu_torch.workloads import lazy_alltoall as lz
+    ranks = main_paths().RANKS
+    strict = LmmFlags(backend="torch", strict=True)
+    if name == "wall5" and profile:
+        a2a = lz.alltoall(ranks)
+        s = make_new_maxmin_system(True, strict)
+        install(s, device=torch.device("cuda"))
+        cnsts, variables = lz.build(s, a2a)
+        rec = _timing().busy_profile(
+            lambda: list(lz.solve_sequence(s, a2a, cnsts, variables, 0)))
+        rec.pop("result")
+        return {"ranks": ranks, **rec}
+    if name == "wall5":
+        _, row = lz.run_lazy(ranks, device=torch.device("cuda"),
+                             flags=strict)
+        ms = [r["ms"] for r in row["solves"]]
+        modes = [r["mode"] for r in row["solves"]]
+        return {"ranks": ranks, "build_s": row["build_s"],
+                "solves": len(ms), "warm_solves": modes.count("warm"),
+                "solve_ms_sum": float(np.sum(ms)),
+                "solve_ms_med": float(np.median(ms)),
+                "solver_fallbacks": row["solver_fallbacks"],
+                "launches": {k: row["launches"].get(k, 0) for k in (
+                    "delta_scatter", "warm_init", "lmm_round_bounds")}}
+    layout = "coo" if name == "wall4" else "auto"
+    _, row = churn_system(layout, profile)
+    if profile:
+        return {"layout": layout, **row}
+    keep = ("build_s", "first_solve_ms", "solve_ms", "solve_ms_med",
+            "rounds", "warm_solves", "last_layout", "warm_ell_fallbacks",
+            "solver_fallbacks")
+    return {"layout": layout, **{k: row[k] for k in keep if k in row},
+            "solve_ms_sum": float(sum(row["solve_ms"])),
+            "launches": {k: v for k, v in row["launches"].items()
+                         if k.startswith(("delta_scatter", "warm_init"))}}
+
+
+def sorted_index(mc):
+    """A modified-constraint index, sorted and padded to
+    ``bucket(n, floor=8)`` by repeating its last entry."""
+    import numpy as np
+    from simgrid_tpu_torch.ops.lmm_arrays import bucket
+    mc = np.sort(np.asarray(mc, np.int64))
+    out = np.full(bucket(len(mc), floor=8), mc[-1], np.int32)
+    out[:len(mc)] = mc
+    return out
+
+
+def padded(ix, vals, floor=8):
+    """One run padded as the warm solver pads it (the first pair)."""
+    import numpy as np
+    from simgrid_tpu_torch.ops.lmm_arrays import bucket
+    n = bucket(len(ix), floor=floor)
+    pi, pv = np.full(n, float(ix[0])), np.full(n, float(vals[0]))
+    pi[:len(ix)], pv[:len(ix)] = ix, vals
+    return pi, pv
+
+
+def run_k56(name: str, profile: bool = False) -> dict:
+    """One of K5's or K6's cases (module docstring)."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.kernels.common import EllWork, Work
+    from simgrid_tpu_torch.kernels.transition_scatter import (
+        ELL_POSITIVE, delta_scatter, ell_delta_scatter, transition_scatter,
+        transition_scatter_plain)
+    from simgrid_tpu_torch.kernels.warm_init import (
+        warm_init, warm_init_ell, warm_init_ell_plain, warm_init_plain)
+    from simgrid_tpu_torch.workloads.drain_run import EPS
+    t = _timing()
+    smoke = main_paths()
+    cuda, f64 = torch.device("cuda"), torch.float64
+    nb = lambda *ts: sum(x.numel() * x.element_size()  # noqa: E731
+                         for x in ts)
+    rec = {"case": name}
+    setup = plain = library = None
+    if name == "k5":
+        from simgrid_tpu_torch.ops.lmm_arrays import to2d
+        from simgrid_tpu_torch.workloads import dragonfly
+        from simgrid_tpu_torch.workloads.drain_run import (ENGINE_DONE_EPS,
+                                                           solve_inputs)
+        a2a = dragonfly.build_alltoall(smoke.RANKS)
+        arr = solve_inputs(a2a)
+        V2, C2 = arr.n_var, arr.n_cnst
+        rng = np.random.default_rng(5)
+        bsl = np.sort(rng.choice(V2, V2 // 100, replace=False))
+        csl = np.sort(rng.choice(C2, C2 // 100, replace=False))
+        lsl = np.sort(rng.choice(V2, V2 // 100, replace=False))
+        runs = [(7, bsl, arr.v_bound[bsl] * rng.uniform(0.5, 1.5, len(bsl))),
+                (3, csl, arr.c_bound[csl] * rng.uniform(0.5, 1.0, len(csl))),
+                (4, lsl, arr.v_penalty[lsl])]
+        layout, chunks, off = [], [], 0
+        for ti, ix, vals in runs:
+            layout.append((ti, off, len(ix)))
+            chunks += [ix.astype(np.float64), vals]
+            off += 2 * len(ix)
+        flat = [to2d(x).reshape(-1) for x in (a2a.e_var, a2a.e_cnst,
+                                              a2a.e_w)]
+        base = [flat[0], flat[1], flat[2], arr.c_bound, arr.v_penalty,
+                a2a.sizes, np.full(V2, ENGINE_DONE_EPS), arr.v_bound]
+        targets = [torch.from_numpy(np.array(b)).to(cuda) for b in base]
+        payload = torch.from_numpy(np.concatenate(chunks)).to(cuda)
+        slots = sum(n for _, _, n in layout)
+        n_bytes = 24 * slots
+
+        def fn():
+            transition_scatter(payload, layout, targets)
+
+        def plain():
+            transition_scatter_plain(payload, layout, targets)
+        positive = ()
+    elif name in ("k5_delta", "k6", "k6_one"):
+        s = _CHURN.get("coo") or churn_system("coo")[0]
+        st = s.warm_solver._states[np.dtype(np.float64)]
+        E9, C9, V9 = st.shapes
+        rng = np.random.default_rng(9)
+        if name == "k5_delta":
+            host = [m.cpu().numpy() for m in st.masters]
+            layout, chunks, off = [], [], 0
+            for ti, hi, n in ((0, E9, 3000), (1, E9, 3000), (2, E9, 3000),
+                              (4, C9, 600), (5, V9, 2000), (6, V9, 1000)):
+                n = min(n, hi // 2)
+                ix = np.sort(rng.choice(hi, n, replace=False))
+                vals = host[ti][ix].astype(np.float64)
+                if ti == 4:
+                    vals = np.where(rng.random(n) < 0.5, 1.0 - vals, vals)
+                pi, pv = padded(ix, vals)
+                layout.append((ti, off, len(pi)))
+                chunks += [pi, pv]
+                off += 2 * len(pi)
+            targets = [m.clone() for m in st.masters]
+            payload = torch.from_numpy(np.concatenate(chunks)).to(cuda)
+            slots = sum(n for _, _, n in layout)
+            n_bytes = 16 * slots + sum(n * targets[ti].element_size()
+                                       for ti, _, n in layout)
+
+            def fn():
+                delta_scatter(payload, layout, targets)
+
+            def plain():
+                transition_scatter_plain(payload, layout, targets)
+            positive = ()
+        else:
+            mc = np.unique(smoke.CHURN["chain"] + rng.integers(
+                0, smoke.CHURN["clusters"], 999 if name == "k6" else 1))
+            mc_g = torch.from_numpy(sorted_index(mc)).to(cuda)
+            carry = {n: getattr(st.work, n).clone()
+                     for n in ("v_value", "remaining", "usage")}
+            w = Work(V9, C9, f64, cuda)
+            pen = st.masters[5]
+
+            def setup():
+                for n, x in carry.items():
+                    getattr(w, n).copy_(x)
+
+            def fn():
+                warm_init(st.sys, w, pen, mc_g, EPS)
+
+            def plain():
+                warm_init_plain(st.sys, w, pen, mc_g, EPS)
+            sy = st.sys
+            n_bytes = (nb(sy.e_var, sy.e_cnst, sy.e_w, sy.c_bound,
+                          sy.c_fatpipe, pen, mc_g)
+                       + 2 * nb(*carry.values()) + nb(w.v_fixed, w.light))
+            rec["modified_constraints"] = len(mc)
+    else:
+        s = _CHURN.get("auto") or churn_system("auto")[0]
+        st = s.warm_solver._states[np.dtype(np.float64)]
+        e, pen = st.ell, st.masters[5]
+        n_c, wc, n_v, wv = st.ell_shape
+        rng = np.random.default_rng(9)
+        mc = np.unique(smoke.CHURN["chain"] + rng.integers(
+            0, smoke.CHURN["clusters"], 1 if name == "k6_ell_one" else 999))
+        if name.startswith("k6"):
+            mc_g = torch.from_numpy(sorted_index(mc)).to(cuda)
+            carry = {n: getattr(st.ell_work, n).clone()
+                     for n in ("v_value", "remaining", "usage", "cv_live")}
+            w = EllWork(n_v, n_c, wc, f64, cuda)
+
+            def setup():
+                for n, x in carry.items():
+                    getattr(w, n).copy_(x)
+
+            def fn():
+                warm_init_ell(e, w, pen, mc_g, EPS)
+
+            def plain():
+                warm_init_ell_plain(e, w, pen, mc_g, EPS)
+            n_bytes = (nb(e.cv_var, e.cv_w, e.cv_valid, e.c_bound,
+                          e.c_fatpipe, pen, mc_g)
+                       + 2 * nb(*carry.values()) + nb(w.v_fixed, w.light))
+            rec["modified_constraints"] = len(mc)
+        else:
+            tabs = (e.cv_var, e.cv_w, e.cv_valid, e.vc_cnst, e.vc_valid,
+                    e.vc_w)
+            host = [x.cpu().numpy() for x in tabs]
+            k = 999
+            cv_ix = np.sort(rng.choice(n_c * wc, k, replace=False))
+            vc_ix = np.sort(rng.choice(n_v * wv, k, replace=False))
+            chunks = []
+            for ti, ix in ((0, cv_ix), (1, cv_ix), (2, cv_ix), (3, vc_ix),
+                           (4, vc_ix), (5, vc_ix)):
+                src = host[{2: 1, 4: 5}.get(ti, ti)].reshape(-1)[ix]
+                chunks += list(padded(ix, src.astype(np.float64)))
+            n12 = len(chunks[0])
+            layout = [(ti, 2 * n12 * ti, n12) for ti in range(6)]
+            targets = [x.clone() for x in tabs]
+            payload = torch.from_numpy(np.concatenate(chunks)).to(cuda)
+            slots = 6 * n12
+            n_bytes = 16 * slots + sum(n12 * x.element_size()
+                                       for x in targets)
+
+            def fn():
+                ell_delta_scatter(payload, layout, targets)
+
+            def plain():
+                transition_scatter_plain(payload, layout, targets,
+                                         ELL_POSITIVE)
+            positive = ELL_POSITIVE
+    if name.startswith("k5"):
+        def library():
+            for ti, o, n in layout:
+                v = payload[o + n:o + 2 * n]
+                targets[ti].view(-1).index_put_(
+                    (payload[o:o + n].long(),),
+                    v > 0 if ti in positive else v.to(targets[ti].dtype))
+        rec["slots"] = slots
+    if setup is not None:
+        setup()
+    fn()
+    torch.cuda.synchronize()
+    q = t.time_call(fn, setup)
+    rec.update(ms=q["ms"], queued=q["queued"],
+               paced_ms=t.events_ms(fn, 20, setup),
+               plain_ms=t.events_ms(plain, 5, setup),
+               cuda_launches=k16.kernel_nodes(fn),
+               bound_ms=t.bound_ms(n_bytes))
+    if library is not None:
+        ql = t.time_call(library)
+        rec.update(library_ms=ql["ms"], library_queued=ql["queued"],
+                   library_paced_ms=t.events_ms(library, 20))
+    if profile:
+        rec["profile_ms"] = {k: v / 10 for k, v in kernel_profile(
+            lambda: [(setup and setup(), fn()) for _ in range(10)]).items()}
+    return rec
+
+
 def _timing():
     """This checkout's ``probes/timing.py``, loaded from its file: the
     package that ``--root`` imports may predate ``time_rounds``."""
@@ -1010,6 +1338,19 @@ def run_case(name: str, profile: bool = False) -> dict:
         return {"case": name, **run_k10(name == "k10_fleet")}
     if name == "k16_first":
         return {"case": name, **run_k16_first()}
+    if name in K56_CASES:
+        return run_k56(name, profile)
+    if name == "floor":
+        from simgrid_tpu_torch.kernels import superstep_loop as k16
+        from simgrid_tpu_torch.kernels.probe_loop import probe_double
+        x = torch.ones(256, dtype=torch.float64, device="cuda")
+        t = _timing()
+        q = t.time_call(lambda: probe_double(x))
+        return {"case": name, "ms": q["ms"], "queued": q["queued"],
+                "paced_ms": t.events_ms(lambda: probe_double(x), 20),
+                "cuda_launches": k16.kernel_nodes(lambda: probe_double(x))}
+    if name in ("wall4", "wall5", "wall7"):
+        return {"case": name, **run_wall_warm(name, profile)}
     if name in ("k4", "k4_vbound"):
         return {"case": name, **run_k4(name == "k4_vbound", profile)}
     if name == "repack_cost":

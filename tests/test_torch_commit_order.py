@@ -196,6 +196,7 @@ TWIN = {
 INTERNAL = {"ell_chain.cu:ST_TB", "ell_chain.cu:ROW_IPT",
             "ell_chain.cu:ENT_IPT", "lmm_round.cu:LPV",
             "probe_scan.cu:SEQ_BATCH", "superstep_commit.cu:COMMIT_TB",
+            "warm_init.cu:FOLD_WINDOWS",
             *(f"superstep_commit.cu:{n}" for n in (
                 "CS_NEV", "CS_FLAGS", "CS_TN", "CS_OK", "CS_FFIRE",
                 "CS_AANY"))}

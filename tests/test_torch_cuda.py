@@ -36,6 +36,7 @@ from simgrid_tpu_torch.ops import lmm_ell, lmm_torch
 from simgrid_tpu_torch.ops.lmm_arrays import LmmArrays, bucket
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
 from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
+from simgrid_tpu_torch.ops.lmm_warm import modified_index
 from simgrid_tpu_torch.workloads import (churn, dragonfly, drain_run,
                                          lazy_alltoall)
 
@@ -1243,9 +1244,7 @@ def test_warm_init_ell_card_equals_plain(cuda):
     a = width_arrays(8, 96, 64, 4, fat=0.1)
     ell = lmm_ell.ell_from_arrays(a)
     rng = np.random.default_rng(8)
-    mc = np.sort(rng.choice(96, 20, replace=False)).astype(np.int32)
-    mc_pad = np.full(bucket(len(mc), floor=8), mc[0], np.int32)
-    mc_pad[:len(mc)] = mc
+    mc_pad = modified_index(rng.choice(96, 20, replace=False))
     n_c, wc = ell.cv_var.shape
     n_v = ell.vc_cnst.shape[0]
     prev = dict(v_value=rng.uniform(0, 1, n_v),
@@ -1262,7 +1261,7 @@ def test_warm_init_ell_card_equals_plain(cuda):
                          1e-9)
         out.append([getattr(w, n).cpu() for n in (
             "v_value", "v_fixed", "remaining", "usage", "light", "cv_live",
-            "ctrl")])
+            "ctrl", "c_mod", "v_mod", "v_has")])
     for x, y in zip(*out):
         assert torch.equal(x, y)
 
@@ -1293,6 +1292,187 @@ def test_ell_delta_scatter_card_equals_plain(cuda):
     ell_delta_scatter(payload, layout, c)
     for x, y in zip(g, c):
         assert torch.equal(x.cpu(), y)
+
+
+def padded_runs(rng, targets, n, k, positive=()):
+    """A payload of one run a target (``k`` distinct flat slots padded
+    to ``n`` by repeating the first (index, value) pair, as the warm
+    solver pads) and its layout; values fit each target's kind."""
+    chunks, layout, off = [], [], 0
+    for ti, t in enumerate(targets):
+        ix = rng.choice(t.numel(), k, replace=False).astype(np.float64)
+        if t.dtype == torch.int32:
+            vals = rng.integers(-5, 900, k).astype(np.float64)
+        elif t.dtype == torch.bool and ti not in positive:
+            vals = rng.choice([0.0, 1.0, -2.0], k)
+        else:
+            vals = rng.choice([-1.5, 0.0, 0.25, 3.0, 1e300], k)
+        idx = np.full(n, ix[0])
+        v = np.full(n, vals[0])
+        idx[:k], v[:k] = ix, vals
+        layout.append((ti, off, n))
+        chunks += [idx, v]
+        off += 2 * n
+    return torch.from_numpy(np.concatenate(chunks)), layout
+
+
+def scatter_targets(arm):
+    """The K5 wrapper of one arm and zero targets in its field order."""
+    from simgrid_tpu_torch.kernels import transition_scatter as k5
+    if arm == "ell":
+        return ell_delta_scatter, "delta_scatter_ell", k5.ELL_POSITIVE, [
+            torch.zeros((64, 8), dtype=torch.int32),
+            torch.zeros((64, 8), dtype=torch.float64),
+            torch.zeros((64, 8), dtype=torch.bool),
+            torch.zeros((300, 4), dtype=torch.int32),
+            torch.zeros((300, 4), dtype=torch.bool),
+            torch.zeros((300, 4), dtype=torch.float64)]
+    if arm == "delta":
+        kinds = (torch.int32, torch.int32, torch.float64, torch.float64,
+                 torch.bool, torch.float64, torch.float64)
+        return delta_scatter, "delta_scatter", (), [
+            torch.zeros(500, dtype=dt) for dt in kinds]
+    kinds = (torch.int32, torch.int32, torch.float64, torch.float64,
+             torch.float64, torch.float64, torch.float64, torch.float64)
+    return transition_scatter, "transition_scatter", (), [
+        torch.zeros(500, dtype=dt) for dt in kinds]
+
+
+@pytest.mark.parametrize("arm", ["transition", "delta", "ell"])
+def test_scatter_arms_one_launch_card_equals_plain(cuda, arm):
+    """K5 in each arm, every target of the arm written in one call with
+    padded duplicates: card == plain by bits, one CUDA launch a call
+    (the kernel nodes of the captured call), one count a call."""
+    fn, name, positive, base = scatter_targets(arm)
+    payload, layout = padded_runs(np.random.default_rng(15), base, 64, 41,
+                                  positive)
+    g = [t.to(cuda) for t in base]
+    c = [t.clone() for t in base]
+    reset_launch_counts()
+    fn(payload.to(cuda), layout, g)
+    assert launch_counts()[name] == 1
+    assert fn(payload, layout, c) is True
+    for x, y in zip(g, c):
+        assert torch.equal(x.cpu(), y)
+    assert all(bool(t.any()) for t in c)
+    pg = payload.to(cuda)
+    assert k16.kernel_nodes(lambda: fn(pg, layout, g)) == 1
+
+
+def test_scatter_every_kind_in_one_call_card_equals_plain(cuda):
+    """One K5 call over an int32, a float32, a float64, a bool and a
+    positive-bool target (``KIND_POS``), runs padded with duplicates,
+    in one launch; a layout with two runs on one target is refused on
+    the card as on the CPU."""
+    from simgrid_tpu_torch.kernels import transition_scatter as k5
+    base = [torch.zeros(700, dtype=torch.int32),
+            torch.zeros((30, 9), dtype=torch.float32),
+            torch.zeros(300, dtype=torch.float64),
+            torch.zeros(300, dtype=torch.bool),
+            torch.zeros((40, 8), dtype=torch.bool)]
+    fields = ("i", "f", "d", "b", "p")
+    payload, layout = padded_runs(np.random.default_rng(16), base, 128, 97,
+                                  (4,))
+    count = k5.counter("scatter_kinds_test")
+    pg = payload.to(cuda)
+    g = [t.to(cuda) for t in base]
+    c = [t.clone() for t in base]
+    k5._scatter(pg, layout, g, fields, count, (4,))
+    assert count.n == 1
+    k5._scatter(payload, layout, c, fields, count, (4,))
+    for x, y in zip(g, c):
+        assert torch.equal(x.cpu(), y)
+    assert bool(c[3].any()) and bool(c[4].any())
+    assert k16.kernel_nodes(lambda: k5._scatter(
+        pg, layout, g, fields, count, (4,))) == 1
+    with pytest.raises(ValueError, match="one target"):
+        k5._scatter(pg, layout[:2] + [(1,) + layout[2][1:]], g, fields,
+                    count, (4,))
+
+
+#: K6's edge cases: which constraints are modified, and the system's
+#: FATPIPE share and bound scale
+K6_CASES = {"one": ("one", 0.0, 1.0), "all": ("all", 0.0, 1.0),
+            "dark": ("half", 0.0, 0.0), "fatpipe": ("half", 0.3, 1.0)}
+
+
+def k6_arrays(seed, fat, bound_scale):
+    """A random system with penalties negative, zero, infinite and
+    positive, a fifth of the elements deleted (weight 0), ``fat`` of the
+    constraints FATPIPE, the bounds scaled (0: no light row)."""
+    a = width_arrays(seed, 96, 8, 4, fat=fat)
+    rng = np.random.default_rng(seed + 1)
+    pen = a.v_penalty.copy()
+    n_v = a.n_var
+    pick = rng.permutation(n_v)
+    pen[pick[:n_v // 10]] = -1.0
+    pen[pick[n_v // 10:n_v // 5]] = np.inf
+    pen[pick[n_v // 5:n_v // 3]] = rng.uniform(0.5, 4.0, n_v // 3 - n_v // 5)
+    e_w = a.e_w.copy()
+    e_w[:a.n_elem][rng.random(a.n_elem) < 0.2] = 0.0
+    return a._replace(v_penalty=pen, e_w=e_w, c_bound=a.c_bound * bound_scale)
+
+
+def k6_modified(case, n_cnst, n_c, rng):
+    """A single real constraint, every slot, or half the real ones."""
+    if case == "one":
+        return modified_index([int(rng.integers(3, n_cnst))])
+    if case == "all":
+        return modified_index(np.arange(n_c))
+    return modified_index(rng.choice(n_cnst, n_cnst // 2, replace=False))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("arm", ["coo", "ell"])
+def test_warm_init_edge_cases_card_equal_plain(cuda, arm, case, dtype):
+    """K6 (COO and ELL) from the same previous state, card == plain by
+    bits over every output (the whole control row included): a single
+    modified constraint padded to 8, every constraint modified, no
+    light row, FATPIPE rows; penalties negative, zero and infinite and
+    deleted elements in every case; one CUDA launch a call."""
+    which, fat, scale = K6_CASES[case]
+    a = k6_arrays(21, fat, scale)
+    a = a._replace(e_w=a.e_w.astype(dtype), c_bound=a.c_bound.astype(dtype),
+                   v_penalty=a.v_penalty.astype(dtype))
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
+    eps = 1e-9 if dtype == np.float64 else 1e-5
+    rng = np.random.default_rng(22)
+    n_c, n_v = len(a.c_bound), len(a.v_penalty)
+    mc = k6_modified(which, a.n_cnst, n_c, rng)
+    ell = lmm_ell.ell_from_arrays(a) if arm == "ell" else None
+    wc = ell.cv_var.shape[1] if arm == "ell" else 0
+    prev = dict(v_value=rng.uniform(0, 1, n_v), remaining=rng.uniform(0, 5, n_c),
+                usage=rng.uniform(0, 5, n_c))
+    if arm == "ell":
+        prev["cv_live"] = rng.random((n_c, wc)) < 0.5
+    names = ["v_value", "v_fixed", "remaining", "usage", "light", "c_mod",
+             "ctrl"] + (["cv_live", "v_mod", "v_has"] if arm == "ell" else [])
+    out, calls = [], []
+    for dev in (cuda, torch.device("cpu")):
+        if arm == "ell":
+            sys_, pen, _ = lmm_ell.dense_system(ell, dev)
+            w = EllWork(n_v, n_c, wc, tdt, dev)
+            fn = k6.warm_init_ell
+        else:
+            sys_ = lmm_torch.to_device_system(
+                a.e_var, a.e_cnst, a.e_w, a.c_bound, n_v, tdt, dev,
+                c_fatpipe=a.c_fatpipe)
+            pen = torch.from_numpy(a.v_penalty).to(dev)
+            w = Work(n_v, n_c, tdt, dev)
+            fn = k6.warm_init
+        for name, x in prev.items():
+            getattr(w, name).copy_(torch.from_numpy(x))
+        args = (sys_, w, pen, torch.from_numpy(mc).to(dev), eps)
+        fn(*args)
+        out.append([getattr(w, n).cpu() for n in names])
+        calls.append(lambda f=fn, a_=args: f(*a_))
+    for name, x, y in zip(names, *out):
+        assert torch.equal(x, y), name
+    light = int(out[1][names.index("ctrl")][LIGHT])
+    if case in ("dark", "all"):
+        assert (light == 0) == (case == "dark")
+    assert k16.kernel_nodes(calls[0]) == 1
 
 
 FAULT_MODES = {"f64-k8": (np.float64, 8, False),

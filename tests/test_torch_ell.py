@@ -598,3 +598,78 @@ def test_ell_delta_scatter_equals_apply_deltas_ell():
     assert ell_delta_scatter(torch.from_numpy(payload), layout, got) is True
     for g, wnt in zip(got, want):
         assert same(g, np.asarray(wnt))
+
+
+def live_elements(cv_var, cv_w, cv_valid, vc_cnst, vc_valid, vc_w):
+    """The valid entries of the constraint-row tables and of the
+    variable-row tables, each as a sorted list of (constraint, variable,
+    weight bits), and whether every valid entry has a positive weight."""
+    cv_var, cv_valid, vc_cnst, vc_valid = (
+        np.asarray(t) for t in (cv_var, cv_valid, vc_cnst, vc_valid))
+    cv_w, vc_w = np.asarray(cv_w), np.asarray(vc_w)
+    c, lane = np.nonzero(cv_valid)
+    by_c = sorted(zip(c.tolist(), cv_var[c, lane].tolist(),
+                      bits(cv_w[c, lane]).tolist()))
+    v, lane = np.nonzero(vc_valid)
+    by_v = sorted(zip(vc_cnst[v, lane].tolist(), v.tolist(),
+                      bits(vc_w[v, lane]).tolist()))
+    positive = bool(np.all(cv_w[cv_valid] > 0) and np.all(vc_w[vc_valid] > 0))
+    return by_c, by_v, positive
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_ell_masters_keep_k6_invariants_through_deltas(monkeypatch, seed):
+    """K6's ELL kernel reads v_mod and "has a live element" from the
+    variable-row tables and writes a modified row's cv_live as its
+    enabled mask.  Both rest on the ELL masters: through the churn's
+    element deltas (``_sync_ell``: lane appends and retired flows, whose
+    weights go to 0), the cv and vc tables hold the same live elements
+    with the same weights, and a valid entry has a positive weight."""
+    from simgrid_tpu_torch.ops import lmm_warm
+    deletions = []
+    orig_sync = lmm_warm.WarmSolver._sync_ell
+
+    def sync(self, st, view, key, dirty):
+        e = sorted(dirty["e_var"] | dirty["e_cnst"] | dirty["e_w"])
+        ok = orig_sync(self, st, view, key, dirty)
+        if ok:
+            deletions.append(int(np.sum(view.e_w[e] == 0)) if e else 0)
+        return ok
+    monkeypatch.setattr(lmm_warm.WarmSolver, "_sync_ell", sync)
+    s, clusters, flows, rng = build_clusters(port_system(warm_start="on"),
+                                             seed)
+    s.solve()
+    for step in range(7):
+        grow_step(s, clusters, flows, rng, step)
+        s.solve()
+        st = s.warm_solver._states[np.dtype(np.float64)]
+        by_c, by_v, positive = live_elements(*st.ell[:6])
+        assert by_c == by_v and positive, f"step {step}"
+        assert len(by_c) == int(np.sum(s.array_view.e_w > 0))
+    assert s.warm_solver.last_layout == "ell"
+    assert len(deletions) >= 5 and sum(deletions) > 0
+
+
+@pytest.mark.parametrize("step", [1, 3])
+def test_jax_warm_init_ell_live_mask_is_the_enabled_mask(monkeypatch, step):
+    """On JAX's own carry (the warm solver's recorded ``_warm_init_ell``
+    call, after a lane append, and at step 3 a retired flow too), the
+    cv_live mask JAX writes on every modified row is that row's enabled
+    mask ``cv_valid & (penalty > 0)`` (K6's ELL kernel writes it so),
+    and JAX's ELL masters hold the invariants the kernel relies on."""
+    s, clusters, flows, rng = build_clusters(
+        jax_solver_system("on", "on"), 42, per_cluster=40)
+    s.solve()
+    seen = capture_warm_ell(monkeypatch, s)
+    grow_step(s, clusters, flows, rng, step)
+    s.solve()
+    assert s.warm_solver.last_mode == "warm" and "out" in seen
+    cv_var, cv_w, cv_valid = seen["ell"][:3]
+    pen = seen["masters"][5]
+    rows = np.unique(seen["mc"])
+    enabled = cv_valid & (pen[cv_var] > 0)
+    live = seen["out"][6]
+    assert np.array_equal(live[rows], enabled[rows])
+    assert enabled[rows].any()
+    by_c, by_v, positive = live_elements(*seen["ell"][:6])
+    assert by_c == by_v and positive

@@ -10,6 +10,7 @@ and usage) must be equal bit for bit (compared as float64 bit patterns,
 so -0.0 is not 0.0), and so must the warm solver's counters.
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -24,9 +25,10 @@ from simgrid_tpu.utils.config import config
 from simgrid_tpu_torch import convert
 from simgrid_tpu_torch.kernels import warm_init as k6
 from simgrid_tpu_torch.kernels.common import IT
-from simgrid_tpu_torch.kernels.transition_scatter import (DELTA_FIELDS,
-                                                          delta_scatter)
-from simgrid_tpu_torch.ops import lmm_torch
+from simgrid_tpu_torch.kernels.transition_scatter import (
+    DELTA_FIELDS, TRANSITION_FIELDS, delta_scatter, ell_delta_scatter,
+    transition_scatter)
+from simgrid_tpu_torch.ops import lmm_torch, lmm_warm
 from simgrid_tpu_torch.ops import opstats as pstats
 from simgrid_tpu_torch.ops.lmm_arrays import bucket
 from simgrid_tpu_torch.ops.lmm_host import LmmFlags, make_new_maxmin_system
@@ -497,3 +499,126 @@ def test_warm_state_solved_at_a_new_precision_equals_jax(layout):
         assert host_state(kept) != host_state(port)
     finally:
         config["maxmin/precision"] = saved
+
+
+def clone_work(w):
+    """A copy of a fixpoint state whose tensors are its own."""
+    c = copy.copy(w)
+    for n, t in vars(w).items():
+        if torch.is_tensor(t):
+            setattr(c, n, t.clone())
+    return c
+
+
+def record_k6_call(monkeypatch, layout):
+    """Spy on the port warm solver's next K6 call (COO or ELL): the
+    modified constraints as the solver listed them (``raw``), the index
+    ``modified_index`` built from them, the index K6 got, and K6's
+    arguments with a copy of the state it started from."""
+    seen = {}
+    orig_index = lmm_warm.modified_index
+
+    def index(mc):
+        seen["raw"] = np.array(mc)
+        out = orig_index(mc)
+        seen["index"] = out.copy()
+        return out
+    name = "warm_init_ell" if layout == "ell" else "warm_init"
+    orig_init = getattr(lmm_warm, name)
+
+    def init(sys_, w, pen, mc_idx, eps, *args, **kw):
+        if "work" not in seen:
+            seen.update(sys=sys_, pen=pen.clone(), mc_idx=mc_idx.clone(),
+                        eps=eps, work=clone_work(w))
+        return orig_init(sys_, w, pen, mc_idx, eps, *args, **kw)
+    monkeypatch.setattr(lmm_warm, "modified_index", index)
+    monkeypatch.setattr(lmm_warm, name, init)
+    return seen
+
+
+def warm_restart_of_clusters(monkeypatch, layout):
+    """A port System (CPU) solved, then every cluster's bound moved in
+    decreasing slot order and solved again from the warm state: the
+    record of that solve's K6 call."""
+    s, clusters, flows, rng = build_lmm_warm(
+        port_system(warm_start="on", layout=layout), 17)
+    s.solve()
+    seen = record_k6_call(monkeypatch, layout)
+    for c in reversed(clusters):
+        s.update_constraint_bound(c, float(rng.uniform(5, 20)))
+    s.solve()
+    assert s.warm_solver.last_mode == "warm"
+    assert s.warm_solver.last_layout == layout
+    return seen
+
+
+@pytest.mark.parametrize("layout", ["coo", "ell"])
+def test_warm_solver_hands_k6_a_sorted_index(monkeypatch, layout):
+    """The warm solver builds K6's modified-constraint index with
+    ``modified_index``: the listed constraints (here in decreasing slot
+    order) sorted, padded to JAX's length by repeating the last one.
+    K6's kernel decides "modified" by binary search in it."""
+    seen = warm_restart_of_clusters(monkeypatch, layout)
+    raw, got = seen["raw"], seen["mc_idx"].numpy()
+    assert len(raw) > 1 and np.any(np.diff(raw) < 0)
+    assert np.array_equal(got, seen["index"]) and got.dtype == np.int32
+    assert len(got) == bucket(len(raw), floor=8)
+    assert np.all(np.diff(got) >= 0)
+    assert np.all(got[len(raw):] == got[len(raw) - 1])
+    assert set(got.tolist()) == set(raw.tolist())
+
+
+@pytest.mark.parametrize("layout", ["coo", "ell"])
+def test_k6_plain_is_the_same_for_any_index_order(monkeypatch, layout):
+    """K6's plain version (a transcription of the JAX program, which
+    takes the index in any order) gives the same state, bit for bit,
+    from the sorted index the warm solver hands it, from JAX's padding
+    of the listed order (the first entry repeated) and from a shuffle."""
+    seen = warm_restart_of_clusters(monkeypatch, layout)
+    raw = seen["raw"]
+    jax_pad = np.full(bucket(len(raw), floor=8), raw[0], np.int32)
+    jax_pad[:len(raw)] = raw
+    shuffled = np.random.default_rng(3).permutation(jax_pad)
+    plain = k6.warm_init_ell_plain if layout == "ell" else k6.warm_init_plain
+    states = []
+    for mc in (seen["index"], jax_pad, shuffled):
+        w = clone_work(seen["work"])
+        assert plain(seen["sys"], w, seen["pen"], torch.from_numpy(mc),
+                     seen["eps"]) is True
+        states.append({n: t for n, t in vars(w).items()
+                       if torch.is_tensor(t)})
+    assert "c_mod" in states[0] and "ctrl" in states[0]
+    for other in states[1:]:
+        assert states[0].keys() == other.keys()
+        for n, t in states[0].items():
+            assert torch.equal(bits(t), bits(other[n])), n
+
+
+def scatter_case(arm):
+    """(wrapper, CPU targets) of one K5 arm."""
+    if arm == "ell":
+        return ell_delta_scatter, [
+            torch.zeros(16, dtype=torch.int32),
+            torch.zeros(16, dtype=torch.float64),
+            torch.zeros(16, dtype=torch.bool),
+            torch.zeros(16, dtype=torch.int32),
+            torch.zeros(16, dtype=torch.bool),
+            torch.zeros(16, dtype=torch.float64)]
+    fields = TRANSITION_FIELDS if arm == "transition" else DELTA_FIELDS
+    fn = transition_scatter if arm == "transition" else delta_scatter
+    return fn, [torch.zeros(16, dtype=torch.float64) for _ in fields]
+
+
+@pytest.mark.parametrize("arm", ["transition", "delta", "ell"])
+def test_scatter_refuses_two_runs_on_one_target(arm):
+    """K5 writes every run of a call in one launch, in no set order
+    across runs, so its wrapper refuses a layout with two runs on one
+    target, on the CPU route too; the targets stay untouched."""
+    fn, targets = scatter_case(arm)
+    payload = torch.tensor([1.0, 2.0, 5.0, 6.0, 1.0, 3.0, 7.0, 8.0],
+                           dtype=torch.float64)
+    with pytest.raises(ValueError, match="one target"):
+        fn(payload, [(1, 0, 2), (1, 4, 2)], targets)
+    assert not any(bool(t.any()) for t in targets)
+    assert fn(payload, [(1, 0, 2), (3, 4, 2)], targets) is True
+    assert targets[1].tolist()[1:3] == [5.0, 6.0]
