@@ -181,7 +181,9 @@ state on the card:
    same at B = 1 and B = ``FLEET_B``, one of them K16's graph;
 17. ``bench.py``'s sweep and fault stages (``workloads/fleet_run.py``)
    on the card, whose counts must be those the JAX package gives on the
-   CPU (``fleet_run.JAX_COUNTS``); then K11 (birth and admission) and
+   CPU (``fleet_run.JAX_COUNTS``); then K11 (birth: state and weights,
+   at most ``K11_BIRTH_MAX_LAUNCHES`` CUDA launches a call; admission:
+   state, tape and weight rows, exactly ``K11_ADMIT_LAUNCHES``) and
    the replica arms of K1 (init and local round, at phase 16's shapes;
    the bound-first, FATPIPE and global arms through whole
    ``solve_arrays_batch`` solves), K2's event arm and K3's tape arm at
@@ -209,9 +211,10 @@ the shared schedule with its own DAG state:
    launches of each of the first 3 supersteps at B = 1 (the plain
    replica) and B = ``COLL_B``, equal, one of them K16's graph; (d) K2's
    event arm and K3's collective arm on the fleet's dates, K10's replica arm and K11's
-   collective admission at (a)'s shapes, each against its plain version
-   (K10 beside ``index_add_`` on int32, K11 beside ``index_put_`` of a
-   row).
+   collective admission (state, tape and DAG-walk rows in exactly
+   ``K11_ADMIT_LAUNCHES`` launch) at (a)'s shapes, each against its
+   plain version (K10 beside ``index_add_`` on int32, K11 beside
+   ``index_put_`` of a row).
 
 19. the op-cost probe (on no main path; ``simgrid_tpu_torch/probes/``):
    ``run_opcost`` (P1-P8 of the TPU tools and ``tools/tpu_opcost.py``'s
@@ -281,11 +284,14 @@ HL_EPS = 1e-9
 #: ``superstep_loop.kernel_nodes``): at most this many for K4 (22 before
 #: its redesign), exactly these for K8's round (its four passes) and
 #: K9's stage (rows, then entries), exactly one for K5 in each arm (one
-#: a run before its redesign) and at most two for K6 in both arms (four
-#: and five before)
+#: a run before its redesign), at most two for K6 in both arms (four
+#: and five before), at most two for K11's birth and exactly one for its
+#: admission (five and up to seven before)
 K4_MAX_LAUNCHES = 5
 K5_LAUNCHES = 1
 K6_MAX_LAUNCHES = 2
+K11_BIRTH_MAX_LAUNCHES = 2
+K11_ADMIT_LAUNCHES = 1
 K8_ROUND_LAUNCHES = 4
 K9_STAGE_LAUNCHES = 2
 
@@ -596,6 +602,7 @@ def fleet_phases(ctx: dict) -> None:
     import torch
     from simgrid_tpu_torch.kernels import fleet_materialize as k11
     from simgrid_tpu_torch.kernels import path_counts, reset_launch_counts
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
     from simgrid_tpu_torch.kernels.common import (ADV_GO, FFIRE, IT, LIGHT,
                                                   SS_ACTIVE, TPOS)
     from simgrid_tpu_torch.kernels.common import LmmSystem, Work
@@ -644,8 +651,7 @@ def fleet_phases(ctx: dict) -> None:
 
     sim16, row16 = fleet_run.run_fleet_full(camp16, between=admit)
     c16 = row16["launches"]
-    for name in ("fleet_materialize", "fleet_materialize_ew", "fleet_admit",
-                 "fleet_admit_ew", "fleet_admit_tape", "lmm_plan",
+    for name in ("fleet_materialize", "fleet_admit", "lmm_plan",
                  "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_tape_fleet",
                  "superstep_reset_fleet", "superstep_finish_fleet",
@@ -732,9 +738,6 @@ def fleet_phases(ctx: dict) -> None:
     ovs = [plans["cuda"].overrides_for(sp) for sp in specs16]
     pay = _pack_overrides(ovs, C, V)
     ei, ewv = _pack_elem_w(ovs, g.sys.n_e, np.float64)
-    put = lambda a, d: torch.from_numpy(np.ascontiguousarray(a)).to(d)  # noqa
-    pay_d = {k: [put(a, d) for a in pay] for k, d in devs}
-    ew_d = {k: (put(ei, d), put(ewv, d)) for k, d in devs}
     outs = {k: ([torch.empty((Bk, n), dtype=torch.float64, device=d)
                  for n in (C, V, V, V)],
                 torch.empty((Bk, g.sys.n_e), dtype=torch.float64, device=d))
@@ -743,12 +746,8 @@ def fleet_phases(ctx: dict) -> None:
     def birth(dev, plain=False):
         s_ = sims[dev]
         o, ew = outs[dev]
-        if plain:
-            k11.state_plain(s_._base_dev, pay_d[dev], o, 0, 1e-4, True)
-            k11.ew_plain(s_._base_ew, ew, *ew_d[dev], 0)
-        else:
-            k11.materialize(s_._base_dev, pay_d[dev], o, 1e-4, True)
-            k11.materialize_ew(s_._base_ew, ew, *ew_d[dev])
+        (k11.materialize_plain if plain else k11.materialize)(
+            s_._base_dev, pay, o, 1e-4, True, ew=(s_._base_ew, ew, ei, ewv))
     birth("cuda")
     birth("cpu")
     torch.cuda.synchronize()
@@ -758,6 +757,8 @@ def fleet_phases(ctx: dict) -> None:
     if err != 0.0:
         raise AssertionError(f"K11 (birth) differs from its plain "
                              f"version ({err})")
+    m_nodes = launch_gate("K11 (birth)", k16.kernel_nodes(
+        lambda: birth("cuda")), K11_BIRTH_MAX_LAUNCHES)
     m_ms = events_ms(lambda: birth("cuda"), 20)
     m_t = time_call(lambda: birth("cuda"))
     m_plain = events_ms(lambda: birth("cuda", plain=True), 3)
@@ -768,12 +769,12 @@ def fleet_phases(ctx: dict) -> None:
         name="fleet_materialize", route="cuda",
         source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:390",
-        launches=c16["fleet_materialize"] + c16["fleet_materialize_ew"],
-        max_abs_err=err, ms=m_t["ms"], paced_ms=m_ms,
-        queued=m_t["queued"], plain_ms=m_plain,
+        launches=c16["fleet_materialize"], max_abs_err=err, ms=m_t["ms"],
+        paced_ms=m_ms, queued=m_t["queued"], plain_ms=m_plain,
         bound_ms=bound_ms(m_bytes), bound_by="bytes", library_ms=None,
-        replicas=Bk, launches_from="main path 10 (the config-#4 fleet: "
-                                   "its state and its weights at birth)"))
+        cuda_launches_per_call=m_nodes, replicas=Bk,
+        launches_from="main path 10 (the config-#4 fleet's birth: its "
+                      "state and its weights in one launch)"))
     log({"phase": "kernel", **kernels[-1]})
 
     # admission: the admitted spec into row 1 (state, tape row, weights)
@@ -783,23 +784,15 @@ def fleet_phases(ctx: dict) -> None:
            _pow2_bucket(len(ov1.dead_flows)))
     pay1 = _pack_overrides([ov1], C, V, wid)
     ei1, ewv1 = _pack_elem_w([ov1], g.sys.n_e, np.float64, 1)
-    T = g._tape_width
-    row_t = (np.full(T, np.inf), np.full(T, C, np.int32), np.zeros(T))
-    args1 = {k: ([put(a, d) for a in pay1], put(ei1, d), put(ewv1, d),
-                 [put(a, d) for a in row_t]) for k, d in devs}
+    # the admitted spec has no tape: K11 pads its whole row on the card
+    row_t = (np.zeros(0), np.zeros(0, np.int32), np.zeros(0))
 
     def admit_row(dev, plain=False):
         s_ = sims[dev]
-        p1, e1, v1, rt = args1[dev]
         o, ew = outs[dev]
-        if plain:
-            k11.state_plain(s_._base_dev, p1, o, 1, 1e-4, True)
-            k11.tape_plain(s_._tape, 1, rt)
-            k11.ew_plain(s_._base_ew, ew, e1[None], v1[None], 1)
-        else:
-            k11.admit_state(s_._base_dev, p1, o, 1, 1e-4, True)
-            k11.admit_tape(s_._tape, 1, rt)
-            k11.admit_ew(s_._base_ew, ew, e1[None], v1[None], 1)
+        (k11.admit_plain if plain else k11.admit)(
+            s_._base_dev, pay1, o, 1, 1e-4, True,
+            ew=(s_._base_ew, ew, ei1, ewv1), tape=(s_._tape, row_t))
     admit_row("cuda")
     admit_row("cpu")
     torch.cuda.synchronize()
@@ -810,6 +803,8 @@ def fleet_phases(ctx: dict) -> None:
     if err != 0.0:
         raise AssertionError(f"K11 (admission) differs from its plain "
                              f"version ({err})")
+    a_nodes = launch_gate("K11 (admission)", k16.kernel_nodes(
+        lambda: admit_row("cuda")), K11_ADMIT_LAUNCHES, exact=True)
     # the card's time (queued behind a sleep) beside the host-paced one
     a_paced = events_ms(lambda: admit_row("cuda"), 20)
     a_t = time_call(lambda: admit_row("cuda"))
@@ -822,22 +817,21 @@ def fleet_phases(ctx: dict) -> None:
     a_lib_paced = events_ms(a_lib_fn, 20)
     a_lib = time_call(a_lib_fn)["ms"]
     a_bytes = (base_b + sum(a.nbytes for a in pay1) + ei1.nbytes
-               + ewv1.nbytes + sum(a.nbytes for a in row_t) * 2
+               + ewv1.nbytes + nbytes(*(t[1] for t in g._tape))
                + 8 * (C + 3 * V) + 8 * g.sys.n_e)
     kernels.append(dict(
         name="fleet_admit", route="cuda",
         source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
         replaces="simgrid_tpu/ops/lmm_batch.py:409",
-        launches=(c16["fleet_admit"] + c16["fleet_admit_tape"]
-                  + c16["fleet_admit_ew"]),
-        max_abs_err=err, ms=a_t["ms"], paced_ms=a_paced,
-        queued=a_t["queued"], plain_ms=a_plain,
+        launches=c16["fleet_admit"], max_abs_err=err, ms=a_t["ms"],
+        paced_ms=a_paced, queued=a_t["queued"], plain_ms=a_plain,
         bound_ms=bound_ms(a_bytes), bound_by="bytes", library_ms=a_lib,
         library_paced_ms=a_lib_paced,
         library="a partial yardstick: index_put_ of one row of the "
                 "remains, one of the admission's writes (one call)",
+        cuda_launches_per_call=a_nodes,
         launches_from="main path 10 (one admission: its state, tape and "
-                      "weight rows)"))
+                      "weight rows in one launch)"))
     log({"phase": "kernel", **kernels[-1]})
 
     # K1's replica arm: init and the first rounds card vs plain, then the
@@ -1097,7 +1091,9 @@ def collective_fleet_phase(ctx: dict) -> None:
     from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
     from simgrid_tpu_torch.kernels.superstep_commit import (
         packed_size, superstep_commit, superstep_commit_plain)
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
     from simgrid_tpu_torch.ops.lmm_arrays import to2d
+    from simgrid_tpu_torch.ops.lmm_batch import _pack_overrides, _pow2_bucket
     from simgrid_tpu_torch.ops.lmm_torch import to_device_system
     from simgrid_tpu_torch.probes.timing import time_call
     from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
@@ -1132,9 +1128,7 @@ def collective_fleet_phase(ctx: dict) -> None:
 
     sim, row = fleet_run.run_fleet_full(camp, between=admit)
     c18 = row["launches"]
-    for name in ("fleet_materialize", "fleet_materialize_coll",
-                 "fleet_admit", "fleet_admit_tape", "fleet_admit_coll",
-                 "lmm_plan", "lmm_init_fleet", "lmm_round_fleet",
+    for name in ("fleet_materialize_coll", "fleet_admit_coll", "lmm_plan", "lmm_init_fleet", "lmm_round_fleet",
                  "drain_advance_event_fleet", "superstep_commit_coll_fleet",
                  "dag_walk_fleet",
                  "superstep_reset_fleet", "superstep_finish_fleet",
@@ -1452,34 +1446,66 @@ def collective_fleet_phase(ctx: dict) -> None:
         launches_from="main path 11 (the 1,024-rank collective fleet)"))
     log({"phase": "kernel", **kernels[-1]})
 
-    # K11's collective admission: row 1 back to the schedule's birth rows
-    base = {k: (pred0.to(d), torch.from_numpy(dc.ready0.copy()).to(d))
-            for k, d in (("cuda", cuda), ("cpu", cpu))}
-    # every row mid-walk (counts down by one, dates set, a clock running)
-    mid = (pred0.repeat(Bk, 1) - 1, torch.full((Bk, V), 0.25, dtype=f64),
-           torch.full((Bk, 2), 0.5, dtype=f64))
-    coll = {k: tuple(t.to(d, copy=True) for t in mid)
-            for k, d in (("cuda", cuda), ("cpu", cpu))}
-    k11.admit_coll(coll["cuda"], 1, base["cuda"])
-    k11.admit_coll(coll["cpu"], 1, base["cpu"])
+    # K11's admission of row 1 of the collective fleet (state, tape row,
+    # DAG-walk rows) from its rows mid-walk (counts down by one, dates
+    # set, a clock running), card against plain on copies of the rows
+    gk = plan.executor(specs)
+    ovk = plan.overrides_for(fresh)
+    payk = _pack_overrides([ovk], gk.n_c, gk.n_v, tuple(
+        _pow2_bucket(len(x)) for x in (ovk.link_scale, ovk.flow_scale,
+                                       ovk.dead_flows)))
+    tk = plan.tape_for(fresh)
+    rowk = (np.zeros(0), np.zeros(0, np.int32), np.zeros(0))
+    if tk is not None and len(tk[0]):
+        rowk = (np.asarray(tk[0], np.float64), np.asarray(tk[1], np.int32),
+                np.asarray(tk[2], np.float64))
+    mid = (gk._coll[0] - 1, torch.full_like(gk._coll[1], 0.25),
+           torch.full_like(gk._coll[2], 0.5))
+    ka = {k: dict(base=[t.to(d) for t in gk._base_dev],
+                  out=[t.to(d, copy=True) for t in (
+                      gk.sys.c_bound, gk._pen, gk._rem, gk._thresh)],
+                  tape=[t.to(d, copy=True) for t in gk._tape]
+                  if gk.has_tape else None,
+                  coll=[t.to(d, copy=True) for t in mid],
+                  rows=[t.to(d) for t in gk._coll_base])
+          for k, d in (("cuda", cuda), ("cpu", cpu))}
+    del gk
+
+    def admit_k(dev, plain=False):
+        a = ka[dev]
+        (k11.admit_plain if plain else k11.admit)(
+            a["base"], payk, a["out"], 1, 1e-4, True,
+            tape=None if a["tape"] is None else (a["tape"], rowk),
+            coll=(a["coll"], a["rows"]))
+    admit_k("cuda")
+    admit_k("cpu")
     torch.cuda.synchronize()
-    err11 = max(diff(a, b) for a, b in zip(coll["cuda"], coll["cpu"]))
-    if err11 != 0.0 or float(coll["cpu"][2][1].abs().sum()) != 0.0:
+    outs_k = {k: [*a["out"], *(a["tape"] or ()), *a["coll"]]
+              for k, a in ka.items()}
+    err11 = max(diff(a, b) for a, b in zip(outs_k["cuda"], outs_k["cpu"]))
+    if err11 != 0.0 or float(ka["cpu"]["coll"][2][1].abs().sum()) != 0.0:
         raise AssertionError(f"K11's collective admission differs from "
                              f"its plain version ({err11})")
-    a_ms = events_ms(lambda: k11.admit_coll(coll["cuda"], 1, base["cuda"]),
-                     20)
-    a_t = time_call(lambda: k11.admit_coll(coll["cuda"], 1, base["cuda"]))
-    a_plain = events_ms(lambda: k11.coll_plain(coll["cuda"], 1, 1,
-                                               base["cuda"]), 20)
+    a_nodes = launch_gate("K11 (collective admission)", k16.kernel_nodes(
+        lambda: admit_k("cuda")), K11_ADMIT_LAUNCHES, exact=True)
+    a_ms = events_ms(lambda: admit_k("cuda"), 20)
+    a_t = time_call(lambda: admit_k("cuda"))
+    a_plain = events_ms(lambda: admit_k("cuda", plain=True), 20)
     idx1 = torch.tensor([1], device=cuda)
+    ready_g, ready0_g = ka["cuda"]["coll"][1], ka["cuda"]["rows"][1]
 
     def a_lib_fn():
-        coll["cuda"][1].index_put_((idx1,), base["cuda"][1][None])
+        ready_g.index_put_((idx1,), ready0_g[None])
     a_lib_paced = events_ms(a_lib_fn, 20)
     a_lib = time_call(a_lib_fn)["ms"]
-    # the birth rows read once, the replica's rows and clock pair written
-    a_bytes = 2 * nbytes(*base["cuda"]) + 16
+    # the base and birth rows read once, the replica's rows, tape row
+    # and clock pair written once
+    a_bytes = (nbytes(*ka["cuda"]["base"]) + sum(a.nbytes for a in payk)
+               + sum(a.nbytes for a in rowk)
+               + (nbytes(*(t[1] for t in ka["cuda"]["tape"]))
+                  if ka["cuda"]["tape"] is not None else 0)
+               + sum(nbytes(t[1]) for t in ka["cuda"]["out"])
+               + 2 * nbytes(*ka["cuda"]["rows"]) + 16)
     kernels.append(dict(
         name="fleet_admit_coll", route="cuda",
         source="simgrid_tpu_torch/csrc/fleet_materialize.cu",
@@ -1491,10 +1517,13 @@ def collective_fleet_phase(ctx: dict) -> None:
         library="a partial yardstick: index_put_ of the admitted row of "
                 "the dates, one of the admission's writes (one call)",
         birth_launches=c18["fleet_materialize_coll"],
-        launches_from="main path 11 (one admission; the birth of every "
+        cuda_launches_per_call=a_nodes,
+        launches_from="main path 11 (one admission: its state, tape and "
+                      "DAG-walk rows in one launch; the birth of every "
                       "row is fleet_materialize_coll)"))
     log({"phase": "kernel", **kernels[-1]})
-    del works, walk, coll, st
+    del ka
+    del works, walk, st
     torch.cuda.empty_cache()
 
 
@@ -2743,7 +2772,9 @@ def main() -> int:
     # K6: the restart state of a churn step's modified clusters
     clusters9 = rng9.integers(0, CHURN["clusters"], 999)
     mc9 = np.unique(CHURN["chain"] + clusters9).astype(np.int32)
-    mc_g = torch.from_numpy(modified_index(mc9)).to(cuda)
+    # the wrappers take the index on the host (checked, then uploaded)
+    mc_h = modified_index(mc9)
+    mc_g = torch.from_numpy(mc_h).to(cuda)
     carry = {n: getattr(st9.work, n).clone()
              for n in ("v_value", "remaining", "usage")}
     w6g = Work(V9, C9, f64, cuda)
@@ -2755,7 +2786,7 @@ def main() -> int:
         for n, t in carry.items():
             getattr(w6g, n).copy_(t)
     k6_setup()
-    warm_init(st9.sys, w6g, pen9, mc_g, EPS)
+    warm_init(st9.sys, w6g, pen9, mc_h, EPS)
     for n, t in carry.items():
         getattr(w6c, n).copy_(t.cpu())
     warm_init_plain(sys6c, w6c, pen9.cpu(), mc_g.cpu(), EPS)
@@ -2767,10 +2798,10 @@ def main() -> int:
     if err != 0.0:
         raise AssertionError("K6 differs from its plain version")
     k6_launches = launch_gate("K6", k16.kernel_nodes(
-        lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS)), K6_MAX_LAUNCHES)
-    k6_ms = events_ms(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS), 20,
+        lambda: warm_init(st9.sys, w6g, pen9, mc_h, EPS)), K6_MAX_LAUNCHES)
+    k6_ms = events_ms(lambda: warm_init(st9.sys, w6g, pen9, mc_h, EPS), 20,
                       k6_setup)
-    k6_t = time_call(lambda: warm_init(st9.sys, w6g, pen9, mc_g, EPS),
+    k6_t = time_call(lambda: warm_init(st9.sys, w6g, pen9, mc_h, EPS),
                      k6_setup)
     k6_plain = events_ms(lambda: warm_init_plain(st9.sys, w6g, pen9, mc_g,
                                                  EPS), 5, k6_setup)
@@ -3439,7 +3470,8 @@ def main() -> int:
     rng12 = np.random.default_rng(9)
     mc12 = np.unique(CHURN["chain"] + rng12.integers(
         0, CHURN["clusters"], 999)).astype(np.int32)
-    mc12_g = torch.from_numpy(modified_index(mc12)).to(cuda)
+    mc12_h = modified_index(mc12)
+    mc12_g = torch.from_numpy(mc12_h).to(cuda)
     w12g = EllWork(n_v12, n_c12, wc12, f64, cuda)
     w12c = EllWork(n_v12, n_c12, wc12, f64, cpu)
 
@@ -3447,7 +3479,7 @@ def main() -> int:
         for n, t in carry12.items():
             getattr(w12g, n).copy_(t)
     k6e_setup()
-    warm_init_ell(e12, w12g, pen12, mc12_g, EPS)
+    warm_init_ell(e12, w12g, pen12, mc12_h, EPS)
     for n, t in carry12.items():
         getattr(w12c, n).copy_(t.cpu())
     warm_init_ell_plain(e12c, w12c, pen12.cpu(), mc12_g.cpu(), EPS)
@@ -3457,11 +3489,11 @@ def main() -> int:
     if err != 0.0:
         raise AssertionError("K6 (ELL) differs from its plain version")
     k6e_launches = launch_gate("K6 (ELL)", k16.kernel_nodes(
-        lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS)),
+        lambda: warm_init_ell(e12, w12g, pen12, mc12_h, EPS)),
         K6_MAX_LAUNCHES)
-    k6e_ms = events_ms(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
+    k6e_ms = events_ms(lambda: warm_init_ell(e12, w12g, pen12, mc12_h, EPS),
                        20, k6e_setup)
-    k6e_t = time_call(lambda: warm_init_ell(e12, w12g, pen12, mc12_g, EPS),
+    k6e_t = time_call(lambda: warm_init_ell(e12, w12g, pen12, mc12_h, EPS),
                       k6e_setup)
     k6e_plain = events_ms(lambda: warm_init_ell_plain(e12, w12g, pen12,
                                                       mc12_g, EPS), 5,

@@ -28,8 +28,12 @@
 // control words (HALF -1), as K7's init does.
 //
 // mc_idx comes sorted (non-decreasing), padded by repeating its last
-// entry: ops/lmm_warm.py `modified_index` builds it so, and the kernels
-// trap on a descending pair.  The padding does not change the set.
+// entry: ops/lmm_warm.py `modified_index` builds it so.  The entries
+// take it on the host (`mc_host`, pinned) and upload it into the
+// device buffer of their pointer array ahead of the launch; the
+// wrapper (kernels/warm_init.py) checks its order there first and
+// raises ValueError on a descending pair, so the kernels' trap on one
+// is a backstop only.  The padding does not change the set.
 //
 // What bounds it on this card: latency.  Its bytes (each live element
 // once through the variable rows, the modified rows' elements and
@@ -148,7 +152,7 @@ __device__ __forceinline__ int modified_row(const int* __restrict__ mc,
   int c = __ldg(mc + i);
   if (i == 0) return c;
   int p = __ldg(mc + i - 1);
-  if (p > c) __trap();  // not sorted: the searches would be wrong
+  if (p > c) __trap();  // not sorted (the wrapper refuses it first)
   return p == c ? -1 : c;
 }
 
@@ -445,10 +449,13 @@ int launch_ell(EArgs<T> a, int limit, cudaStream_t st) {
 
 extern "C" int warm_init_ell(int dbl, int V, int C, int Wc, int Wv,
                              int n_mc, void** ptrs, int n_ptrs, double eps,
-                             int limit, void* stream) {
+                             int limit, const void* mc_host, void* stream) {
   if (n_ptrs != N_PTRS_ELL || n_mc <= 0 || Wc <= 0 || Wv <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemcpyAsync(ptrs[9], mc_host, sizeof(int) * n_mc,
+                                   cudaMemcpyHostToDevice, st);
+  if (rc != cudaSuccess) return (int)rc;
   if (dbl)
     return launch_ell(make_eargs<double>(V, C, Wc, Wv, n_mc, eps, ptrs),
                       limit, st);
@@ -457,9 +464,13 @@ extern "C" int warm_init_ell(int dbl, int V, int C, int Wc, int Wv,
 }
 
 extern "C" int warm_init(int dbl, int V, int C, int n_mc, void** ptrs,
-                         int n_ptrs, double eps, int limit, void* stream) {
+                         int n_ptrs, double eps, int limit,
+                         const void* mc_host, void* stream) {
   if (n_ptrs != N_PTRS || n_mc <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemcpyAsync(ptrs[10], mc_host, sizeof(int) * n_mc,
+                                   cudaMemcpyHostToDevice, st);
+  if (rc != cudaSuccess) return (int)rc;
   if (dbl)
     return launch(make_args<double>(V, C, n_mc, eps, ptrs), limit, st);
   return launch(make_args<float>(V, C, n_mc, eps, ptrs), limit, st);

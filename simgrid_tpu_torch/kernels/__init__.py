@@ -26,7 +26,7 @@ their plain PyTorch versions.
   over the schedule's out-edge CSR
 * K11 :mod:`.fleet_materialize` — a fleet's per-replica state from the
   base arrays and compact payloads, at birth and at the admission of
-  one replica
+  one replica (one launch each)
 * K16 :mod:`.superstep_loop`  — the superstep's and the fixpoint's while
   loops on the card: CUDA graphs with conditional WHILE nodes around
   K1-K3, K7, K8 and K10 (one graph launch a superstep, a solve chunk or

@@ -22,8 +22,9 @@ earlier callers; its memory is that of a fleet of one.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.csr import Csr
@@ -86,6 +87,24 @@ MAX_ROUNDS = 100_000
 COMMIT_TILE = 4096
 #: the head of a replica's commit scratch row, before the tile counts
 COMMIT_HEAD = 4
+
+# ---- K11's packed payload: the parts, in their order in the buffer;
+# keep in sync with csrc/fleet_payload.cuh ----
+FP_BW = 0         # [nb] f64: the rows' bandwidth scales
+FP_FS = 1         # [nb] f64: the rows' size scales
+FP_LI = 2         # [nb, sl] int32: link slots, sorted, pads (C) last
+FP_LF = 3         # [nb, sl] f64: their factors
+FP_FI = 4         # [nb, sf] int32: flow slots, sorted, pads (V) last
+FP_FF = 5         # [nb, sf] f64: their factors
+FP_DI = 6         # [nb, sd] int32: dead flows, sorted, pads (V) last
+FP_EI = 7         # [nb, se] int32: element slots, sorted, pads (E) last
+FP_EWV = 8        # [nb, se] dtype: their weights
+FP_TT = 9         # [T] f64: the admitted tape row's dates
+FP_TS = 10        # [T] int32: its constraint slots
+FP_TV = 11        # [T] dtype: its bounds
+FP_PARTS = 12
+#: every part starts at a multiple of this many bytes
+FP_ALIGN = 16
 
 
 def commit_tiles(n_v: int) -> int:
@@ -357,3 +376,55 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
 D = ctypes.c_double
+
+
+class Staging:
+    """A pinned host buffer and its device twin, kept per device and
+    grown to the largest call: a wrapper packs a call's host arrays into
+    the host side and its C entry uploads them in one copy on the call's
+    stream, ahead of the launch that reads them (K6's index, K11's
+    payload).  Before the host side is written again, the host waits for
+    the event recorded after the last launch that read it (in practice
+    long done).  Under graph capture nothing is waited for or recorded,
+    and the buffers must already be large enough: run the call once
+    uncaptured at the same shapes first.  A captured call's graph reads
+    the buffers when it is launched, so launch it before the next call
+    writes them."""
+
+    def __init__(self, what: str):
+        self.what = what
+        #: device index -> [pinned host tensor, its numpy view, device
+        #: tensor, event]
+        self._bufs: Dict[int, list] = {}
+
+    def take(self, device: torch.device, n: int
+             ) -> Tuple[np.ndarray, torch.Tensor, torch.Tensor, bool]:
+        """The first ``n`` bytes of the host side (numpy, to fill), the
+        host and device tensors whose pointers go to the C entry, and
+        whether the stream is being captured (for :meth:`launched`)."""
+        key = device.index
+        key = torch.cuda.current_device() if key is None else key
+        buf = self._bufs.get(key)
+        capturing = torch.cuda.is_current_stream_capturing()
+        if buf is not None and not capturing:
+            buf[3].synchronize()
+        if buf is None or buf[0].numel() < n:
+            if capturing:
+                raise RuntimeError(
+                    f"{self.what}: the staging buffer cannot grow under "
+                    "graph capture; run the call once uncaptured first")
+            size = max(4096, 1 << (max(n, 1) - 1).bit_length())
+            host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+            buf = [host, host.numpy(),
+                   torch.empty(size, dtype=torch.uint8,
+                               device=torch.device("cuda", key)),
+                   torch.cuda.Event()]
+            self._bufs[key] = buf
+        return buf[1][:n], buf[0], buf[2], capturing
+
+    def launched(self, device: torch.device, capturing: bool) -> None:
+        """Record that the launch reading the buffers is queued."""
+        if not capturing:
+            key = device.index
+            key = torch.cuda.current_device() if key is None else key
+            self._bufs[key][3].record()

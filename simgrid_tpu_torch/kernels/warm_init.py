@@ -25,11 +25,15 @@ previous converged mask.  It is counted as ``warm_init_ell``.
 On CPU tensors the wrappers run the plain PyTorch version (a
 line-by-line transcription of the JAX program, which takes ``mc_idx``
 in any order) and return True; on CUDA tensors they launch the kernel,
-one launch a call in either arm, and return None.  The kernel decides
+one launch a call in either arm, and return None.  ``mc_idx`` is given
+on the host (an int32 numpy array or CPU tensor).  The kernel decides
 "modified" by binary search, so on the card ``mc_idx`` must be sorted
 (non-decreasing, padded by repeating its last entry, as
-``ops/lmm_warm.py`` ``modified_index`` builds it; the kernel traps on a
-descending pair).  Its ELL arm reads "has a live element" and v_mod
+``ops/lmm_warm.py`` ``modified_index`` builds it): the card route checks
+its order on the host (:func:`host_index`) and raises ``ValueError``
+before any launch, then its C entry uploads it from a pinned buffer in
+the launch's stream (the kernel's trap on a descending pair stays as a
+backstop).  Its ELL arm reads "has a live element" and v_mod
 from the variable-row tables ``vc_*`` and writes a modified row's
 ``cv_live`` as its enabled mask; both rest on invariants of the ELL
 masters (the ``cv_*`` and ``vc_*`` tables hold the same live elements
@@ -39,14 +43,16 @@ the build and K5's ELL deltas keep.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from . import build
 from .common import (ARMED, IT, LIGHT, LIGHT_ACC, LIMIT, MAX_ROUNDS, D, I,
-                     EllSystem, EllWork, LmmSystem, P, Work, check, counter,
-                     is_double, on_cpu, ptr_array, stream)
+                     EllSystem, EllWork, LmmSystem, P, Staging, Work, check,
+                     counter, is_double, on_cpu, ptr_array, stream)
 from .ell_round import arm_ctrl, fold_rows, row_max0
 from .lmm_round import _any_by, _max_by
 
@@ -56,11 +62,63 @@ ELL_COUNT = counter("warm_init_ell")
 #: buffers handed to the C entry as one pointer array, in this order
 N_PTRS = 18
 
-_SIG = {"warm_init": [I, I, I, I, P, I, D, I, P],
-        "warm_init_ell": [I, I, I, I, I, I, P, I, D, I, P]}
+_SIG = {"warm_init": [I, I, I, I, P, I, D, I, P, P],
+        "warm_init_ell": [I, I, I, I, I, I, P, I, D, I, P, P]}
 
 #: buffers of the ELL arm's C entry, in this order
 N_PTRS_ELL = 20
+
+#: the modified constraints as the wrappers take them
+Index = Union[np.ndarray, torch.Tensor]
+
+_STAGE = Staging("K6's index")
+
+
+def host_index(mc_idx: Index) -> np.ndarray:
+    """The card route's ``mc_idx`` as the kernel searches it: int32 on
+    the host, one entry or more, non-decreasing.  Raises ``ValueError``
+    on a descending pair and ``TypeError`` on a device tensor (its
+    order could not be checked without a sync)."""
+    if isinstance(mc_idx, torch.Tensor):
+        if mc_idx.device.type != "cpu":
+            raise TypeError("on the card K6 takes mc_idx on the host, "
+                            "where its order is checked before the upload")
+        mc_idx = mc_idx.numpy()
+    mc = np.ascontiguousarray(mc_idx)
+    if mc.dtype != np.int32 or mc.ndim != 1 or not len(mc):
+        raise TypeError("mc_idx is a non-empty int32 vector")
+    if (mc[1:] < mc[:-1]).any():
+        raise ValueError("K6's card route takes mc_idx sorted "
+                         "(non-decreasing, as ops/lmm_warm.py "
+                         "modified_index builds it)")
+    return mc
+
+
+def _plain_index(mc_idx: Index) -> torch.Tensor:
+    mc = torch.as_tensor(mc_idx)
+    if mc.dtype != torch.int32:
+        raise TypeError("mc_idx is int32")
+    return mc
+
+
+def _launch(entry: str, dev: torch.device, mc: np.ndarray, tensors,
+            dims, eps: float, limit: int) -> None:
+    """Launch ``entry`` (``dims`` its leading ints) with the index ``mc``
+    staged: the C entry uploads it into the index slot (None) of
+    ``tensors``."""
+    host, host_t, dev_t, capturing = _STAGE.take(dev, mc.nbytes)
+    host[:] = mc.view(np.uint8)
+    ptrs = ptr_array([dev_t[:mc.nbytes].view(torch.int32) if t is None
+                      else t for t in tensors])
+    lib = build.load("warm_init", _SIG)
+    try:
+        rc = getattr(lib, entry)(*dims, ptrs, len(tensors), float(eps),
+                                 int(limit),
+                                 ctypes.c_void_p(host_t.data_ptr()),
+                                 stream())
+    finally:
+        _STAGE.launched(dev, capturing)
+    check(rc, entry)
 
 
 def warm_init_plain(sys: LmmSystem, w: Work, pen: torch.Tensor,
@@ -98,30 +156,25 @@ def warm_init_plain(sys: LmmSystem, w: Work, pen: torch.Tensor,
     return True
 
 
-def warm_init(sys: LmmSystem, w: Work, pen: torch.Tensor,
-              mc_idx: torch.Tensor, eps: float,
-              limit: int = MAX_ROUNDS) -> Optional[bool]:
+def warm_init(sys: LmmSystem, w: Work, pen: torch.Tensor, mc_idx: Index,
+              eps: float, limit: int = MAX_ROUNDS) -> Optional[bool]:
     """Write the warm restart state of the modified constraints
-    ``mc_idx`` (int32, padded by repeating an entry; sorted on the card)
-    into ``w``.
+    ``mc_idx`` (int32 on the host, padded by repeating an entry; sorted
+    on the card, else ``ValueError``) into ``w``.
     ``sys.c_fatpipe`` must be set: the usage of a FATPIPE row is the max
     of its elements, of a SHARED row their in-order sum."""
     if sys.c_fatpipe is None:
         raise ValueError("warm_init needs sys.c_fatpipe")
-    if mc_idx.dtype != torch.int32:
-        raise TypeError("mc_idx is int32")
-    if on_cpu(pen, sys.e_w, w.ctrl, mc_idx):
-        return warm_init_plain(sys, w, pen, mc_idx, eps, limit)
-    lib = build.load("warm_init", _SIG)
+    if on_cpu(pen, sys.e_w, w.ctrl):
+        return warm_init_plain(sys, w, pen, _plain_index(mc_idx), eps,
+                               limit)
+    mc = host_index(mc_idx)
     csr = sys.csr
-    ptrs = ptr_array([
+    _launch("warm_init", pen.device, mc, [
         pen, sys.e_var, sys.e_cnst, sys.e_w, sys.c_bound, sys.c_fatpipe,
-        csr.c_ptr, csr.c_idx, csr.v_ptr, csr.v_idx, mc_idx, w.v_value,
-        w.v_fixed, w.remaining, w.usage, w.light, w.c_mod, w.ctrl])
-    rc = lib.warm_init(is_double(pen.dtype), sys.n_v, sys.n_c,
-                       int(mc_idx.shape[0]), ptrs, N_PTRS, float(eps),
-                       int(limit), stream())
-    check(rc, "warm_init")
+        csr.c_ptr, csr.c_idx, csr.v_ptr, csr.v_idx, None, w.v_value,
+        w.v_fixed, w.remaining, w.usage, w.light, w.c_mod, w.ctrl],
+        (is_double(pen.dtype), sys.n_v, sys.n_c, len(mc)), eps, limit)
     COUNT.n += 1
     return None
 
@@ -164,26 +217,22 @@ def warm_init_ell_plain(sys: EllSystem, w: EllWork, pen: torch.Tensor,
 
 
 def warm_init_ell(sys: EllSystem, w: EllWork, pen: torch.Tensor,
-                  mc_idx: torch.Tensor, eps: float,
+                  mc_idx: Index, eps: float,
                   limit: int = MAX_ROUNDS) -> Optional[bool]:
     """Write the warm restart state of the modified constraints
-    ``mc_idx`` (int32, padded by repeating an entry; sorted on the card)
-    into the ELL fixpoint state ``w``, from the ELL tables of ``sys`` and the
-    previous converged solve ``w`` holds (values, remaining, usage and
-    the ``cv_live`` mask)."""
-    if mc_idx.dtype != torch.int32:
-        raise TypeError("mc_idx is int32")
-    if on_cpu(pen, sys.cv_w, w.ctrl, mc_idx):
-        return warm_init_ell_plain(sys, w, pen, mc_idx, eps, limit)
-    lib = build.load("warm_init", _SIG)
-    ptrs = ptr_array([
+    ``mc_idx`` (int32 on the host, padded by repeating an entry; sorted
+    on the card, else ``ValueError``) into the ELL fixpoint state ``w``,
+    from the ELL tables of ``sys`` and the previous converged solve ``w``
+    holds (values, remaining, usage and the ``cv_live`` mask)."""
+    if on_cpu(pen, sys.cv_w, w.ctrl):
+        return warm_init_ell_plain(sys, w, pen, _plain_index(mc_idx), eps,
+                                   limit)
+    mc = host_index(mc_idx)
+    _launch("warm_init_ell", pen.device, mc, [
         pen, sys.cv_var, sys.cv_w, sys.cv_valid, sys.vc_cnst, sys.vc_valid,
-        sys.vc_w, sys.c_bound, sys.c_fatpipe, mc_idx, w.v_value, w.v_fixed,
+        sys.vc_w, sys.c_bound, sys.c_fatpipe, None, w.v_value, w.v_fixed,
         w.remaining, w.usage, w.light, w.cv_live, w.c_mod, w.v_mod, w.v_has,
-        w.ctrl])
-    rc = lib.warm_init_ell(is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc,
-                           sys.wv, int(mc_idx.shape[0]), ptrs, N_PTRS_ELL,
-                           float(eps), int(limit), stream())
-    check(rc, "warm_init_ell")
+        w.ctrl], (is_double(pen.dtype), sys.n_v, sys.n_c, sys.wc, sys.wv,
+                  len(mc)), eps, limit)
     ELL_COUNT.n += 1
     return None

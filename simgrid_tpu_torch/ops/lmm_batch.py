@@ -7,7 +7,8 @@ compact override record.  Each kernel launch serves every replica: the
 per-replica state has a leading replica axis (``kernels.common.Work``
 with ``B``), K1-K3 pick their replica by ``blockIdx.y`` and guard on its
 own control words, and K11 (``kernels/fleet_materialize.py``) builds the
-per-replica state on the card from the base arrays and the payloads.  A
+per-replica state on the card from the base arrays and the payloads, in
+one launch at birth and one at each admission.  A
 fleet superstep therefore launches as many kernels as a solo superstep,
 whatever B is: the amortisation the JAX package's ``vmap`` gives.
 
@@ -444,11 +445,12 @@ class BatchDrainSim:
         self._vb = put(vb)
         self._ids = put(ids)
         n_e = len(ev2)
+        ew_k11 = None
         if self.batch_w:
             ew = torch.empty((B, n_e), dtype=self.tdtype, device=dev)
             ei, ewv = _pack_elem_w(overrides, n_e, self.dtype)
             opstats.bump("uploaded_bytes_delta", ei.nbytes + ewv.nbytes)
-            k11.materialize_ew(self._base_ew, ew, put(ei), put(ewv))
+            ew_k11 = (self._base_ew, ew, ei, ewv)
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
             # every element in the row indexes: an admitted replica may
@@ -464,15 +466,19 @@ class BatchDrainSim:
         self._pen, self._rem, self._thresh = (
             torch.empty((B, self.n_v), dtype=self.tdtype, device=dev)
             for _ in range(3))
-        k11.materialize(self._base_dev, [put(a) for a in payload],
-                        (cb, self._pen, self._rem, self._thresh),
-                        self.done_eps, done_mode == "rel")
         opstats.bump("dispatches")
         opstats.bump("batch_dispatches")
         self.sys = LmmSystem(ev, ec, ew, cb, csr, self.n_v)
         self.w = Work(self.n_v, self.n_c, self.tdtype, dev, B=B)
         self._arm_tapes(tapes, tape_slots)
         self._arm_collective(collective)
+        # the whole birth in one K11 launch: the state, the weights
+        # (JAX's two programs, counted above) and the collective rows
+        k11.materialize(self._base_dev, payload,
+                        (cb, self._pen, self._rem, self._thresh),
+                        self.done_eps, done_mode == "rel", ew=ew_k11,
+                        coll=(self._coll, self._coll_base)
+                        if self.has_coll else None)
 
         self.replicas = [ReplicaState(b) for b in range(B)]
         self._alive = np.ones(B, bool)
@@ -557,7 +563,8 @@ class BatchDrainSim:
         """One compiled comm DAG for the whole fleet, checked as the JAX
         fleet checks it: the edges and exec costs are shared, each
         replica's predecessor counts, activation dates and Kahan pair
-        start from the schedule's birth rows (K11)."""
+        start from the schedule's birth rows (written by the birth's K11
+        launch)."""
         self.has_coll = False
         #: (pred [B, V] int32, ready [B, V] f64, clk [B, 2] f64)
         self._coll: Optional[Tuple[torch.Tensor, ...]] = None
@@ -584,7 +591,6 @@ class BatchDrainSim:
             torch.empty((B, V), dtype=torch.int32, device=self.device),
             torch.empty((B, V), dtype=torch.float64, device=self.device),
             torch.empty((B, 2), dtype=torch.float64, device=self.device))
-        k11.materialize_coll(self._coll, self._coll_base)
         opstats.bump("collective_tape_slots", V * B)
         opstats.bump("uploaded_bytes_delta", cp.nbytes + cr.nbytes
                      + ces.nbytes + ced.nbytes + cec.nbytes)
@@ -960,55 +966,53 @@ class BatchDrainSim:
                 raise AdmissionError(
                     f"tape with {len(tape[0])} entries exceeds the fleet's "
                     f"reserved tape width {self._tape_width}")
-        put = lambda a: torch.from_numpy(  # noqa: E731
-            np.ascontiguousarray(a)).to(self.device)
         widths = (_pow2_bucket(len(ov.link_scale)),
                   _pow2_bucket(len(ov.flow_scale)),
                   _pow2_bucket(len(ov.dead_flows)))
         payload = _pack_overrides([ov], self.n_c, self.n_v, widths)
         opstats.bump("uploaded_bytes_delta",
                      sum(a.nbytes for a in payload[2:]))
-        k11.admit_state(self._base_dev, [put(a) for a in payload],
-                        (self.sys.c_bound, self._pen, self._rem,
-                         self._thresh), b, self.done_eps,
-                        self.done_mode == "rel")
         opstats.bump("dispatches")
         opstats.bump("batch_dispatches")
+        # the counters follow JAX's programs; K11 writes the whole row
+        # in one launch below
+        tape_k11 = coll_k11 = ew_k11 = None
         if self.has_tape:
             # always rewrite the row: the previous occupant may have
-            # left unfired entries behind
-            T = self._tape_width
-            row_t = np.full(T, np.inf, np.float64)
-            row_s = np.full(T, self.n_c, np.int32)
-            row_v = np.zeros(T, np.float64)
+            # left unfired entries behind; K11 pads the admitted entries
+            # to the row (inf, n_c, 0) as JAX's host does
+            dates, slots, vals = (np.zeros(0), np.zeros(0, np.int32),
+                                  np.zeros(0))
             if tape is not None:
                 dates, slots, vals = self._tape_arrays(tape, "",
                                                        AdmissionError)
-                n = len(dates)
-                row_t[:n], row_s[:n], row_v[:n] = dates, slots, vals
-                opstats.bump("fault_tape_slots", n)
-            row_vd = row_v.astype(self.dtype)
-            k11.admit_tape(self._tape, b, [put(row_t), put(row_s),
-                                           put(row_vd)])
-            self._tpos[b] = 0
-            opstats.bump("uploaded_bytes_delta",
-                         row_t.nbytes + row_s.nbytes + row_vd.nbytes)
+                opstats.bump("fault_tape_slots", len(dates))
+            tape_k11 = (self._tape, (dates, slots, vals.astype(self.dtype)))
+            # JAX's count: the whole padded row goes up
+            opstats.bump("uploaded_bytes_delta", self._tape_width * (
+                8 + 4 + self.dtype.itemsize))
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
         if self.has_coll:
             # the admitted replica replays the shared schedule from its
             # own t = 0: fresh DAG-walk state, clock pair at zero
-            k11.admit_coll(self._coll, b, self._coll_base)
+            coll_k11 = (self._coll, self._coll_base)
             opstats.bump("collective_tape_slots", self.n_v)
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
         if self.batch_w:
             ei, ewv = _pack_elem_w([ov], self.sys.n_e, self.dtype,
                                    _pow2_bucket(len(ov.elem_w)))
-            k11.admit_ew(self._base_ew, self.sys.e_w, put(ei), put(ewv), b)
+            ew_k11 = (self._base_ew, self.sys.e_w, ei, ewv)
             opstats.bump("uploaded_bytes_delta", ei.nbytes + ewv.nbytes)
             opstats.bump("dispatches")
             opstats.bump("batch_dispatches")
+        k11.admit(self._base_dev, payload,
+                  (self.sys.c_bound, self._pen, self._rem, self._thresh), b,
+                  self.done_eps, self.done_mode == "rel", ew=ew_k11,
+                  tape=tape_k11, coll=coll_k11)
+        if self.has_tape:
+            self._tpos[b] = 0
         self.overrides[b] = ov
         self.replicas[b] = ReplicaState(b)
         self._alive[b] = True

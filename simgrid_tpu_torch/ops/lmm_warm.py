@@ -472,11 +472,11 @@ class WarmSolver:
             mc_pad = modified_index(mc)
             opstats.bump("uploaded_bytes_delta", mc_pad.nbytes)
             self.last_upload_bytes += mc_pad.nbytes
-            mc_dev = torch.from_numpy(mc_pad).to(self.device)
+            # K6 takes the index on the host and uploads it itself
             if use_ell:
-                warm_init_ell(st.ell, w, pen, mc_dev, eps_f)
+                warm_init_ell(st.ell, w, pen, mc_pad, eps_f)
             else:
-                warm_init(st.sys, w, pen, mc_dev, eps_f)
+                warm_init(st.sys, w, pen, mc_pad, eps_f)
 
         # as JAX decides them for the warm path: over every view slot
         has_bounds = bool(np.any((view.v_bound > 0) & (view.v_penalty > 0)))

@@ -133,6 +133,20 @@ timed on one card in one call.  The cases:
   ``index_put_`` (one call a run) timed the same ways; with
   ``--profile`` also the card's ms by kernel a call.  The churns run
   once a process and are kept for the later cases;
+* ``k11_birth``, ``k11_admit``, ``k11_coll_birth`` and
+  ``k11_coll_admit`` (not in the default list): K11 at ``chip_smoke.py``'s
+  phase-16 shapes (the config-#4 fleet of ``FLEET_B``: state, weights;
+  an admission adds its tape row) and phase-18's (the 1,024-rank
+  collective fleet of ``COLL_B``: state, tape, DAG-walk rows), one
+  birth or one admission of the fresh spec into row 1 from the host's
+  payload arrays: the card's ms (``time_call``), the paced ms, the
+  bytes bound, the kernels a call by ``torch.profiler``
+  (``kernel_counts``) and, on a tree with the fused entries, the kernel
+  nodes of one captured call; an admission also times the whole
+  ``admit_lane`` as the host paces it (with ``--profile``, the host's
+  us a call by function, ``cProfile``).  A parent tree's entries run
+  with the uploads its fleet made (its card ms with the payload
+  uploaded beforehand, since a pageable upload stalls the queue);
 * ``floor`` (not in the default list): what one launch of a trivial
   hand-written kernel reads the same ways (K15's ``probe_double`` over
   256 float64): the floor under a one-launch call's ``ms``;
@@ -1113,6 +1127,14 @@ def sorted_index(mc):
     return out
 
 
+def k6_index(mc_g):
+    """K6's index as the tree's wrapper takes it: on the host where the
+    wrapper checks its order there (``warm_init.host_index``), else the
+    device copy."""
+    from simgrid_tpu_torch.kernels import warm_init
+    return mc_g.cpu().numpy() if hasattr(warm_init, "host_index") else mc_g
+
+
 def padded(ix, vals, floor=8):
     """One run padded as the warm solver pads it (the first pair)."""
     import numpy as np
@@ -1212,6 +1234,7 @@ def run_k56(name: str, profile: bool = False) -> dict:
             mc = np.unique(smoke.CHURN["chain"] + rng.integers(
                 0, smoke.CHURN["clusters"], 999 if name == "k6" else 1))
             mc_g = torch.from_numpy(sorted_index(mc)).to(cuda)
+            mc_arg = k6_index(mc_g)
             carry = {n: getattr(st.work, n).clone()
                      for n in ("v_value", "remaining", "usage")}
             w = Work(V9, C9, f64, cuda)
@@ -1222,7 +1245,7 @@ def run_k56(name: str, profile: bool = False) -> dict:
                     getattr(w, n).copy_(x)
 
             def fn():
-                warm_init(st.sys, w, pen, mc_g, EPS)
+                warm_init(st.sys, w, pen, mc_arg, EPS)
 
             def plain():
                 warm_init_plain(st.sys, w, pen, mc_g, EPS)
@@ -1241,6 +1264,7 @@ def run_k56(name: str, profile: bool = False) -> dict:
             0, smoke.CHURN["clusters"], 1 if name == "k6_ell_one" else 999))
         if name.startswith("k6"):
             mc_g = torch.from_numpy(sorted_index(mc)).to(cuda)
+            mc_arg = k6_index(mc_g)
             carry = {n: getattr(st.ell_work, n).clone()
                      for n in ("v_value", "remaining", "usage", "cv_live")}
             w = EllWork(n_v, n_c, wc, f64, cuda)
@@ -1250,7 +1274,7 @@ def run_k56(name: str, profile: bool = False) -> dict:
                     getattr(w, n).copy_(x)
 
             def fn():
-                warm_init_ell(e, w, pen, mc_g, EPS)
+                warm_init_ell(e, w, pen, mc_arg, EPS)
 
             def plain():
                 warm_init_ell_plain(e, w, pen, mc_g, EPS)
@@ -1313,6 +1337,169 @@ def run_k56(name: str, profile: bool = False) -> dict:
     return rec
 
 
+K11_CASES = ("k11_birth", "k11_admit", "k11_coll_birth", "k11_coll_admit")
+
+
+def run_k11(name: str, profile: bool = False) -> dict:
+    """One of K11's cases (module docstring), on this tree's entries or
+    on a parent's (``materialize`` with ``materialize_ew`` and
+    ``materialize_coll``, ``admit_state`` with ``admit_tape``,
+    ``admit_coll`` and ``admit_ew``, each payload array uploaded as the
+    parent's fleet uploaded it)."""
+    import numpy as np
+    import torch
+    from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.ops.lmm_batch import (_pack_elem_w,
+                                                 _pack_overrides,
+                                                 _pow2_bucket)
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    t = _timing()
+    smoke = main_paths()
+    cuda = torch.device("cuda")
+    fused = hasattr(k11, "admit")
+    coll = name.startswith("k11_coll")
+    if coll:
+        from simgrid_tpu_torch.workloads import collective_fleet as cf
+        from simgrid_tpu_torch.workloads import collective_run
+        cs = collective_run.CASES[2]
+        _, legs, _ = collective_run.run_case(cs, device=cuda)
+        specs = cf.fleet_specs(cs, legs["tape"]["events"][-1][0],
+                               smoke.COLL_B)
+        plan = cf.fleet_campaign(cs, specs, cuda).plan
+        extra = dict(collective=cs)
+    else:
+        from simgrid_tpu_torch.workloads import dragonfly, fleet_run
+        from simgrid_tpu_torch.workloads.drain_run import EPS
+        dsys = dragonfly.build_system(smoke.FLOWS)
+        specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
+                                      smoke.FAULT)
+        plan = fleet_run.fleet_campaign(dsys, specs, cuda, smoke.FLEET_K,
+                                        dragonfly.link_names(dsys),
+                                        EPS).plan
+        extra = {}
+    fresh = ScenarioSpec(seed=50, bw_scale=1.15, size_scale=0.95,
+                         label="admitted", **extra)
+    g = plan.executor(specs)
+    rel = g.done_mode == "rel"
+    nb = lambda *ts: sum(x.numel() * x.element_size()  # noqa: E731
+                         for x in ts)
+    put = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(cuda)
+    outs = [torch.empty_like(x) for x in (g.sys.c_bound, g._pen, g._rem,
+                                          g._thresh)]
+    ew_out = torch.empty_like(g.sys.e_w) if g.batch_w else None
+    cl = [torch.empty_like(x) for x in g._coll] if coll else None
+    ovs = list(g.overrides)
+    pay = _pack_overrides(ovs, g.n_c, g.n_v)
+    ei, ewv = _pack_elem_w(ovs, g.sys.n_e, g.dtype)
+    ov = plan.overrides_for(fresh)
+    tape = plan.tape_for(fresh)
+    pay1 = _pack_overrides([ov], g.n_c, g.n_v, tuple(_pow2_bucket(len(x))
+                           for x in (ov.link_scale, ov.flow_scale,
+                                     ov.dead_flows)))
+    ei1, ewv1 = _pack_elem_w([ov], g.sys.n_e, g.dtype,
+                             _pow2_bucket(len(ov.elem_w)))
+    # the admitted tape: its entries (this tree pads them on the card),
+    # or the padded row (a parent tree's upload)
+    rows = ()
+    if g.has_tape:
+        n = 0 if tape is None else len(tape[0])
+        entries = (np.asarray(tape[0], np.float64) if n else np.zeros(0),
+                   np.asarray(tape[1], np.int32) if n else np.zeros(
+                       0, np.int32),
+                   (np.asarray(tape[2], np.float64) if n else np.zeros(0)
+                    ).astype(g.dtype))
+        T = g._tape_width
+        rows = entries if fused else tuple(
+            np.concatenate([x, np.full(T - n, pad, x.dtype)])
+            for x, pad in zip(entries, (np.inf, g.n_c, 0)))
+    if fused:
+        def birth():
+            k11.materialize(g._base_dev, pay, outs, g.done_eps, rel,
+                            ew=(g._base_ew, ew_out, ei, ewv)
+                            if g.batch_w else None,
+                            coll=(cl, g._coll_base) if coll else None)
+
+        def admit():
+            k11.admit(g._base_dev, pay1, outs, 1, g.done_eps, rel,
+                      ew=(g._base_ew, ew_out, ei1, ewv1)
+                      if g.batch_w else None,
+                      tape=(g._tape, rows) if g.has_tape else None,
+                      coll=(cl, g._coll_base) if coll else None)
+        card = {}
+    else:
+        def birth(up=put):
+            if g.batch_w:
+                k11.materialize_ew(g._base_ew, ew_out, up(ei), up(ewv))
+            k11.materialize(g._base_dev, [up(a) for a in pay], outs,
+                            g.done_eps, rel)
+            if coll:
+                k11.materialize_coll(cl, g._coll_base)
+
+        def admit(up=put):
+            k11.admit_state(g._base_dev, [up(a) for a in pay1], outs, 1,
+                            g.done_eps, rel)
+            if g.has_tape:
+                k11.admit_tape(g._tape, 1, [up(a) for a in rows])
+            if coll:
+                k11.admit_coll(cl, 1, g._coll_base)
+            if g.batch_w:
+                k11.admit_ew(g._base_ew, ew_out, up(ei1), up(ewv1), 1)
+        # the card's time with the payload already on the card (each
+        # pageable upload would stall the queue behind the sleep)
+        kept = {id(a): put(a) for a in (*pay, ei, ewv, *pay1, ei1, ewv1,
+                                        *rows)}
+        card = {birth: lambda: birth(lambda a: kept[id(a)]),
+                admit: lambda: admit(lambda a: kept[id(a)])}
+    is_birth = name.endswith("birth")
+    fn = birth if is_birth else admit
+    base_b = nb(*g._base_dev) + (nb(g._base_ew) if g.batch_w else 0)
+    if is_birth:
+        n_bytes = (base_b + sum(a.nbytes for a in pay)
+                   + (ei.nbytes + ewv.nbytes if g.batch_w else 0)
+                   + nb(*outs) + (nb(ew_out) if g.batch_w else 0)
+                   + (nb(*g._coll_base, *cl) if coll else 0))
+    else:
+        n_bytes = (base_b + sum(a.nbytes for a in pay1)
+                   + (ei1.nbytes + ewv1.nbytes if g.batch_w else 0)
+                   + sum(nb(x[1]) for x in outs)
+                   + (nb(ew_out[1]) if g.batch_w else 0)
+                   + sum(a.nbytes for a in rows)
+                   + (nb(*(x[1] for x in g._tape)) if g.has_tape else 0)
+                   + (2 * nb(*g._coll_base) + 16 if coll else 0))
+    birth()
+    admit()
+    torch.cuda.synchronize()
+    q = t.time_call(card.get(fn, fn))
+    rec = {"case": name, "tree": "fused" if fused else "parent",
+           "B": g.B, "C": g.n_c, "V": g.n_v, "E": g.sys.n_e,
+           "batch_w": g.batch_w, "tape_width": g._tape_width,
+           "ms": q["ms"], "queued": q["queued"],
+           "paced_ms": t.events_ms(fn, 20), "bound_ms": t.bound_ms(n_bytes),
+           "bytes": n_bytes}
+    try:
+        rec["kernels_profiled"] = t.kernel_counts(fn)
+    except Exception as e:  # noqa: BLE001 (recorded, not fatal)
+        rec["kernels_profiled"] = repr(e)
+    if fused:
+        rec["cuda_launches"] = k16.kernel_nodes(fn)
+    if not is_birth:
+        def lane_setup():
+            if g._alive[1]:
+                g.retire(1)
+
+        def lane():
+            g.admit_lane(1, ov, tape)
+        rec["admit_lane_paced_ms"] = t.events_ms(lane, 20, lane_setup)
+        if profile:
+            rec["admit_lane_host_us"] = host_profile(
+                lambda: (lane_setup(), lane()))
+    if profile:
+        rec["host_us"] = host_profile(fn)
+    return rec
+
+
 def _timing():
     """This checkout's ``probes/timing.py``, loaded from its file: the
     package that ``--root`` imports may predate ``time_rounds``."""
@@ -1340,6 +1527,8 @@ def run_case(name: str, profile: bool = False) -> dict:
         return {"case": name, **run_k16_first()}
     if name in K56_CASES:
         return run_k56(name, profile)
+    if name in K11_CASES:
+        return run_k11(name, profile)
     if name == "floor":
         from simgrid_tpu_torch.kernels import superstep_loop as k16
         from simgrid_tpu_torch.kernels.probe_loop import probe_double

@@ -178,6 +178,8 @@ def csrc_defines(*names):
 PY_NAME = {"F_TSUM": "T_SUM", "F_TCOMP": "T_COMP", "F_DT": "DT"}
 LAYOUT = {k: v for k, v in csrc_defines("common.cuh").items()
           if k != "FULL_MASK"}
+#: K11's packed payload: its part numbers and alignment
+LAYOUT.update(csrc_defines("fleet_payload.cuh"))
 LAYOUT.update({k: v for k, v in csrc_defines("superstep_commit.cu").items()
                if k in ("COMMIT_TILE", "COMMIT_HEAD")})
 #: every other value a ``.cu`` source defines, as ``source:NAME``, held
@@ -216,8 +218,8 @@ def _twin(src: str, name: str):
 @pytest.mark.parametrize("c_name", sorted(LAYOUT))
 def test_csrc_layout_matches_python(c_name):
     """Every ctrl/fctrl/evf slot (K1's launch-wide ticket among them),
-    flag and K3 scratch size of the CUDA sources equals its twin in
-    ``kernels/common.py``, and every other value a ``.cu`` source
+    flag, K3 scratch size and K11 payload part of the CUDA sources equals
+    its twin in ``kernels/common.py``, and every other value a ``.cu`` source
     defines (pointer counts, arm flags, loop conditions, tile sizes,
     payload kinds) its twin in the source's wrapper."""
     if ":" in c_name:

@@ -1257,8 +1257,7 @@ def test_warm_init_ell_card_equals_plain(cuda):
         w = EllWork(sys.n_v, sys.n_c, sys.wc, torch.float64, dev)
         for name, x in prev.items():
             getattr(w, name).copy_(torch.from_numpy(x))
-        k6.warm_init_ell(sys, w, pen, torch.from_numpy(mc_pad).to(dev),
-                         1e-9)
+        k6.warm_init_ell(sys, w, pen, mc_pad, 1e-9)
         out.append([getattr(w, n).cpu() for n in (
             "v_value", "v_fixed", "remaining", "usage", "light", "cv_live",
             "ctrl", "c_mod", "v_mod", "v_has")])
@@ -1463,7 +1462,7 @@ def test_warm_init_edge_cases_card_equal_plain(cuda, arm, case, dtype):
             fn = k6.warm_init
         for name, x in prev.items():
             getattr(w, name).copy_(torch.from_numpy(x))
-        args = (sys_, w, pen, torch.from_numpy(mc).to(dev), eps)
+        args = (sys_, w, pen, mc, eps)
         fn(*args)
         out.append([getattr(w, n).cpu() for n in names])
         calls.append(lambda f=fn, a_=args: f(*a_))
@@ -1473,6 +1472,50 @@ def test_warm_init_edge_cases_card_equal_plain(cuda, arm, case, dtype):
     if case in ("dark", "all"):
         assert (light == 0) == (case == "dark")
     assert k16.kernel_nodes(calls[0]) == 1
+
+
+@pytest.mark.parametrize("arm", ["coo", "ell"])
+def test_warm_init_unsorted_index_raises_and_card_goes_on(cuda, arm):
+    """A card call of K6 with an index that is not sorted raises
+    ``ValueError`` before any launch, and so does a device index
+    (``TypeError``): the CUDA context stays usable, and the next call
+    with the sorted index equals the plain version by bits."""
+    a = k6_arrays(23, False, 1.0)
+    rng = np.random.default_rng(24)
+    n_c, n_v = len(a.c_bound), len(a.v_penalty)
+    mc = k6_modified("half", a.n_cnst, n_c, rng)
+    bad = mc[::-1].copy()
+    assert (np.diff(bad) < 0).any()
+    names = ["v_value", "v_fixed", "remaining", "usage", "light", "c_mod",
+             "ctrl"]
+    v_prev = torch.from_numpy(rng.uniform(0, 1, n_v))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        if arm == "ell":
+            ell = lmm_ell.ell_from_arrays(a)
+            sys_, pen, _ = lmm_ell.dense_system(ell, dev)
+            w = EllWork(n_v, n_c, ell.cv_var.shape[1], torch.float64, dev)
+            fn = k6.warm_init_ell
+        else:
+            sys_ = lmm_torch.to_device_system(
+                a.e_var, a.e_cnst, a.e_w, a.c_bound, n_v, torch.float64,
+                dev, c_fatpipe=a.c_fatpipe)
+            pen = torch.from_numpy(a.v_penalty).to(dev)
+            w = Work(n_v, n_c, torch.float64, dev)
+            fn = k6.warm_init
+        w.v_value.copy_(v_prev)
+        if dev.type == "cuda":
+            reset_launch_counts()
+            with pytest.raises(ValueError, match="sorted"):
+                fn(sys_, w, pen, bad, 1e-9)
+            with pytest.raises(TypeError):
+                fn(sys_, w, pen, torch.from_numpy(mc).to(dev), 1e-9)
+            torch.cuda.synchronize()
+            assert launch_counts()[fn.__name__] == 0
+        fn(sys_, w, pen, mc, 1e-9)
+        out.append([getattr(w, n).cpu() for n in names])
+    for name, x, y in zip(names, *out):
+        assert torch.equal(x, y), name
 
 
 FAULT_MODES = {"f64-k8": (np.float64, 8, False),
@@ -1578,12 +1621,12 @@ def test_dag_walk_card_equals_plain(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _fleet_plan(dev, flows=2000, superstep=8):
+def _fleet_plan(dev, flows=2000, superstep=8, dtype=np.float64):
     from simgrid_tpu_torch.parallel.campaign import ScenarioPlan
     s = dragonfly.build_system(flows)
     return s, ScenarioPlan(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes,
                            link_names=dragonfly.link_names(s), eps=1e-5,
-                           superstep=superstep, device=dev)
+                           superstep=superstep, device=dev, dtype=dtype)
 
 
 def _fleet_specs(s):
@@ -1599,29 +1642,101 @@ def _rows(sim):
                                       sim._thresh, sim.sys.e_w)]
 
 
-def test_k11_birth_and_admission_card_equal_plain(cuda):
-    """K11 at birth (pad slots in every payload row) and at the
-    admission of one row, on the card and through the plain version."""
+def _k11_fleet(case, dev):
+    """(fleet, its row to admit into, the admitted overrides and tape) of
+    a K11 card case: the dragonfly fleet (float64 or float32, per-replica
+    weights, tapes) or a collective fleet."""
+    from simgrid_tpu_torch.collectives import CollectiveSpec
     from simgrid_tpu_torch.ops.lmm_batch import ReplicaOverrides
+    from simgrid_tpu_torch.parallel.campaign import ScenarioSpec
+    from simgrid_tpu_torch.workloads import collective_fleet as cf
+    if case == "collective":
+        cs = CollectiveSpec("allreduce", "rdb", 32, "nic", 1 << 20, bw=1e9)
+        specs = cf.fleet_specs(cs, 0.05, 4)
+        plan = cf.fleet_campaign(cs, specs, dev).plan
+        fresh = ScenarioSpec(seed=50, bw_scale=1.15, size_scale=0.95,
+                             collective=cs, label="admitted")
+        return (plan.executor(specs), 1, plan.overrides_for(fresh),
+                plan.tape_for(fresh))
+    s, plan = _fleet_plan(dev, dtype=np.float64 if case == "f64"
+                          else np.float32)
+    ov = ReplicaOverrides(0.8, 1.3, {7: 0.5, 9: 2.0}, {11: 3.0}, (0, 1, 2),
+                          {12: 0.25})
+    return (plan.executor(_fleet_specs(s), width=3, tape_slots=64), 2, ov,
+            plan.tape_for(_fleet_specs(s)[0]))
+
+
+def _k11_rows(sim):
+    ts = [sim.sys.c_bound, sim._pen, sim._rem, sim._thresh, sim.sys.e_w]
+    ts += list(sim._tape or ()) + list(sim._coll or ())
+    return [t.cpu().clone() for t in ts]
+
+
+def _k11_counts(lc):
+    return {k: v for k, v in lc.items()
+            if k.startswith("fleet_") and v}
+
+
+@pytest.mark.parametrize("case", ["f64", "f32", "collective"])
+def test_k11_birth_and_admission_card_equal_plain(cuda, case):
+    """K11 at birth (pad slots in every payload row) and at the
+    admission of one row (state, tape row, weight row or a collective
+    fleet's DAG-walk rows), on the card and through the plain version,
+    by bits on every output; one CUDA launch a call, by the host
+    counters and by the kernel nodes of one captured call of each
+    entry."""
+    from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    from simgrid_tpu_torch.ops.lmm_batch import (_pack_elem_w,
+                                                 _pack_overrides)
     out = []
     for dev in (cuda, torch.device("cpu")):
-        s, plan = _fleet_plan(dev)
         reset_launch_counts()
-        sim = plan.executor(_fleet_specs(s), width=3, tape_slots=64)
-        born = _rows(sim)
-        sim.admit_lane(2, ReplicaOverrides(0.8, 1.3, {7: 0.5, 9: 2.0},
-                                           {11: 3.0}, (0, 1, 2),
-                                           {12: 0.25}),
-                       plan.tape_for(_fleet_specs(s)[0]))
-        out.append((born, _rows(sim), [t.cpu() for t in sim._tape],
-                    path_counts()))
-    for a, b in zip(out[0][0] + out[0][1] + out[0][2],
-                    out[1][0] + out[1][1] + out[1][2]):
+        sim, lane, ov, tape = _k11_fleet(case, dev)
+        born = _k11_rows(sim)
+        at_birth = _k11_counts(path_counts())
+        if sim.has_coll:
+            sim._coll[0][lane].fill_(3)
+        if sim._alive[lane]:
+            sim.retire(lane)
+        sim.admit_lane(lane, ov, tape)
+        out.append((born, _k11_rows(sim), at_birth,
+                    _k11_counts(path_counts()), sim))
+    for a, b in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
         assert torch.equal(a, b)
-    lc = out[0][3]
-    for name in ("fleet_materialize", "fleet_materialize_ew",
-                 "fleet_admit", "fleet_admit_ew", "fleet_admit_tape"):
-        assert lc[name] == 1, name
+    g, lane = out[0][4], (1 if case == "collective" else 2)
+    arm = "_coll" if g.has_coll else ""
+    assert out[0][2] == {"fleet_materialize" + arm: 1}
+    assert out[0][3] == {"fleet_materialize" + arm: 1, "fleet_admit" + arm: 1}
+    if g.has_coll:
+        assert not g._coll[2][lane].any()
+        assert torch.equal(g._coll[0][lane], g._coll_base[0])
+    # one kernel node a call of each entry, into fresh outputs
+    ovs = list(g.overrides)
+    pay = _pack_overrides(ovs, g.n_c, g.n_v)
+    ei, ewv = _pack_elem_w(ovs, g.sys.n_e, g.dtype)
+    fresh = [torch.empty_like(t) for t in (g.sys.c_bound, g._pen, g._rem,
+                                          g._thresh, g.sys.e_w)]
+    coll = ([torch.empty_like(t) for t in g._coll], g._coll_base) \
+        if g.has_coll else None
+
+    def birth():
+        k11.materialize(g._base_dev, pay, fresh[:4], g.done_eps, True,
+                        ew=(g._base_ew, fresh[4], ei, ewv)
+                        if g.batch_w else None, coll=coll)
+    row = (np.array([0.5]), np.array([3], np.int32), np.ones(1, g.dtype))
+    pay1 = _pack_overrides([g.overrides[lane]], g.n_c, g.n_v, (2, 1, 4))
+    ei1, ewv1 = _pack_elem_w([g.overrides[lane]], g.sys.n_e, g.dtype, 1)
+
+    def admit():
+        k11.admit(g._base_dev, pay1, fresh[:4], 1, g.done_eps, True,
+                  ew=(g._base_ew, fresh[4], ei1, ewv1)
+                  if g.batch_w else None,
+                  tape=(g._tape, row) if g.has_tape else None, coll=coll)
+    for fn in (birth, admit):
+        fn()
+        assert k16.kernel_nodes(fn) == 1
+    torch.cuda.synchronize()
+    assert torch.equal(fresh[0][1].cpu(), out[0][1][0][lane])
 
 
 def test_fleet_b3_one_dead_card_equals_plain(cuda):
@@ -1738,32 +1853,47 @@ def test_dag_walk_fleet_card_equals_plain(cuda):
 
 
 def test_k11_coll_card_equals_plain(cuda):
-    """K11's collective birth (every row) and admission (one row)."""
+    """K11's collective arm: a birth (every row's state and DAG-walk
+    rows) and an admission (one row) in one launch each, card against
+    plain by bits, the clock pairs at zero."""
     from simgrid_tpu_torch.kernels import fleet_materialize as k11
+    from simgrid_tpu_torch.ops.lmm_batch import (ReplicaOverrides,
+                                                 _pack_overrides)
     rng = np.random.default_rng(2)
-    B, V = 5, 3_000
+    B, C, V = 5, 400, 3_000
     row = (rng.integers(0, 4, V).astype(np.int32),
            np.where(rng.random(V) < 0.1, 1e-3, np.inf))
+    base = [rng.uniform(1, 10, C), rng.uniform(1e3, 1e6, V),
+            rng.uniform(1e2, 1e6, V), np.ones(V)]
+    ovs = [ReplicaOverrides(1.0 + 0.1 * b, 1.0 - 0.05 * b,
+                            {b: 0.5, 100 + b: 2.0}, {7 * b: 3.0})
+           for b in range(B)]
+    pay = _pack_overrides(ovs, C, V)
+    pay1 = _pack_overrides(ovs[2:3], C, V, (2, 1, 1))
     out = []
     for dev in (cuda, torch.device("cpu")):
         coll = (torch.full((B, V), -7, dtype=torch.int32, device=dev),
                 torch.full((B, V), 0.5, dtype=torch.float64, device=dev),
                 torch.full((B, 2), 0.25, dtype=torch.float64, device=dev))
-        base = tuple(torch.from_numpy(a).to(dev) for a in row)
+        state = [torch.zeros((B, n), dtype=torch.float64, device=dev)
+                 for n in (C, V, V, V)]
+        base_t = [torch.from_numpy(a).to(dev) for a in base]
+        rows = tuple(torch.from_numpy(a).to(dev) for a in row)
         reset_launch_counts()
-        k11.materialize_coll(coll, base)
-        born = [t.cpu().clone() for t in coll]
+        k11.materialize(base_t, pay, state, 1e-4, True, coll=(coll, rows))
+        born = [t.cpu().clone() for t in (*coll, *state)]
         coll[0][3].fill_(1)
         coll[1][3].fill_(9.0)
         coll[2][3].fill_(2.0)
-        k11.admit_coll(coll, 3, base)
-        out.append((born, [t.cpu() for t in coll], path_counts()))
+        k11.admit(base_t, pay1, state, 3, 1e-4, True, coll=(coll, rows))
+        out.append((born, [t.cpu() for t in (*coll, *state)],
+                    _k11_counts(path_counts())))
     for a, b in zip(out[0][0] + out[0][1], out[1][0] + out[1][1]):
         assert torch.equal(a, b)
     assert torch.equal(out[0][1][0][3], torch.from_numpy(row[0]))
     assert not out[0][1][2].any()
-    assert out[0][2]["fleet_materialize_coll"] == 1
-    assert out[0][2]["fleet_admit_coll"] == 1
+    assert torch.equal(out[0][1][3][3], out[0][0][3][2])
+    assert out[0][2] == {"fleet_materialize_coll": 1, "fleet_admit_coll": 1}
 
 
 def test_collective_fleet_card_equals_plain(cuda):

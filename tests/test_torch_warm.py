@@ -528,8 +528,9 @@ def record_k6_call(monkeypatch, layout):
 
     def init(sys_, w, pen, mc_idx, eps, *args, **kw):
         if "work" not in seen:
-            seen.update(sys=sys_, pen=pen.clone(), mc_idx=mc_idx.clone(),
-                        eps=eps, work=clone_work(w))
+            seen.update(sys=sys_, pen=pen.clone(),
+                        mc_idx=torch.as_tensor(np.array(mc_idx)), eps=eps,
+                        work=clone_work(w))
         return orig_init(sys_, w, pen, mc_idx, eps, *args, **kw)
     monkeypatch.setattr(lmm_warm, "modified_index", index)
     monkeypatch.setattr(lmm_warm, name, init)
@@ -592,6 +593,40 @@ def test_k6_plain_is_the_same_for_any_index_order(monkeypatch, layout):
         assert states[0].keys() == other.keys()
         for n, t in states[0].items():
             assert torch.equal(bits(t), bits(other[n])), n
+
+
+@pytest.mark.parametrize("layout", ["coo", "ell"])
+def test_k6_card_route_refuses_an_unsorted_index(monkeypatch, layout):
+    """On the card K6 takes the index on the host and checks its order
+    there: a descending pair raises ``ValueError`` before any launch (the
+    kernel's trap is only a backstop), a device tensor is refused, and
+    the sorted index the warm solver builds goes on to the launch."""
+    seen = warm_restart_of_clusters(monkeypatch, layout)
+    launched = []
+    monkeypatch.setattr(k6, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(k6, "_launch", lambda entry, dev, mc, *a:
+                        launched.append((entry, mc.copy())))
+    fn = k6.warm_init_ell if layout == "ell" else k6.warm_init
+    index = seen["index"]
+    assert len(np.unique(index)) > 1
+    for bad in (index[::-1].copy(), torch.from_numpy(index[::-1].copy()),
+                np.random.default_rng(3).permutation(index)):
+        if not (np.diff(np.asarray(bad)) < 0).any():
+            continue
+        with pytest.raises(ValueError, match="sorted"):
+            fn(seen["sys"], clone_work(seen["work"]), seen["pen"], bad,
+               seen["eps"])
+    with pytest.raises(TypeError):
+        fn(seen["sys"], clone_work(seen["work"]), seen["pen"],
+           torch.from_numpy(index).to("meta"), seen["eps"])
+    assert not launched
+    for good in (index, torch.from_numpy(index)):
+        fn(seen["sys"], clone_work(seen["work"]), seen["pen"], good,
+           seen["eps"])
+    assert [e for e, _ in launched] == [fn.__name__] * 2
+    assert all(np.array_equal(mc, index) for _, mc in launched)
+    with pytest.raises(TypeError):
+        k6.host_index(index.astype(np.int64))
 
 
 def scatter_case(arm):
