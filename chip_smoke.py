@@ -232,6 +232,31 @@ the shared schedule with its own DAG state:
    own; the phase's line records the CUDA runtime, driver and nvcc
    versions.
 
+20. the pipelined drains (``pipeline=D``, the speculative issue/collect
+   split of ``ops/lmm_drain.py`` and ``ops/lmm_batch.py``): main paths
+   1 and 11 at depths 0, ``PIPE_DEPTH``, ``PIPE_DEPTH``, 0 and main
+   paths 8 and 10 at 0 and ``PIPE_DEPTH`` (path 10 on phase 16's
+   campaign, whose tapes are built, without its admission; path 11 on
+   phase 18's), every depth equal to depth 0 by bits (events, fault and
+   collective events, clocks, Kahan pairs), each run with its kernels'
+   path counts zeroed before and read after; per run its wall, the
+   card's busy share (``timed_graphs``: CUDA events around each launch
+   of a superstep graph, after its build, over the run after the build;
+   the reset, the uploads, ``superstep_finish``, the copies into a
+   speculative set and the fused rescue lie outside, and where the
+   stream is idle at a launch a span also holds the launch's host
+   latency), blocking fetches
+   per advance, the speculation census and commit rate, and the graphs
+   built (at depth D at most depth 0's plus D + 1 per buffer set
+   rebuild: the first use and each repack).  One more run of path 8 at
+   ``PIPE_DEPTH`` holds the base clock each speculative superstep
+   derived on the card against the host's clock after the collect of
+   the superstep before it, by bits (not timed: the check syncs).  Then
+   ``bench.py``'s pipeline stage (``workloads/pipeline.py``: the solo
+   wave with 500 us of host work an advance, the fleet wave at B = 64)
+   at depths 0-2 on the card, its counts held against the recorded rows
+   of ``bench_results/lmm_pipeline.jsonl``.
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 A kernel that K16's graphs run counts once for every iteration of the
@@ -594,10 +619,11 @@ def k1_round_bodies() -> dict:
             "round_body_loop_conds": conds, "round_body_graphs": graphs}
 
 
-def fleet_phases(ctx: dict) -> None:
+def fleet_phases(ctx: dict):
     """Phases 16-17 (module docstring): the config-#4 fleet, the stage
     counts, and K11 and the replica arms of K1-K3 against their plain
-    versions.  ``ctx`` carries main's systems, helpers and records."""
+    versions.  ``ctx`` carries main's systems, helpers and records.
+    Returns main path 10's campaign (its tapes built) for phase 20."""
     import numpy as np
     import torch
     from simgrid_tpu_torch.kernels import fleet_materialize as k11
@@ -1069,15 +1095,17 @@ def fleet_phases(ctx: dict) -> None:
     log({"phase": "kernel", **kernels[-1]})
     del sims, g, c, outs
     torch.cuda.empty_cache()
+    return camp16
 
 
-def collective_fleet_phase(ctx: dict) -> None:
+def collective_fleet_phase(ctx: dict):
     """Phase 18 (module docstring): collective fleets over phase 14's
     cases, the lanes held against their solo drains and the plain CPU
     fleet, the launches per superstep, and K10's replica arm, K3's
     collective arm and K2's event arm on a fleet, and K11's collective
     admission against their plain versions.  ``ctx`` carries main's
-    helpers and phase 14's tape drains (``tape14``, by rank count)."""
+    helpers and phase 14's tape drains (``tape14``, by rank count).
+    Returns main path 11's campaign for phase 20."""
     import numpy as np
     import torch
     from simgrid_tpu_torch.kernels import fleet_materialize as k11
@@ -1525,6 +1553,7 @@ def collective_fleet_phase(ctx: dict) -> None:
     del ka
     del works, walk, st
     torch.cuda.empty_cache()
+    return camp
 
 
 def probe_phase(ctx: dict) -> None:
@@ -1730,6 +1759,170 @@ def probe_phase(ctx: dict) -> None:
                       r["library_ms"]] for r in rows]}
     log(rec)
     report["opcost_probe"] = {**rec, "rows": rows, "held": held}
+
+#: the pipeline depth phase 20 holds against depth 0
+PIPE_DEPTH = 2
+#: kernels every pipelined run of a path must launch (path counts)
+PIPE_KERNELS = {
+    1: ("superstep_loop_superstep", "superstep_reset", "superstep_finish",
+        "lmm_round", "drain_advance", "superstep_commit"),
+    8: ("superstep_loop_superstep", "superstep_reset", "superstep_finish",
+        "lmm_round", "drain_advance_event", "superstep_commit_tape"),
+    10: ("superstep_loop_superstep_fleet", "superstep_reset_fleet",
+         "superstep_finish_fleet", "lmm_round_fleet",
+         "drain_advance_event_fleet", "superstep_commit_tape_fleet"),
+    11: ("superstep_loop_superstep_fleet", "superstep_reset_fleet",
+         "superstep_finish_fleet", "lmm_round_fleet",
+         "drain_advance_event_fleet", "superstep_commit_coll_fleet",
+         "dag_walk_fleet"),
+}
+
+
+def pipeline_phase(ctx: dict) -> None:
+    """Phase 20 (module docstring): main paths 1, 8, 10 and 11 at
+    pipeline depths 0 and ``PIPE_DEPTH``, equal by bits, with walls,
+    busy shares, blocking fetches per advance, commit rates and graph
+    builds, then ``bench.py``'s pipeline stage on the card."""
+    import torch
+    from simgrid_tpu_torch.kernels import path_counts, reset_launch_counts
+    from simgrid_tpu_torch.ops import opstats
+    from simgrid_tpu_torch.ops.lmm_batch import BatchDrainSim
+    from simgrid_tpu_torch.ops.lmm_drain import DrainSim
+    from simgrid_tpu_torch.workloads import fault_drain, fleet_run
+    from simgrid_tpu_torch.workloads import pipeline as pl
+    from simgrid_tpu_torch.workloads.drain_run import run_drain
+    cuda = torch.device("cuda")
+    dsys, tape13, report = ctx["dsys"], ctx["tape13"], ctx["report"]
+    spans, t0_bits = [], []
+
+    check_t0 = [False]
+
+    def checked(orig):
+        # the base clock of the speculative superstep behind the one just
+        # collected, derived on the card, against the clock the host's
+        # collect left (whether that superstep then commits or not); the
+        # fetch of the derived clock syncs, so this run is not timed
+        def collect(sim, tok):
+            out = orig(sim, tok)
+            nxt = sim._carries.inflight[0] if sim._carries.inflight else None
+            if check_t0[0] and nxt is not None and nxt.speculative:
+                t0_bits.append(float(nxt.t0[0]) == sim.t)
+            return out
+        return collect
+
+    saved = [(DrainSim, "_superstep_collect", DrainSim._superstep_collect)]
+    DrainSim._superstep_collect = checked(saved[0][2])
+
+    def drain(path, depth):
+        """One run of a path: (sim, its lanes' records, its row)."""
+        spans.clear()
+        kind = "superstep" if path in (1, 8) else "superstep_fleet"
+        with opstats.scoped(f"pipeline/path{path}-d{depth}") as st, \
+                timed_graphs(kind, spans):
+            if path == 1:
+                sim, row = run_drain(dsys, device=cuda, superstep=K,
+                                     pipeline=depth)
+            elif path == 8:
+                sim, row = fault_drain.run_fault_drain(
+                    dsys, tape13, device=cuda, superstep=K, pipeline=depth)
+            else:
+                camp = ctx["camp16"] if path == 10 else ctx["camp18"]
+                sim, row = fleet_run.run_fleet_full(camp, pipeline=depth)
+        torch.cuda.synchronize()
+        busy_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+        run_s = row["wall_s"] - row.get("executor_s", 0.0)
+        if path in (1, 8):
+            lanes = [(sim.events, sim.fault_events, sim.collective_events,
+                      sim.t)]
+            adv = sim.advances
+        else:
+            lanes = [(r.events, r.fault_events, r.collective_events, r.t,
+                      sim.collective_clock_of(b) if sim.has_coll else None)
+                     for b, r in enumerate(sim.replicas)]
+            adv = sum(r.advances for r in sim.replicas)
+        missing = [k for k in PIPE_KERNELS[path]
+                   if row["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"main path {path} at pipeline={depth}: "
+                                 f"{missing} never launched")
+        blocking = int(st.get("blocking_fetches", 0))
+        rec = dict(depth=depth, wall_s=row["wall_s"], run_s=run_s,
+                   busy_s=busy_s, busy_share=busy_s / run_s,
+                   supersteps=sim.supersteps, advances=adv,
+                   fetches=int(st.get("fetches", 0)),
+                   blocking_fetches=blocking,
+                   blocking_per_advance=blocking / max(adv, 1),
+                   host_block_ms=float(st.get("host_block_ms", 0.0)),
+                   spec_issued=sim.spec_issued,
+                   spec_committed=sim.spec_committed,
+                   spec_rolled_back=sim.spec_rolled_back,
+                   commit_rate=(sim.spec_committed / sim.spec_issued
+                                if sim.spec_issued else None),
+                   loop_builds=sim.loop_builds,
+                   repacks=getattr(sim, "repacks", 0))
+        del sim
+        torch.cuda.empty_cache()
+        return lanes, rec
+
+    t_phase = time.perf_counter()
+    paths = {}
+    try:
+        for path, order in ((1, (0, PIPE_DEPTH, PIPE_DEPTH, 0)),
+                            (8, (0, PIPE_DEPTH)),
+                            (10, (0, PIPE_DEPTH)),
+                            (11, (0, PIPE_DEPTH, PIPE_DEPTH, 0))):
+            runs = [drain(path, d) for d in order]
+            if path == 8:
+                check_t0[0] = True
+                runs.append(drain(path, PIPE_DEPTH))
+                check_t0[0] = False
+                runs[-1][1]["derived_t0_checked_run"] = True
+            lanes0 = runs[0][0]
+            for lanes, rec in runs[1:]:
+                if lanes != lanes0:
+                    raise AssertionError(
+                        f"main path {path} at pipeline={rec['depth']} "
+                        "differs from pipeline=0")
+            d0 = [r for _, r in runs if r["depth"] == 0]
+            dp = [r for _, r in runs if r["depth"] == PIPE_DEPTH]
+            most = d0[0]["loop_builds"] + (PIPE_DEPTH + 1) * (
+                1 + dp[0]["repacks"])
+            # path 8 fires nearly every superstep: its speculation is
+            # issued and discarded, committed only where none fired
+            if dp[0]["loop_builds"] > most or not dp[0]["spec_issued"] or (
+                    path != 8 and not dp[0]["spec_committed"]):
+                raise AssertionError(
+                    f"main path {path}: {dp[0]['loop_builds']} graphs built "
+                    f"at depth {PIPE_DEPTH} (at most {most}), "
+                    f"{dp[0]['spec_issued']} speculations issued, "
+                    f"{dp[0]['spec_committed']} committed")
+            paths[path] = dict(runs=[r for _, r in runs],
+                               equal_by_bits=True, loop_builds_most=most)
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+    if not t0_bits or not all(t0_bits):
+        raise AssertionError(f"main path 8: {t0_bits.count(False)} of "
+                             f"{len(t0_bits)} derived base clocks differ "
+                             "from the host's")
+    stage = pl.run_stage(cuda)
+    bad = {k: v for k, v in stage["mismatches"].items() if v}
+    if bad or not stage["events_consistent"]:
+        raise AssertionError(f"bench.py's pipeline stage on the card: {bad}, "
+                             f"events consistent {stage['events_consistent']}")
+    rec = {"phase": "main_path_pipeline", "card": ctx["smi"],
+           "depth": PIPE_DEPTH, "paths": paths,
+           "path8_derived_t0_checked": len(t0_bits),
+           "stage_rows": stage["rows"], "phase_s": time.perf_counter()
+           - t_phase}
+    log({k: v for k, v in rec.items() if k != "stage_rows"})
+    log({"phase": "main_path_pipeline_stage", "card": ctx["smi"],
+         "rows": [{k: r[k] for k in (
+             "workload", "depth", "advances", "supersteps", "fetches",
+             "blocking_fetches", "blocking_per_advance", "host_block_ms",
+             "wall_ms", "spec_issued", "spec_committed", "spec_rolled_back",
+             "loop_builds")} for r in stage["rows"]]})
+    report["main_path_pipeline"] = rec
 
 
 def main() -> int:
@@ -4027,10 +4220,12 @@ def main() -> int:
 
     helpers = dict(events_ms=events_ms, nbytes=nbytes, bound_ms=bound_ms,
                    diff=diff, kernels=kernels, report=report, out_dir=out_dir)
-    fleet_phases(dict(dsys=dsys, rsys=rsys, wall13=row13["wall_s"],
-                      EPS=EPS, **helpers))
-    collective_fleet_phase(dict(tape14=tape14, **helpers))
+    camp16 = fleet_phases(dict(dsys=dsys, rsys=rsys, wall13=row13["wall_s"],
+                               EPS=EPS, **helpers))
+    camp18 = collective_fleet_phase(dict(tape14=tape14, **helpers))
     probe_phase(helpers)
+    pipeline_phase(dict(dsys=dsys, tape13=tape13, camp16=camp16,
+                        camp18=camp18, smi=smi, **helpers))
 
     # K1's round bodies over every path of the run, on K16's row
     next(k for k in kernels if k["name"] == "superstep_loop").update(

@@ -206,8 +206,9 @@ def superstep_reset(pen, w: Work, k, budget: int, stop: int,
                     ready: Optional[torch.Tensor] = None,
                     clk: Optional[torch.Tensor] = None) -> None:
     """The superstep's loop carry; ``t0`` (the f64 host clock the event
-    peek adds ``t_sum`` to) and ``tpos`` (the tape cursor) for a fault
-    tape, ``ready`` (pending activation dates) and ``clk`` (the carried
+    peek adds ``t_sum`` to: a float, or a float64 ``[1]`` tensor on the
+    drain's device, which a speculative superstep derives on the card)
+    and ``tpos`` (the tape cursor) for a fault tape, ``ready`` (pending activation dates) and ``clk`` (the carried
     f64 Kahan pair) for a collective.  For a fleet, ``k``, ``t0`` and
     ``tpos`` are per replica: int32, float64 and int32 ``[B]`` tensors
     on the fleet's device (or scalars every replica shares)."""

@@ -52,8 +52,17 @@ The round budget of a superstep is the port's solo ``DrainSim``'s,
 ``superstep * 512`` on every device (the JAX fleet takes 256 off the
 CPU); it changes no result, only when a budget rescue runs.
 
-Not ported yet: ``pipeline`` (ROADMAP A2), ``mesh`` (A9), ``plan`` and
-``watchdog`` (A8); each raises ``NotImplementedError`` naming its item.
+``pipeline=D`` is the solo drain's speculation (``lmm_drain``'s module
+docstring) over fleet supersteps: each in-flight superstep runs on its
+own :class:`FleetCarry`, filled from its predecessor's in one in-stream
+copy, its base clocks derived on the card; a lane's death, a tape fire,
+a rescue or a mutation between supersteps (``run(between=)`` returning
+truthy, :meth:`~BatchDrainSim.admit_lane`, :meth:`~BatchDrainSim.retire`)
+discards the tail, and :meth:`~BatchDrainSim.committed_state` never holds
+speculation.
+
+Not ported yet: ``mesh`` (A9), ``plan`` and ``watchdog`` (A8); each
+raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -79,7 +88,8 @@ from ..kernels.superstep_loop import (PRED_ROUND, PRED_SUPERSTEP,
 from . import opstats
 from .csr import build_csr
 from .lmm_arrays import to2d
-from .lmm_drain import _torch_dtype, collective_arrays
+from .lmm_drain import (Carry, CarryPool, SuperstepToken, _torch_dtype,
+                        collective_arrays)
 from .lmm_torch import chunk_rounds
 
 
@@ -354,6 +364,42 @@ class ReplicaState:
         self.fault: Optional[LaneFault] = None
 
 
+class FleetCarry(Carry):
+    """One set of the buffers a fleet superstep writes (the solo
+    :class:`~.lmm_drain.Carry` with a replica axis: flow state ``[B,
+    V]``, with a tape the bounds ``[B, C]``, with a collective the DAG
+    carry, the base clocks ``t0`` ``[B]``, the ``[B, ·]`` result ring),
+    and the per-replica k and tape cursors the superstep starts from.
+    Those go up from a pinned host buffer in one in-stream copy, with the
+    clocks (the committed ones) or without (a speculative superstep
+    derives its clocks on the card)."""
+
+    __slots__ = ("host", "host_ints", "host_t0", "dev", "k", "tpos")
+
+    def __init__(self, pen, rem, sys: LmmSystem, pred=None, ready=None,
+                 clk=None):
+        super().__init__(pen, rem, sys, pred, ready, clk)
+        B = pen.shape[0]
+        card = pen.device.type == "cuda"
+        self.host = torch.empty(16 * B, dtype=torch.uint8, pin_memory=card)
+        h = self.host.numpy()
+        self.host_ints = h[:8 * B].view(np.int32).reshape(2, B)
+        self.host_t0 = h[8 * B:].view(np.float64)
+        self.dev = torch.empty(16 * B, dtype=torch.uint8, device=pen.device)
+        ints = self.dev[:8 * B].view(torch.int32)
+        self.k, self.tpos = ints[:B], ints[B:]
+        self.t0 = self.dev[8 * B:].view(torch.float64)
+
+    def staged(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The host side to fill: ``[2, B]`` int32 (k, tape cursors) and
+        ``[B]`` f64 clocks."""
+        return self.host_ints, self.host_t0
+
+    def upload(self, with_clocks: bool) -> None:
+        n = self.host.numel() if with_clocks else self.host.numel() // 2
+        self.dev[:n].copy_(self.host[:n], non_blocking=True)
+
+
 class BatchDrainSim:
     """Drain B scenario replicas of one shared system to completion in
     lockstep fleet supersteps (module docstring).
@@ -382,8 +428,6 @@ class BatchDrainSim:
                  batch_w: Optional[bool] = None, watchdog=None,
                  collective=None):
         for arg, what, item in (
-                (pipeline, "BatchDrainSim(pipeline=)",
-                 "queue A item 2 (the speculative issue/collect split)"),
                 (mesh, "BatchDrainSim(mesh=)",
                  "queue A item 9 (replica-sharded fleets)"),
                 (plan, "BatchDrainSim(plan=)",
@@ -493,7 +537,16 @@ class BatchDrainSim:
         #: was replaced)
         self.loop_builds = 0
         self._loops: dict = {}
-        self._packed: Optional[torch.Tensor] = None
+        self.pipeline = int(pipeline)
+        #: the superstep's buffer sets and the tokens in flight
+        self._carries = CarryPool(FleetCarry)
+        self._last_fired = False
+        #: an admission or a retirement since the last collect
+        self._mutated = False
+        #: speculation census of the pipelined run
+        self.spec_issued = 0
+        self.spec_committed = 0
+        self.spec_rolled_back = 0
         self.syncs = 0
         self.rounds = 0
         opstats.bump("batch_replicas", B)
@@ -620,74 +673,91 @@ class BatchDrainSim:
                 self.has_tape, self._tape, self.has_coll, self._coll,
                 getattr(self, "_coll_edges", None))
 
-    def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
-        """K2, K3 and with a collective K10: the solo order
+    def _committed_carry(self) -> "FleetCarry":
+        return self._carries.committed(
+            self._pen, self._rem, self.sys,
+            *(self._coll if self.has_coll else (None, None, None)))
+
+    def _adopt(self, c: "FleetCarry") -> None:
+        self._pen, self._rem, self.sys = c.pen, c.rem, c.sys
+        if self.has_coll:
+            self._coll = (c.pred, c.ready, c.clk)
+        self._carries.cur = c
+
+    def _queue_advance(self, c: "FleetCarry", packed, k_max: int,
+                       ring_n: int) -> None:
+        """K2, K3 and with a collective K10 on set ``c``: the solo order
         (``lmm_drain.DrainSim._queue_advance``)."""
-        ready = self._coll[1] if self.has_coll else None
-        drain_advance(self._pen, self._rem, self._thresh, self.w,
-                      gated=True,
+        drain_advance(c.pen, c.rem, self._thresh, self.w, gated=True,
                       tape_t=self._tape[0] if self.has_tape else None,
-                      ready=ready)
+                      ready=c.ready)
         superstep_commit(self.w, self._ids, packed, k_max, ring_n,
                          tape=self._tape[1:] if self.has_tape else None,
-                         c_bound=self.sys.c_bound, n_c=self.n_c,
-                         ready=ready, pen=self._pen)
+                         c_bound=c.sys.c_bound, n_c=self.n_c,
+                         ready=c.ready, pen=c.pen)
         if self.has_coll:
-            dag_walk(self.w, *self._coll_edges[:2], self._coll[0], ready,
+            dag_walk(self.w, *self._coll_edges[:2], c.pred, c.ready,
                      *self._coll_edges[2:])
 
-    def _superstep_loop(self, packed, k_max: int,
+    def _superstep_loop(self, c: "FleetCarry", k_max: int,
                         ring_n: int) -> DeviceLoop:
-        """The fleet superstep as one loop nest (``DrainSim.
-        _superstep_loop``), each condition over all B replicas."""
+        """The fleet superstep on set ``c`` as one loop nest
+        (``DrainSim._superstep_loop``), each condition over all B
+        replicas; one graph per set, kept on it."""
         w = self.w
-        slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
+        packed = c.ring.dev
+        slot = (lambda: lmm_init(c.sys, self.w, c.pen, self.eps,
                                  gated=True),
-                Loop(PRED_ROUND, w.ctrl, (self._round,),
-                     tally="lmm_round_fleet", ends=True),
-                lambda: self._queue_advance(packed, k_max, ring_n))
-        return self._loop("superstep",
-                          self._refs() + (packed, k_max, ring_n),
-                          [Loop(PRED_SUPERSTEP, w.ctrl, slot,
-                                tally="slots")], "superstep_fleet")
+                Loop(PRED_ROUND, w.ctrl, (lambda: lmm_round(
+                    c.sys, self.w, c.pen, self.eps, self._vb,
+                    self.has_bounds),), tally="lmm_round_fleet", ends=True),
+                lambda: self._queue_advance(c, packed, k_max, ring_n))
+        refs = (c.sys, w, c.pen, c.rem, self._thresh, self._ids, self._vb,
+                self.eps, self.has_bounds, self.n_c, self.has_tape,
+                self._tape, self.has_coll,
+                getattr(self, "_coll_edges", None), c.pred, c.ready, c.clk,
+                packed, k_max, ring_n)
 
-    def _packed_buf(self, k_max: int, ring_n: int) -> torch.Tensor:
-        """The fleet's ``[B, packed_size]`` result, zeroed; one buffer
-        while its size holds."""
-        shape = (self.B, packed_size(k_max, ring_n))
-        if self._packed is None or tuple(self._packed.shape) != shape:
-            self._packed = torch.zeros(shape, dtype=self.tdtype,
-                                       device=self.device)
+        def make():
+            self.loop_builds += 1
+            return DeviceLoop([Loop(PRED_SUPERSTEP, w.ctrl, slot,
+                                    tally="slots")], "superstep_fleet",
+                              self.device, refs,
+                              prepare=lambda: plan_of(c.sys, self.w))
+        return cached(c.loops, "superstep", refs, make)
+
+    def _reset(self, c: "FleetCarry", k: np.ndarray, budget: int,
+               prev: Optional[SuperstepToken] = None) -> None:
+        """The fleet's loop carry on set ``c``: per-replica k and tape
+        cursor (the committed host view: a superstep that fired makes
+        its collect unclean, so a speculative superstep that commits
+        starts from the cursors it was given) and f64 base clocks, the
+        committed host clocks or, chained from ``prev``, derived on the
+        card by the f64 add the collect of ``prev`` makes; one upload
+        through the set's pinned staging.  A collective's Kahan pairs
+        and pending dates are in the set."""
+        ints, t0 = c.staged()
+        ints[0] = k
+        ints[1] = self._tpos
+        if prev is None:
+            t0[:] = [r.t for r in self.replicas]
+            c.upload(with_clocks=True)
         else:
-            self._packed.zero_()
-        return self._packed
+            c.upload(with_clocks=False)
+            base = 0.0 if self.has_coll else prev.carry.t0
+            torch.add(prev.carry.ring.dev[:, 3].to(torch.float64), base,
+                      out=c.t0)
+        superstep_reset(c.pen, self.w, c.k, budget, 0, t0=c.t0, tpos=c.tpos,
+                        ready=c.ready, clk=c.clk)
 
-    def _finish(self, packed) -> np.ndarray:
-        superstep_finish(self.sys.e_var, self.sys.e_w, self._pen, packed,
-                         self.w,
-                         clk=self._coll[2] if self.has_coll else None)
-        p = opstats.timed_fetch(packed)
-        self.syncs += 1
-        return p
-
-    def _reset(self, k: np.ndarray, budget: int, stop: int = 0) -> None:
-        """The fleet's loop carry: per-replica k, tape cursor and f64
-        base clock (the committed host clock), in two small uploads; a
-        collective's Kahan pairs and pending dates are on the card."""
-        ints = torch.from_numpy(np.stack([k.astype(np.int32),
-                                          self._tpos])).to(self.device)
-        t0 = torch.from_numpy(np.array([r.t for r in self.replicas],
-                                       np.float64)).to(self.device)
-        superstep_reset(self._pen, self.w, ints[0], budget, stop, t0=t0,
-                        tpos=ints[1],
-                        ready=self._coll[1] if self.has_coll else None,
-                        clk=self._coll[2] if self.has_coll else None)
-
-    def _superstep(self, k: Optional[int] = None, alive=None,
-                   round_budget: int = 0, rescue: bool = False) -> int:
-        """One fleet superstep of up to ``k`` advances per live replica
-        (``alive``: an explicit restriction, the tape rescue's), one
-        ``[B, ·]`` fetch, and the host demux."""
+    def _issue(self, k: Optional[int] = None, alive=None,
+               round_budget: int = 0,
+               prev: Optional[SuperstepToken] = None) -> SuperstepToken:
+        """Queue one fleet superstep of up to ``k`` advances per live
+        replica (``alive``: an explicit restriction, the tape rescue's)
+        and the copy of its ``[B, ·]`` result to the host, and return at
+        once; with ``prev`` it is speculative, on a spare set filled from
+        ``prev``'s (``DrainSim._superstep_issue``)."""
         k_max = self.superstep_k
         k = k_max if k is None else min(int(k), k_max)
         budget = int(round_budget) or self.superstep_rounds
@@ -696,15 +766,34 @@ class BatchDrainSim:
         # completions, one tape entry per advance, one activation per flow
         ring_n = (self.n_v + (k_max if self.has_tape else 0)
                   + (self.n_v if self.has_coll else 0))
-        packed = self._packed_buf(k_max, ring_n)
-        loop = self._superstep_loop(packed, k_max, ring_n)
-        self._reset(np.where(alive, k, 0), budget)
+        committed = self._committed_carry()
+        if prev is None:
+            c = committed
+        else:
+            c = self._carries.spare(self.has_tape)
+            c.copy_from(prev.carry)
+        c.ring_for((self.B, packed_size(k_max, ring_n)), self.tdtype)
+        loop = self._superstep_loop(c, k_max, ring_n)
+        self._reset(c, np.where(alive, k, 0), budget, prev)
         loop.run()
-        p = self._finish(packed)
+        superstep_finish(c.sys.e_var, c.sys.e_w, c.pen, c.ring.dev, self.w,
+                         clk=c.clk)
+        c.ring.send()
         self.supersteps += 1
+        self._carries.seq += 1
         opstats.bump("dispatches")
         opstats.bump("batch_dispatches")
-        return self._collect(p, alive, k_max, ring_n, rescue)
+        if prev is not None:
+            self.spec_issued += 1
+            opstats.bump("speculations_issued")
+        return SuperstepToken(c, k, k_max, ring_n, prev is not None,
+                              self._carries.seq, alive=alive)
+
+    def _superstep(self, k: Optional[int] = None, alive=None,
+                   round_budget: int = 0, rescue: bool = False) -> int:
+        """One fleet superstep issued and collected at once."""
+        tok = self._issue(k, alive=alive, round_budget=round_budget)
+        return self._collect(tok, rescue)[0]
 
     def _stall_cause(self, b: int, n_live: int) -> Tuple[str, str]:
         """A stall of a NaN-poisoned replica is a ``nan_solve``: one
@@ -730,11 +819,21 @@ class BatchDrainSim:
         self._alive[b] = False
         opstats.bump("lane_quarantined_" + cause)
 
-    def _collect(self, p: np.ndarray, alive: np.ndarray, k_max: int,
-                 ring_n: int, rescue: bool) -> int:
-        """Demultiplex one fleet superstep (``_superstep_collect_all``).
-        With ``rescue`` (the tape rescue's own collect, run with the
-        whole round budget) a replica still stuck is quarantined."""
+    def _collect(self, tok: SuperstepToken, rescue: bool = False
+                 ) -> Tuple[int, bool]:
+        """Wait for one issued fleet superstep on the host, commit it (a
+        speculative one by adopting its set) and demultiplex it
+        (``_superstep_collect_all``).  With ``rescue`` (the tape rescue's
+        own collect, run with the whole round budget) a replica still
+        stuck is quarantined.  Returns ``(n_alive, clean)``: ``clean``
+        is False when a replica died, fired a tape entry or needed a
+        rescue, so the supersteps in flight must be discarded."""
+        p = tok.carry.ring.fetch()
+        self.syncs += 1
+        self._carries.landed(tok.seq)
+        if tok.speculative:
+            self._adopt(tok.carry)
+        alive, k_max, ring_n = tok.alive, tok.k_max, tok.ring_n
         dead_ev = int(sum(int(p[b, 2]) for b in range(self.B)
                           if not alive[b]))
         self.pad_events += dead_ev
@@ -744,8 +843,7 @@ class BatchDrainSim:
                 f"event(s): the frozen-replica invariant is broken")
         o = N_STATS + 2 * k_max
         stuck: List[int] = []
-        fired = 0
-        coll_fired = 0
+        deaths = fired = coll_fired = 0
         for b in range(self.B):
             if not alive[b]:
                 continue
@@ -760,11 +858,13 @@ class BatchDrainSim:
                 self._quarantine(b, "nan_solve",
                                  "drain solve produced a non-finite clock "
                                  "advance (NaN)")
+                deaths += 1
                 continue
             if n_ev > ring_n:
                 self._quarantine(b, "ring_overflow",
                                  f"completion ring overflow: {n_ev} events "
                                  f"for {ring_n} slots")
+                deaths += 1
                 continue
             ring_t = row[o:o + n_ev]
             ring_id = row[o + ring_n:o + ring_n + n_ev].astype(np.int64)
@@ -791,9 +891,11 @@ class BatchDrainSim:
             coll_pending = self.has_coll and len(rep.events) < self.n_v
             if flag == FLAG_STALLED:
                 self._quarantine(b, *self._stall_cause(b, n_live))
+                deaths += 1
             elif n_live == 0 and not coll_pending:
                 rep.alive = False
                 self._alive[b] = False
+                deaths += 1
             elif n_live == 0 and coll_pending and adv == 0:
                 # no live flow, no progress, and the schedule still owes
                 # completions (a cyclic or truncated DAG): kill exactly
@@ -803,10 +905,12 @@ class BatchDrainSim:
                     f"collective schedule deadlocked: "
                     f"{len(rep.events)}/{self.n_v} flows completed "
                     f"and nothing is pending")
+                deaths += 1
             elif flag == FLAG_BUDGET and adv == 0:
                 if rescue:
                     self._quarantine(b, "non_convergence",
                                      "drain solve did not converge")
+                    deaths += 1
                 else:
                     stuck.append(b)
         for b in range(self.B):
@@ -816,6 +920,7 @@ class BatchDrainSim:
             opstats.bump("fault_tape_events", fired)
         if coll_fired:
             opstats.bump("collective_tape_fires", coll_fired)
+        self._last_fired = fired > 0
         if stuck:
             # the round budget ran out inside a replica's first solve:
             # finish one advance for those replicas (a tape or collective
@@ -825,7 +930,11 @@ class BatchDrainSim:
                 self._rescue_superstep(stuck)
             else:
                 self._rescue_fused(stuck)
-        return int(self._alive.sum())
+        if tok.speculative:
+            self.spec_committed += 1
+            opstats.bump("speculations_committed")
+        return (int(self._alive.sum()),
+                not deaths and not stuck and not fired)
 
     def superstep_all(self, k: Optional[int] = None) -> int:
         """One fleet superstep for every live replica; returns the
@@ -856,7 +965,8 @@ class BatchDrainSim:
         while True:
             # the guard: SS_ACTIVE is set exactly for the active replicas
             # (k 1, the whole budget), the fixpoint carry is untouched
-            self._reset(active.astype(np.int32), MAX_ROUNDS)
+            self._reset(self._committed_carry(), active.astype(np.int32),
+                        MAX_ROUNDS)
             self._rescue_loop(first, chunk).run()
             first = False
             opstats.bump("dispatches")
@@ -920,14 +1030,29 @@ class BatchDrainSim:
                           "rescue_fleet")
 
     def run(self, max_supersteps: int = 10_000_000, between=None) -> None:
-        """Drain every replica to completion (or quarantine).
-        ``between(sim)`` runs after every superstep (the admission
-        window: :meth:`admit_lane`)."""
-        while self._alive.any() and max_supersteps > 0:
-            self.superstep_all()
-            if between is not None:
-                between(self)
-            max_supersteps -= 1
+        """Drain every replica to completion (or quarantine), at any
+        depth (JAX ``run``/``_run_pipelined``, :meth:`~.lmm_drain.
+        CarryPool.drive`: up to ``pipeline`` supersteps in flight beyond
+        the one being collected).  ``between(sim)`` runs after every
+        superstep (the admission window: :meth:`admit_lane`); a truthy
+        return says it changed the fleet.  A lane's death, a tape fire, a
+        rescue, or a change between supersteps (that return, an
+        :meth:`admit_lane` or a :meth:`retire`) discards the supersteps
+        in flight."""
+        left = max_supersteps
+
+        def collect(tok):
+            nonlocal left
+            self._mutated = False
+            _, clean = self._collect(tok)
+            left -= 1
+            mutated = bool(between(self)) if between else False
+            return clean and not mutated and not self._mutated
+
+        self._carries.drive(
+            self, lambda: self._alive.any() and left > 0,
+            lambda: len(self._carries.inflight) < left,
+            lambda prev: self._issue(prev=prev), collect)
 
     # -- admission ---------------------------------------------------------
 
@@ -1016,6 +1141,7 @@ class BatchDrainSim:
         self.overrides[b] = ov
         self.replicas[b] = ReplicaState(b)
         self._alive[b] = True
+        self._mutated = True
         self.admitted += 1
         opstats.bump("lanes_admitted")
         opstats.bump("batch_replicas")
@@ -1028,6 +1154,7 @@ class BatchDrainSim:
             raise AdmissionError(f"lane {b} is not a live lane")
         self._alive[b] = False
         self.replicas[b].alive = False
+        self._mutated = True
 
     # -- superstep-boundary checkpoint and resume --------------------------
 

@@ -58,21 +58,36 @@ Two event arms run inside the superstep, as in the JAX program:
   event date is independent of the superstep grouping; float64 only,
   and the drain never repacks (the DAG indexes flow slots).
 
-Not ported yet: ``pipeline=D`` (raises ``NotImplementedError`` naming
-its ROADMAP item).
+**Pipelined supersteps** (``pipeline=D`` with ``superstep=K``, the JAX
+run loop's speculation): a superstep is issued (``superstep_reset``, the
+graph launch, ``superstep_finish`` and a non-blocking copy of the packed
+result into a pinned host buffer, with an event after it) and collected
+later (the wait on that event, then the demux).  Up to D supersteps run
+ahead of the one being collected, each on its own set of the buffers a
+superstep writes (:class:`Carry`: the flow state, the tape's bounds, the
+DAG carry, the result), filled by one in-stream copy of its
+predecessor's set; its base clock is derived on the card by the f64 add
+the host's collect makes.  A commit adopts the set; a collect that
+changed the system (a repack, a decay of the stop trigger, a tape fire,
+a stall, no live flow) discards the tail, and the drain goes on from
+the committed state, which no speculative superstep ever writes.  So
+events, fault and collective events and clock are those of
+``pipeline=0`` by bits.  Each set keeps its own graph, so the graphs
+built grow by D + 1 per repack and no more.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from collections import deque
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..kernels.common import (DT, FLAG_BUDGET, FLAG_STALLED, IT, LIGHT,
-                              LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
+from ..kernels.common import (DT, FLAG_BUDGET, FLAG_OK, FLAG_STALLED, IT,
+                              LIGHT, LIVE_ACC, MAX_ROUNDS, LmmSystem, Work)
 from ..kernels.dag_walk import dag_csr, dag_walk
 from ..kernels.drain_advance import drain_advance, drain_forced_advance
 from ..kernels.livefirst_repack import livefirst_repack
@@ -121,6 +136,185 @@ def collective_arrays(collective, n_v: int):
     return cp, cr, ces, ced, cec
 
 
+class Ring:
+    """A superstep's result vector on the device, its host twin (pinned
+    on a card) and the event recorded after the copy between them."""
+
+    def __init__(self, shape, dtype: torch.dtype, device: torch.device):
+        self.dev = torch.zeros(shape, dtype=dtype, device=device)
+        card = device.type == "cuda"
+        self.host = torch.empty(shape, dtype=dtype, pin_memory=card)
+        self.event = torch.cuda.Event() if card else None
+
+    def send(self) -> None:
+        """Queue the copy to the host and record its event; the host
+        does not wait."""
+        self.host.copy_(self.dev, non_blocking=self.event is not None)
+        if self.event is not None:
+            self.event.record()
+
+    def fetch(self) -> np.ndarray:
+        """The host twin once the copy has landed (``opstats.
+        pinned_fetch``)."""
+        return opstats.pinned_fetch(self.host, self.event)
+
+
+class Carry:
+    """One set of the buffers a solo superstep writes: the flow state,
+    the system (with a fault tape its constraint bounds are the set's
+    own), with a collective the DAG carry (predecessor counts, activation
+    dates, Kahan pair), the f64 base clock of a speculative superstep
+    (derived on the card), the result :class:`Ring` and the K16 graphs
+    built over them (one per set)."""
+
+    __slots__ = ("pen", "rem", "sys", "pred", "ready", "clk", "t0", "ring",
+                 "loops")
+
+    def __init__(self, pen, rem, sys: LmmSystem, pred=None, ready=None,
+                 clk=None):
+        self.pen, self.rem, self.sys = pen, rem, sys
+        self.pred, self.ready, self.clk = pred, ready, clk
+        self.t0 = torch.zeros(1, dtype=torch.float64, device=pen.device)
+        self.ring: Optional[Ring] = None
+        self.loops: dict = {}
+
+    def spare(self, own_bounds: bool) -> "Carry":
+        """A set of the same shapes, for speculative supersteps; with
+        ``own_bounds`` (a fault tape scatters into them) its own
+        constraint bounds."""
+        e = lambda t: None if t is None else torch.empty_like(t)  # noqa
+        sys = (self.sys._replace(c_bound=e(self.sys.c_bound)) if own_bounds
+               else self.sys)
+        return type(self)(e(self.pen), e(self.rem), sys, e(self.pred),
+                          e(self.ready), e(self.clk))
+
+    def copy_from(self, src: "Carry") -> None:
+        """Queue the copy of ``src``'s state into this set."""
+        for d, s in ((self.pen, src.pen), (self.rem, src.rem),
+                     (self.pred, src.pred), (self.ready, src.ready),
+                     (self.clk, src.clk)):
+            if d is not None:
+                d.copy_(s)
+        if self.sys.c_bound is not src.sys.c_bound:
+            self.sys.c_bound.copy_(src.sys.c_bound)
+
+    def ring_for(self, shape: Tuple[int, ...], dtype: torch.dtype) -> Ring:
+        """The result ring, zeroed; one while its shape holds."""
+        r = self.ring
+        if r is None or tuple(r.dev.shape) != shape:
+            r = self.ring = Ring(shape, dtype, self.pen.device)
+        else:
+            r.dev.zero_()
+        return r
+
+
+class SuperstepToken:
+    """One issued, perhaps still running, superstep (JAX
+    ``SuperstepToken``, ``FleetToken``): its set, its k, whether it is
+    speculative and its place in issue order; a solo one also the stop
+    threshold it ran with and its base clock (the host's float, or the
+    set's derived f64 tensor), a fleet's the alive mask it ran under."""
+
+    __slots__ = ("carry", "k", "k_max", "ring_n", "speculative", "seq",
+                 "want_stop", "t0", "alive")
+
+    def __init__(self, carry: Carry, k: int, k_max: int, ring_n: int,
+                 speculative: bool, seq: int, want_stop: int = 0, t0=None,
+                 alive: Optional[np.ndarray] = None):
+        self.carry = carry
+        self.k, self.k_max, self.ring_n = k, k_max, ring_n
+        self.speculative, self.seq = speculative, seq
+        self.want_stop, self.t0, self.alive = want_stop, t0, alive
+
+
+class CarryPool:
+    """The buffer sets of one executor's supersteps: the committed one,
+    the spares speculative supersteps run on (at depth D at most D + 2
+    sets in all), pools dropped while the card may still run supersteps
+    on them, the tokens in flight (the pipelined run's) and the count
+    of supersteps issued."""
+
+    def __init__(self, make):
+        #: the set type (:class:`Carry` or its fleet form)
+        self.make = make
+        self.sets: list = []
+        self.cur = None
+        #: (supersteps issued when dropped, sets)
+        self.limbo: list = []
+        self.inflight: Deque = deque()
+        self.seq = 0
+
+    def committed(self, *state) -> Carry:
+        """The set around the committed ``(pen, rem, sys, pred, ready,
+        clk)``: the one already there while it holds exactly these
+        buffers, else a new pool around them (a repack, transitions, new
+        bounds or a restore replaced one between supersteps)."""
+        c = self.cur
+        if c is not None and all(a is b for a, b in zip(
+                (c.pen, c.rem, c.sys, c.pred, c.ready, c.clk), state)):
+            return c
+        if self.sets:
+            self.limbo.append((self.seq, self.sets))
+        self.cur = self.make(*state)
+        self.sets = [self.cur]
+        return self.cur
+
+    def spare(self, own_bounds: bool) -> Carry:
+        """A set that neither the committed state nor an in-flight
+        superstep holds, made when there is none."""
+        busy = {id(self.cur)} | {id(t.carry) for t in self.inflight}
+        for c in self.sets:
+            if id(c) not in busy:
+                return c
+        c = self.cur.spare(own_bounds)
+        self.sets.append(c)
+        return c
+
+    def landed(self, seq: int) -> None:
+        """Superstep ``seq`` has landed on the host: the card is past
+        every pool dropped before it was issued."""
+        self.limbo = [x for x in self.limbo if x[0] > seq]
+
+    def discard(self, sim, replays: bool = False) -> None:
+        """Drop the uncollected supersteps: their sets go back to the
+        pool; only the card's work is lost (and counted in ``sim``).
+        With ``replays``, count them as the tail a tape fire or a
+        collective makes the drain replay (JAX's ``fault_replays``,
+        ``collective_replays``)."""
+        n = len(self.inflight)
+        if not n:
+            return
+        if replays and sim.has_tape and sim._last_fired:
+            opstats.bump("fault_replays", n)
+        if replays and sim.has_coll:
+            opstats.bump("collective_replays", n)
+        self.inflight.clear()
+        sim.spec_rolled_back += n
+        opstats.bump("speculations_rolled_back", n)
+
+    def drive(self, sim, more, fits, issue, collect, unclean=None) -> None:
+        """The superstep run loop of both executors at any depth (JAX
+        ``run``/``_run_pipelined``): while ``more()``, a head superstep
+        (``issue(None)``) and, while ``fits()``, up to ``sim.pipeline``
+        speculative ones behind it, each chained from the last
+        (``issue(prev)``), collected in issue order; a collect that
+        returns False (not clean) discards the tail, then ``unclean()``
+        runs.  At depth 0 it is the unpipelined loop."""
+        inflight = self.inflight
+        try:
+            while more():
+                while not inflight or (len(inflight) <= sim.pipeline
+                                       and fits()):
+                    inflight.append(issue(inflight[-1] if inflight
+                                          else None))
+                if not collect(inflight.popleft()):
+                    self.discard(sim, replays=True)
+                    if unclean is not None:
+                        unclean()
+        finally:
+            self.discard(sim)
+
+
 class DrainSim:
     """Drain a fixed flow set to completion on the port's kernels.
 
@@ -148,10 +342,6 @@ class DrainSim:
                  superstep_rounds: int = 0, repack_min: int = 1024,
                  penalty=None, remains=None, pipeline: int = 0,
                  tape=None, collective=None):
-        if pipeline:
-            raise NotImplementedError(
-                "pipeline=D is not ported yet (ROADMAP queue A item 2: "
-                "the speculative issue/collect split)")
         if done_mode not in ("rel", "abs"):
             raise ValueError(f"Unknown done_mode {done_mode!r} "
                              "(expected rel or abs)")
@@ -225,7 +415,24 @@ class DrainSim:
         #: buffer they bake in was replaced
         self.loop_builds = 0
         self._loops: dict = {}
+        #: the result vector of the last superstep issued
         self._packed: Optional[torch.Tensor] = None
+        self.pipeline = int(pipeline)
+        if self.pipeline and not self.superstep_k:
+            raise ValueError("pipeline=D needs superstep=K (speculation "
+                             "is a property of the superstep run loop)")
+        #: the superstep's buffer sets and the tokens in flight
+        self._carries = CarryPool(Carry)
+        self._last_fired = False
+        #: speculation census of the pipelined run
+        self.spec_issued = 0
+        self.spec_committed = 0
+        self.spec_rolled_back = 0
+        #: optional consumer of each collected superstep's batches
+        #: ``[(dt, [flow ids])]``, called inside the collect (so at depth
+        #: D it overlaps the supersteps in flight): the host's own work
+        #: per superstep
+        self.on_batches = None
 
     # -- event arms --------------------------------------------------------
 
@@ -577,47 +784,62 @@ class DrainSim:
 
     # -- superstep path ----------------------------------------------------
 
-    def _superstep_loop(self, packed, k_max: int, ring_n: int) -> DeviceLoop:
-        """The superstep as one loop nest: while a slot is active, the
-        gated init, the rounds to convergence (or the budget), K2, K3
-        and with a collective K10."""
+    def _committed_carry(self) -> Carry:
+        coll = self._coll
+        return self._carries.committed(
+            self._pen, self._rem, self.sys,
+            *((coll[0], coll[1], self._coll_clk) if self.has_coll
+              else (None, None, None)))
+
+    def _adopt(self, c: Carry) -> None:
+        """Make a committed speculative superstep's set the committed
+        state."""
+        self._pen, self._rem, self.sys = c.pen, c.rem, c.sys
+        if self.has_coll:
+            self._coll[0], self._coll[1] = c.pred, c.ready
+            self._coll_clk = c.clk
+        self._carries.cur = c
+
+    def _superstep_loop(self, c: Carry, k_max: int,
+                        ring_n: int) -> DeviceLoop:
+        """The superstep on set ``c`` as one loop nest: while a slot is
+        active, the gated init, the rounds to convergence (or the
+        budget), K2, K3 and with a collective K10.  One graph per set,
+        kept on it."""
         w = self.w
-        slot = (lambda: lmm_init(self.sys, self.w, self._pen, self.eps,
+        packed = c.ring.dev
+        slot = (lambda: lmm_init(c.sys, self.w, c.pen, self.eps,
                                  gated=True),
-                Loop(PRED_ROUND, w.ctrl, (self._round,),
-                     tally="lmm_round", ends=True),
-                lambda: self._queue_advance(packed, k_max, ring_n))
-        refs = self._refs() + (packed, k_max, ring_n, self.has_tape,
-                               self._tape, self.has_coll, self._coll,
-                               self._coll_csr,
-                               self._coll_clk)
-        return self._loop("superstep", refs,
-                          [Loop(PRED_SUPERSTEP, w.ctrl, slot,
-                                tally="slots")], "superstep")
+                Loop(PRED_ROUND, w.ctrl, (lambda: lmm_round(
+                    c.sys, self.w, c.pen, self.eps, self._vb,
+                    self.has_bounds),), tally="lmm_round", ends=True),
+                lambda: self._queue_advance(c, packed, k_max, ring_n))
+        refs = (c.sys, w, c.pen, c.rem, self._thresh, self._ids_dev,
+                self._vb, self.eps, self.has_bounds, self.n_c, packed,
+                k_max, ring_n, self.has_tape, self._tape, self.has_coll,
+                self._coll, self._coll_csr, c.pred, c.ready, c.clk)
 
-    def _packed_buf(self, k_max: int, ring_n: int) -> torch.Tensor:
-        """The superstep's result vector, zeroed; one buffer while its
-        size holds (the loop's graph writes into it)."""
-        n = packed_size(k_max, ring_n)
-        if self._packed is None or self._packed.numel() != n:
-            self._packed = torch.zeros(n, dtype=self.tdtype,
-                                       device=self.device)
-        else:
-            self._packed.zero_()
-        return self._packed
+        def make():
+            self.loop_builds += 1
+            return DeviceLoop([Loop(PRED_SUPERSTEP, w.ctrl, slot,
+                                    tally="slots")], "superstep",
+                              self.device, refs,
+                              prepare=lambda: plan_of(c.sys, self.w))
+        return cached(c.loops, "superstep", refs, make)
 
-    def _queue_advance(self, packed, k_max: int, ring_n: int) -> None:
+    def _queue_advance(self, c: Carry, packed, k_max: int,
+                       ring_n: int) -> None:
         tape_t = self._tape[0] if self.has_tape else None
-        ready = self._coll[1] if self.has_coll else None
-        drain_advance(self._pen, self._rem, self._thresh, self.w,
-                      gated=True, tape_t=tape_t, ready=ready)
+        drain_advance(c.pen, c.rem, self._thresh, self.w, gated=True,
+                      tape_t=tape_t, ready=c.ready)
         superstep_commit(self.w, self._ids_dev, packed, k_max, ring_n,
                          tape=self._tape[1:] if self.has_tape else None,
-                         c_bound=self.sys.c_bound, n_c=self.n_c,
-                         ready=ready, pen=self._pen)
+                         c_bound=c.sys.c_bound, n_c=self.n_c,
+                         ready=c.ready, pen=c.pen)
         if self.has_coll:
-            cp, _, ces, ced, cec = self._coll
-            dag_walk(self.w, ces, ced, cp, ready, cec, self._coll_csr)
+            _, _, ces, ced, cec = self._coll
+            dag_walk(self.w, ces, ced, c.pred, c.ready, cec,
+                     self._coll_csr)
 
     def _ring_n(self, k_max: int) -> int:
         """Completions, plus one tape entry per advance, plus one
@@ -625,18 +847,18 @@ class DrainSim:
         return (self.n_v + (k_max if self.has_tape else 0)
                 + (self.n_v if self.has_coll else 0))
 
-    def _finish(self, packed) -> np.ndarray:
-        superstep_finish(self.sys.e_var, self.sys.e_w, self._pen, packed,
-                         self.w, clk=self._coll_clk)
-        p = opstats.timed_fetch(packed)
-        self.syncs += 1
-        return p
-
-    def superstep_batch(self, k: Optional[int] = None, stop_live: int = 0,
-                        round_budget: int = 0):
-        """Run ONE superstep of up to `k` advances and collect it.
-        Returns (n_live, batches), batches a list of (dt, [original flow
-        ids]) per executed advance."""
+    def _superstep_issue(self, k: Optional[int] = None, stop_live: int = 0,
+                         round_budget: int = 0,
+                         prev: Optional[SuperstepToken] = None
+                         ) -> SuperstepToken:
+        """Queue ONE superstep of up to `k` advances and the copy of its
+        result to the host, and return at once.  Without ``prev`` it runs
+        in place on the committed state; with ``prev`` (an in-flight
+        token) it is speculative: one in-stream copy of ``prev``'s
+        output set into a spare set, the base clock derived on the card
+        as the collect of ``prev`` will derive it on the host, and the
+        superstep on that set, so the committed state is never written
+        by speculation."""
         if not self.superstep_k and k is None:
             raise ValueError("superstep_batch needs superstep=K "
                              "(constructor) or an explicit k")
@@ -649,22 +871,52 @@ class DrainSim:
                            if self._live0 * self.repack_at
                            >= self.repack_min else 0))
         ring_n = self._ring_n(k_max)
-        packed = self._packed_buf(k_max, ring_n)
-        loop = self._superstep_loop(packed, k_max, ring_n)
-        # the f64 base clock of the event peek
-        superstep_reset(self._pen, self.w, k, budget, want_stop,
-                        t0=self.t, tpos=self._tpos_host,
-                        ready=self._coll[1] if self.has_coll else None,
-                        clk=self._coll_clk)
+        committed = self._committed_carry()
+        if prev is None:
+            c, t0 = committed, self.t
+        else:
+            c = self._carries.spare(self.has_tape)
+            c.copy_from(prev.carry)
+            # the clock the collect of prev leaves in self.t: the same
+            # f64 add (a collective's ring dates are absolute: base 0)
+            base = 0.0 if self.has_coll else prev.t0
+            torch.add(prev.carry.ring.dev[3:4].to(torch.float64), base,
+                      out=c.t0)
+            t0 = c.t0
+        c.ring_for((packed_size(k_max, ring_n),), self.tdtype)
+        loop = self._superstep_loop(c, k_max, ring_n)
+        # the tape cursor of the committed state: a superstep that fired
+        # an entry makes its collect unclean, so every speculative
+        # superstep that commits starts from the cursor it was given
+        superstep_reset(c.pen, self.w, k, budget, want_stop, t0=t0,
+                        tpos=self._tpos_host, ready=c.ready, clk=c.clk)
         loop.run()
-        p = self._finish(packed)
+        superstep_finish(c.sys.e_var, c.sys.e_w, c.pen, c.ring.dev, self.w,
+                         clk=c.clk)
+        c.ring.send()
+        self._packed = c.ring.dev
         self.supersteps += 1
+        self._carries.seq += 1
         opstats.bump("dispatches")
-        return self._collect(p, k_max, ring_n, want_stop)
+        if prev is not None:
+            self.spec_issued += 1
+            opstats.bump("speculations_issued")
+        return SuperstepToken(c, k, k_max, ring_n, prev is not None,
+                              self._carries.seq, want_stop=want_stop, t0=t0)
 
-    def _collect(self, p: np.ndarray, k_max: int, ring_n: int,
-                 want_stop: int):
-        rounds, adv, n_ev = int(p[0]), int(p[1]), int(p[2])
+    def _superstep_collect(self, tok: SuperstepToken):
+        """Wait for one issued superstep's result on the host, commit it
+        (a speculative one by adopting its set) and demux its ring.
+        Returns ``(n_live, batches, clean)``: ``clean`` says that the
+        state is what an in-flight successor assumed (flag OK, live
+        flows left, no repack, no decay, no tape fire)."""
+        p = tok.carry.ring.fetch()
+        self.syncs += 1
+        self._carries.landed(tok.seq)
+        if tok.speculative:
+            self._adopt(tok.carry)
+        k_max, ring_n = tok.k_max, tok.ring_n
+        rounds, adv = int(p[0]), int(p[1])
         t_sum = float(p[3])
         if math.isnan(t_sum):
             raise RuntimeError(
@@ -710,6 +962,7 @@ class DrainSim:
             batches.append((float(adv_dt[i]), batch_ids))
             start = end
         self._tpos_host += fired
+        self._last_fired = fired > 0
         if fired:
             opstats.bump("fault_tape_events", fired)
         if coll_fired:
@@ -721,13 +974,34 @@ class DrainSim:
                 f"drain stalled: no flow holds bandwidth ({n_live} live)")
         if flag == FLAG_BUDGET and adv == 0 and rounds >= MAX_ROUNDS:
             raise RuntimeError("drain solve did not converge")
-        repacked = False
+        repacked = decayed = False
         if self._should_repack(n_live):
             repacked = self._repack_device(n_live, live_elems)
-        if not repacked and want_stop and n_live <= want_stop:
+        if not repacked and tok.want_stop and n_live <= tok.want_stop:
             # the stop-for-repack threshold fired but no repack was
             # possible: decay the trigger
             self._live0 = max(n_live, 1)
+            decayed = True
+        if tok.speculative:
+            self.spec_committed += 1
+            opstats.bump("speculations_committed")
+        # a tape fire ends the clean window: the successor chained from
+        # the fired bounds, but replaying from the committed state keeps
+        # the cursor the host gives it right (_superstep_issue)
+        clean = (flag == FLAG_OK and n_live > 0 and not repacked
+                 and not decayed and not fired)
+        if self.on_batches is not None and batches:
+            self.on_batches(batches)
+        return n_live, batches, clean
+
+    def superstep_batch(self, k: Optional[int] = None, stop_live: int = 0,
+                        round_budget: int = 0):
+        """Run ONE superstep of up to `k` advances and collect it.
+        Returns (n_live, batches), batches a list of (dt, [original flow
+        ids]) per executed advance."""
+        tok = self._superstep_issue(k, stop_live=stop_live,
+                                    round_budget=round_budget)
+        n_live, batches, _ = self._superstep_collect(tok)
         return n_live, batches
 
     def _rescue_one(self) -> int:
@@ -742,9 +1016,10 @@ class DrainSim:
         return self._advance_fused()
 
     def superstep_step(self, k: Optional[int] = None) -> int:
-        """One step of ``run`` on the superstep path: one superstep of up
-        to ``k`` advances, and one rescued advance if it could not finish
-        any.  Returns the live count."""
+        """One step of the superstep path at depth 0, for a caller that
+        steps the drain itself: one superstep of up to ``k`` advances,
+        and one rescued advance if it could not finish any (``run``'s
+        rule).  Returns the live count."""
         before = self.advances
         n, _ = self.superstep_batch(k=k)
         if (n or self._coll_open()) and self.advances == before:
@@ -755,14 +1030,51 @@ class DrainSim:
                 raise self._deadlock()
         return n
 
+    def _run_supersteps(self, max_advances: int) -> None:
+        """The superstep run loop at any depth (JAX ``DrainSim.run`` and
+        ``_run_pipelined``, :meth:`CarryPool.drive`): the head superstep
+        takes ``min(K, budget)``, a speculative one a full K only while
+        it fits the budget whatever the supersteps ahead of it consume;
+        an unclean collect that advanced nothing is followed by the
+        budget rescue, and a collective that still advances nothing is
+        deadlocked."""
+        budget, n, stuck = max_advances, self.n_v, False
+        inflight = self._carries.inflight
+
+        def issue(prev):
+            k = self.superstep_k if prev else min(self.superstep_k, budget)
+            return self._superstep_issue(k, prev=prev)
+
+        def collect(tok):
+            nonlocal budget, n, stuck
+            before = self.advances
+            n, _, clean = self._superstep_collect(tok)
+            budget -= self.advances - before
+            stuck = bool(n or self._coll_open()) and self.advances == before
+            return clean
+
+        def rescue():
+            # the round budget expired inside the first solve
+            nonlocal budget, n
+            if not stuck:
+                return
+            after = self.advances
+            n = self._rescue_one()
+            budget -= 1
+            if self.advances == after and self._coll_open():
+                raise self._deadlock()
+
+        self._carries.drive(
+            self, lambda: bool(n or self._coll_open()) and budget > 0,
+            lambda: (budget - sum(t.k for t in inflight)
+                     >= self.superstep_k),
+            issue, collect, rescue)
+
     def run(self, max_advances: int = 10_000_000) -> None:
-        n = self.n_v
         if self.superstep_k:
-            while (n or self._coll_open()) and max_advances > 0:
-                before = self.advances
-                n = self.superstep_step(min(self.superstep_k, max_advances))
-                max_advances -= self.advances - before
+            self._run_supersteps(max_advances)
             return
+        n = self.n_v
         while n and max_advances:
             n = self.advance()
             max_advances -= 1

@@ -7,7 +7,12 @@ into, under the same names).
   forced advance and per transition batch)
 * ``fixpoint_rounds``  — saturation rounds executed
 * ``fetches`` / ``fetched_bytes`` / ``host_block_ms`` — device->host
-  result transfers made through :func:`timed_fetch`
+  result transfers made through :func:`timed_fetch` and
+  :func:`pinned_fetch`, and the host milliseconds spent in them
+* ``blocking_fetches`` — the subset of ``fetches`` whose device work
+  had not completed when the host asked (a CUDA event's ``query()``
+  false): the host stalled on the card instead of overlapping it.  A
+  fetch of a tensor on the CPU is always ready
 * ``uploaded_bytes_full`` — host->device bytes shipped as whole arrays
 * ``uploaded_bytes_delta`` — host->device bytes shipped as indexed
   payloads (drain transitions, warm-solver deltas and modified-constraint
@@ -36,6 +41,13 @@ into, under the same names).
   quarantined, by cause
 * ``collective_tape_slots`` / ``collective_tape_fires`` — flows of a
   collective schedule uploaded with a drain, and activations fired
+* ``speculations_issued`` / ``speculations_committed`` /
+  ``speculations_rolled_back`` — speculative supersteps the pipelined
+  drains (``pipeline=D``) issued in flight, committed as they were, and
+  discarded because collecting the superstep before them changed the
+  system; ``fault_replays`` / ``collective_replays`` — discarded
+  supersteps behind a tape fire, and behind any unclean collect of a
+  collective drain
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.
@@ -61,15 +73,42 @@ def bump(name: str, n=1) -> None:
     _counters[name] = _counters.get(name, 0) + n
 
 
-def timed_fetch(t: torch.Tensor) -> np.ndarray:
-    """Copy one tensor to the host, counting the transfer and the
-    milliseconds the host spent blocked in it.  The copy never aliases
-    the tensor, also when it already lies on the host."""
-    t0 = time.perf_counter()
-    out = t.detach().to("cpu", copy=True).numpy()
+def _count_fetch(t0: float, nbytes: int, ready: bool) -> None:
     bump("host_block_ms", (time.perf_counter() - t0) * 1e3)
     bump("fetches")
-    bump("fetched_bytes", out.nbytes)
+    bump("fetched_bytes", nbytes)
+    if not ready:
+        bump("blocking_fetches")
+
+
+def timed_fetch(t: torch.Tensor) -> np.ndarray:
+    """Copy one tensor to the host, counting the transfer, whether the
+    card's work before it had completed (an event recorded and queried
+    just before the copy) and the milliseconds the host spent blocked in
+    it.  The copy never aliases the tensor, also when it already lies on
+    the host."""
+    ready = True
+    if t.is_cuda:
+        ev = torch.cuda.Event()
+        ev.record()
+        ready = ev.query()
+    t0 = time.perf_counter()
+    out = t.detach().to("cpu", copy=True).numpy()
+    _count_fetch(t0, out.nbytes, ready)
+    return out
+
+
+def pinned_fetch(host: torch.Tensor, event) -> np.ndarray:
+    """The numpy view of ``host``, a host buffer that an in-stream copy
+    fills, once ``event`` (recorded after that copy; None when the copy
+    ran on the CPU) has completed: counted as :func:`timed_fetch` counts,
+    blocking when the event had not completed when the host asked."""
+    ready = event is None or event.query()
+    t0 = time.perf_counter()
+    if not ready:
+        event.synchronize()
+    out = host.numpy()
+    _count_fetch(t0, out.nbytes, ready)
     return out
 
 

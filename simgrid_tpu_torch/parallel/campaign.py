@@ -24,9 +24,10 @@ mid-drain), ``static`` (the time-averaged availability folded into the
 link factors) or ``off``.  The port has no config module, so
 ``fault_mode`` is an argument with the reference's default, ``on``.
 
-Not ported yet: ``from_engine`` (ROADMAP queue A item 3, the engine
-capture), ``mesh`` (A9), ``pipeline`` (A2) and ``plan_cache`` (A8);
-each raises ``NotImplementedError``.
+``pipeline=D`` (the fleets' speculative supersteps, ``ops/lmm_batch.py``)
+passes through to the executor.  Not ported yet: ``from_engine``
+(ROADMAP queue A item 3, the engine capture), ``mesh`` (A9) and
+``plan_cache`` (A8); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -350,7 +350,7 @@ def main_paths():
     return mod
 
 
-def run_coll_fleet(profile: bool = False) -> dict:
+def run_coll_fleet(profile: bool = False, pipeline: int = 0) -> dict:
     """The 1,024-rank collective fleet of ``chip_smoke.py``'s width on
     the card: its wall and its launches of K1 and of the row plan (with
     ``profile``, the fleet's run under ``torch.profiler``)."""
@@ -363,7 +363,7 @@ def run_coll_fleet(profile: bool = False) -> dict:
     camp = cf.fleet_campaign(
         cs, cf.fleet_specs(cs, t_end, main_paths().COLL_B), "cuda")
     with _Busy(profile) as busy:
-        _, row = fleet_run.run_fleet_full(camp)
+        _, row = fleet_run.run_fleet_full(camp, **_depth(pipeline))
     keep = ("lmm_plan", "lmm_init_fleet", "lmm_round_fleet")
     return {"wall_s": row["wall_s"], "supersteps": row["supersteps"],
             "dispatches": row["dispatches"], "rounds": row["rounds"],
@@ -576,6 +576,141 @@ class _Busy:
         return False
 
 
+class _Split:
+    """Host clocks around the parts of every fleet superstep inside the
+    block (``split10``, ``split11``): the issue (``_reset``'s uploads, the
+    graph launch, ``superstep_finish``'s enqueue), the wait in the ``[B,
+    ·]`` fetch (a sync ahead of the copy), the copy, and the Python demux
+    (``_collect``, its rescues apart).  Wraps the methods of whichever
+    executor the checkout has: the issue/collect split where it exists,
+    else ``_superstep``/``_finish``/``_collect``."""
+
+    PARTS = ("issue", "wait", "copy", "demux", "rescue")
+
+    def __init__(self):
+        self.ms = {p: 0.0 for p in self.PARTS}
+        self.n = 0
+        self.saved = []
+
+    def _wrap(self, owner, name, fn):
+        orig = getattr(owner, name)
+        self.saved.append((owner, name, orig))
+        setattr(owner, name, fn(orig))
+
+    def __enter__(self):
+        import torch
+        from simgrid_tpu_torch.ops import lmm_batch, opstats
+        cls = lmm_batch.BatchDrainSim
+        ms = self.ms
+
+        def clocked(part):
+            def wrap(orig):
+                def run(*a, **kw):
+                    t0 = time.perf_counter()
+                    try:
+                        return orig(*a, **kw)
+                    finally:
+                        ms[part] += (time.perf_counter() - t0) * 1e3
+                return run
+            return wrap
+
+        def fetch(orig):
+            def run(t, *a, **kw):
+                t0 = time.perf_counter()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                out = orig(t, *a, **kw)
+                ms["wait"] += (t1 - t0) * 1e3
+                ms["copy"] += (time.perf_counter() - t1) * 1e3
+                return out
+            return run
+
+        def pinned(orig):
+            # the copy ran on the stream: the whole call is the wait
+            return clocked("wait")(orig)
+
+        def counted(orig):
+            def run(*a, **kw):
+                self.n += 1
+                return orig(*a, **kw)
+            return run
+
+        # the split executor's collect holds the wait on the pinned copy
+        self.wait_in_collect = hasattr(cls, "_issue")
+        if self.wait_in_collect:
+            self._wrap(cls, "_issue", clocked("issue"))
+            self._wrap(cls, "_issue", counted)
+        else:
+            # the issue is _reset + the launch + the finish's enqueue: time
+            # _superstep whole and take the fetch and the collect out below
+            self._wrap(cls, "_superstep", counted)
+            self._wrap(cls, "_reset", clocked("issue"))
+            from simgrid_tpu_torch.kernels import superstep_loop as k16
+            self._wrap(k16.DeviceLoop, "run", clocked("issue"))
+            self._wrap(lmm_batch, "superstep_finish", clocked("issue"))
+        self._wrap(cls, "_collect", clocked("demux"))
+        for name in ("_rescue_superstep", "_rescue_fused"):
+            self._wrap(cls, name, clocked("rescue"))
+        self._wrap(opstats, "timed_fetch", fetch)
+        if hasattr(opstats, "pinned_fetch"):
+            self._wrap(opstats, "pinned_fetch", pinned)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self.saved):
+            setattr(owner, name, orig)
+        return False
+
+    def rec(self) -> dict:
+        """Totals and per-superstep means; the demux excludes its
+        rescues (whose own supersteps count in their parts)."""
+        ms = dict(self.ms)
+        ms["demux"] -= ms["rescue"]
+        if self.wait_in_collect:
+            ms["demux"] -= ms["wait"]
+        n = max(self.n, 1)
+        return {"split_supersteps": self.n,
+                "split_ms": ms,
+                "split_ms_per_superstep": {k: v / n for k, v in ms.items()}}
+
+
+def _depth(pipeline: int) -> dict:
+    """The executors' ``pipeline`` argument, left out at depth 0 (a tree
+    before the pipelined drains has none)."""
+    return {"pipeline": pipeline} if pipeline else {}
+
+
+def run_split(name: str, pipeline: int = 0) -> dict:
+    """Main path 10 or 11's fleet with its supersteps split on the host
+    (``split10``, ``split11``; ``_Split``), at ``pipeline`` depth (where
+    the fleet's collect waits on the event after its pinned copy, the
+    wait is the whole fetch)."""
+    import torch
+    from simgrid_tpu_torch.workloads import dragonfly, fleet_run
+    from simgrid_tpu_torch.workloads.drain_run import EPS
+    smoke = main_paths()
+    cuda = torch.device("cuda")
+    if name == "split11":
+        from simgrid_tpu_torch.workloads import collective_fleet as cf
+        from simgrid_tpu_torch.workloads import collective_run
+        cs = collective_run.CASES[2]
+        _, legs, _ = collective_run.run_case(cs, device=cuda)
+        t_end = legs["tape"]["events"][-1][0]
+        camp = cf.fleet_campaign(cs, cf.fleet_specs(cs, t_end,
+                                                    smoke.COLL_B), cuda)
+    else:
+        dsys = dragonfly.build_system(smoke.FLOWS)
+        specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
+                                      smoke.FAULT)
+        camp = fleet_run.fleet_campaign(dsys, specs, cuda, smoke.FLEET_K,
+                                        dragonfly.link_names(dsys), EPS)
+    with _Split() as split:
+        _, row = fleet_run.run_fleet_full(camp, **_depth(pipeline))
+    keep = ("wall_s", "executor_s", "supersteps", "rescues", "rounds")
+    return {**{k: row[k] for k in keep}, **split.rec(),
+            "run_s": row["wall_s"] - row["executor_s"]}
+
+
 def loop_counts(row: dict) -> dict:
     """K1's rounds on a path: the wrapper calls the host queued, the
     rounds the card ran inside K16's graphs (None before K16) and the
@@ -596,7 +731,7 @@ def loop_counts(row: dict) -> dict:
             "working_rounds": row["rounds"]}
 
 
-def run_walls(name: str, profile: bool = False) -> dict:
+def run_walls(name: str, profile: bool = False, pipeline: int = 0) -> dict:
     """Main path 1, 3, 8 or 10's wall on the card (module docstring);
     with ``profile`` its run under ``torch.profiler`` (the card's busy
     share) in place of the plain wall."""
@@ -618,22 +753,25 @@ def run_walls(name: str, profile: bool = False) -> dict:
     dsys = dragonfly.build_system(smoke.FLOWS)
     with _Busy(profile) as busy:
         if name == "wall1":
-            _, row = run_drain(dsys, device=cuda, superstep=smoke.K)
+            _, row = run_drain(dsys, device=cuda, superstep=smoke.K,
+                               **_depth(pipeline))
         elif name == "wall8":
             tape = fault_drain.tape_for(
                 dsys.e_cnst, dsys.e_w, dsys.c_bound,
                 link_names=dragonfly.link_names(dsys), **smoke.FAULT)
             _, row = fault_drain.run_fault_drain(dsys, tape, device=cuda,
-                                                 superstep=smoke.K)
+                                                 superstep=smoke.K,
+                                                 **_depth(pipeline))
         else:
             specs = fleet_run.fleet_specs(smoke.FLOWS, len(dsys.e_var),
                                           smoke.FAULT)
             camp = fleet_run.fleet_campaign(dsys, specs, cuda,
                                             smoke.FLEET_K,
                                             dragonfly.link_names(dsys), EPS)
-            _, row = fleet_run.run_fleet_full(camp)
+            _, row = fleet_run.run_fleet_full(camp, **_depth(pipeline))
     keep = ("wall_s", "executor_s", "advances", "supersteps", "rounds",
-            "fires")
+            "fires", "loop_builds", "spec_issued", "spec_committed",
+            "spec_rolled_back")
     return {**{k: row[k] for k in keep if k in row}, **loop_counts(row),
             **busy.rec}
 
@@ -1511,14 +1649,18 @@ def _timing():
     return mod
 
 
-def run_case(name: str, profile: bool = False) -> dict:
+def run_case(name: str, profile: bool = False, pipeline: int = 0) -> dict:
     import torch
     from simgrid_tpu_torch.kernels.lmm_round import lmm_init, lmm_round
     if name in ("sweep", "sweep8"):
         return {"case": name, **run_sweep_walls(
             (8,) if name == "sweep8" else (1, 8, 64))}
     if name == "coll1024":
-        return {"case": name, **run_coll_fleet(profile)}
+        return {"case": name, "pipeline": pipeline,
+                **run_coll_fleet(profile, pipeline)}
+    if name in ("split10", "split11"):
+        return {"case": name, "pipeline": pipeline,
+                **run_split(name, pipeline)}
     if name in K23_CASES:
         return run_k23(name)
     if name in ("k10", "k10_fleet"):
@@ -1549,7 +1691,8 @@ def run_case(name: str, profile: bool = False) -> dict:
     if name.startswith("loop_"):
         return run_loop_case(name)
     if name in ("wall1", "wall3", "wall8", "wall10"):
-        return {"case": name, **run_walls(name, profile)}
+        return {"case": name, "pipeline": pipeline,
+                **run_walls(name, profile, pipeline)}
     if name == "headline":
         return {"case": name, **run_headline()}
     dev = torch.device("cuda")
@@ -1584,6 +1727,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", default=",".join(CASES))
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--label", default="")
+    ap.add_argument("--pipeline", type=int, default=0,
+                    help="pipeline depth of the wall and split cases")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
@@ -1597,7 +1742,7 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     for name in args.cases.split(","):
         rec = {"label": args.label, "root": root, "kind": kind,
-               **run_case(name, args.profile)}
+               **run_case(name, args.profile, args.pipeline)}
         line = json.dumps(rec)
         print(line, flush=True)
         if args.out:

@@ -99,7 +99,10 @@ def _row(sim: DrainSim, system, wall: float) -> dict:
                 n_elem=len(system.e_var), advances=sim.advances,
                 rounds=sim.rounds, supersteps=sim.supersteps,
                 loop_builds=sim.loop_builds, syncs=sim.syncs,
-                repacks=sim.repacks,
+                repacks=sim.repacks, pipeline=sim.pipeline,
+                spec_issued=sim.spec_issued,
+                spec_committed=sim.spec_committed,
+                spec_rolled_back=sim.spec_rolled_back,
                 wall_s=wall, t_sim=sim.t)
 
 

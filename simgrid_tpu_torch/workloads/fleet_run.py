@@ -212,17 +212,18 @@ def fleet_campaign(system, specs: Sequence[ScenarioSpec],
 
 
 def run_fleet_full(camp: Campaign, between=None,
-                   max_supersteps: int = 10_000_000):
-    """Drain a campaign's specs as one fleet, launch counts zeroed just
-    before and read just after.  ``between(sim)`` runs after every
-    superstep (an admission window).  Returns the fleet and its row; a
-    collective campaign's row also names its case and edge count."""
+                   max_supersteps: int = 10_000_000, pipeline: int = 0):
+    """Drain a campaign's specs as one fleet at ``pipeline`` depth,
+    launch counts zeroed just before and read just after.
+    ``between(sim)`` runs after every superstep (an admission window).
+    Returns the fleet and its row; a collective campaign's row also
+    names its case and edge count."""
     dev = resolve_device(camp.plan.device)
     _sync(dev)
     before = opstats.snapshot()
     reset_launch_counts()
     t0 = time.perf_counter()
-    sim = camp.plan.executor(camp.specs)
+    sim = camp.plan.executor(camp.specs, pipeline=pipeline)
     # the host's time to build the fleet (its tapes, its uploads), part
     # of the wall
     executor_s = time.perf_counter() - t0
@@ -238,6 +239,9 @@ def run_fleet_full(camp: Campaign, between=None,
                supersteps=sim.supersteps,
                dispatches=int(st.get("dispatches", 0)),
                loop_builds=sim.loop_builds, rescues=sim.rescues,
+               pipeline=sim.pipeline, spec_issued=sim.spec_issued,
+               spec_committed=sim.spec_committed,
+               spec_rolled_back=sim.spec_rolled_back,
                rounds=sim.rounds,
                admitted=sim.admitted, advances=[r.advances for r in reps],
                completions=sum(len(r.events) for r in reps),

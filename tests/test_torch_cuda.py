@@ -2441,3 +2441,101 @@ def test_dag_walk_csr_card_equals_plain(cuda, B, V):
     if B is not None:
         assert int(out[1][0][-1][2][1]) == 0
     assert out[0][1]["dag_walk" if B is None else "dag_walk_fleet"] == 1
+
+
+# ---------------------------------------------------------------------------
+# pipelined supersteps (``pipeline=D``): the speculative issue/collect split
+# ---------------------------------------------------------------------------
+
+
+def _pipe_drain(dev, s, pipeline, run=True, **kw):
+    kw.setdefault("repack_min", 64)
+    sim = DrainSim(s.e_var, s.e_cnst, s.e_w, s.c_bound, s.sizes, eps=1e-5,
+                   dtype=np.float64, superstep=8, pipeline=pipeline,
+                   device=dev, **kw)
+    if run:
+        sim.run()
+    return sim
+
+
+@pytest.mark.parametrize("arm", ["plain", "tape"])
+def test_pipelined_drain_card_equals_depth0(cuda, arm):
+    """``pipeline=2`` on the card gives depth 0's events, fault events
+    and clock by bits, through repacks and tape fires, with the plain
+    path's speculation census; one graph per buffer set."""
+    from simgrid_tpu_torch.workloads import fault_drain
+    s = dragonfly.build_system(3000)
+    kw = {}
+    if arm == "tape":
+        kw["tape"] = fault_drain.tape_for(
+            s.e_cnst, s.e_w, s.c_bound, seed=7, horizon=0.2, mtbf=2.0,
+            mttr=0.005, link_names=dragonfly.link_names(s))
+    ref = _pipe_drain(cuda, s, 0, **kw)
+    got = _pipe_drain(cuda, s, 2, **kw)
+    plain = _pipe_drain(torch.device("cpu"), s, 2, **kw)
+    census = ("spec_issued", "spec_committed", "spec_rolled_back",
+              "supersteps", "repacks", "advances")
+    assert (got.events, got.fault_events, got.t) == \
+        (ref.events, ref.fault_events, ref.t)
+    assert [getattr(got, k) for k in census] == \
+        [getattr(plain, k) for k in census]
+    assert got.spec_committed > 0 and got.repacks > 0
+    assert got.loop_builds <= ref.loop_builds + 3 * (1 + got.repacks)
+    if arm == "tape":
+        assert len(got.fault_events) > 10
+
+
+def test_discard_leaves_committed_buffers_untouched(cuda):
+    """Two speculative supersteps in flight on their own sets, then
+    discarded: the committed flow state, bounds and clock are the head
+    superstep's, bit for bit, and the drain goes on to depth 0's
+    result (no repack, so no superstep stops early for one)."""
+    from simgrid_tpu_torch.workloads import fault_drain
+    s = dragonfly.build_system(3000)
+    tape = fault_drain.tape_for(s.e_cnst, s.e_w, s.c_bound, seed=7,
+                                horizon=0.2, mtbf=2.0, mttr=0.005,
+                                link_names=dragonfly.link_names(s))
+    kw = dict(tape=tape, repack_min=1 << 62)
+    ref = _pipe_drain(cuda, s, 0, **kw)
+    sim = _pipe_drain(cuda, s, 2, run=False, **kw)
+    head = sim._superstep_issue()
+    sim._carries.inflight.append(head)
+    sim._carries.inflight.append(sim._superstep_issue(prev=head))
+    sim._carries.inflight.append(sim._superstep_issue(prev=sim._carries.inflight[-1]))
+    sim._carries.inflight.popleft()
+    sim._superstep_collect(head)
+    torch.cuda.synchronize()
+    committed = [t.clone() for t in (sim._pen, sim._rem, sim.sys.c_bound)]
+    t_head = sim.t
+    for tok in sim._carries.inflight:     # they ran, on sets of their own
+        assert tok.carry.pen is not sim._pen
+        assert int(tok.carry.ring.host[1]) > 0
+    sim._carries.discard(sim)
+    torch.cuda.synchronize()
+    for a, b in zip(committed, (sim._pen, sim._rem, sim.sys.c_bound)):
+        assert torch.equal(a, b)
+    assert sim.t == t_head and sim.spec_rolled_back == 2
+    sim.run()
+    assert (sim.events, sim.fault_events, sim.t) == \
+        (ref.events, ref.fault_events, ref.t)
+
+
+def test_pipelined_fleet_card_equals_depth0(cuda):
+    """A faulted and a swept replica with per-replica weights, pipelined
+    on the card, equal depth 0 by bits, with the plain path's census."""
+    runs = []
+    for dev, depth in ((cuda, 0), (cuda, 2), (torch.device("cpu"), 2)):
+        s, plan = _fleet_plan(dev)
+        sim = plan.executor(_fleet_specs(s), pipeline=depth)
+        sim.run()
+        runs.append(sim)
+    ref, got, plain = runs
+    for b in range(2):
+        a, r = got.replicas[b], ref.replicas[b]
+        assert (a.events, a.fault_events, a.t) == \
+            (r.events, r.fault_events, r.t)
+    census = ("spec_issued", "spec_committed", "spec_rolled_back",
+              "supersteps")
+    assert [getattr(got, k) for k in census] == \
+        [getattr(plain, k) for k in census]
+    assert got.spec_committed > 0

@@ -22,6 +22,7 @@ from simgrid_tpu.ops.lmm_drain import DrainSim as JaxDrainSim
 from simgrid_tpu_torch import convert
 from simgrid_tpu_torch.kernels.superstep_loop import device_tally, reset_tally
 from simgrid_tpu_torch.ops.lmm_drain import DrainSim
+from simgrid_tpu_torch.parallel.campaign import Campaign
 
 K = 16
 FAT_TREE = """<?xml version='1.0'?>
@@ -330,28 +331,6 @@ def drive_plan(sim, arrays):
     return n, rates, rates2, rates3, np.asarray(done), n_live
 
 
-@pytest.mark.parametrize("shape", [dict(superstep=K), dict(fused=True),
-                                   {}], ids=["superstep", "fused",
-                                             "unfused"])
-def test_engine_plan_calls_equal_jax(fat_tree, shape):
-    """apply_transitions (bound, c_bound, wake, appended flow),
-    partial_advance and solve_rates on the same state as JAX: the rates
-    at every step, the partial advance and the whole drain equal."""
-    arrays, sizes = fat_tree
-    j = plan(JaxDrainSim, arrays, sizes, shape)
-    t = plan(DrainSim, arrays, sizes, shape, device="cpu")
-    jr = drive_plan(j, arrays)
-    tr = drive_plan(t, arrays)
-    assert tr[0] == jr[0] == 5 + 1 + 3 + 11 + 6 + 2
-    for a, b in zip(tr[1:4], jr[1:4]):
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(tr[4], jr[4])
-    assert tr[5] == jr[5]
-    assert_same_drain(j, t)
-    # every flow of the fixture and the appended one completed once
-    assert sorted(f for _, f in t.events) == list(range(arrays.n_var + 1))
-
-
 def test_partial_advance_retires_like_jax(fat_tree):
     """A partial advance by the full next dt retires the flows the
     next advance would (strict <), on both sides."""
@@ -410,10 +389,15 @@ def test_handover_mid_drain_equals_jax(fat_tree):
 
 
 def test_unported_options_raise():
+    """``pipeline=D`` is ported (``tests/test_torch_pipeline.py``) and,
+    as in JAX, needs ``superstep=K``; the engine capture still raises,
+    naming its queue item."""
     args = (np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones(1),
             np.ones(1), np.ones(1))
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        DrainSim(*args, superstep=K, pipeline=2, device="cpu")
+    with pytest.raises(ValueError, match="needs superstep"):
+        DrainSim(*args, pipeline=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
+        Campaign.from_engine(None, [])
 
 
 def test_handover_bounded_drain_equals_jax(fat_tree):

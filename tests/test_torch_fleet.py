@@ -292,8 +292,7 @@ def test_spec_keys_and_json_equal_jax():
 def test_unported_options_raise():
     arrays = fleet_run.stage_system(**STAGE)
     ov = [pb.ReplicaOverrides()]
-    for kw, item in ((dict(pipeline=2), "queue A item 2"),
-                     (dict(mesh=2), "queue A item 9"),
+    for kw, item in ((dict(mesh=2), "queue A item 9"),
                      (dict(plan=object()), "queue A item 8"),
                      (dict(watchdog=object()), "queue A item 8")):
         with pytest.raises(NotImplementedError, match=item):

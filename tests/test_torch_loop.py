@@ -39,16 +39,21 @@ def stage():
 
 
 def logged(sim, log):
-    """Wrap ``sim.superstep_batch`` to log each superstep's rounds and
-    advances (the deltas of the executor's counters)."""
-    orig = sim.superstep_batch
+    """Wrap the step every superstep of ``sim.run`` goes through (JAX's
+    ``superstep_batch``; the port's ``_superstep_collect``, where its
+    run loop counts a superstep's rounds and advances) to log each
+    superstep's rounds and advances (the deltas of the executor's
+    counters)."""
+    name = ("_superstep_collect" if isinstance(sim, DrainSim)
+            else "superstep_batch")
+    orig = getattr(sim, name)
 
     def batch(*a, **kw):
         r0, a0 = sim.rounds, sim.advances
         out = orig(*a, **kw)
         log.append((sim.rounds - r0, sim.advances - a0))
         return out
-    sim.superstep_batch = batch
+    setattr(sim, name, batch)
     return sim
 
 
