@@ -234,10 +234,10 @@ the shared schedule with its own DAG state:
 
 20. the pipelined drains (``pipeline=D``, the speculative issue/collect
    split of ``ops/lmm_drain.py`` and ``ops/lmm_batch.py``): main paths
-   1 and 11 at depths 0, ``PIPE_DEPTH``, ``PIPE_DEPTH``, 0 and main
-   paths 8 and 10 at 0 and ``PIPE_DEPTH`` (path 10 on phase 16's
-   campaign, whose tapes are built, without its admission; path 11 on
-   phase 18's), every depth equal to depth 0 by bits (events, fault and
+   1 and 11 at depths 0, ``PIPE_DEPTH``, ``PIPE_DEPTH``, 0, main path
+   8 at 0 and ``PIPE_DEPTH`` and main path 10 at 0 (path 10 on phase
+   16's campaign, whose tapes are built, without its admission; path 11
+   on phase 18's), every depth equal to depth 0 by bits (events, fault and
    collective events, clocks, Kahan pairs), each run with its kernels'
    path counts zeroed before and read after; per run its wall, the
    card's busy share (``timed_graphs``: CUDA events around each launch
@@ -257,6 +257,37 @@ the shared schedule with its own DAG state:
    at depths 0-2 on the card, its counts held against the recorded rows
    of ``bench_results/lmm_pipeline.jsonl``.
 
+Then the engine (``s4u.Engine`` on the card: ``platform/``, ``routing/``,
+``models/``, ``kernel/engine.py`` ``surf_solve`` and the drain fast path
+``ops/drain_path.py``; float64, tolerance 0):
+
+21. main path 12, config #4 through the engine: the 65,536-host
+   dragonfly of ``tools/scale_proof.py:29-37`` written by this script
+   and parsed, the 100,000 random flows of ``tools/e2e_drain.py:80-87``
+   posted with ``communicate`` (LV08, ``network/optim:Full``, no
+   selective update, ``lmm/backend:torch``, the drain flags at their
+   defaults), every flow's elements (link names, weights, constraint
+   bounds), latency-end penalty and rate bound equal to
+   ``workloads/dragonfly.build_system(lv08=True)``'s by bits, then
+   ``surf_solve`` and ``extract_done_action`` to the end: every flow
+   completes once at non-decreasing times, the clock is the last
+   event's, every live flow's penalty after the latency phase is the
+   one posted, the fast path serves advances after the latency phase,
+   K16's supersteps, K1's bound-first arm and K5 launch; the parse,
+   posting, latency-phase and drain times, the fast path's counters,
+   the launches and the card's busy share around the superstep graphs
+   (``timed_graphs``); two of its supersteps (the first after the
+   latency phase and the first under ``HELD_LATE_SHARE`` of the flows)
+   held against the plain path on the CPU from the card's state
+   (``drain_run.held_handover``/``held_from``); then the first
+   ``ENGINE_REDUCED_FLOWS`` of the same draw through the engine on the
+   card and with ``device="cpu"``: events, clock and counters equal.
+   Main path 13, ``bench.py:913`` ``stage_phase``'s NAS alternation (64
+   ranks on the 64-host fat tree, 4 rounds, seed 7, ``drain/superstep:
+   16``, ``drain/min-flows:32``) on the card and on the CPU, equal by
+   bits, its counts printed beside ``bench_results/lmm_phase.jsonl``'s
+   device row.
+
 Each main path zeroes the launch counts just before it runs and reads
 them just after; a kernel of the path that did not launch fails the run.
 A kernel that K16's graphs run counts once for every iteration of the
@@ -271,6 +302,7 @@ non-zero; without CUDA it exits non-zero before printing any result.
 Longer output goes to ``chiprun_out/chip_smoke.json``.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1867,9 +1899,12 @@ def pipeline_phase(ctx: dict) -> None:
     t_phase = time.perf_counter()
     paths = {}
     try:
+        # path 10 runs at depth 0 only (its wall and busy share): the
+        # fleet's pipelined run is held by path 11 at PIPE_DEPTH (the same
+        # BatchDrainSim loop) and by tests/test_torch_pipeline.py
         for path, order in ((1, (0, PIPE_DEPTH, PIPE_DEPTH, 0)),
                             (8, (0, PIPE_DEPTH)),
-                            (10, (0, PIPE_DEPTH)),
+                            (10, (0,)),
                             (11, (0, PIPE_DEPTH, PIPE_DEPTH, 0))):
             runs = [drain(path, d) for d in order]
             if path == 8:
@@ -1877,6 +1912,9 @@ def pipeline_phase(ctx: dict) -> None:
                 runs.append(drain(path, PIPE_DEPTH))
                 check_t0[0] = False
                 runs[-1][1]["derived_t0_checked_run"] = True
+            if len(runs) == 1:
+                paths[path] = dict(runs=[runs[0][1]])
+                continue
             lanes0 = runs[0][0]
             for lanes, rec in runs[1:]:
                 if lanes != lanes0:
@@ -1923,6 +1961,327 @@ def pipeline_phase(ctx: dict) -> None:
              "wall_ms", "spec_issued", "spec_committed", "spec_rolled_back",
              "loop_builds")} for r in stage["rows"]]})
     report["main_path_pipeline"] = rec
+
+
+#: phase 21: main path 12's flows at the reduced width, run through the
+#: engine on the card and on the CPU
+ENGINE_REDUCED_FLOWS = 10_000
+#: advances of main path 12's first held superstep (the first after the
+#: latency phase: each advance at the full population takes the plain
+#: path on the CPU about 3 s)
+HELD_FIRST_K = 1
+#: main path 12's late held superstep: the first after the started flows
+#: fall below this share of the flows, or below twice the fast path's
+#: ``drain/min-flows`` (under it a plan the view's compaction drops is not
+#: rebuilt), whichever is more
+HELD_LATE_SHARE = 0.05
+#: main path 13, ``bench.py:913`` ``stage_phase`` at its recorded size on
+#: the 64-host fat tree
+NAS_RANKS, NAS_ROUNDS, NAS_SEED = 64, 4, 7
+NAS_CFG = ("drain/fastpath:auto", "drain/min-flows:32", "drain/superstep:16")
+#: the device row of ``bench_results/lmm_phase.jsonl`` (stage_phase with
+#: the JAX package's backend on the CPU), under the opstats names
+NAS_RECORDED = dict(events=512, fastpath_advances=589, native_advances=93,
+                    drain_transitions=340, drain_transition_slots=9546,
+                    drain_cause_transition=340,
+                    drain_cause_partial_advance=375,
+                    drain_cause_profile_event=0, drain_cause_stall=0,
+                    drain_cause_unrecognized=9)
+#: kernels main path 12 must launch (its supersteps, K1's bound-first arm,
+#: K5's transition batches)
+ENGINE_KERNELS = ("superstep_loop_superstep", "superstep_reset",
+                  "superstep_finish", "lmm_round_bounds", "drain_advance",
+                  "superstep_commit", "transition_scatter")
+#: the opstats counters an engine run reports
+ENGINE_STATS = ("fastpath_advances", "native_advances", "drain_transitions",
+                "drain_transition_slots", "drain_cause_transition",
+                "drain_cause_partial_advance", "drain_cause_profile_event",
+                "drain_cause_stall", "drain_cause_unrecognized",
+                "speculations_issued", "speculations_committed",
+                "speculations_rolled_back", "phase_pure_drain")
+
+
+def engine_flows_system(actions):
+    """Per flow, as the engine posted it: the link name, weight and
+    constraint bound of each element in order, the penalty its latency's
+    end installs (``NetworkAction.effective_penalty``) and its rate
+    bound."""
+    out = []
+    for a in actions:
+        v = a.variable
+        out.append(([(el.constraint.id.name, el.consumption_weight,
+                      el.constraint.bound) for el in v.cnsts],
+                     a.effective_penalty, v.bound))
+    return out
+
+
+def generator_flows_system(gen, names):
+    """The same per-flow records from ``dragonfly.build_system``'s arrays
+    (``names``: the link name of each constraint)."""
+    import numpy as np
+    ev = gen.e_var
+    start = np.searchsorted(ev, np.arange(len(gen.sizes) + 1))
+    out = []
+    for k in range(len(gen.sizes)):
+        lo, hi = start[k], start[k + 1]
+        cs = gen.e_cnst[lo:hi]
+        out.append(([(names[c], float(w), float(gen.c_bound[c]))
+                     for c, w in zip(cs.tolist(), gen.e_w[lo:hi].tolist())],
+                    float(gen.v_penalty[k]), float(gen.v_bound[k])))
+    return out
+
+
+def engine_run(dev, platform, flows, posted=None, hook=None, spans=None):
+    """Main path 12's sequence on ``dev``: an engine with config #4's
+    flags, the platform parsed, the random flows of
+    ``tools/e2e_drain.py:80-87`` posted (1e6 bytes each; then
+    ``posted(actions)``, untimed), the launch counts zeroed, the engine
+    driven to its end (``hook(e, actions)`` after every advance, outside
+    the timed spans; ``spans`` collects CUDA events around each
+    superstep graph).  Returns the engine, its row, its events and its
+    actions."""
+    import torch
+    from simgrid_tpu_torch import s4u
+    from simgrid_tpu_torch.kernels import path_counts, reset_launch_counts
+    from simgrid_tpu_torch.kernels import superstep_loop as k16
+    from simgrid_tpu_torch.ops import opstats
+    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads import engine_run as er
+    e, parse_s = er.make_engine(s4u, er.ENGINE_CFG, platform, device=dev)
+    n_hosts = e.get_host_count()
+    t0 = time.perf_counter()
+    actions = er.post_flows(e, dragonfly.flow_pairs(flows, n_hosts), 1e6)
+    post_s = time.perf_counter() - t0
+    if posted is not None:
+        posted(actions)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    before = opstats.snapshot()
+    lat_stats = []
+
+    def each(e_):
+        if not lat_stats and not e_.pimpl.network_model.latency_phase_count:
+            lat_stats.append(opstats.diff(before))
+        if hook is not None:
+            hook(e_, actions)
+    ctx = (timed_graphs("superstep", spans) if spans is not None
+           and dev.type == "cuda" else contextlib.nullcontext())
+    with ctx:
+        out = er.drain(e, hook=each)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    stats = opstats.diff(before)
+    counts = path_counts()
+    loop = k16.summary()
+    lat = lat_stats[0] if lat_stats else {}
+    after_lat = {k: stats.get(k, 0) - lat.get(k, 0)
+                 for k in ("fastpath_advances", "native_advances")}
+    row = dict(flows=flows, hosts=n_hosts, parse_s=parse_s, post_s=post_s,
+               latency_s=out["latency_s"], drain_s=out["drain_s"],
+               hook_s=out["hook_s"], advances=out["advances"],
+               clock=out["clock"],
+               counters=er.fastpath_counts(e.pimpl.network_model),
+               stats={k: stats.get(k, 0) for k in ENGINE_STATS},
+               after_latency=after_lat, launches=counts,
+               # one K16 graph launch a superstep
+               supersteps=loop["graph_launches"].get("superstep", 0),
+               graph_launches=loop["graph_launches"],
+               graph_builds=loop["graph_builds"])
+    return e, row, out["events"], actions
+
+
+def nas_run(dev, platform):
+    """Main path 13: ``stage_phase``'s alternation through the engine on
+    ``dev`` (the device mode: config #4's flags with ``NAS_CFG``).
+    Returns its row and events."""
+    from simgrid_tpu_torch import s4u
+    from simgrid_tpu_torch.kernels import path_counts, reset_launch_counts
+    from simgrid_tpu_torch.ops import opstats
+    from simgrid_tpu_torch.utils.config import config
+    from simgrid_tpu_torch.workloads import engine_run as er
+    with config.scoped():
+        e, _ = er.make_engine(s4u, er.ENGINE_CFG + NAS_CFG, platform,
+                              device=dev)
+        reset_launch_counts()
+        before = opstats.snapshot()
+        events, clock, wall = er.run_alternation(e, NAS_RANKS, NAS_ROUNDS,
+                                                 NAS_SEED)
+        stats = opstats.diff(before)
+        row = dict(events=len(events), clock=clock, wall_s=wall,
+                   counters=er.fastpath_counts(e.pimpl.network_model),
+                   stats={k: stats.get(k, 0) for k in ENGINE_STATS},
+                   launches=path_counts())
+    s4u.Engine._reset()
+    return row, events
+
+
+def engine_phase(ctx: dict) -> None:
+    """Phase 21 (module docstring): main paths 12 and 13 through
+    ``s4u.Engine``."""
+    import gc
+    import torch
+    from simgrid_tpu_torch import s4u
+    from simgrid_tpu_torch.utils.config import config
+    from simgrid_tpu_torch.workloads import dragonfly
+    from simgrid_tpu_torch.workloads import engine_run as er
+    from simgrid_tpu_torch.workloads.drain_run import (check_events,
+                                                       held_from,
+                                                       held_handover)
+    cuda, cpu = ctx.get("cuda", torch.device("cuda")), torch.device("cpu")
+    report, smi = ctx["report"], ctx["smi"]
+    flows = ctx.get("flows", FLOWS)
+    reduced = ctx.get("reduced_flows", ENGINE_REDUCED_FLOWS)
+    build = os.path.join(HERE, "build")
+    plat = er.write_platform(os.path.join(build, "engine_dragonfly.xml"),
+                             "dragonfly", ctx.get("topology",
+                                                  er.DRAGONFLY_TOPOLOGY))
+    t_phase = time.perf_counter()
+
+    # ---- main path 12: config #4's flows through the engine, full width
+    held, checked, spans = [], {}, []
+    topo = ctx.get("topology", dragonfly.TOPOLOGY)
+
+    def posted(actions):
+        # every flow's elements, latency-end penalty and rate bound as the
+        # engine built them, against dragonfly.build_system's by bits
+        t0 = time.perf_counter()
+        gen = dragonfly.build_system(flows, lv08=True, topology=topo)
+        got = engine_flows_system(actions)
+        want = generator_flows_system(gen, dragonfly.link_names(gen, topo))
+        bad = [k for k in range(flows) if got[k] != want[k]]
+        checked["system"] = dict(flows=flows, differ=len(bad),
+                                 elements=int(len(gen.e_var)),
+                                 check_s=time.perf_counter() - t0)
+        checked["penalty"] = [p for _, p, _ in got]
+        if bad:
+            raise AssertionError(f"main path 12: {len(bad)} flows' systems "
+                                 "differ from dragonfly.build_system "
+                                 f"(first {bad[:5]})")
+
+    def hook(e, actions):
+        model = e.pimpl.network_model
+        if model.latency_phase_count:
+            return
+        if "latency_end" not in checked:
+            # the penalty installed at each live flow's latency end
+            pen = checked.pop("penalty")
+            live = [(a.variable.sharing_penalty, pen[k])
+                    for k, a in enumerate(actions)
+                    if a.variable is not None]
+            bad = sum(1 for g, w in live if g != w)
+            checked["latency_end"] = dict(live=len(live), differ=bad)
+            if bad:
+                raise AssertionError(f"main path 12: {bad} flows' penalties "
+                                     "after the latency phase differ")
+            return
+        sim = model.drain_fastpath.sim
+        if sim is None:
+            return
+        live = len(model.started_action_set)
+        late = max(HELD_LATE_SHARE * flows, 2 * config["drain/min-flows"])
+        if not held:
+            held.append(held_handover(sim, HELD_FIRST_K))
+        elif len(held) == 1 and live < late:
+            held.append(held_handover(sim))
+
+    with config.scoped():
+        e, row12, events12, actions = engine_run(cuda, plat, flows, posted,
+                                                 hook, spans)
+        check_events(events12, flows)
+        if events12 and events12[-1][0] != row12["clock"]:
+            raise AssertionError("main path 12: the final clock is not the "
+                                 "last event's")
+        del actions, e
+    s4u.Engine._reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    counts = row12["launches"]
+    missing = [k for k in ENGINE_KERNELS if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"main path 12: {missing} never launched")
+    if row12["after_latency"]["fastpath_advances"] <= 0:
+        raise AssertionError("main path 12: the fast path served no advance "
+                             "after the latency phase")
+    if len(held) != 2:
+        raise AssertionError(f"main path 12: {len(held)} supersteps held, "
+                             "not 2")
+    windows = [held_from(h) for h in held]
+    del held
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "main_path_engine", "card": smi, **row12,
+           "busy_s": busy_s,
+           "busy_share": busy_s / (row12["latency_s"] + row12["drain_s"]),
+           "system_check": checked.get("system"), "held_windows": windows}
+    log({k: v for k, v in rec.items() if k != "launches"})
+    report["main_path_engine"] = rec
+    if ctx.get("path12_only"):
+        return
+
+    # the same draw at the reduced width: the engine on the card and on
+    # the CPU, equal events, clock and counters
+    red = {}
+    for name, dev in (("cuda", cuda), ("cpu", cpu)):
+        with config.scoped():
+            _, rrow, rev, _ = engine_run(dev, plat, reduced)
+        s4u.Engine._reset()
+        gc.collect()
+        check_events(rev, reduced)
+        red[name] = (rrow, rev)
+    (grow, gev), (crow, cev) = red["cuda"], red["cpu"]
+    equal = (gev == cev and grow["clock"] == crow["clock"]
+             and grow["counters"] == crow["counters"]
+             and grow["stats"] == crow["stats"])
+    rec = {"phase": "reduced_engine", "flows": reduced, "equal": equal,
+           "advances": grow["advances"], "clock": grow["clock"],
+           "counters": grow["counters"], "stats": grow["stats"],
+           "cuda": {k: grow[k] for k in ("parse_s", "post_s", "latency_s",
+                                         "drain_s")},
+           "cpu": {k: crow[k] for k in ("parse_s", "post_s", "latency_s",
+                                        "drain_s")}}
+    log(rec)
+    report["reduced_engine"] = rec
+    if not equal:
+        raise AssertionError("the reduced engine run: card and CPU differ "
+                             f"({grow['counters']} / {crow['counters']}, "
+                             f"{grow['stats']} / {crow['stats']})")
+    del red
+    torch.cuda.empty_cache()
+
+    # ---- main path 13: bench.py's stage_phase through the engine -------
+    ft = er.write_platform(os.path.join(build, "engine_fat_tree.xml"),
+                           "fat_tree")
+    nas = {name: nas_run(dev, ft) for name, dev in (("cuda", cuda),
+                                                    ("cpu", cpu))}
+    (g13, gev13), (c13, cev13) = nas["cuda"], nas["cpu"]
+    equal13 = (gev13 == cev13 and g13["clock"] == c13["clock"]
+               and g13["counters"] == c13["counters"]
+               and g13["stats"] == c13["stats"])
+    recorded = {k: (g13["events"] if k == "events" else g13["stats"][k])
+                for k in NAS_RECORDED}
+    counts13 = g13["launches"]
+    rec = {"phase": "main_path_nas", "card": smi, "ranks": NAS_RANKS,
+           "rounds": NAS_ROUNDS, "seed": NAS_SEED, "equal_cpu": equal13,
+           "cuda_wall_s": g13["wall_s"], "cpu_wall_s": c13["wall_s"],
+           "clock": g13["clock"], "counters": g13["counters"],
+           "stats": g13["stats"], "recorded": NAS_RECORDED,
+           "as_recorded": recorded == NAS_RECORDED,
+           "launches": {k: v for k, v in counts13.items() if v}}
+    log(rec)
+    report["main_path_nas"] = rec
+    if not equal13:
+        raise AssertionError("main path 13: card and CPU differ")
+    for k in ("superstep_loop_superstep", "transition_scatter",
+              "drain_forced_advance"):
+        if counts13.get(k, 0) <= 0:
+            raise AssertionError(f"main path 13: {k} never launched")
+    report["engine_phase_s"] = time.perf_counter() - t_phase
+    log({"phase": "engine_phase", "card": smi,
+         "phase_s": report["engine_phase_s"],
+         "path12_launches": {k: v for k, v in counts.items() if v},
+         "path13_launches": rec["launches"]})
 
 
 def main() -> int:
@@ -4226,6 +4585,7 @@ def main() -> int:
     probe_phase(helpers)
     pipeline_phase(dict(dsys=dsys, tape13=tape13, camp16=camp16,
                         camp18=camp18, smi=smi, **helpers))
+    engine_phase(dict(smi=smi, **helpers))
 
     # K1's round bodies over every path of the run, on K16's row
     next(k for k in kernels if k["name"] == "superstep_loop").update(
@@ -4248,5 +4608,61 @@ def main() -> int:
     return 0
 
 
+def engine_only(argv) -> int:
+    """``python3 chip_smoke.py --engine-only[=12] [--profile]``: the
+    kernels' build, then phase 21 alone (``=12``: main path 12 alone;
+    ``--profile``: its drain under cProfile, the top functions written
+    to ``chiprun_out/engine_profile.txt``).  Its lines are the phase's,
+    and its last line the card's; it prints no ``ok`` line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from simgrid_tpu_torch.kernels import build
+    from simgrid_tpu_torch.workloads import engine_run as er
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build.build_all()
+    log({"phase": "device", "nvidia_smi": smi,
+         "build_s": time.perf_counter() - t0})
+    if "--profile" in argv:
+        import cProfile
+        import io
+        import pstats
+        orig, seen = er.drain, []
+
+        def drain(e, *a, **k):
+            if seen:
+                return orig(e, *a, **k)
+            seen.append(True)
+            prof = cProfile.Profile()
+            prof.enable()
+            try:
+                return orig(e, *a, **k)
+            finally:
+                prof.disable()
+                text = io.StringIO()
+                st = pstats.Stats(prof, stream=text)
+                st.sort_stats("tottime").print_stats(40)
+                st.sort_stats("cumulative").print_stats(40)
+                with open(os.path.join(out_dir, "engine_profile.txt"),
+                          "w") as f:
+                    f.write(text.getvalue())
+        er.drain = drain
+    report = {}
+    engine_phase(dict(report=report, smi=smi,
+                      path12_only="--engine-only=12" in argv))
+    with open(os.path.join(out_dir, "engine_phase.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    print(smi, flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if any(a.startswith("--engine-only") for a in sys.argv[1:]):
+        sys.exit(engine_only(sys.argv[1:]))
     sys.exit(main())

@@ -29,7 +29,11 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
   fleets: B replicas of one system drained or solved in lockstep, one
   kernel launch serving every replica;
 * :func:`simgrid_tpu_torch.workloads.dragonfly.build_system` — the
-  config-#4 system generator.
+  config-#4 system generator;
+* :class:`simgrid_tpu_torch.s4u.Engine` — the engine's resource half:
+  a platform loaded, flows and executions posted through its models,
+  ``surf_solve`` advancing the clock, pure-drain and compute/comm phases
+  served by the drain fast path (``ops/drain_path.py``) on the card.
 """
 
 from .device import resolve_device

@@ -995,12 +995,18 @@ class DrainSim:
         return n_live, batches, clean
 
     def superstep_batch(self, k: Optional[int] = None, stop_live: int = 0,
-                        round_budget: int = 0):
+                        round_budget: int = 0, fetch: bool = True):
         """Run ONE superstep of up to `k` advances and collect it.
         Returns (n_live, batches), batches a list of (dt, [original flow
-        ids]) per executed advance."""
+        ids]) per executed advance.  With ``fetch=False`` (a replay of
+        advances already served, the engine plan's rollback) the
+        superstep only runs on the committed state: nothing is fetched,
+        no event, clock or counter is committed, and (None, None) is
+        returned."""
         tok = self._superstep_issue(k, stop_live=stop_live,
                                     round_budget=round_budget)
+        if not fetch:
+            return None, None
         n_live, batches, _ = self._superstep_collect(tok)
         return n_live, batches
 

@@ -135,11 +135,14 @@ class ArrayView:
     # touched field/slot pairs via _mark.
     def _mark(self, field: str, idx=None) -> None:
         """Record `field` (slot `idx`, or the whole field when None) as
-        dirty for every handout dtype and every index consumer."""
-        for dt in sorted(self._dirty, key=str):
-            self._dirty[dt].add(field)
-        for name in sorted(self._consumers):
-            cons = self._consumers[name]
+        dirty for every handout dtype and every index consumer.  Each
+        mark is a set insertion, so the order of the dtypes and
+        consumers changes nothing; they are not sorted (the JAX copy's
+        sort by dtype name cost the engine's 100,000-flow drain more
+        than its superstep graphs)."""
+        for dirty in self._dirty.values():
+            dirty.add(field)
+        for cons in self._consumers.values():
             cur = cons[field]
             if cur is True:
                 continue

@@ -48,6 +48,19 @@ into, under the same names).
   system; ``fault_replays`` / ``collective_replays`` — discarded
   supersteps behind a tape fire, and behind any unclean collect of a
   collective drain
+* ``native_advances`` — engine advances served by the generic host
+  sweep (``models/cpu.py``, ``models/network.py``) instead of a device
+  drain plan; ``fastpath_advances`` — engine advances fully served by
+  the drain plan (``ops/drain_path.py`` serve/apply at the planned dt,
+  or a partial advance on the device)
+* ``drain_transitions`` / ``drain_transition_slots`` — drain-plan
+  transition absorptions (dirty deltas scattered into the live device
+  state instead of invalidating the plan) and the slots they touched
+* ``drain_cause_<cause>`` — drain-plan invalidation/absorption causes
+  (``partial_advance``, ``transition``, ``stall``, ``profile_event``,
+  ``unrecognized``): one bump per event, keyed by cause;
+  ``phase_<kind>`` — drain-plan builds keyed by the classified phase
+  kind (``drain_path.classify_phase``)
 
 Per-kernel launch counts live on the kernel wrappers
 (:mod:`simgrid_tpu_torch.kernels`); :func:`launch_counts` reads them.

@@ -15,18 +15,20 @@ reference stages it:
   compiled comm DAG: its fleets and solo drains walk the schedule (the
   ``collective=`` arm), and its key names the collective;
 * :class:`Campaign`: the front end over (plan, specs), ``run_batched``
-  in fleets of ``batch`` replicas, ``run_solo``, ``run_scoped``.
+  in fleets of ``batch`` replicas, ``run_solo``, ``run_scoped``;
+  :meth:`Campaign.from_engine` forks one from an engine's current pure
+  drain (:func:`capture_plan_snapshot`).
 
 A spec's fault dimension is a seeded :class:`~simgrid_tpu_torch.faults.
 FaultCampaign` over the used links, realised per ``fault_mode``: ``on``
 (a device event tape: links fail and recover at the schedule's dates
 mid-drain), ``static`` (the time-averaged availability folded into the
-link factors) or ``off``.  The port has no config module, so
-``fault_mode`` is an argument with the reference's default, ``on``.
+link factors) or ``off``; ``fault_mode`` is an argument with the
+reference's default, ``on`` (the port's configuration does not declare
+``faults/tape``).
 
 ``pipeline=D`` (the fleets' speculative supersteps, ``ops/lmm_batch.py``)
-passes through to the executor.  Not ported yet: ``from_engine``
-(ROADMAP queue A item 3, the engine capture), ``mesh`` (A9) and
+passes through to the executor.  Not ported yet: ``mesh`` (A9) and
 ``plan_cache`` (A8); each raises ``NotImplementedError``.
 """
 
@@ -546,9 +548,21 @@ class Campaign:
         return getattr(plan, name)
 
     @classmethod
-    def from_engine(cls, model, specs, **kw):
-        raise _not_ported("Campaign.from_engine",
-                          "queue A item 3 (the engine capture)")
+    def from_engine(cls, model, specs: Sequence[ScenarioSpec], **kw
+                    ) -> "Campaign":
+        """Capture the CURRENT pure-drain phase of an engine's network
+        model (the drain fast path's own preconditions,
+        ``NetworkCm02Model.capture_drain_scenario``) as the fleet's
+        shared base scenario (JAX ``parallel/campaign.py:640``).  Raises
+        when the phase is not a pure drain.  The fleet runs on the
+        engine's device unless ``device=`` says otherwise."""
+        snap = capture_plan_snapshot(model)
+        kw.setdefault("device", model.engine.device)
+        return cls(snap["e_var"], snap["e_cnst"], snap["e_w"],
+                   snap["c_bound"], snap["sizes"],
+                   remains=snap["remains"], penalty=snap["penalty"],
+                   v_bound=snap["v_bound"],
+                   link_names=snap["link_names"], specs=specs, **kw)
 
     @classmethod
     def for_collective(cls, cspec: CollectiveSpec,
@@ -597,3 +611,17 @@ class Campaign:
             results = self.run_batched(batch=batch, pipeline=pipeline,
                                        mesh=mesh)
         return results, stats
+
+
+def capture_plan_snapshot(model) -> Dict:
+    """Capture the current pure-drain phase of a live network model as
+    the array dict ScenarioPlan/Campaign construct from (JAX
+    ``parallel/campaign.py:713``).  Raises when the phase is not a pure
+    drain."""
+    snap = model.capture_drain_scenario()
+    if snap is None:
+        raise RuntimeError(
+            "capture_drain_scenario: the current phase is not a "
+            "pure drain (flows still in latency phase, suspended, "
+            "deadlined, or a non-flow variable is live)")
+    return snap

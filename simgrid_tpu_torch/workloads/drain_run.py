@@ -17,7 +17,8 @@
   ``DrainSim`` calls, so a test can hold the JAX package's to it too.
 * ``held_step`` runs one superstep of a drain and the same superstep
   from a handover of its state to the plain path on the CPU, and raises
-  unless the two agree; ``run_engine_plan_held`` drives
+  unless the two agree (``held_handover``/``held_from`` do the same from
+  a saved state, leaving the drain alone); ``run_engine_plan_held`` drives
   the engine plan to its end with such windows after the partial
   advance and after each repack.
 
@@ -287,13 +288,37 @@ def held_step(sim: DrainSim, k: Optional[int] = None) -> Tuple[int, dict]:
     on the CPU: raises AssertionError unless events, clock, advances,
     penalties and remains are equal.  Returns the live count and the
     window's row."""
-    from ..convert import port_drain_state, resume_drain
-    other = resume_drain(
-        port_drain_state(sim), device="cpu", eps=sim.eps,
-        done_eps=sim.done_eps, done_mode=sim.done_mode, dtype=sim.dtype,
-        solve_chunk=sim.solve_chunk, repack_at=sim.repack_at,
-        repack_min=sim.repack_min, fused=sim.fused,
-        superstep=sim.superstep_k, superstep_rounds=sim.superstep_rounds)
+    from ..convert import resume_drain
+    state, kw, _, _ = held_handover(sim, k)
+    n, row = _held(sim, resume_drain(state, device="cpu", **kw), k)
+    return n, dict(row, repacks=sim.repacks)
+
+
+def held_handover(sim: DrainSim, k: Optional[int] = None):
+    """The state of ``sim`` now, to hold ``superstep_step(k)`` of it
+    later (``held_from``) without touching ``sim``: a drain an engine's
+    fast path owns must not be stepped by anyone else."""
+    from ..convert import port_drain_state
+    kw = dict(eps=sim.eps, done_eps=sim.done_eps, done_mode=sim.done_mode,
+              dtype=sim.dtype, solve_chunk=sim.solve_chunk,
+              repack_at=sim.repack_at, repack_min=sim.repack_min,
+              fused=sim.fused, superstep=sim.superstep_k,
+              superstep_rounds=sim.superstep_rounds)
+    return port_drain_state(sim), kw, sim.device, k
+
+
+def held_from(handover) -> dict:
+    """``held_step`` from a ``held_handover`` state: the step on a copy
+    on its device and on the plain path on the CPU.  Returns the
+    window's row."""
+    from ..convert import resume_drain
+    state, kw, device, k = handover
+    _, row = _held(resume_drain(state, device=device, **kw),
+                   resume_drain(state, device="cpu", **kw), k)
+    return dict(row, live=int(np.count_nonzero(state.pen > 0)))
+
+
+def _held(sim: DrainSim, other: DrainSim, k: Optional[int]):
     adv0, ev0 = sim.advances, len(sim.events)
     t0 = time.perf_counter()
     n = sim.superstep_step(k)
@@ -309,8 +334,8 @@ def held_step(sim: DrainSim, k: Optional[int] = None) -> Tuple[int, dict]:
         raise AssertionError(f"advances {adv0}-{sim.advances}: the drain "
                              "and the plain path on the CPU differ")
     return n, dict(from_advance=adv0, advances=sim.advances - adv0,
-                   events=len(sim.events) - ev0, repacks=sim.repacks,
-                   wall_s=t1 - t0, cpu_wall_s=t2 - t1)
+                   events=len(sim.events) - ev0, wall_s=t1 - t0,
+                   cpu_wall_s=t2 - t1)
 
 
 def run_engine_plan_held(system, device: DeviceLike = None,

@@ -390,14 +390,20 @@ def test_handover_mid_drain_equals_jax(fat_tree):
 
 def test_unported_options_raise():
     """``pipeline=D`` is ported (``tests/test_torch_pipeline.py``) and,
-    as in JAX, needs ``superstep=K``; the engine capture still raises,
-    naming its queue item."""
+    as in JAX, needs ``superstep=K``; the engine capture is ported
+    (``tests/test_torch_fastpath.py``) and, as in JAX, refuses a phase
+    that is not a pure drain."""
     args = (np.zeros(1, np.int32), np.zeros(1, np.int32), np.ones(1),
             np.ones(1), np.ones(1))
     with pytest.raises(ValueError, match="needs superstep"):
         DrainSim(*args, pipeline=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        Campaign.from_engine(None, [])
+
+    class NotADrain:
+        def capture_drain_scenario(self):
+            return None
+
+    with pytest.raises(RuntimeError, match="not a pure drain"):
+        Campaign.from_engine(NotADrain(), [])
 
 
 def test_handover_bounded_drain_equals_jax(fat_tree):

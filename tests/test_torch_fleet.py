@@ -300,5 +300,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="queue A item 9"):
         pb.solve_arrays_batch(*_solve_case("shared")[0], device="cpu",
                               mesh=2)
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        pc.Campaign.from_engine(None, [])
+
+    class NotADrain:
+        def capture_drain_scenario(self):
+            return None
+
+    # the engine capture is ported: it refuses a phase that is not a
+    # pure drain, as JAX's does
+    with pytest.raises(RuntimeError, match="not a pure drain"):
+        pc.Campaign.from_engine(NotADrain(), [])

@@ -94,6 +94,23 @@ def test_import_loads_no_jax_or_reference():
         "import simgrid_tpu_torch.workloads.fleet_run\n"
         "import simgrid_tpu_torch.probes.opcost\n"
         "import simgrid_tpu_torch.probes.scaling\n"
+        "import simgrid_tpu_torch.exceptions\n"
+        "import simgrid_tpu_torch.utils.signal\n"
+        "import simgrid_tpu_torch.utils.config\n"
+        "import simgrid_tpu_torch.platform.units\n"
+        "import simgrid_tpu_torch.platform.dtd\n"
+        "import simgrid_tpu_torch.platform.xml\n"
+        "import simgrid_tpu_torch.kernel.profile\n"
+        "import simgrid_tpu_torch.kernel.resource\n"
+        "import simgrid_tpu_torch.kernel.engine\n"
+        "import simgrid_tpu_torch.routing\n"
+        "import simgrid_tpu_torch.models.host\n"
+        "import simgrid_tpu_torch.models.cpu\n"
+        "import simgrid_tpu_torch.models.network\n"
+        "import simgrid_tpu_torch.models.registry\n"
+        "import simgrid_tpu_torch.s4u\n"
+        "import simgrid_tpu_torch.ops.drain_path\n"
+        "import simgrid_tpu_torch.workloads.engine_run\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "runpy.run_path('tools/torch_opcost.py', run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
